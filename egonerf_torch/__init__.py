@@ -1,0 +1,15 @@
+"""PyTorch + CUDA port of EgoNeRF for NVIDIA Hopper (sm_90a).
+
+The package mirrors ``egonerf_tpu``'s layout (``coords/``, ``ops/``,
+``models/``, ``render/``, ``data/``) and names, so every function has a
+counterpart a reader can find.  It imports neither JAX nor ``egonerf_tpu``.
+
+This slice covers the render path: ``Renderer.render_view`` over
+``EgoNeRF.forward`` at eval.  Four hand-written CUDA kernels carry it
+(``csrc/``): the fine-field lookup (K1), the coarse density lookup (K3),
+the fused coarse weights + inverse-CDF resampling + merge (K4) and the
+composite (K6).  Each has a plain PyTorch version beside its wrapper; the
+wrapper takes it only for tensors on the CPU.
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,65 @@
+"""The parts of the spherical charts that the yin-yang chart builds on
+(counterpart of ``egonerf_tpu/coords/spherical.py``: ``SphericalCoords``
+and ``GenericSphericalCoords``).  The other spherical charts wait
+(ROADMAP.md §1)."""
+from __future__ import annotations
+
+import torch
+
+from .base import Coordinates
+from .expgrid import exp_ratio, make_reference_r_grid, normalize_r_exp, normalize_r_lookup
+
+
+def _safe_acos(num: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """acos(num/r) with r=0 -> acos(0) semantics of the reference's
+    nan_to_num_."""
+    ratio = torch.where(r > 0, num / r.clamp_min(1e-12), torch.zeros_like(r))
+    return torch.acos(ratio.clamp(-1.0, 1.0))
+
+
+class SphericalCoords(Coordinates):
+    """(r, theta, phi) charts centred on the aabb; the yin-yang chart keeps
+    only this centre from the uniform chart."""
+
+    def __init__(self, aabb):
+        self.center, _ = self._center_and_max_r(aabb)
+        super().__init__(aabb)
+
+
+class GenericSphericalCoords(SphericalCoords):
+    """(r, theta, phi) with optional exponential radius and the interval_th
+    near-field clamp."""
+
+    def __init__(self, aabb, exp_r=False, N_voxel=None, r0=None, interval_th=False):
+        self.exp_r = bool(exp_r)
+        self.interval_th = bool(interval_th)
+        self.r0 = r0
+        self.ratio = None
+        self.ref_grid = None
+        super().__init__(aabb)
+        if N_voxel is not None:
+            self.set_resolution(self.N_to_reso(N_voxel), r0=r0)
+
+    @property
+    def far_r(self) -> float:
+        return float(self.far[0])
+
+    def set_resolution(self, resolution, r0=None):
+        super().set_resolution(resolution)
+        if self.exp_r:
+            self.r0 = float(r0) if r0 is not None else (self.r0 if self.r0 else 0.05)
+            self.ratio = exp_ratio(self.r0, self.far_r, self.resolution[0])
+            if self.interval_th:
+                self.ref_grid = make_reference_r_grid(self.r0, self.far_r, self.resolution[0])
+
+    def normalize_r(self, r, downsample=None):
+        if self.interval_th:
+            # downsample has no effect here: the lookup grid is in
+            # resolution-independent [0, 1] (a reference quirk kept)
+            return normalize_r_lookup(r, self._const("ref_grid", r.device))
+        n_r = self.resolution[0]
+        ratio = self.ratio
+        if downsample is not None:
+            n_r = n_r // downsample
+            ratio = exp_ratio(self.r0, self.far_r, n_r)
+        return normalize_r_exp(r, self.r0, ratio, n_r)

@@ -1,0 +1,189 @@
+// K1 (fine field) and K3 (coarse density): fused VM-grid lookups.
+//
+// Replaces, forward only:
+//   K1  egonerf_tpu/ops/vm_lookup.py  sample_plane_packed_fastgrad (_plane_fwd)
+//       + sample_line_hat (_hat_fwd / _hat_matrix), composed by
+//       EgoNeRF._fused_products + compute_field (models/egonerf.py:207-247)
+//   K3  sample_plane_packed + sample_line_packed (_line_fwd), composed by
+//       EgoNeRF.compute_density_feature (models/egonerf.py:249-270)
+//
+// For i in 0..2 each sample reads 4 corners of plane_i and 2 rows of line_i
+// (bf16 tables, the {0,1} chart flag selecting the stacked grid), multiplies
+// plane and line per channel, reduces the density channels to
+// sum_i relu(sum_c) and (K1) writes the appearance channels.
+//
+// Bound on the card: bytes.  At the production chunk K1 writes
+// N x 145 float32 (608 MB for N = 1,048,576) against ~2.6 GFLOP, so the
+// output stream is the floor; the tables (49 MB of bf16) fit in the 50 MB L2.
+// Design: one warp per sample, lanes over channels, so each table row
+// (C bf16) is one coalesced read and each output row one coalesced write;
+// the density sum is a warp shuffle reduction.  No corner packing and no
+// one-hot/hat matmuls: those answer TPU gather costs.
+//
+// Arithmetic follows the JAX forward operation for operation (explicit _rn
+// intrinsics keep nvcc from contracting into FMAs): corner weights of
+// _axis_cells, ((c00 + c01) + c10) + c11 for the plane, w0*r0 + w1*r1 for
+// the line, and for K1's hat path the tent max(0, 1 - |pos - j|) at
+// pos = p + sel*L rounded to bf16 (not _axis_cells' t: adding sel*L in
+// float32 moves the low bits before the rounding).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarpsPerBlock = 8;
+
+struct Tables {
+  const __nv_bfloat16* plane[3];
+  const __nv_bfloat16* line[3];
+  int h[3], w[3], l[3], c[3], cd[3], hat[3], app_off[3];
+};
+
+struct Cell {
+  int i0;
+  float w0, w1;
+};
+
+// _axis_cells: [-1, 1] coord -> clamped cell0 and the weights of the clamped
+// pair (cell0, cell0 + 1), align_corners=True, zeros padding.
+__device__ __forceinline__ Cell axis_cell(float coord, int size) {
+  const float p = __fmul_rn(__fmul_rn(__fadd_rn(coord, 1.0f), 0.5f), (float)(size - 1));
+  const float i0f = floorf(p);
+  const float t = __fsub_rn(p, i0f);
+  const int i0 = (int)i0f;
+  const bool v0 = i0 >= 0 && i0 <= size - 1;
+  const bool v1 = i0 + 1 >= 0 && i0 + 1 <= size - 1;
+  Cell c;
+  c.w0 = (i0 == -1) ? t : (v0 ? __fsub_rn(1.0f, t) : 0.0f);
+  c.w1 = (v1 && i0 >= 0) ? t : 0.0f;
+  c.i0 = min(max(i0, 0), size - 1);
+  return c;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <bool kApp>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb,
+                 float* __restrict__ density, float* __restrict__ app, int n_app) {
+  const int lane = threadIdx.x & 31;
+  const long long s = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (s >= n) return;
+  const float* q = coords + 4 * s;
+  const float xyz[3] = {q[0], q[1], q[2]};
+  const int sel = q[3] != 0.0f ? 1 : 0;  // the chart flag is exactly 0 or 1
+  float dsum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    // MAT_MODE = ((0, 1), (0, 2), (1, 2)), VEC_MODE = (2, 1, 0)
+    const int m0 = i == 2 ? 1 : 0;
+    const int m1 = i == 0 ? 1 : 2;
+    const int vm = 2 - i;
+    const int H = tb.h[i], W = tb.w[i], L = tb.l[i], C = tb.c[i], CD = tb.cd[i];
+
+    const Cell cx = axis_cell(xyz[m0], W);
+    const Cell cy = axis_cell(xyz[m1], H);
+    const int x1 = min(cx.i0 + 1, W - 1);
+    const int y1 = min(cy.i0 + 1, H - 1);
+    const float w00 = __fmul_rn(cy.w0, cx.w0), w01 = __fmul_rn(cy.w0, cx.w1);
+    const float w10 = __fmul_rn(cy.w1, cx.w0), w11 = __fmul_rn(cy.w1, cx.w1);
+    const __nv_bfloat16* P = tb.plane[i] + (size_t)sel * H * W * C;
+    const __nv_bfloat16* r00 = P + ((size_t)cy.i0 * W + cx.i0) * C;
+    const __nv_bfloat16* r01 = P + ((size_t)cy.i0 * W + x1) * C;
+    const __nv_bfloat16* r10 = P + ((size_t)y1 * W + cx.i0) * C;
+    const __nv_bfloat16* r11 = P + ((size_t)y1 * W + x1) * C;
+
+    int j0, j1;
+    float lw0, lw1;
+    if (tb.hat[i]) {
+      const float p = __fmul_rn(__fmul_rn(__fadd_rn(xyz[vm], 1.0f), 0.5f), (float)(L - 1));
+      const float pos = __fadd_rn(p, (float)(sel * L));
+      const float jf = floorf(pos);
+      const int ja = (int)jf - sel * L;  // own-chart row of the lower tent
+      lw0 = bf16_round(fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(pos, jf)))));
+      lw1 = bf16_round(fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(pos, __fadd_rn(jf, 1.0f))))));
+      if (ja < 0 || ja > L - 1) lw0 = 0.0f;
+      if (ja + 1 < 0 || ja + 1 > L - 1) lw1 = 0.0f;
+      j0 = min(max(ja, 0), L - 1);
+      j1 = min(max(ja + 1, 0), L - 1);
+    } else {
+      const Cell cz = axis_cell(xyz[vm], L);
+      j0 = cz.i0;
+      j1 = min(cz.i0 + 1, L - 1);
+      lw0 = cz.w0;
+      lw1 = cz.w1;
+    }
+    const __nv_bfloat16* Lrow0 = tb.line[i] + ((size_t)sel * L + j0) * C;
+    const __nv_bfloat16* Lrow1 = tb.line[i] + ((size_t)sel * L + j1) * C;
+
+    float part = 0.0f;
+    for (int c = lane; c < C; c += 32) {
+      const float pv = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(w00, ld(r00 + c)),
+                                                     __fmul_rn(w01, ld(r01 + c))),
+                                           __fmul_rn(w10, ld(r10 + c))),
+                                 __fmul_rn(w11, ld(r11 + c)));
+      const float lv = __fadd_rn(__fmul_rn(lw0, ld(Lrow0 + c)), __fmul_rn(lw1, ld(Lrow1 + c)));
+      const float prod = __fmul_rn(pv, lv);
+      if (c < CD) {
+        part += prod;
+      } else if (kApp) {
+        app[s * n_app + tb.app_off[i] + (c - CD)] = prod;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    dsum += fmaxf(part, 0.0f);
+  }
+  if (lane == 0) density[s] = dsum;
+}
+
+// dims: per decomposition i, {H, W, L, C, n_density, hat}
+Tables make_tables(const void* const* planes, const void* const* lines, const int* dims) {
+  Tables tb;
+  int off = 0;
+  for (int i = 0; i < 3; ++i) {
+    tb.plane[i] = static_cast<const __nv_bfloat16*>(planes[i]);
+    tb.line[i] = static_cast<const __nv_bfloat16*>(lines[i]);
+    tb.h[i] = dims[6 * i + 0];
+    tb.w[i] = dims[6 * i + 1];
+    tb.l[i] = dims[6 * i + 2];
+    tb.c[i] = dims[6 * i + 3];
+    tb.cd[i] = dims[6 * i + 4];
+    tb.hat[i] = dims[6 * i + 5];
+    tb.app_off[i] = off;
+    off += tb.c[i] - tb.cd[i];
+  }
+  return tb;
+}
+
+template <bool kApp>
+int launch(const float* coords, long long n, const void* const* planes,
+           const void* const* lines, const int* dims, float* density, float* app,
+           int n_app, void* stream) {
+  const Tables tb = make_tables(planes, lines, dims);
+  const long long blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  vm_lookup_kernel<kApp><<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
+                           static_cast<cudaStream_t>(stream)>>>(coords, n, tb, density,
+                                                                 app, n_app);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int vm_field_fwd(const float* coords, long long n, const void* const* planes,
+                            const void* const* lines, const int* dims, float* density,
+                            float* app, int n_app, void* stream) {
+  return launch<true>(coords, n, planes, lines, dims, density, app, n_app, stream);
+}
+
+extern "C" int vm_density_fwd(const float* coords, long long n, const void* const* planes,
+                              const void* const* lines, const int* dims, float* density,
+                              float* app, int n_app, void* stream) {
+  return launch<false>(coords, n, planes, lines, dims, density, app, n_app, stream);
+}

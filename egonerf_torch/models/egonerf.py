@@ -1,0 +1,307 @@
+"""EgoNeRF: the yin-yang dual-grid VM-factorized radiance field
+(counterpart of ``egonerf_tpu/models/egonerf.py``), eval forward.
+
+The module's parameters keep the JAX layout at its public functions:
+planes (2, H, W, C), lines (2, L, C), basis (2, sum(app_n_comp), app_dim),
+with the leading axis the yin/yang stack.  Functions take a ``params``
+mapping in ``state_dict`` naming (``density_planes.0``, ``basis``,
+``shader.l1.weight``, ...); :meth:`EgoNeRF.params` is the module's own.
+
+The lookup tables are read in bf16, as the JAX forward reads them;
+:meth:`EgoNeRF.lookup_tables` builds them (and the half-resolution coarse
+grid) once per render, where JAX rebuilds them per chunk with the same
+numbers.  The four kernels come from ``self.ops`` (``ops.KERNELS``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from math import pi
+from typing import List, Mapping, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from .._device import full_f32_matmul, resolve_device
+from ..coords.expgrid import make_sample_r_grid
+from ..coords.yinyang import YinYangSphericalCoords
+from ..ops import KERNELS
+from ..ops.vm_lookup import MAT_MODE, VEC_MODE, line_hat_ok
+from ..ops.volrend import density_activation
+from .shading import MLPFea
+
+_LATER = "comes with a later slice of the port (ROADMAP.md)"
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldConfig:
+    """Static model hyperparameters: the fields of the JAX ``FieldConfig``
+    that the eval path reads (the alpha-mask, ray-march and linear-sampling
+    fields come with their slices)."""
+    density_n_comp: Sequence[int] = (16, 16, 16)
+    app_n_comp: Sequence[int] = (48, 48, 48)
+    app_dim: int = 27
+    shading_mode: str = "MLP_Fea"
+    view_pe: int = 2
+    fea_pe: int = 2
+    feature_c: int = 128
+    density_shift: float = -8.0
+    distance_scale: float = 25.0
+    fea2dense_act: str = "softplus"
+    use_envmap: bool = False
+    # 'bfloat16': the fine line lookup takes the bf16 hat weights while the
+    # JAX gate holds; 'float32': float32 line weights.  Tables are bf16
+    # either way, as in JAX.
+    compute_dtype: str = "bfloat16"
+
+
+def feature2density(feat: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
+    return density_activation(feat, cfg.density_shift, cfg.fea2dense_act)
+
+
+def _avg_pool_plane(p: torch.Tensor) -> torch.Tensor:
+    """(S, H, W, C) -> (S, H//2, W//2, C), mean over 2x2 stride 2."""
+    s, h, w, c = p.shape
+    p = p[:, : (h // 2) * 2, : (w // 2) * 2, :]
+    return p.reshape(s, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+
+
+def _avg_pool_line(l: torch.Tensor) -> torch.Tensor:
+    """(S, L, C) -> (S, L//2, C), mean over 2 stride 2."""
+    s, n, c = l.shape
+    l = l[:, : (n // 2) * 2, :]
+    return l.reshape(s, n // 2, 2, c).mean(dim=2)
+
+
+def _bf16(ts) -> List[torch.Tensor]:
+    return [t.detach().to(torch.bfloat16).contiguous() for t in ts]
+
+
+def _dists(z: torch.Tensor) -> torch.Tensor:
+    d = z[..., 1:] - z[..., :-1]
+    return torch.cat([d, d[..., -1:]], dim=-1)
+
+
+class LookupTables(NamedTuple):
+    """bf16 tables of one parameter set: the fine density+appearance planes
+    and lines fused per decomposition, and the derived coarse grid."""
+    fine_planes: List[torch.Tensor]
+    fine_lines: List[torch.Tensor]
+    coarse_planes: List[torch.Tensor]
+    coarse_lines: List[torch.Tensor]
+
+
+class EgoNeRF(nn.Module):
+    name = "EgoNeRF"
+
+    def __init__(self, aabb, grid_size, coordinates: YinYangSphericalCoords,
+                 cfg: FieldConfig, near_far=(0.01, 15.0), device="cuda"):
+        super().__init__()
+        if not isinstance(coordinates, YinYangSphericalCoords):
+            raise TypeError("EgoNeRF requires the yin-yang chart")
+        if cfg.shading_mode != "MLP_Fea":
+            raise NotImplementedError(f"shading mode {cfg.shading_mode!r} {_LATER}")
+        if cfg.use_envmap:
+            raise NotImplementedError(f"the envmap {_LATER}")
+        if cfg.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
+        self.device = resolve_device(device)
+        # full float32 matmuls on the card: the JAX reference is full f32
+        full_f32_matmul()
+        self.aabb = np.asarray(aabb, np.float32).reshape(2, 3)
+        self.coordinates = coordinates
+        self.cfg = cfg
+        self.near_far = (float(near_far[0]), float(near_far[1]))
+        self.ops = KERNELS
+        self._sample_grid_cache: dict = {}
+        self.grid_size = gs = [int(g) for g in grid_size]
+
+        def planes(n_comp):
+            return nn.ParameterList([
+                nn.Parameter(torch.zeros(2, gs[MAT_MODE[i][1]], gs[MAT_MODE[i][0]],
+                                         n_comp[i], device=self.device))
+                for i in range(3)])
+
+        def lines(n_comp):
+            return nn.ParameterList([
+                nn.Parameter(torch.zeros(2, gs[VEC_MODE[i]], n_comp[i], device=self.device))
+                for i in range(3)])
+
+        self.density_planes = planes(cfg.density_n_comp)
+        self.density_lines = lines(cfg.density_n_comp)
+        self.app_planes = planes(cfg.app_n_comp)
+        self.app_lines = lines(cfg.app_n_comp)
+        self.basis = nn.Parameter(torch.zeros(2, int(sum(cfg.app_n_comp)), cfg.app_dim,
+                                              device=self.device))
+        self.shader = MLPFea(cfg.app_dim, cfg.view_pe, cfg.fea_pe,
+                             cfg.feature_c).to(self.device)
+
+    # ------------------------------------------------------------------
+    # parameters
+    # ------------------------------------------------------------------
+    def params(self) -> dict:
+        """The module's own parameters as a ``state_dict``-named mapping."""
+        return dict(self.named_parameters())
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> dict:
+        """Draw every parameter with the JAX init's laws (planes and lines
+        0.1 * N(0, 1), basis U(-1/sqrt(n_app), +), the shader as
+        ``nn.Linear``) from ``generator``; returns :meth:`params`."""
+        def normal(p, scale):
+            z = torch.randn(p.shape, generator=generator, device=generator.device)
+            p.copy_(scale * z)
+
+        for planes, lines in ((self.density_planes, self.density_lines),
+                              (self.app_planes, self.app_lines)):
+            for i in range(3):
+                normal(planes[i], 0.1)
+                normal(lines[i], 0.1)
+        bound = 1.0 / np.sqrt(self.basis.shape[1])
+        u = torch.rand(self.basis.shape, generator=generator, device=generator.device)
+        self.basis.copy_((u * 2.0 - 1.0) * bound)
+        self.shader.reset_parameters(generator)
+        return self.params()
+
+    # ------------------------------------------------------------------
+    # field lookups
+    # ------------------------------------------------------------------
+    def derive_coarse(self, params: Mapping[str, torch.Tensor]):
+        """The half-resolution density grid: 2x2 and x2 average pools of the
+        fine density planes and lines, detached (the reference's 'conv'
+        rule)."""
+        planes = [_avg_pool_plane(params[f"density_planes.{i}"].detach()) for i in range(3)]
+        lines = [_avg_pool_line(params[f"density_lines.{i}"].detach()) for i in range(3)]
+        return planes, lines
+
+    def lookup_tables(self, params: Mapping[str, torch.Tensor]) -> LookupTables:
+        fine_planes = _bf16(torch.cat([params[f"density_planes.{i}"],
+                                       params[f"app_planes.{i}"]], dim=-1) for i in range(3))
+        fine_lines = _bf16(torch.cat([params[f"density_lines.{i}"],
+                                      params[f"app_lines.{i}"]], dim=-1) for i in range(3))
+        c_planes, c_lines = self.derive_coarse(params)
+        return LookupTables(fine_planes, fine_lines, _bf16(c_planes), _bf16(c_lines))
+
+    def _line_hat(self, tables: LookupTables, n: int):
+        return [self.cfg.compute_dtype == "bfloat16" and line_hat_ok(l.shape[0] * l.shape[1], n)
+                for l in tables.fine_lines]
+
+    def compute_field(self, params, norm_coords: torch.Tensor,
+                      tables: Optional[LookupTables] = None):
+        """(..., 4) -> (density_feat (...,), app_feat (..., app_dim)): K1,
+        then the per-chart basis matmul."""
+        if tables is None:
+            tables = self.lookup_tables(params)
+        lead = norm_coords.shape[:-1]
+        flat = norm_coords.reshape(-1, 4).contiguous()
+        dfeat, feats = self.ops.field(flat, tables.fine_planes, tables.fine_lines,
+                                      self.cfg.density_n_comp,
+                                      self._line_hat(tables, flat.shape[0]))
+        basis = params["basis"]
+        yin = feats @ basis[0]
+        yang = feats @ basis[1]
+        app = torch.where(flat[:, 3:4] == 0, yin, yang)
+        return dfeat.reshape(lead), app.reshape(*lead, -1)
+
+    def compute_density_feature(self, planes, lines, norm_coords: torch.Tensor) -> torch.Tensor:
+        """(..., 4) -> (...,) raw density sum_i relu(sum_c plane*line) on
+        the float32 ``planes`` and ``lines`` (read as bf16): K3."""
+        return self._density(_bf16(planes), _bf16(lines), norm_coords)
+
+    def _density(self, planes, lines, norm_coords):
+        flat = norm_coords.reshape(-1, 4).contiguous()
+        return self.ops.density(flat, planes, lines).reshape(norm_coords.shape[:-1])
+
+    # ------------------------------------------------------------------
+    # ray sampling
+    # ------------------------------------------------------------------
+    def _base_sample_grid(self, n_samples: int, device) -> torch.Tensor:
+        key = (n_samples, device)
+        grid = self._sample_grid_cache.get(key)
+        if grid is None:
+            near, far = self.near_far
+            grid = torch.as_tensor(
+                make_sample_r_grid(self.coordinates.r0, far - near, n_samples), device=device)
+            self._sample_grid_cache[key] = grid
+        return grid
+
+    def sample_ray_exp(self, rays_o, rays_d, n_samples: int):
+        """Exponentially spaced depths, at eval (the training jitter comes
+        with the training slice)."""
+        near, far = self.near_far
+        n_rays = rays_o.shape[0]
+        dev = rays_o.device
+        if self.coordinates.interval_th:
+            interpx = near + self._base_sample_grid(n_samples, dev).expand(n_rays, n_samples)
+        else:
+            ratio = 1.0 + (pi / 2.0) / n_samples
+            r0 = (far - near) * (ratio - 1.0) / (ratio ** n_samples - 1.0)
+            rng = torch.arange(n_samples, dtype=torch.float32, device=dev)
+            steps = (r0 * torch.pow(ratio, rng)).expand(n_rays, n_samples)
+            csum = torch.cumsum(steps, dim=-1)
+            interpx = near + torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=-1)
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
+        return pts, interpx
+
+    def sample_ray_linear(self, rays_o, rays_d, n_samples: int):
+        raise NotImplementedError(f"linear ray sampling {_LATER}")
+
+    def update_alpha_mask(self, params, grid_size=None):
+        raise NotImplementedError(f"the alpha mask {_LATER}")
+
+    # ------------------------------------------------------------------
+    # forward
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, params, rays: torch.Tensor, key=None, is_train=False,
+                n_coarse=128, n_fine=128, exp_sampling=True, resampling=True,
+                use_coarse_sample=True, pretrain_envmap=False, white_bg=True,
+                ndc_ray=False, eval_keep=0, tables: Optional[LookupTables] = None):
+        """Render an (R, 6) ray batch at eval.  Returns dict(rgb (R, 3),
+        depth (R,), acc (R,), bg, env); bg and env are None without the
+        envmap.  ``white_bg`` is accepted and unused, as in JAX.  ``tables``
+        are :meth:`lookup_tables` of ``params``, built here when absent."""
+        if ndc_ray:
+            raise NotImplementedError("NDC rays are not supported by the egocentric model")
+        if is_train or key is not None:
+            raise NotImplementedError(f"the training forward {_LATER}")
+        if pretrain_envmap:
+            raise NotImplementedError(f"the envmap {_LATER}")
+        if eval_keep:
+            raise NotImplementedError(f"the empty-space cull {_LATER}")
+        cfg = self.cfg
+        coords = self.coordinates
+        if tables is None:
+            tables = self.lookup_tables(params)
+        rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
+
+        # 1) coarse depths
+        if not exp_sampling:
+            self.sample_ray_linear(rays_o, viewdirs, n_coarse)
+        coarse_xyz, coarse_z = self.sample_ray_exp(rays_o, viewdirs, n_coarse)
+        coarse_dists = _dists(coarse_z)
+
+        # 2) coarse chart + half-res normalization
+        coarse_norm = coords.normalize_coord(coords.from_cartesian(coarse_xyz), downsample=2)
+
+        if resampling:
+            # 3) coarse density (K3) -> weights, inverse CDF, merge (K4)
+            c_feat = self._density(tables.coarse_planes, tables.coarse_lines, coarse_norm)
+            z_vals, dists = self.ops.resample(
+                c_feat, coarse_z, coarse_dists, n_fine, None, use_coarse_sample,
+                cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act)
+            xyz = rays_o[:, None, :] + viewdirs[:, None, :] * z_vals[..., None]
+            norm = coords.normalize_coord(coords.from_cartesian(xyz))
+        else:
+            z_vals, dists, norm = coarse_z, coarse_dists, coarse_norm
+
+        # 4) fine field (K1) + shading
+        feat, app_feat = self.compute_field(params, norm, tables)
+        dirs = viewdirs[:, None, :].expand(*norm.shape[:-1], 3)
+        rgb = self.shader.apply_params(params, "shader.", dirs, app_feat)
+
+        # 5) composite (K6)
+        rgb_map, depth, acc, _ = self.ops.composite(
+            feat, dists, z_vals, rgb, rays[:, -1].contiguous(), cfg.density_shift,
+            cfg.distance_scale, cfg.fea2dense_act)
+        return {"rgb": rgb_map, "depth": depth, "acc": acc, "bg": None, "env": None}

@@ -1,0 +1,82 @@
+"""Chunked renderer (counterpart of ``egonerf_tpu/render/renderer.py``:
+``Renderer``).  ``evaluation`` and ``evaluation_path`` wait (ROADMAP.md §1).
+
+Rays go through ``EgoNeRF.forward`` in fixed chunks; the tail is padded by
+repeating the last ray and trimmed from the outputs.  The bf16 lookup
+tables and the coarse grid are built once per ``render_*`` call.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class Renderer:
+    """Chunked renderer for one model and render configuration; the
+    keyword arguments are ``EgoNeRF.forward``'s (n_coarse, n_fine,
+    exp_sampling, resampling, use_coarse_sample, white_bg, eval_keep), as
+    the JAX ``Renderer.from_config`` maps them from a training config."""
+
+    OUT_KEYS = ("rgb", "depth")  # bg and env come with the envmap
+
+    def __init__(self, model, chunk: int = 4096, **render_kwargs):
+        self.model = model
+        self.chunk = int(chunk)
+        self.render_kwargs = dict(render_kwargs)
+        self._dirs = None
+        self._n_rays_view = 0
+
+    def _pad(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[0]
+        n_pad = -(-n // self.chunk) * self.chunk
+        if n_pad != n:
+            x = torch.cat([x, x[-1:].expand(n_pad - n, x.shape[1])])
+        return x
+
+    def _render_chunks(self, params, rays_of_chunk, n_chunks: int, n: int) -> dict:
+        model = self.model
+        tables = model.lookup_tables(params)
+        outs = []
+        for c in range(n_chunks):
+            out = model.forward(params, rays_of_chunk(c), key=None, is_train=False,
+                                tables=tables, **self.render_kwargs)
+            outs.append(out)
+        return {k: torch.cat([o[k] for o in outs])[:n] for k in self.OUT_KEYS}
+
+    def render_rays(self, params, rays) -> dict:
+        """rays (N, 6), numpy or tensor -> dict of (N, ...) tensors on the
+        model's device."""
+        dev = self.model.device
+        rays = torch.as_tensor(np.asarray(rays, np.float32) if isinstance(rays, np.ndarray)
+                               else rays, dtype=torch.float32, device=dev)
+        n = rays.shape[0]
+        rays = self._pad(rays)
+        return self._render_chunks(
+            params, lambda c: rays[c * self.chunk:(c + 1) * self.chunk],
+            rays.shape[0] // self.chunk, n)
+
+    def set_directions(self, directions) -> None:
+        """Install the camera-frame direction grid (h, w, 3) or (N, 3),
+        resident on the model's device."""
+        dirs = torch.as_tensor(np.asarray(directions, np.float32).reshape(-1, 3),
+                               device=self.model.device)
+        self._n_rays_view = dirs.shape[0]
+        self._dirs = self._pad(dirs)
+
+    def render_view(self, params, c2w) -> dict:
+        """Render one camera of pose ``c2w`` (3x4 or 4x4); rays are made on
+        the device from the installed directions.  Requires
+        :meth:`set_directions`."""
+        if self._dirs is None:
+            raise RuntimeError("call set_directions() before render_view()")
+        c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=self.model.device)
+        rot_t = c2w[:3, :3].T
+        origin = c2w[:3, 3]
+
+        def rays_of_chunk(c):
+            rays_d = self._dirs[c * self.chunk:(c + 1) * self.chunk] @ rot_t
+            return torch.cat([origin.expand_as(rays_d), rays_d], dim=-1)
+
+        return self._render_chunks(params, rays_of_chunk,
+                                   self._dirs.shape[0] // self.chunk,
+                                   self._n_rays_view)
