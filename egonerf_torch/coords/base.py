@@ -37,6 +37,19 @@ class Coordinates:
             self._consts[key] = t
         return t
 
+    def extra_spec(self) -> dict:
+        return {}
+
+    def to_spec(self) -> dict:
+        """The checkpoint's ``coords_spec``, as the JAX package writes it."""
+        spec = {
+            "name": self.name,
+            "aabb": np.asarray(self.aabb).tolist(),
+            "resolution": list(self.resolution) if self.resolution is not None else None,
+        }
+        spec.update(self.extra_spec())
+        return spec
+
     @staticmethod
     def _center_and_max_r(aabb):
         aabb = np.asarray(aabb, dtype=np.float32).reshape(2, 3)

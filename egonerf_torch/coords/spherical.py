@@ -30,6 +30,8 @@ class GenericSphericalCoords(SphericalCoords):
     """(r, theta, phi) with optional exponential radius and the interval_th
     near-field clamp."""
 
+    name = "generic_sphere"
+
     def __init__(self, aabb, exp_r=False, N_voxel=None, r0=None, interval_th=False):
         self.exp_r = bool(exp_r)
         self.interval_th = bool(interval_th)
@@ -51,6 +53,9 @@ class GenericSphericalCoords(SphericalCoords):
             self.ratio = exp_ratio(self.r0, self.far_r, self.resolution[0])
             if self.interval_th:
                 self.ref_grid = make_reference_r_grid(self.r0, self.far_r, self.resolution[0])
+
+    def extra_spec(self) -> dict:
+        return {"exp_r": self.exp_r, "interval_th": self.interval_th, "r0": self.r0}
 
     def normalize_r(self, r, downsample=None):
         if self.interval_th:

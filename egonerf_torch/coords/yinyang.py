@@ -20,6 +20,8 @@ from .spherical import GenericSphericalCoords, _safe_acos
 
 
 class YinYangSphericalCoords(GenericSphericalCoords):
+    name = "yinyang"
+
     def __init__(self, aabb, exp_r=True, N_voxel=None, r0=None, interval_th=False):
         super().__init__(aabb, exp_r=exp_r, N_voxel=N_voxel, r0=r0, interval_th=interval_th)
 

@@ -1,8 +1,10 @@
-// K6: volume-rendering composite, forward.
+// K6: volume-rendering composite, forward; K6b: its backward.
 //
 // Replaces egonerf_tpu/ops/volrend.py raw2alpha + feature2density
 // (models/egonerf.py:99-104) + the composite of EgoNeRF.forward
-// (models/egonerf.py:466-493), without the envmap branch.
+// (models/egonerf.py:466-493), without the envmap branch.  JAX
+// differentiates that composite with autodiff; the port's forward is a
+// kernel that autograd cannot see through, so its backward is one too.
 //
 // Per ray of S samples: sigma = feature2density(feat); alpha =
 // 1 - exp(-sigma * dist * scale); T the exclusive prefix product of
@@ -10,11 +12,25 @@
 // rgb = clip(sum(weights * rgb), 0, 1); depth = sum(weights * z) +
 // (1 - acc) * ray_dz; bg = the product over the whole ray.
 //
-// Bound on the card: bytes (6 x S floats read per ray, ~25 MB per
-// 4096 x 256 chunk, ~7.5 us at 3.35 TB/s).  Design: one warp per ray, each
-// lane a contiguous chunk of samples; the transmittance is a local product
-// then a warp scan of the chunk products; the five sums are warp shuffle
-// reductions.  Nothing but the per-ray results is written.
+// Backward of rgb only (depth is under stop_gradient in JAX, z and dists
+// carry no gradient): with g the clip-masked d rgb (JAX's clip passes 1
+// inside (0, 1) and 1/2 at exactly 0 or 1) and q_j = rgb_j . g,
+//   d rgb_j  = w_j g
+//   R_j      = alpha_j q_j + (1 - alpha_j + 1e-10) R_{j+1},  R_S = 0
+//   d alpha_j = T_j (q_j - R_{j+1})
+//   d feat_j = d alpha_j exp(-sigma_j d_j s) d_j s sigma'(feat_j).
+// The reverse recurrence never divides by 1 - alpha + 1e-10, which reaches
+// 1e-10 where alpha rounds to 1.
+//
+// Bound on the card: bytes (forward 6 x S floats read per ray, ~25 MB per
+// 4096 x 256 chunk, ~7.5 us at 3.35 TB/s; backward 5 x S read and 4 x S
+// written, ~38 MB).  Design: one warp per ray, each lane a contiguous chunk
+// of samples; the transmittance is a local product then a warp scan of the
+// chunk products; the sums are warp shuffle reductions.  The backward
+// recomputes the forward scan (alpha and T in shared memory, and the
+// unclipped sum for the clip mask), so the forward saves nothing; the
+// reverse recurrence is affine per chunk, R_a = A + B R_b, and a suffix
+// scan of the (A, B) maps across the lanes gives each chunk its R_b.
 #include <cuda_runtime.h>
 
 #include "warp_scan.cuh"
@@ -78,7 +94,104 @@ composite_kernel(const float* __restrict__ feat, const float* __restrict__ dists
   }
 }
 
+// d clip(x, 0, 1) / dx as JAX's jnp.clip (max then min) gives it.
+__device__ __forceinline__ float clip_grad(float x) {
+  if (x > 0.0f && x < 1.0f) return 1.0f;
+  return (x == 0.0f || x == 1.0f) ? 0.5f : 0.0f;
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ dists,
+                     const float* __restrict__ rgb, const float* __restrict__ g_rgb, int R,
+                     int S, float shift, float scale, int act, float* __restrict__ d_feat,
+                     float* __restrict__ d_rgb) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long ray = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  float* al = smem + warp * 2 * S;
+  float* tr = al + S;
+  if (ray >= R) return;
+  feat += ray * S;
+  dists += ray * S;
+  rgb += ray * S * 3;
+  d_feat += ray * S;
+  d_rgb += ray * S * 3;
+
+  // the forward scan: alpha, the exclusive transmittance, the unclipped sum
+  const int per = (S + 31) / 32;
+  const int a = min(lane * per, S), b = min(a + per, S);
+  float prod = 1.0f;
+  for (int j = a; j < b; ++j) {
+    const float alpha = alpha_of(feat[j], dists[j], shift, scale, act);
+    al[j] = alpha;
+    prod = __fmul_rn(prod, trans_factor(alpha));
+  }
+  float total;
+  float t = warp_exclusive_prod(prod, &total);
+  float r = 0.0f, g = 0.0f, bl = 0.0f;
+  for (int j = a; j < b; ++j) {
+    const float alpha = al[j];
+    tr[j] = t;
+    const float wj = __fmul_rn(alpha, t);
+    t = __fmul_rn(t, trans_factor(alpha));
+    r += wj * rgb[3 * j];
+    g += wj * rgb[3 * j + 1];
+    bl += wj * rgb[3 * j + 2];
+  }
+  const float gr = g_rgb[ray * 3] * clip_grad(warp_sum(r));
+  const float gg = g_rgb[ray * 3 + 1] * clip_grad(warp_sum(g));
+  const float gb = g_rgb[ray * 3 + 2] * clip_grad(warp_sum(bl));
+
+  // this chunk's affine map R_a = A + B R_b, then a suffix scan over lanes
+  float A = 0.0f, B = 1.0f;
+  for (int j = b - 1; j >= a; --j) {
+    const float q = rgb[3 * j] * gr + rgb[3 * j + 1] * gg + rgb[3 * j + 2] * gb;
+    const float f = trans_factor(al[j]);
+    A = al[j] * q + f * A;
+    B = f * B;
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float Ao = __shfl_down_sync(kFullMask, A, off);
+    const float Bo = __shfl_down_sync(kFullMask, B, off);
+    if (lane + off < 32) {
+      A = A + B * Ao;
+      B = B * Bo;
+    }
+  }
+  float Rn = __shfl_down_sync(kFullMask, A, 1);
+  if (lane == 31) Rn = 0.0f;
+
+  for (int j = b - 1; j >= a; --j) {
+    const float alpha = al[j], T = tr[j];
+    const float c0 = rgb[3 * j], c1 = rgb[3 * j + 1], c2 = rgb[3 * j + 2];
+    const float q = c0 * gr + c1 * gg + c2 * gb;
+    const float d_alpha = T * (q - Rn);
+    Rn = alpha * q + trans_factor(alpha) * Rn;
+    const float f = feat[j];
+    const float D = __fmul_rn(dists[j], scale);
+    const float e = expf(-__fmul_rn(density_act(f, shift, act), D));
+    d_feat[j] = d_alpha * e * D * density_act_grad(f, shift, act);
+    const float wj = alpha * T;
+    d_rgb[3 * j] = wj * gr;
+    d_rgb[3 * j + 1] = wj * gg;
+    d_rgb[3 * j + 2] = wj * gb;
+  }
+}
+
 }  // namespace
+
+extern "C" int composite_bwd(const float* feat, const float* dists, const float* rgb,
+                             const float* g_rgb, int R, int S, float shift, float scale, int act,
+                             float* d_feat, float* d_rgb, void* stream) {
+  const size_t smem = sizeof(float) * kWarpsPerBlock * 2 * S;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  composite_bwd_kernel<<<blocks, kWarpsPerBlock * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      feat, dists, rgb, g_rgb, R, S, shift, scale, act, d_feat, d_rgb);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int composite_fwd(const float* feat, const float* dists, const float* z,
                              const float* rgb, const float* ray_dz, int R, int S, float shift,

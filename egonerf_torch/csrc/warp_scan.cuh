@@ -52,6 +52,12 @@ __device__ __forceinline__ float density_act(float f, float shift, int act) {
   return fmaxf(f, 0.0f);
 }
 
+// d feature2density / d f: sigmoid(f + shift) for softplus, [f > 0] for relu.
+__device__ __forceinline__ float density_act_grad(float f, float shift, int act) {
+  if (act == 0) return 1.0f / (1.0f + expf(-__fadd_rn(f, shift)));
+  return f > 0.0f ? 1.0f : 0.0f;
+}
+
 // raw2alpha's alpha = 1 - exp(-sigma * (dist * scale)).
 __device__ __forceinline__ float alpha_of(float feat, float dist, float shift, float scale,
                                           int act) {

@@ -9,7 +9,6 @@ their layout.  MLP weights are the one trap: JAX stores them (n_in, n_out),
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 from typing import Dict, Tuple
 
@@ -83,12 +82,8 @@ def load_jax_checkpoint(path: str, near_far=(0.01, 15.0), device="cuda"):
     if meta.get("model_name", "EgoNeRF") != "EgoNeRF":
         raise NotImplementedError(f"model {meta['model_name']!r} is not ported yet "
                                   f"(ROADMAP.md)")
-    fields = {f.name for f in dataclasses.fields(FieldConfig)}
-    cfg = {k: v for k, v in meta.items() if k in fields}
-    cfg["density_n_comp"] = tuple(cfg["density_n_comp"])
-    cfg["app_n_comp"] = tuple(cfg["app_n_comp"])
     coords = coords_from_spec(header["coords_spec"])
-    model = EgoNeRF(coords.aabb, coords.resolution, coords, FieldConfig(**cfg),
+    model = EgoNeRF(coords.aabb, coords.resolution, coords, FieldConfig.from_meta(meta),
                     near_far=near_far, device=device)
     model.load_state_dict(params_from_jax(flat, device=device))
     return model, model.params(), header

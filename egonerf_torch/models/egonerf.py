@@ -1,5 +1,6 @@
 """EgoNeRF: the yin-yang dual-grid VM-factorized radiance field
-(counterpart of ``egonerf_tpu/models/egonerf.py``), eval forward.
+(counterpart of ``egonerf_tpu/models/egonerf.py``), the eval and the
+training forward.
 
 The module's parameters keep the JAX layout at its public functions:
 planes (2, H, W, C), lines (2, L, C), basis (2, sum(app_n_comp), app_dim),
@@ -10,7 +11,10 @@ mapping in ``state_dict`` naming (``density_planes.0``, ``basis``,
 The lookup tables are read in bf16, as the JAX forward reads them;
 :meth:`EgoNeRF.lookup_tables` builds them (and the half-resolution coarse
 grid) once per render, where JAX rebuilds them per chunk with the same
-numbers.  The four kernels come from ``self.ops`` (``ops.KERNELS``).
+numbers.  In training the fine field goes through the autograd Function
+of ``ops.vm_lookup.field_train`` (K1 forward, K2 backward) on the float32
+fused tables, and the composite through ``ops.volrend.composite_train``
+(K6, K6b).  The kernels come from ``self.ops`` (``ops.KERNELS``).
 """
 from __future__ import annotations
 
@@ -26,18 +30,19 @@ from .._device import full_f32_matmul, resolve_device
 from ..coords.expgrid import make_sample_r_grid
 from ..coords.yinyang import YinYangSphericalCoords
 from ..ops import KERNELS
-from ..ops.vm_lookup import MAT_MODE, VEC_MODE, line_hat_ok
-from ..ops.volrend import density_activation
+from ..ops.vm_lookup import MAT_MODE, VEC_MODE, field_train, line_hat_ok
+from ..ops.volrend import composite_train, density_activation
 from .shading import MLPFea
 
-_LATER = "comes with a later slice of the port (ROADMAP.md)"
+_LATER = "is not ported yet (ROADMAP.md §1)"
 
 
 @dataclasses.dataclass(frozen=True)
 class FieldConfig:
     """Static model hyperparameters: the fields of the JAX ``FieldConfig``
-    that the eval path reads (the alpha-mask, ray-march and linear-sampling
-    fields come with their slices)."""
+    that the render and training paths read (the alpha-mask, ray-march and
+    linear-sampling fields come with their slices; checkpoints carry them
+    through ``model_meta``)."""
     density_n_comp: Sequence[int] = (16, 16, 16)
     app_n_comp: Sequence[int] = (48, 48, 48)
     app_dim: int = 27
@@ -53,6 +58,15 @@ class FieldConfig:
     # JAX gate holds; 'float32': float32 line weights.  Tables are bf16
     # either way, as in JAX.
     compute_dtype: str = "bfloat16"
+
+    @classmethod
+    def from_meta(cls, meta: Mapping) -> "FieldConfig":
+        """The fields of a checkpoint's ``model_meta`` (which also holds
+        JAX-only fields and the model name)."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in meta.items() if k in fields}
+        return cls(**{**kw, "density_n_comp": tuple(kw["density_n_comp"]),
+                      "app_n_comp": tuple(kw["app_n_comp"])})
 
 
 def feature2density(feat: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
@@ -80,6 +94,15 @@ def _bf16(ts) -> List[torch.Tensor]:
 def _dists(z: torch.Tensor) -> torch.Tensor:
     d = z[..., 1:] - z[..., :-1]
     return torch.cat([d, d[..., -1:]], dim=-1)
+
+
+class StepKey(NamedTuple):
+    """The random draws of one training step (the JAX ``key``): the
+    device-side generator of the coarse jitter, and the (seed, step) key of
+    K5's counter-based generator."""
+    generator: torch.Generator
+    seed: int
+    step: int
 
 
 class LookupTables(NamedTuple):
@@ -174,29 +197,46 @@ class EgoNeRF(nn.Module):
         lines = [_avg_pool_line(params[f"density_lines.{i}"].detach()) for i in range(3)]
         return planes, lines
 
-    def lookup_tables(self, params: Mapping[str, torch.Tensor]) -> LookupTables:
-        fine_planes = _bf16(torch.cat([params[f"density_planes.{i}"],
-                                       params[f"app_planes.{i}"]], dim=-1) for i in range(3))
-        fine_lines = _bf16(torch.cat([params[f"density_lines.{i}"],
-                                      params[f"app_lines.{i}"]], dim=-1) for i in range(3))
-        c_planes, c_lines = self.derive_coarse(params)
-        return LookupTables(fine_planes, fine_lines, _bf16(c_planes), _bf16(c_lines))
+    def fused_tables(self, params: Mapping[str, torch.Tensor]):
+        """The float32 density+appearance planes and lines fused per
+        decomposition, as JAX's ``_fused_products`` concatenates them."""
+        planes = [torch.cat([params[f"density_planes.{i}"], params[f"app_planes.{i}"]], dim=-1)
+                  for i in range(3)]
+        lines = [torch.cat([params[f"density_lines.{i}"], params[f"app_lines.{i}"]], dim=-1)
+                 for i in range(3)]
+        return planes, lines
 
-    def _line_hat(self, tables: LookupTables, n: int):
+    def coarse_tables(self, params: Mapping[str, torch.Tensor]):
+        """The bf16 half-resolution coarse grid."""
+        c_planes, c_lines = self.derive_coarse(params)
+        return _bf16(c_planes), _bf16(c_lines)
+
+    def lookup_tables(self, params: Mapping[str, torch.Tensor]) -> LookupTables:
+        fine_planes, fine_lines = self.fused_tables(params)
+        return LookupTables(_bf16(fine_planes), _bf16(fine_lines), *self.coarse_tables(params))
+
+    def _line_hat(self, lines, n: int):
         return [self.cfg.compute_dtype == "bfloat16" and line_hat_ok(l.shape[0] * l.shape[1], n)
-                for l in tables.fine_lines]
+                for l in lines]
 
     def compute_field(self, params, norm_coords: torch.Tensor,
                       tables: Optional[LookupTables] = None):
         """(..., 4) -> (density_feat (...,), app_feat (..., app_dim)): K1,
-        then the per-chart basis matmul."""
-        if tables is None:
-            tables = self.lookup_tables(params)
+        then the per-chart basis matmul.  With ``tables`` K1 reads the
+        prepared bf16 tables (eval); without, it runs inside the autograd
+        Function on the float32 fused tables, so density and appearance are
+        differentiable in every parameter (K2 backward)."""
         lead = norm_coords.shape[:-1]
         flat = norm_coords.reshape(-1, 4).contiguous()
-        dfeat, feats = self.ops.field(flat, tables.fine_planes, tables.fine_lines,
-                                      self.cfg.density_n_comp,
-                                      self._line_hat(tables, flat.shape[0]))
+        n_d = self.cfg.density_n_comp
+        if tables is not None:
+            dfeat, feats = self.ops.field(flat, tables.fine_planes, tables.fine_lines, n_d,
+                                          self._line_hat(tables.fine_lines, flat.shape[0]))
+        else:
+            planes, lines = self.fused_tables(params)
+            dfeat, feats = field_train(flat, planes, lines, n_d,
+                                       self._line_hat(lines, flat.shape[0]),
+                                       self.ops.field, self.ops.field_bwd)
         basis = params["basis"]
         yin = feats @ basis[0]
         yang = feats @ basis[1]
@@ -225,19 +265,28 @@ class EgoNeRF(nn.Module):
             self._sample_grid_cache[key] = grid
         return grid
 
-    def sample_ray_exp(self, rays_o, rays_d, n_samples: int):
-        """Exponentially spaced depths, at eval (the training jitter comes
-        with the training slice)."""
+    def sample_ray_exp(self, rays_o, rays_d, n_samples: int,
+                       jitter: Optional[torch.Tensor] = None):
+        """Exponentially spaced depths; with ``jitter`` (R, n_samples) U(0, 1)
+        draws, each depth moves that far into its interval (training)."""
         near, far = self.near_far
         n_rays = rays_o.shape[0]
         dev = rays_o.device
         if self.coordinates.interval_th:
-            interpx = near + self._base_sample_grid(n_samples, dev).expand(n_rays, n_samples)
+            base = self._base_sample_grid(n_samples, dev)
+            r = base.expand(n_rays, n_samples)
+            if jitter is not None:
+                interval = _dists(base)
+                r = r + interval[None] * jitter
+            interpx = near + r
         else:
             ratio = 1.0 + (pi / 2.0) / n_samples
             r0 = (far - near) * (ratio - 1.0) / (ratio ** n_samples - 1.0)
-            rng = torch.arange(n_samples, dtype=torch.float32, device=dev)
-            steps = (r0 * torch.pow(ratio, rng)).expand(n_rays, n_samples)
+            rng = torch.arange(n_samples, dtype=torch.float32, device=dev).expand(n_rays,
+                                                                                 n_samples)
+            if jitter is not None:
+                rng = rng + jitter
+            steps = r0 * torch.pow(ratio, rng)
             csum = torch.cumsum(steps, dim=-1)
             interpx = near + torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=-1)
         pts = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
@@ -252,56 +301,71 @@ class EgoNeRF(nn.Module):
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def forward(self, params, rays: torch.Tensor, key=None, is_train=False,
-                n_coarse=128, n_fine=128, exp_sampling=True, resampling=True,
+    def forward(self, params, rays: torch.Tensor, key: Optional[StepKey] = None,
+                is_train=False, n_coarse=128, n_fine=128, exp_sampling=True, resampling=True,
                 use_coarse_sample=True, pretrain_envmap=False, white_bg=True,
-                ndc_ray=False, eval_keep=0, tables: Optional[LookupTables] = None):
-        """Render an (R, 6) ray batch at eval.  Returns dict(rgb (R, 3),
-        depth (R,), acc (R,), bg, env); bg and env are None without the
-        envmap.  ``white_bg`` is accepted and unused, as in JAX.  ``tables``
-        are :meth:`lookup_tables` of ``params``, built here when absent."""
+                ndc_ray=False, eval_keep=0, tables: Optional[LookupTables] = None,
+                jitter: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None):
+        """Render an (R, 6) ray batch.  Returns dict(rgb (R, 3), depth (R,),
+        acc (R,), bg, env); bg and env are None without the envmap.
+        ``white_bg`` is accepted and unused, as in JAX.
+
+        Training (``is_train`` with a ``key``) jitters the coarse depths and
+        draws K4's ``u`` from K5; ``jitter`` (R, n_coarse) and ``u``
+        (R, n_fine, sorted) give those draws explicitly instead.  Without
+        draws the depths are the eval ones.  rgb is differentiable in
+        ``params``; depth and acc are not (JAX stops depth's gradient).
+        ``tables`` are :meth:`lookup_tables` of ``params`` for an eval
+        render; without them the fine field runs through its autograd
+        Function.  Eval callers run under ``torch.no_grad()``."""
         if ndc_ray:
             raise NotImplementedError("NDC rays are not supported by the egocentric model")
-        if is_train or key is not None:
-            raise NotImplementedError(f"the training forward {_LATER}")
         if pretrain_envmap:
             raise NotImplementedError(f"the envmap {_LATER}")
         if eval_keep:
             raise NotImplementedError(f"the empty-space cull {_LATER}")
         cfg = self.cfg
         coords = self.coordinates
-        if tables is None:
-            tables = self.lookup_tables(params)
         rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
+        n_rays, dev = rays.shape[0], rays.device
+        if is_train and key is not None:
+            if jitter is None:
+                jitter = torch.rand(n_rays, n_coarse, generator=key.generator, device=dev)
+            if u is None and resampling:
+                u = self.ops.sorted_uniform(n_rays, n_fine, key.seed, key.step, dev)
 
-        # 1) coarse depths
-        if not exp_sampling:
-            self.sample_ray_linear(rays_o, viewdirs, n_coarse)
-        coarse_xyz, coarse_z = self.sample_ray_exp(rays_o, viewdirs, n_coarse)
-        coarse_dists = _dists(coarse_z)
+        with torch.no_grad():
+            # 1) coarse depths
+            if not exp_sampling:
+                self.sample_ray_linear(rays_o, viewdirs, n_coarse)
+            coarse_xyz, coarse_z = self.sample_ray_exp(rays_o, viewdirs, n_coarse, jitter)
+            coarse_dists = _dists(coarse_z)
 
-        # 2) coarse chart + half-res normalization
-        coarse_norm = coords.normalize_coord(coords.from_cartesian(coarse_xyz), downsample=2)
+            # 2) coarse chart + half-res normalization
+            coarse_norm = coords.normalize_coord(coords.from_cartesian(coarse_xyz),
+                                                 downsample=2)
 
-        if resampling:
-            # 3) coarse density (K3) -> weights, inverse CDF, merge (K4)
-            c_feat = self._density(tables.coarse_planes, tables.coarse_lines, coarse_norm)
-            z_vals, dists = self.ops.resample(
-                c_feat, coarse_z, coarse_dists, n_fine, None, use_coarse_sample,
-                cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act)
-            xyz = rays_o[:, None, :] + viewdirs[:, None, :] * z_vals[..., None]
-            norm = coords.normalize_coord(coords.from_cartesian(xyz))
-        else:
-            z_vals, dists, norm = coarse_z, coarse_dists, coarse_norm
+            if resampling:
+                # 3) coarse density (K3) on the detached grid -> weights,
+                # inverse CDF at u, merge (K4)
+                c_planes, c_lines = (self.coarse_tables(params) if tables is None
+                                     else (tables.coarse_planes, tables.coarse_lines))
+                c_feat = self._density(c_planes, c_lines, coarse_norm)
+                z_vals, dists = self.ops.resample(
+                    c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample,
+                    cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act)
+                xyz = rays_o[:, None, :] + viewdirs[:, None, :] * z_vals[..., None]
+                norm = coords.normalize_coord(coords.from_cartesian(xyz))
+            else:
+                z_vals, dists, norm = coarse_z, coarse_dists, coarse_norm
 
-        # 4) fine field (K1) + shading
+        # 4) fine field (K1, K2 backward) + shading
         feat, app_feat = self.compute_field(params, norm, tables)
         dirs = viewdirs[:, None, :].expand(*norm.shape[:-1], 3)
         rgb = self.shader.apply_params(params, "shader.", dirs, app_feat)
 
-        # 5) composite (K6)
-        rgb_map, depth, acc, _ = self.ops.composite(
+        # 5) composite (K6, K6b backward)
+        rgb_map, depth, acc, _ = composite_train(
             feat, dists, z_vals, rgb, rays[:, -1].contiguous(), cfg.density_shift,
-            cfg.distance_scale, cfg.fea2dense_act)
+            cfg.distance_scale, cfg.fea2dense_act, self.ops.composite, self.ops.composite_bwd)
         return {"rgb": rgb_map, "depth": depth, "acc": acc, "bg": None, "env": None}

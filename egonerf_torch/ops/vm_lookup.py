@@ -1,5 +1,6 @@
-"""VM-grid lookups: the plain plane and line samples, and the fused field
-kernels K1 (fine density + appearance) and K3 (coarse density).
+"""VM-grid lookups: the plain plane and line samples, the fused field
+kernels K1 (fine density + appearance) and K3 (coarse density), and K2,
+K1's backward, with the autograd Function that pairs them.
 
 Counterpart of ``egonerf_tpu/ops/vm_lookup.py``, read for what it computes
 and not for its TPU layout: no corner packing, no one-hot or hat matmuls,
@@ -19,7 +20,7 @@ no channel padding.  What carries over exactly:
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -234,3 +235,184 @@ def density_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
 
 
 density_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: the fine field's backward
+# ---------------------------------------------------------------------------
+def _warp_order_sum(prod: torch.Tensor) -> torch.Tensor:
+    """(N, CD) -> (N,): the sum in the order K1 and K2 take it on the card
+    (lane l adds channels l, l+32, ... in turn, then a butterfly over
+    offsets 16, 8, 4, 2, 1), so the relu masks agree to the bit."""
+    n, cd = prod.shape
+    lanes = -(-cd // 32) * 32
+    x = torch.nn.functional.pad(prod, (0, lanes - cd)).reshape(n, -1, 32)
+    acc = x[:, 0]
+    for k in range(1, x.shape[1]):
+        acc = acc + x[:, k]
+    lane = torch.arange(32, device=prod.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ off]
+    return acc[:, 0]
+
+
+def _plane_corners(x, y, sel, h, w):
+    """The four (flat cell index, weight) pairs of :func:`sample_plane`."""
+    x0, wx0, wx1 = _axis_cells(x, w)
+    y0, wy0, wy1 = _axis_cells(y, h)
+    x1 = (x0 + 1).clamp_max(w - 1)
+    y1 = (y0 + 1).clamp_max(h - 1)
+    base = sel * (h * w)
+    return ((base + y0 * w + x0, wy0 * wx0), (base + y0 * w + x1, wy0 * wx1),
+            (base + y1 * w + x0, wy1 * wx0), (base + y1 * w + x1, wy1 * wx1))
+
+
+def _line_rows(coord, sel, l, hat):
+    """The two (flat row index, weight) pairs of :func:`sample_line_hat`
+    (``hat``) or :func:`sample_line`."""
+    if hat:
+        p = (coord + 1.0) * 0.5 * (l - 1)
+        pos = p + sel.to(p.dtype) * l
+        jf = torch.floor(pos)
+        first = sel * l
+        rows = []
+        for jj in (jf, jf + 1.0):
+            tent = (1.0 - (pos - jj).abs()).clamp_min(0.0)
+            j = jj.to(torch.int64)
+            in_chart = (j >= first) & (j <= first + l - 1)
+            wt = torch.where(in_chart, tent, torch.zeros_like(tent)).to(torch.bfloat16).float()
+            rows.append((j.clamp(first, first + l - 1), wt))
+        return rows
+    i0, w0, w1 = _axis_cells(coord, l)
+    return ((sel * l + i0, w0), (sel * l + (i0 + 1).clamp_max(l - 1), w1))
+
+
+def field_bwd_plain(coords, planes, lines, d_dens, d_app, n_density, line_hat,
+                    magnitude=False):
+    """Plain version of K2: see :func:`field_bwd`.  With ``magnitude`` it
+    scatters |contribution| instead, so that each cell holds the sum of the
+    absolute terms that a float32 tolerance is stated against."""
+    xyz = coords[:, :3]
+    sel = coords[:, 3].to(torch.int64)
+    g_planes, g_lines = [], []
+    off = 0
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        s, h, w, c = planes[i].shape
+        l = lines[i].shape[1]
+        cd = int(n_density[i])
+        pv = sample_plane(planes[i], xyz[:, m0], xyz[:, m1], sel)
+        line_fn = sample_line_hat if line_hat[i] else sample_line
+        lv = line_fn(lines[i], xyz[:, VEC_MODE[i]], sel)
+        partial = _warp_order_sum(pv[:, :cd] * lv[:, :cd])
+        dd = torch.where(partial > 0, d_dens, torch.zeros_like(d_dens))
+        dprod = torch.cat([dd[:, None].expand(-1, cd), d_app[:, off:off + c - cd]], dim=-1)
+        off += c - cd
+        dp = dprod * lv
+        dl = dprod * pv
+        if line_hat[i]:
+            dl = dl.to(torch.bfloat16).float()
+        if magnitude:
+            dp, dl = dp.abs(), dl.abs()
+        gp = torch.zeros(s * h * w, c, dtype=torch.float32, device=coords.device)
+        for idx, wt in _plane_corners(xyz[:, m0], xyz[:, m1], sel, h, w):
+            gp.index_add_(0, idx, wt[:, None] * dp)
+        gl = torch.zeros(s * l, c, dtype=torch.float32, device=coords.device)
+        for idx, wt in _line_rows(xyz[:, VEC_MODE[i]], sel, l, line_hat[i]):
+            gl.index_add_(0, idx, wt[:, None] * dl)
+        g_planes.append(gp.reshape(s, h, w, c))
+        g_lines.append(gl.reshape(s, l, c))
+    return g_planes, g_lines
+
+
+_BWD_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
+             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+             ctypes.c_void_p]
+
+
+def field_bwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
+              lines: Sequence[torch.Tensor], d_dens: torch.Tensor, d_app: torch.Tensor,
+              n_density: Sequence[int], line_hat: Sequence[bool]
+              ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """K2: the gradient of :func:`field_fwd` with respect to its tables.
+    Per sample and decomposition: the pre-relu density partial as K1 sums
+    it; dprod = d_dens [partial > 0] on the density channels and d_app on
+    the rest; dp = dprod * line and dl = dprod * plane; w_k * dp into the
+    four plane corners and the line weights times dl (rounded to bf16 on
+    the hat path, as ``_hat_bwd`` rounds its cotangent) into the two line
+    rows, all summed in float32.  The gradient treats the bf16 cast of the
+    tables as the identity, as JAX's custom VJPs do.
+
+    coords (N, 4), d_dens (N,) and d_app (N, sum_i C_i - n_density[i])
+    float32; planes and lines bfloat16 as for :func:`field_fwd`.  Returns
+    float32 gradients shaped like the planes and the lines.
+
+    Replaces ``_plane_bwd_bf16`` + ``_hat_bwd`` (``_plane_bwd`` +
+    ``_line_bwd`` where the lines take float32 weights)
+    (egonerf_tpu/ops/vm_lookup.py:482,611,456,519).  Kernel:
+    csrc/vm_lookup.cu.  CPU tensors take :func:`field_bwd_plain`."""
+    _check_field_args(coords, planes, lines, n_density)
+    n = coords.shape[0]
+    n_app = sum(p.shape[-1] - d for p, d in zip(planes, n_density))
+    check_tensor("d_dens", d_dens, torch.float32, (n,), coords.device)
+    check_tensor("d_app", d_app, torch.float32, (n, n_app), coords.device)
+    if coords.device.type == "cpu":
+        return field_bwd_plain(coords, planes, lines, d_dens, d_app, n_density, line_hat)
+    dev = coords.device
+    g_planes = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in planes]
+    g_lines = [torch.zeros(l.shape, dtype=torch.float32, device=dev) for l in lines]
+    if n:
+        dims = []
+        for i in range(3):
+            _, h, w, c = planes[i].shape
+            dims += [h, w, lines[i].shape[1], c, int(n_density[i]), int(bool(line_hat[i]))]
+        fn = kernel("vm_lookup", "vm_field_bwd", _BWD_ARGS)
+        ptrs = ctypes.c_void_p * 3
+        with torch.cuda.device(dev):
+            err = fn(coords.data_ptr(), n, ptrs(*[p.data_ptr() for p in planes]),
+                     ptrs(*[l.data_ptr() for l in lines]), (ctypes.c_int * 18)(*dims),
+                     d_dens.data_ptr(), d_app.data_ptr(), n_app,
+                     ptrs(*[g.data_ptr() for g in g_planes]),
+                     ptrs(*[g.data_ptr() for g in g_lines]),
+                     torch.cuda.current_stream(dev).cuda_stream)
+        check_launch("vm_field_bwd", err)
+        field_bwd.launches += 1
+    return g_planes, g_lines
+
+
+field_bwd.launches = 0
+
+
+class _Field(torch.autograd.Function):
+    """K1 forward, K2 backward on float32 tables (``fwd`` and ``bwd`` are
+    an ``Ops`` pair, so the plain versions run through the same Function).
+    The tables are cast to bf16 inside; only the coords and the bf16
+    tables are saved, and the backward recomputes the lookups."""
+
+    @staticmethod
+    def forward(ctx, coords, n_density, line_hat, fwd, bwd, *tables):
+        bf16 = [t.detach().to(torch.bfloat16).contiguous() for t in tables]
+        dens, app = fwd(coords, bf16[:3], bf16[3:], n_density, line_hat)
+        ctx.save_for_backward(coords, *bf16)
+        ctx.args = (n_density, line_hat, bwd)
+        return dens, app
+
+    @staticmethod
+    def backward(ctx, d_dens, d_app):
+        coords, *bf16 = ctx.saved_tensors
+        n_density, line_hat, bwd = ctx.args
+        g_planes, g_lines = bwd(coords, bf16[:3], bf16[3:], d_dens.contiguous(),
+                                d_app.contiguous(), n_density, line_hat)
+        return (None, None, None, None, None, *g_planes, *g_lines)
+
+
+def field_train(coords: torch.Tensor, planes: Sequence[torch.Tensor],
+                lines: Sequence[torch.Tensor], n_density: Sequence[int],
+                line_hat: Sequence[bool], fwd=field_fwd, bwd=field_bwd):
+    """:func:`field_fwd` on float32 ``planes`` and ``lines`` (read as
+    bf16), differentiable in them through ``bwd`` (K2); returns density
+    (N,) and appearance (N, n_app)."""
+    return _Field.apply(coords, tuple(int(d) for d in n_density),
+                        tuple(bool(h) for h in line_hat), fwd, bwd, *planes, *lines)

@@ -1,6 +1,6 @@
-"""Volume rendering: ``raw2alpha`` and the composite kernel K6 (counterpart
-of ``egonerf_tpu/ops/volrend.py`` and the composite in
-``egonerf_tpu/models/egonerf.py:466-493``)."""
+"""Volume rendering: ``raw2alpha``, the composite kernel K6 and its
+backward K6b (counterpart of ``egonerf_tpu/ops/volrend.py`` and the
+composite in ``egonerf_tpu/models/egonerf.py:466-493``)."""
 from __future__ import annotations
 
 import ctypes
@@ -99,3 +99,112 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
 
 
 composite.launches = 0
+
+
+def clip_grad(x: torch.Tensor) -> torch.Tensor:
+    """d clip(x, 0, 1) / dx as JAX's ``jnp.clip`` gives it: 1 inside
+    (0, 1), 1/2 at exactly 0 or 1 (its max and min split ties), else 0."""
+    inside = ((x > 0.0) & (x < 1.0)).to(x.dtype)
+    edge = ((x == 0.0) | (x == 1.0)).to(x.dtype)
+    return inside + 0.5 * edge
+
+
+def composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift=-8.0,
+                        distance_scale=25.0, act="softplus"):
+    """Plain version of K6b: see :func:`composite_bwd`.  torch autograd
+    through the forward of :func:`composite_plain`, with the slopes the
+    kernel uses: sigmoid(feat + shift) for softplus, [feat > 0] for relu,
+    and JAX's clip gradient."""
+    with torch.enable_grad():
+        f = feat.detach().requires_grad_(True)
+        c = rgb.detach().requires_grad_(True)
+        slope = (torch.sigmoid(f + density_shift) if act == "softplus"
+                 else (f > 0.0).to(f.dtype)).detach()
+        # the forward's sigma to the bit, with d sigma / d feat = slope
+        sigma = density_activation(f, density_shift, act).detach() + (f - f.detach()) * slope
+        _, weight, _ = raw2alpha(sigma, dists * distance_scale)
+        x = (weight[..., None] * c).sum(-2)
+        d_feat, d_rgb = torch.autograd.grad(x, (f, c), d_rgb_map * clip_grad(x.detach()))
+    return d_feat, d_rgb
+
+
+_BWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3
+
+
+def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
+                  d_rgb_map: torch.Tensor, density_shift: float = -8.0,
+                  distance_scale: float = 25.0, act: str = "softplus"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6b: the gradient of :func:`composite`'s rgb_map with respect to
+    feat and rgb, given d_rgb_map (R, 3).  Per ray it recomputes the
+    forward scan and runs the division-free reverse recurrence
+    R_j = alpha_j q_j + (1 - alpha_j + 1e-10) R_{j+1}, q_j = rgb_j . g,
+    g = d_rgb_map times JAX's clip gradient of the unclipped sum; then
+    d alpha_j = T_j (q_j - R_{j+1}) and d rgb_j = w_j g.  depth, acc and
+    bg take no gradient (JAX stops depth's; z and dists are constants).
+
+    feat, dists (R, S), rgb (R, S, 3), d_rgb_map (R, 3), float32.  Returns
+    d_feat (R, S) and d_rgb (R, S, 3).
+
+    Replaces the autodiff of ``raw2alpha`` + ``feature2density`` + the
+    composite (egonerf_tpu/ops/volrend.py:11-24,
+    models/egonerf.py:466-493).  Kernel: csrc/composite.cu.  CPU tensors
+    take :func:`composite_bwd_plain`."""
+    check_tensor("feat", feat, torch.float32, (None, None))
+    r, s = feat.shape
+    for name, t, shape in (("dists", dists, (r, s)), ("rgb", rgb, (r, s, 3)),
+                           ("d_rgb_map", d_rgb_map, (r, 3))):
+        check_tensor(name, t, torch.float32, shape, feat.device)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown density activation {act!r}")
+    if s < 1 or s > 1536:  # the kernel keeps 4 warps x 2S floats in 48 KB
+        raise ValueError(f"composite_bwd takes 1..1536 samples per ray, got {s}")
+    if feat.device.type == "cpu":
+        return composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift,
+                                   distance_scale, act)
+    dev = feat.device
+    d_feat = torch.empty(r, s, dtype=torch.float32, device=dev)
+    d_rgb = torch.empty(r, s, 3, dtype=torch.float32, device=dev)
+    if r:
+        fn = kernel("composite", "composite_bwd", _BWD_ARGS)
+        with torch.cuda.device(dev):
+            err = fn(feat.data_ptr(), dists.data_ptr(), rgb.data_ptr(), d_rgb_map.data_ptr(),
+                     r, s, float(density_shift), float(distance_scale),
+                     ACTIVATIONS.index(act), d_feat.data_ptr(), d_rgb.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+        check_launch("composite_bwd", err)
+        composite_bwd.launches += 1
+    return d_feat, d_rgb
+
+
+composite_bwd.launches = 0
+
+
+class _Composite(torch.autograd.Function):
+    """K6 forward, K6b backward (``fwd`` and ``bwd`` are an ``Ops`` pair,
+    so the plain versions run through the same Function)."""
+
+    @staticmethod
+    def forward(ctx, feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act,
+                fwd, bwd):
+        outs = fwd(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act)
+        ctx.save_for_backward(feat, dists, rgb)
+        ctx.args = (density_shift, distance_scale, act, bwd)
+        ctx.mark_non_differentiable(*outs[1:])
+        return outs
+
+    @staticmethod
+    def backward(ctx, d_rgb_map, *_):
+        feat, dists, rgb = ctx.saved_tensors
+        shift, scale, act, bwd = ctx.args
+        d_feat, d_rgb = bwd(feat, dists, rgb, d_rgb_map.contiguous(), shift, scale, act)
+        return d_feat, None, None, d_rgb, None, None, None, None, None, None
+
+
+def composite_train(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act,
+                    fwd=composite, bwd=composite_bwd):
+    """:func:`composite` with a gradient: rgb_map is differentiable in feat
+    and rgb through ``bwd`` (K6b); depth, acc and bg are not."""
+    return _Composite.apply(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale,
+                            act, fwd, bwd)

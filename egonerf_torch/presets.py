@@ -1,6 +1,7 @@
-"""The production model shape as the port's own constants (counterpart of
+"""The production model shape as the port's own constants, and the
+production training overrides (counterpart of
 ``egonerf_tpu/presets.py::production_overrides``, whose values these
-mirror).  No config parser: that comes with the training slice.
+mirror).
 
 N_voxel 27e6 on the yin-yang chart gives the grid [150, 172, 516];
 n_lamb 16/48 per decomposition; MLP_Fea with featureC 128 and view/feature
@@ -25,6 +26,26 @@ FIELD = FieldConfig(density_n_comp=(16, 16, 16), app_n_comp=(48, 48, 48), app_di
 
 RENDER = dict(n_coarse=128, n_fine=128, exp_sampling=True, resampling=True,
               use_coarse_sample=True, white_bg=True, eval_keep=0)
+
+
+def production_overrides(**deltas) -> dict:
+    """Config overrides of the production training shape: batch 4096 rays,
+    128 + 128 samples, N_voxel 27e6 on the yin-yang chart, n_lamb 16/48,
+    MLP_Fea featureC 128, MSE only, Adam at lr_init 0.02.  ``deltas`` win."""
+    base = dict(
+        dataset_name="synthetic", model_name="EgoNeRF",
+        coordinates_name="yinyang", exp_sampling=True, interval_th=True,
+        r0="0.03", resampling=True, use_coarse_sample=True,
+        n_coarse=128, n_fine=128, batch_size=4096,
+        N_voxel_init=N_VOXEL, N_voxel_final=N_VOXEL,
+        n_lamb_sigma="[16,16,16]", n_lamb_sh="[48,48,48]",
+        data_dim_color=27, shadingMode="MLP_Fea", fea2denseAct="softplus",
+        density_shift="-8", view_pe=2, fea_pe=2, featureC=128,
+        lr_init=0.02, sparsity_lambda=0, near_far="[0.01, 15.0]",
+        i_weights=10**9, seed=0, train_keep=0, train_keep_full_every=0,
+        train_cull_tau=0.0)
+    base.update(deltas)
+    return base
 
 
 def scene_aabb(camera_centers: np.ndarray, far: float = NEAR_FAR[1]) -> np.ndarray:

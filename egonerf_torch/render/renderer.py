@@ -1,14 +1,21 @@
-"""Chunked renderer (counterpart of ``egonerf_tpu/render/renderer.py``:
-``Renderer``).  ``evaluation`` and ``evaluation_path`` wait (ROADMAP.md §1).
+"""Chunked renderer and the test-set evaluation (counterpart of
+``egonerf_tpu/render/renderer.py``: ``Renderer`` and ``evaluation``).
+``evaluation_path`` waits (ROADMAP.md §1).
 
-Rays go through ``EgoNeRF.forward`` in fixed chunks; the tail is padded by
-repeating the last ray and trimmed from the outputs.  The bf16 lookup
-tables and the coarse grid are built once per ``render_*`` call.
+Rays go through ``EgoNeRF.forward`` in fixed chunks under
+``torch.no_grad()``; the tail is padded by repeating the last ray and
+trimmed from the outputs.  The bf16 lookup tables and the coarse grid are
+built once per ``render_*`` call.
 """
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 import torch
+
+from .metrics import psnr as psnr_fn
 
 
 class Renderer:
@@ -26,6 +33,17 @@ class Renderer:
         self._dirs = None
         self._n_rays_view = 0
 
+    @classmethod
+    def from_config(cls, model, cfg, white_bg, chunk=None, **overrides):
+        """The render keyword arguments of a training config, as the JAX
+        ``Renderer.from_config`` maps them."""
+        kw = dict(n_coarse=cfg.n_coarse, n_fine=(cfg.n_fine if cfg.resampling else 0),
+                  exp_sampling=cfg.exp_sampling, resampling=cfg.resampling,
+                  use_coarse_sample=cfg.use_coarse_sample, white_bg=white_bg,
+                  eval_keep=cfg.eval_keep)
+        kw.update(overrides)
+        return cls(model, chunk=int(cfg.eval_chunk if chunk is None else chunk), **kw)
+
     def _pad(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[0]
         n_pad = -(-n // self.chunk) * self.chunk
@@ -33,6 +51,7 @@ class Renderer:
             x = torch.cat([x, x[-1:].expand(n_pad - n, x.shape[1])])
         return x
 
+    @torch.no_grad()
     def _render_chunks(self, params, rays_of_chunk, n_chunks: int, n: int) -> dict:
         model = self.model
         tables = model.lookup_tables(params)
@@ -80,3 +99,41 @@ class Renderer:
         return self._render_chunks(params, rays_of_chunk,
                                    self._dirs.shape[0] // self.chunk,
                                    self._n_rays_view)
+
+
+def evaluation(test_dataset, model, params, renderer: Renderer, save_path=None,
+               n_vis: int = -1, prefix: str = "") -> list:
+    """Render the test split and return the PSNR of each rendered view;
+    with ``save_path``, write ``{prefix}mean.txt`` in the JAX package's
+    five-row layout [psnr, ssim, ws_ssim, lpips_alex, lpips_vgg], nan where
+    the port has no metric yet.  ``n_vis`` > 0 renders every
+    (n_images // n_vis)-th view, -1 all, 0 none."""
+    w, h = test_dataset.img_wh
+    n_images = test_dataset.all_rays.shape[0]
+    if n_vis == 0:
+        return []
+    interval = 1 if n_vis < 0 else max(n_images // n_vis, 1)
+    idxs = list(range(0, n_images, interval))
+    device_raygen = (getattr(test_dataset, "directions", None) is not None
+                     and getattr(test_dataset, "poses", None) is not None)
+    if device_raygen:
+        renderer.set_directions(test_dataset.directions)
+    psnrs = []
+    for out_idx, img_idx in enumerate(idxs):
+        t0 = time.time()
+        if device_raygen:
+            out = renderer.render_view(params, test_dataset.poses[img_idx])
+        else:
+            out = renderer.render_rays(params, test_dataset.all_rays[img_idx].reshape(-1, 6))
+        rgb = out["rgb"].reshape(h, w, 3).cpu().numpy()
+        elapsed = time.time() - t0
+        if len(test_dataset.all_rgbs):
+            gt = np.asarray(test_dataset.all_rgbs[img_idx]).reshape(h, w, 3)
+            psnrs.append(psnr_fn(rgb, gt))
+        print(f"eval image {out_idx}: {elapsed:.2f}s"
+              + (f", psnr {psnrs[-1]:.2f}" if psnrs else ""))
+    if psnrs and save_path:
+        os.makedirs(save_path, exist_ok=True)
+        row = [float(np.mean(psnrs))] + [float("nan")] * 4
+        np.savetxt(os.path.join(save_path, f"{prefix}mean.txt"), np.asarray(row))
+    return psnrs

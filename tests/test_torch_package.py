@@ -13,7 +13,7 @@ import torch
 
 import egonerf_torch
 from egonerf_torch import _build, _device
-from egonerf_torch.ops import pdf, vm_lookup, volrend
+from egonerf_torch.ops import merge, pdf, vm_lookup, volrend
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "egonerf_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -76,7 +76,8 @@ def test_build_dir_keyed_by_sources():
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
     assert d == _build.build_dir()
-    assert {p.stem for p in _build.sources()} == {"vm_lookup", "resample", "composite"}
+    assert {p.stem for p in _build.sources()} == {"vm_lookup", "resample", "composite",
+                                                  "sorted_uniform"}
 
 
 def _tables(c=12, dtype=torch.bfloat16):
@@ -91,6 +92,21 @@ def _field(**over):
                 n_density=(4, 4, 4), line_hat=(True, True, True))
     args.update(over)
     return vm_lookup.field_fwd(**args)
+
+
+def _field_bwd(**over):
+    planes, lines = _tables()
+    args = dict(coords=torch.zeros(16, 4), planes=planes, lines=lines, d_dens=torch.zeros(16),
+                d_app=torch.zeros(16, 24), n_density=(4, 4, 4), line_hat=(True, True, True))
+    args.update(over)
+    return vm_lookup.field_bwd(**args)
+
+
+def _composite_bwd(**over):
+    args = dict(feat=torch.zeros(8, 32), dists=torch.zeros(8, 32), rgb=torch.zeros(8, 32, 3),
+                d_rgb_map=torch.zeros(8, 3))
+    args.update(over)
+    return volrend.composite_bwd(**args)
 
 
 def _resample(**over):
@@ -128,6 +144,17 @@ BAD_CALLS = {
     "composite dz dtype": (lambda: _composite(ray_dz=torch.zeros(8, dtype=torch.float16)),
                            TypeError),
     "composite not a tensor": (lambda: _composite(dists=[0.0] * 8), TypeError),
+    "field_bwd d_app width": (lambda: _field_bwd(d_app=torch.zeros(16, 23)), ValueError),
+    "field_bwd d_dens dtype": (lambda: _field_bwd(d_dens=torch.zeros(16, dtype=torch.float64)),
+                               TypeError),
+    "field_bwd float32 tables": (lambda: _field_bwd(planes=_tables(dtype=torch.float32)[0]),
+                                 TypeError),
+    "composite_bwd grad shape": (lambda: _composite_bwd(d_rgb_map=torch.zeros(8, 4)),
+                                 ValueError),
+    "composite_bwd too many samples": (lambda: _composite_bwd(
+        feat=torch.zeros(1, 1537), dists=torch.zeros(1, 1537), rgb=torch.zeros(1, 1537, 3),
+        d_rgb_map=torch.zeros(1, 3)), ValueError),
+    "sorted_uniform no draws": (lambda: merge.sorted_uniform(4, 0, 0, 0, "cpu"), ValueError),
 }
 
 
@@ -140,7 +167,8 @@ def test_wrappers_reject_bad_arguments(case):
 
 def test_wrappers_on_cpu_take_the_plain_versions():
     """A CPU tensor takes the plain version and launches nothing."""
-    counters = (vm_lookup.field_fwd, vm_lookup.density_fwd, pdf.resample, volrend.composite)
+    counters = (vm_lookup.field_fwd, vm_lookup.field_bwd, vm_lookup.density_fwd, pdf.resample,
+                merge.sorted_uniform, volrend.composite, volrend.composite_bwd)
     before = [f.launches for f in counters]
     dens, app = _field()
     assert dens.shape == (16,) and app.shape == (16, 24)
@@ -148,6 +176,10 @@ def test_wrappers_on_cpu_take_the_plain_versions():
     z, d = _resample()
     assert z.shape == d.shape == (8, 32)
     assert [t.shape for t in _composite()] == [(8, 3), (8,), (8,), (8, 1)]
+    g_planes, g_lines = _field_bwd()
+    assert [g.shape for g in g_planes + g_lines] == [(2, 5, 6, 12)] * 3 + [(2, 7, 12)] * 3
+    assert [t.shape for t in _composite_bwd()] == [(8, 32), (8, 32, 3)]
+    assert merge.sorted_uniform(8, 5, 0, 0, "cpu").shape == (8, 5)
     assert [f.launches for f in counters] == before
 
 
