@@ -49,3 +49,21 @@ def check_tensor(name: str, t, dtype: torch.dtype, shape: Sequence[Optional[int]
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def check_rows(name: str, t, n_rows: int, n_cols: int, device: torch.device) -> None:
+    """Raise unless ``t`` is an (n_rows, n_cols) float32 tensor on ``device``
+    with unit column stride; the row stride is free (a column slice of the
+    (R, 6) rays, or 0 for one row broadcast to all)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
+    if tuple(t.shape) != (n_rows, n_cols):
+        raise ValueError(f"{name}: expected shape {(n_rows, n_cols)}, got {tuple(t.shape)}")
+    if n_cols > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: expected unit column stride")
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")

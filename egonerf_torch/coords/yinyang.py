@@ -36,7 +36,10 @@ class YinYangSphericalCoords(GenericSphericalCoords):
 
     def from_cartesian(self, xyz):
         diff = xyz - self._const("center", xyz.device)
-        r = torch.sqrt(torch.sum(diff * diff, dim=-1))
+        # the sum of squares written out, (x x + y y) + z z: a reduction
+        # kernel may add in another order, and K7 adds in this one
+        dx, dy, dz = diff.unbind(-1)
+        r = torch.sqrt(dx * dx + dy * dy + dz * dz)
         theta_n = _safe_acos(diff[..., 2], r)
         phi_n = torch.atan2(diff[..., 1], diff[..., 0])
 

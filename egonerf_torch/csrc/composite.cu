@@ -2,25 +2,30 @@
 //
 // Replaces egonerf_tpu/ops/volrend.py raw2alpha + feature2density
 // (models/egonerf.py:99-104) + the composite of EgoNeRF.forward
-// (models/egonerf.py:466-493), without the envmap branch.  JAX
+// (models/egonerf.py:466-493), with its envmap branch.  JAX
 // differentiates that composite with autodiff; the port's forward is a
 // kernel that autograd cannot see through, so its backward is one too.
 //
 // Per ray of S samples: sigma = feature2density(feat); alpha =
 // 1 - exp(-sigma * dist * scale); T the exclusive prefix product of
 // (1 - alpha + 1e-10); weights = alpha * T; acc = sum(weights);
-// rgb = clip(sum(weights * rgb), 0, 1); depth = sum(weights * z) +
-// (1 - acc) * ray_dz; bg = the product over the whole ray.
+// bg = T_S, the product over the whole ray; with the envmap radiance env
+// of the ray (JAX's "background is a last sample of alpha 1",
+// models/egonerf.py:481-486) bg_map = T_S env, and rgb = clip(sum(weights *
+// rgb) + bg_map, 0, 1), the clip after the blend; depth = sum(weights * z)
+// + (1 - acc) * ray_dz.
 //
 // Backward of rgb only (depth is under stop_gradient in JAX, z and dists
 // carry no gradient): with g the clip-masked d rgb (JAX's clip passes 1
-// inside (0, 1) and 1/2 at exactly 0 or 1) and q_j = rgb_j . g,
+// inside (0, 1) and 1/2 at exactly 0 or 1, taken on the blended sum) and
+// q_j = rgb_j . g,
 //   d rgb_j  = w_j g
-//   R_j      = alpha_j q_j + (1 - alpha_j + 1e-10) R_{j+1},  R_S = 0
+//   R_j      = alpha_j q_j + (1 - alpha_j + 1e-10) R_{j+1},  R_S = env . g
 //   d alpha_j = T_j (q_j - R_{j+1})
-//   d feat_j = d alpha_j exp(-sigma_j d_j s) d_j s sigma'(feat_j).
-// The reverse recurrence never divides by 1 - alpha + 1e-10, which reaches
-// 1e-10 where alpha rounds to 1.
+//   d feat_j = d alpha_j exp(-sigma_j d_j s) d_j s sigma'(feat_j)
+//   d env    = T_S g.
+// R_S is 0 without the envmap.  The reverse recurrence never divides by
+// 1 - alpha + 1e-10, which reaches 1e-10 where alpha rounds to 1.
 //
 // Bound on the card: bytes (forward 6 x S floats read per ray, ~25 MB per
 // 4096 x 256 chunk, ~7.5 us at 3.35 TB/s; backward 5 x S read and 4 x S
@@ -44,9 +49,10 @@ constexpr int kWarpsPerBlock = 4;
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 composite_kernel(const float* __restrict__ feat, const float* __restrict__ dists,
                  const float* __restrict__ z, const float* __restrict__ rgb,
-                 const float* __restrict__ ray_dz, int R, int S, float shift, float scale,
-                 int act, float* __restrict__ rgb_out, float* __restrict__ depth_out,
-                 float* __restrict__ acc_out, float* __restrict__ bg_out) {
+                 const float* __restrict__ ray_dz, const float* __restrict__ env, int R, int S,
+                 float shift, float scale, int act, float* __restrict__ rgb_out,
+                 float* __restrict__ depth_out, float* __restrict__ acc_out,
+                 float* __restrict__ bg_out, float* __restrict__ bg_map) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -85,6 +91,18 @@ composite_kernel(const float* __restrict__ feat, const float* __restrict__ dists
   bl = warp_sum(bl);
   depth = warp_sum(depth);
   if (lane == 0) {
+    if (env != nullptr) {
+      // the background: a last sample of alpha 1 behind transmittance T_S
+      const float b0 = __fmul_rn(total, env[ray * 3]);
+      const float b1 = __fmul_rn(total, env[ray * 3 + 1]);
+      const float b2 = __fmul_rn(total, env[ray * 3 + 2]);
+      bg_map[ray * 3] = b0;
+      bg_map[ray * 3 + 1] = b1;
+      bg_map[ray * 3 + 2] = b2;
+      r = __fadd_rn(r, b0);
+      g = __fadd_rn(g, b1);
+      bl = __fadd_rn(bl, b2);
+    }
     rgb_out[ray * 3] = fminf(fmaxf(r, 0.0f), 1.0f);
     rgb_out[ray * 3 + 1] = fminf(fmaxf(g, 0.0f), 1.0f);
     rgb_out[ray * 3 + 2] = fminf(fmaxf(bl, 0.0f), 1.0f);
@@ -102,9 +120,10 @@ __device__ __forceinline__ float clip_grad(float x) {
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ dists,
-                     const float* __restrict__ rgb, const float* __restrict__ g_rgb, int R,
-                     int S, float shift, float scale, int act, float* __restrict__ d_feat,
-                     float* __restrict__ d_rgb) {
+                     const float* __restrict__ rgb, const float* __restrict__ g_rgb,
+                     const float* __restrict__ env, int R, int S, float shift, float scale,
+                     int act, float* __restrict__ d_feat, float* __restrict__ d_rgb,
+                     float* __restrict__ d_env) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -139,9 +158,28 @@ composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ d
     g += wj * rgb[3 * j + 1];
     bl += wj * rgb[3 * j + 2];
   }
-  const float gr = g_rgb[ray * 3] * clip_grad(warp_sum(r));
-  const float gg = g_rgb[ray * 3 + 1] * clip_grad(warp_sum(g));
-  const float gb = g_rgb[ray * 3 + 2] * clip_grad(warp_sum(bl));
+  r = warp_sum(r);
+  g = warp_sum(g);
+  bl = warp_sum(bl);
+  float e0 = 0.0f, e1 = 0.0f, e2 = 0.0f;
+  if (env != nullptr) {
+    e0 = env[ray * 3];
+    e1 = env[ray * 3 + 1];
+    e2 = env[ray * 3 + 2];
+    r = __fadd_rn(r, __fmul_rn(total, e0));
+    g = __fadd_rn(g, __fmul_rn(total, e1));
+    bl = __fadd_rn(bl, __fmul_rn(total, e2));
+  }
+  const float gr = g_rgb[ray * 3] * clip_grad(r);
+  const float gg = g_rgb[ray * 3 + 1] * clip_grad(g);
+  const float gb = g_rgb[ray * 3 + 2] * clip_grad(bl);
+  // R after the last sample: the background's q (0 without the envmap)
+  const float r_end = e0 * gr + e1 * gg + e2 * gb;
+  if (env != nullptr && lane == 0) {
+    d_env[ray * 3] = total * gr;
+    d_env[ray * 3 + 1] = total * gg;
+    d_env[ray * 3 + 2] = total * gb;
+  }
 
   // this chunk's affine map R_a = A + B R_b, then a suffix scan over lanes
   float A = 0.0f, B = 1.0f;
@@ -160,8 +198,10 @@ composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ d
       B = B * Bo;
     }
   }
-  float Rn = __shfl_down_sync(kFullMask, A, 1);
-  if (lane == 31) Rn = 0.0f;
+  // R after this chunk: the next lanes' composed map applied to r_end
+  const float An = __shfl_down_sync(kFullMask, A, 1);
+  const float Bn = __shfl_down_sync(kFullMask, B, 1);
+  float Rn = lane == 31 ? r_end : An + Bn * r_end;
 
   for (int j = b - 1; j >= a; --j) {
     const float alpha = al[j], T = tr[j];
@@ -183,25 +223,27 @@ composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ d
 }  // namespace
 
 extern "C" int composite_bwd(const float* feat, const float* dists, const float* rgb,
-                             const float* g_rgb, int R, int S, float shift, float scale, int act,
-                             float* d_feat, float* d_rgb, void* stream) {
+                             const float* g_rgb, const float* env, int R, int S, float shift,
+                             float scale, int act, float* d_feat, float* d_rgb, float* d_env,
+                             void* stream) {
   const size_t smem = sizeof(float) * kWarpsPerBlock * 2 * S;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
   composite_bwd_kernel<<<blocks, kWarpsPerBlock * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      feat, dists, rgb, g_rgb, R, S, shift, scale, act, d_feat, d_rgb);
+      feat, dists, rgb, g_rgb, env, R, S, shift, scale, act, d_feat, d_rgb, d_env);
   return (int)cudaGetLastError();
 }
 
 extern "C" int composite_fwd(const float* feat, const float* dists, const float* z,
-                             const float* rgb, const float* ray_dz, int R, int S, float shift,
-                             float scale, int act, float* rgb_out, float* depth_out,
-                             float* acc_out, float* bg_out, void* stream) {
+                             const float* rgb, const float* ray_dz, const float* env, int R,
+                             int S, float shift, float scale, int act, float* rgb_out,
+                             float* depth_out, float* acc_out, float* bg_out, float* bg_map,
+                             void* stream) {
   const size_t smem = sizeof(float) * kWarpsPerBlock * S;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
   composite_kernel<<<blocks, kWarpsPerBlock * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      feat, dists, z, rgb, ray_dz, R, S, shift, scale, act, rgb_out, depth_out, acc_out,
-      bg_out);
+      feat, dists, z, rgb, ray_dz, env, R, S, shift, scale, act, rgb_out, depth_out, acc_out,
+      bg_out, bg_map);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-"""Models of the port: EgoNeRF with MLP_Fea shading, its construction from
-a training config (counterpart of ``egonerf_tpu/models/__init__.py``), and
-the converter for JAX checkpoints.  The TensoRF family waits
-(ROADMAP.md §1)."""
+"""Models of the port: EgoNeRF with MLP_Fea shading and the envmap, its
+construction from a training config (counterpart of
+``egonerf_tpu/models/__init__.py``), and the converter for JAX checkpoints.
+The TensoRF family waits (ROADMAP.md §1)."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,7 +19,9 @@ def _field_config(cfg, meta=None) -> FieldConfig:
         app_dim=cfg.data_dim_color, shading_mode=cfg.shadingMode, view_pe=cfg.view_pe,
         fea_pe=cfg.fea_pe, feature_c=cfg.featureC, density_shift=cfg.density_shift,
         distance_scale=cfg.distance_scale, fea2dense_act=cfg.fea2denseAct,
-        use_envmap=cfg.use_envmap, compute_dtype=cfg.compute_dtype)
+        use_envmap=cfg.use_envmap,
+        envmap_res_h=int(cfg.envmap_res_H / cfg.downsample_train),
+        compute_dtype=cfg.compute_dtype)
 
 
 def build_model(cfg, aabb, grid_size, coordinates, near_far, meta=None,
@@ -41,7 +43,6 @@ def model_meta(cfg, model: EgoNeRF) -> dict:
     meta["density_n_comp"] = list(meta["density_n_comp"])
     meta["app_n_comp"] = list(meta["app_n_comp"])
     meta.update(pos_pe=cfg.pos_pe, ray_march_weight_thres=cfg.rm_weight_mask_thre,
-                alpha_mask_thres=cfg.alpha_mask_thre, step_ratio=cfg.step_ratio,
-                envmap_res_h=int(cfg.envmap_res_H / cfg.downsample_train))
+                alpha_mask_thres=cfg.alpha_mask_thre, step_ratio=cfg.step_ratio)
     meta["model_name"] = type(model).__name__
     return meta

@@ -2,9 +2,10 @@
 
 JAX checkpoints (``egonerf_tpu/train/checkpoint.py``) are an ``.npz`` of
 the flattened parameter tree under ``/``-joined keys (``density_planes/0``,
-``basis``, ``shader/l1/w``, ...) plus a JSON ``__header__`` with the
-``coords_spec`` and ``model_meta``.  Plane, line and basis arrays keep
-their layout.  MLP weights are the one trap: JAX stores them (n_in, n_out),
+``basis``, ``shader/l1/w``, ``envmap``, ...) plus a JSON ``__header__``
+with the ``coords_spec`` and ``model_meta``.  Plane, line, basis and
+envmap arrays keep their layout (the envmap channel-last (2h, h, 3)).
+MLP weights are the one trap: JAX stores them (n_in, n_out),
 ``nn.Linear.weight`` is (out, in), so the converter transposes them.
 """
 from __future__ import annotations
@@ -28,8 +29,8 @@ def _to_torch_key(key: str) -> Tuple[str, bool]:
     parts = key.split("/")
     if parts[0] in _GRIDS and len(parts) == 2:
         return f"{parts[0]}.{parts[1]}", False
-    if parts == ["basis"]:
-        return "basis", False
+    if parts in (["basis"], ["envmap"]):
+        return key, False
     if parts[0] == "shader" and len(parts) == 3 and parts[2] in _LINEAR:
         return f"shader.{parts[1]}.{_LINEAR[parts[2]]}", parts[2] == "w"
     raise NotImplementedError(f"parameter {key!r} has no counterpart in the port yet "
@@ -59,8 +60,8 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             a = np.ascontiguousarray(a.T) if parts[2] == "weight" else a
         elif parts[0] in _GRIDS:
             key = f"{parts[0]}/{parts[1]}"
-        elif name == "basis":
-            key = "basis"
+        elif name in ("basis", "envmap"):
+            key = name
         else:
             raise NotImplementedError(f"parameter {name!r} has no JAX counterpart")
         out[key] = a

@@ -14,7 +14,10 @@ grid) once per render, where JAX rebuilds them per chunk with the same
 numbers.  In training the fine field goes through the autograd Function
 of ``ops.vm_lookup.field_train`` (K1 forward, K2 backward) on the float32
 fused tables, and the composite through ``ops.volrend.composite_train``
-(K6, K6b).  The kernels come from ``self.ops`` (``ops.KERNELS``).
+(K6, K6b).  Both charts of a forward, the coarse and the fine, are K7.
+With ``use_envmap`` the (2h, h, 3) ``envmap`` parameter gives each ray its
+background radiance (K8, K8b backward), blended behind the last sample.
+The kernels come from ``self.ops`` (``ops.KERNELS``).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from ..coords.yinyang import YinYangSphericalCoords
 from ..ops import KERNELS
 from ..ops.vm_lookup import MAT_MODE, VEC_MODE, field_train, line_hat_ok
 from ..ops.volrend import composite_train, density_activation
+from .envmap import envmap_radiance, init_envmap
 from .shading import MLPFea
 
 _LATER = "is not ported yet (ROADMAP.md §1)"
@@ -54,6 +58,7 @@ class FieldConfig:
     distance_scale: float = 25.0
     fea2dense_act: str = "softplus"
     use_envmap: bool = False
+    envmap_res_h: int = 1000
     # 'bfloat16': the fine line lookup takes the bf16 hat weights while the
     # JAX gate holds; 'float32': float32 line weights.  Tables are bf16
     # either way, as in JAX.
@@ -124,8 +129,6 @@ class EgoNeRF(nn.Module):
             raise TypeError("EgoNeRF requires the yin-yang chart")
         if cfg.shading_mode != "MLP_Fea":
             raise NotImplementedError(f"shading mode {cfg.shading_mode!r} {_LATER}")
-        if cfg.use_envmap:
-            raise NotImplementedError(f"the envmap {_LATER}")
         if cfg.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
         self.device = resolve_device(device)
@@ -158,6 +161,9 @@ class EgoNeRF(nn.Module):
                                               device=self.device))
         self.shader = MLPFea(cfg.app_dim, cfg.view_pe, cfg.fea_pe,
                              cfg.feature_c).to(self.device)
+        if cfg.use_envmap:
+            self.envmap = nn.Parameter(init_envmap(cfg.envmap_res_h, init_strategy="zero",
+                                                   device=self.device))
 
     # ------------------------------------------------------------------
     # parameters
@@ -170,7 +176,8 @@ class EgoNeRF(nn.Module):
     def init_params(self, generator: torch.Generator) -> dict:
         """Draw every parameter with the JAX init's laws (planes and lines
         0.1 * N(0, 1), basis U(-1/sqrt(n_app), +), the shader as
-        ``nn.Linear``) from ``generator``; returns :meth:`params`."""
+        ``nn.Linear``, the envmap U[0, 1)) from ``generator``; returns
+        :meth:`params`."""
         def normal(p, scale):
             z = torch.randn(p.shape, generator=generator, device=generator.device)
             p.copy_(scale * z)
@@ -184,6 +191,8 @@ class EgoNeRF(nn.Module):
         u = torch.rand(self.basis.shape, generator=generator, device=generator.device)
         self.basis.copy_((u * 2.0 - 1.0) * bound)
         self.shader.reset_parameters(generator)
+        if self.cfg.use_envmap:
+            self.envmap.copy_(init_envmap(self.cfg.envmap_res_h, generator))
         return self.params()
 
     # ------------------------------------------------------------------
@@ -265,13 +274,13 @@ class EgoNeRF(nn.Module):
             self._sample_grid_cache[key] = grid
         return grid
 
-    def sample_ray_exp(self, rays_o, rays_d, n_samples: int,
-                       jitter: Optional[torch.Tensor] = None):
-        """Exponentially spaced depths; with ``jitter`` (R, n_samples) U(0, 1)
-        draws, each depth moves that far into its interval (training)."""
+    def sample_depths_exp(self, n_rays: int, n_samples: int, dev,
+                          jitter: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(n_rays, n_samples) exponentially spaced depths (the ``interpx``
+        of JAX's ``sample_ray_exp``; K7 makes the points); with ``jitter``
+        (R, n_samples) U(0, 1) draws, each depth moves that far into its
+        interval (training)."""
         near, far = self.near_far
-        n_rays = rays_o.shape[0]
-        dev = rays_o.device
         if self.coordinates.interval_th:
             base = self._base_sample_grid(n_samples, dev)
             r = base.expand(n_rays, n_samples)
@@ -289,8 +298,7 @@ class EgoNeRF(nn.Module):
             steps = r0 * torch.pow(ratio, rng)
             csum = torch.cumsum(steps, dim=-1)
             interpx = near + torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=-1)
-        pts = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
-        return pts, interpx
+        return interpx
 
     def sample_ray_linear(self, rays_o, rays_d, n_samples: int):
         raise NotImplementedError(f"linear ray sampling {_LATER}")
@@ -307,8 +315,11 @@ class EgoNeRF(nn.Module):
                 ndc_ray=False, eval_keep=0, tables: Optional[LookupTables] = None,
                 jitter: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None):
         """Render an (R, 6) ray batch.  Returns dict(rgb (R, 3), depth (R,),
-        acc (R,), bg, env); bg and env are None without the envmap.
-        ``white_bg`` is accepted and unused, as in JAX.
+        acc (R,), bg, env); with the envmap, env (R, 3) is each ray's
+        background radiance and bg (R, 3) = its transmittance times env,
+        else both are None.  ``pretrain_envmap`` returns dict(env) alone,
+        the envmap's radiance (its pretrain phase).  ``white_bg`` is
+        accepted and unused, as in JAX.
 
         Training (``is_train`` with a ``key``) jitters the coarse depths and
         draws K4's ``u`` from K5; ``jitter`` (R, n_coarse) and ``u``
@@ -320,13 +331,15 @@ class EgoNeRF(nn.Module):
         Function.  Eval callers run under ``torch.no_grad()``."""
         if ndc_ray:
             raise NotImplementedError("NDC rays are not supported by the egocentric model")
+        cfg = self.cfg
+        rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
         if pretrain_envmap:
-            raise NotImplementedError(f"the envmap {_LATER}")
+            if not cfg.use_envmap:
+                raise ValueError("pretrain_envmap needs a model with the envmap")
+            return {"env": envmap_radiance(params["envmap"], viewdirs, self.ops)}
         if eval_keep:
             raise NotImplementedError(f"the empty-space cull {_LATER}")
-        cfg = self.cfg
         coords = self.coordinates
-        rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
         n_rays, dev = rays.shape[0], rays.device
         if is_train and key is not None:
             if jitter is None:
@@ -338,12 +351,12 @@ class EgoNeRF(nn.Module):
             # 1) coarse depths
             if not exp_sampling:
                 self.sample_ray_linear(rays_o, viewdirs, n_coarse)
-            coarse_xyz, coarse_z = self.sample_ray_exp(rays_o, viewdirs, n_coarse, jitter)
+            coarse_z = self.sample_depths_exp(n_rays, n_coarse, dev, jitter)
             coarse_dists = _dists(coarse_z)
 
-            # 2) coarse chart + half-res normalization
-            coarse_norm = coords.normalize_coord(coords.from_cartesian(coarse_xyz),
-                                                 downsample=2)
+            # 2) coarse chart + half-res normalization (K7)
+            coarse_norm = self.ops.chart(rays_o, viewdirs, coarse_z, coords,
+                                         2).reshape(n_rays, n_coarse, 4)
 
             if resampling:
                 # 3) coarse density (K3) on the detached grid -> weights,
@@ -354,8 +367,8 @@ class EgoNeRF(nn.Module):
                 z_vals, dists = self.ops.resample(
                     c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample,
                     cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act)
-                xyz = rays_o[:, None, :] + viewdirs[:, None, :] * z_vals[..., None]
-                norm = coords.normalize_coord(coords.from_cartesian(xyz))
+                norm = self.ops.chart(rays_o, viewdirs, z_vals, coords).reshape(
+                    n_rays, z_vals.shape[1], 4)
             else:
                 z_vals, dists, norm = coarse_z, coarse_dists, coarse_norm
 
@@ -364,8 +377,13 @@ class EgoNeRF(nn.Module):
         dirs = viewdirs[:, None, :].expand(*norm.shape[:-1], 3)
         rgb = self.shader.apply_params(params, "shader.", dirs, app_feat)
 
-        # 5) composite (K6, K6b backward)
-        rgb_map, depth, acc, _ = composite_train(
+        # 5) the envmap's radiance (K8, K8b backward), then the composite with
+        # the background as a last sample of alpha 1 (K6, K6b backward)
+        env = (envmap_radiance(params["envmap"], viewdirs, self.ops) if cfg.use_envmap
+               else None)
+        outs = composite_train(
             feat, dists, z_vals, rgb, rays[:, -1].contiguous(), cfg.density_shift,
-            cfg.distance_scale, cfg.fea2dense_act, self.ops.composite, self.ops.composite_bwd)
-        return {"rgb": rgb_map, "depth": depth, "acc": acc, "bg": None, "env": None}
+            cfg.distance_scale, cfg.fea2dense_act, self.ops.composite, self.ops.composite_bwd,
+            env=env)
+        return {"rgb": outs[0], "depth": outs[1], "acc": outs[2],
+                "bg": outs[4] if env is not None else None, "env": env}

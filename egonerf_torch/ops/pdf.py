@@ -32,18 +32,79 @@ def linspace01(n: int, device=None) -> torch.Tensor:
     return torch.cat([step, torch.ones(1, dtype=torch.float32, device=device)])
 
 
+# K4 keeps a ray on one warp: lane l owns the contiguous chunk [l per,
+# (l + 1) per) of its samples, per = ceil(n / 32), and the products and sums
+# across lanes are the scans and the butterfly of csrc/warp_scan.cuh.  The
+# plain version takes them in that order, so its depths are K4's to the bit
+# and the fine samples of the two paths do not part on the card.
+WARP = 32
+
+
+def _lane_chunks(x: torch.Tensor, identity: float) -> torch.Tensor:
+    """(R, n) -> (R, 32, per): each lane's chunk, padded with ``identity``."""
+    per = -(-x.shape[1] // WARP)
+    x = torch.nn.functional.pad(x, (0, WARP * per - x.shape[1]), value=identity)
+    return x.reshape(x.shape[0], WARP, per)
+
+
+def _chunk_fold(chunks: torch.Tensor, op) -> torch.Tensor:
+    """(R, 32, per) -> (R, 32): each lane's chunk folded left to right."""
+    acc = chunks[..., 0]
+    for j in range(1, chunks.shape[-1]):
+        acc = op(acc, chunks[..., j])
+    return acc
+
+
+def _warp_exclusive_scan(v: torch.Tensor, op, identity: float) -> torch.Tensor:
+    """(R, 32): ``warp_exclusive_prod`` / ``_sum``: Hillis-Steele over the
+    offsets 1, 2, 4, 8, 16, then a shift by one lane."""
+    for off in (1, 2, 4, 8, 16):
+        v = torch.cat([v[:, :off], op(v[:, off:], v[:, :-off])], dim=1)
+    return torch.cat([torch.full_like(v[:, :1], identity), v[:, :-1]], dim=1)
+
+
+def _warp_weights(alpha: torch.Tensor) -> torch.Tensor:
+    """raw2alpha's weights alpha * exclusive transmittance, in K4's order."""
+    s = alpha.shape[1]
+    f = _lane_chunks(1.0 - alpha + 1e-10, 1.0)
+    al = _lane_chunks(alpha, 0.0)
+    t = _warp_exclusive_scan(_chunk_fold(f, torch.mul), torch.mul, 1.0)
+    w = []
+    for j in range(f.shape[-1]):
+        w.append(al[..., j] * t)
+        t = t * f[..., j]
+    return torch.stack(w, dim=-1).reshape(alpha.shape[0], -1)[:, :s]
+
+
+def _warp_cdf(weights: torch.Tensor) -> torch.Tensor:
+    """The cdf of ``weights`` + 1e-5 with its leading 0, in K4's order: the
+    total by a butterfly of the lanes' chunk sums, the cumulative sum by
+    an exclusive scan of them."""
+    m = weights.shape[1]
+    x = weights + 1e-5
+    total = _chunk_fold(_lane_chunks(x, 0.0), torch.add)
+    for half in (16, 8, 4, 2, 1):
+        total = total[:, :half] + total[:, half:2 * half]
+    pdf = _lane_chunks(x / total, 0.0)
+    c = _warp_exclusive_scan(_chunk_fold(pdf, torch.add), torch.add, 0.0)
+    cdf = []
+    for j in range(pdf.shape[-1]):
+        c = c + pdf[..., j]
+        cdf.append(c)
+    cdf = torch.stack(cdf, dim=-1).reshape(x.shape[0], -1)[:, :m]
+    return torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=1)
+
+
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
                u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Draw ``n_samples`` depths per ray from the piecewise-constant pdf.
 
     bins (N, B) bin edges, weights (N, B-1) unnormalized mass per bin; ``u``
-    (N, n_samples) uniforms, or None for the eval-mode linspace.  The
+    (N, n_samples) uniforms, or None for the eval-mode linspace.  The pdf
+    is weights + 1e-5 over their sum, its cdf summed in K4's order.  The
     bracket is ``searchsorted(cdf, u, right)``; u >= cdf[-1] clamps to the
     last edge, and a bracket narrower than 1e-5 divides by 1."""
-    weights = weights + 1e-5
-    pdf = weights / weights.sum(-1, keepdim=True)
-    cdf = torch.cumsum(pdf, dim=-1)
-    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    cdf = _warp_cdf(weights)
     n, b = cdf.shape
     if u is None:
         u = linspace01(n_samples, cdf.device).expand(n, n_samples)
@@ -69,11 +130,12 @@ def _dists(z: torch.Tensor) -> torch.Tensor:
 def resample_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
                    use_coarse_sample=True, density_shift=-8.0,
                    distance_scale=25.0, act="softplus"):
-    """Plain version of K4: see :func:`resample`."""
+    """Plain version of K4: see :func:`resample`.  raw2alpha's weights and
+    :func:`sample_pdf` with their products and sums in K4's order."""
     sigma = density_activation(c_feat, density_shift, act)
-    _, weight, _ = raw2alpha(sigma, coarse_dists * distance_scale)
+    alpha, _, _ = raw2alpha(sigma, coarse_dists * distance_scale)
     z_mid = 0.5 * (coarse_z[:, 1:] + coarse_z[:, :-1])
-    fine_z = sample_pdf(z_mid, weight[:, 1:-1], n_fine, u)
+    fine_z = sample_pdf(z_mid, _warp_weights(alpha)[:, 1:-1], n_fine, u)
     z_vals = merge_sorted(coarse_z, fine_z) if use_coarse_sample else fine_z
     return z_vals, _dists(z_vals)
 

@@ -1,10 +1,11 @@
 """Volume rendering: ``raw2alpha``, the composite kernel K6 and its
 backward K6b (counterpart of ``egonerf_tpu/ops/volrend.py`` and the
-composite in ``egonerf_tpu/models/egonerf.py:466-493``)."""
+composite in ``egonerf_tpu/models/egonerf.py:466-493``), with the
+envmap's background blend where the caller gives its radiance."""
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,36 +37,47 @@ def raw2alpha(sigma: torch.Tensor, dist: torch.Tensor):
 
 
 def composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift=-8.0,
-                    distance_scale=25.0, act="softplus"):
+                    distance_scale=25.0, act="softplus", env=None):
     """Plain version of K6: see :func:`composite`."""
     sigma = density_activation(feat, density_shift, act)
     _, weight, bg_weight = raw2alpha(sigma, dists * distance_scale)
     acc = weight.sum(-1)
-    rgb_map = (weight[..., None] * rgb).sum(-2).clamp(0.0, 1.0)
+    x = (weight[..., None] * rgb).sum(-2)
     depth = (weight * z_vals).sum(-1) + (1.0 - acc) * ray_dz
-    return rgb_map, depth, acc, bg_weight
+    if env is None:
+        return x.clamp(0.0, 1.0), depth, acc, bg_weight
+    bg_map = bg_weight * env
+    return (x + bg_map).clamp(0.0, 1.0), depth, acc, bg_weight, bg_map
 
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 5
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 6
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
               rgb: torch.Tensor, ray_dz: torch.Tensor, density_shift: float = -8.0,
-              distance_scale: float = 25.0, act: str = "softplus"
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+              distance_scale: float = 25.0, act: str = "softplus",
+              env: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """K6: per ray, sigma = feature2density(feat); alpha = 1 -
     exp(-sigma * dists * distance_scale); the exclusive transmittance;
     weights; acc = sum(weights); rgb_map = clip(sum(weights * rgb), 0, 1);
     depth = sum(weights * z) + (1 - acc) * ray_dz (the reference fills the
     background with the z component of the view direction); bg_weight = the
-    transmittance over the whole ray.
+    transmittance over the whole ray.  With the envmap radiance ``env`` the
+    background is a last sample of alpha 1: bg_map = bg_weight * env and
+    rgb_map = clip(sum(weights * rgb) + bg_map, 0, 1), the clip after the
+    blend.
 
-    feat, dists, z_vals (R, S), rgb (R, S, 3), ray_dz (R,), all float32.
-    Returns rgb_map (R, 3), depth (R,), acc (R,), bg_weight (R, 1).
+    feat, dists, z_vals (R, S), rgb (R, S, 3), ray_dz (R,), env (R, 3) or
+    None, all float32.  Returns rgb_map (R, 3), depth (R,), acc (R,),
+    bg_weight (R, 1), and bg_map (R, 3) with ``env``.
 
     Replaces ``raw2alpha`` + ``feature2density`` + the composite of
-    ``EgoNeRF.forward`` (egonerf_tpu/ops/volrend.py:11-24,
+    ``EgoNeRF.forward`` with its envmap blend (egonerf_tpu/ops/volrend.py:11-24,
     models/egonerf.py:99-104,466-493), forward only.  Kernel:
     csrc/composite.cu.  CPU tensors take :func:`composite_plain`."""
     check_tensor("feat", feat, torch.float32, (None, None))
@@ -73,29 +85,33 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
     for name, t, shape in (("dists", dists, (r, s)), ("z_vals", z_vals, (r, s)),
                            ("rgb", rgb, (r, s, 3)), ("ray_dz", ray_dz, (r,))):
         check_tensor(name, t, torch.float32, shape, feat.device)
+    if env is not None:
+        check_tensor("env", env, torch.float32, (r, 3), feat.device)
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown density activation {act!r}")
     if s < 1 or s > 3072:  # the kernel keeps 4 warps x S alphas in 48 KB
         raise ValueError(f"composite takes 1..3072 samples per ray, got {s}")
     if feat.device.type == "cpu":
         return composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift,
-                               distance_scale, act)
+                               distance_scale, act, env)
     dev = feat.device
     rgb_map = torch.empty(r, 3, dtype=torch.float32, device=dev)
     depth = torch.empty(r, dtype=torch.float32, device=dev)
     acc = torch.empty(r, dtype=torch.float32, device=dev)
     bg = torch.empty(r, 1, dtype=torch.float32, device=dev)
+    bg_map = None if env is None else torch.empty(r, 3, dtype=torch.float32, device=dev)
     if r:
         fn = kernel("composite", "composite_fwd", _ARGS)
         with torch.cuda.device(dev):
             err = fn(feat.data_ptr(), dists.data_ptr(), z_vals.data_ptr(),
-                     rgb.data_ptr(), ray_dz.data_ptr(), r, s, float(density_shift),
+                     rgb.data_ptr(), ray_dz.data_ptr(), _ptr(env), r, s, float(density_shift),
                      float(distance_scale), ACTIVATIONS.index(act),
                      rgb_map.data_ptr(), depth.data_ptr(), acc.data_ptr(),
-                     bg.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                     bg.data_ptr(), _ptr(bg_map), torch.cuda.current_stream(dev).cuda_stream)
         check_launch("composite_fwd", err)
         composite.launches += 1
-    return rgb_map, depth, acc, bg
+    outs = (rgb_map, depth, acc, bg)
+    return outs if env is None else outs + (bg_map,)
 
 
 composite.launches = 0
@@ -110,7 +126,7 @@ def clip_grad(x: torch.Tensor) -> torch.Tensor:
 
 
 def composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift=-8.0,
-                        distance_scale=25.0, act="softplus"):
+                        distance_scale=25.0, act="softplus", env=None):
     """Plain version of K6b: see :func:`composite_bwd`.  torch autograd
     through the forward of :func:`composite_plain`, with the slopes the
     kernel uses: sigmoid(feat + shift) for softplus, [feat > 0] for relu,
@@ -122,33 +138,40 @@ def composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift=-8.0,
                  else (f > 0.0).to(f.dtype)).detach()
         # the forward's sigma to the bit, with d sigma / d feat = slope
         sigma = density_activation(f, density_shift, act).detach() + (f - f.detach()) * slope
-        _, weight, _ = raw2alpha(sigma, dists * distance_scale)
+        _, weight, bg_weight = raw2alpha(sigma, dists * distance_scale)
         x = (weight[..., None] * c).sum(-2)
-        d_feat, d_rgb = torch.autograd.grad(x, (f, c), d_rgb_map * clip_grad(x.detach()))
-    return d_feat, d_rgb
+        leaves = (f, c)
+        if env is not None:
+            e = env.detach().requires_grad_(True)
+            x = x + bg_weight * e
+            leaves += (e,)
+        return torch.autograd.grad(x, leaves, d_rgb_map * clip_grad(x.detach()))
 
 
-_BWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                     ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3
+_BWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
 
 
 def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
                   d_rgb_map: torch.Tensor, density_shift: float = -8.0,
-                  distance_scale: float = 25.0, act: str = "softplus"
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  distance_scale: float = 25.0, act: str = "softplus",
+                  env: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """K6b: the gradient of :func:`composite`'s rgb_map with respect to
-    feat and rgb, given d_rgb_map (R, 3).  Per ray it recomputes the
-    forward scan and runs the division-free reverse recurrence
-    R_j = alpha_j q_j + (1 - alpha_j + 1e-10) R_{j+1}, q_j = rgb_j . g,
-    g = d_rgb_map times JAX's clip gradient of the unclipped sum; then
-    d alpha_j = T_j (q_j - R_{j+1}) and d rgb_j = w_j g.  depth, acc and
-    bg take no gradient (JAX stops depth's; z and dists are constants).
+    feat and rgb (and ``env``, where given), given d_rgb_map (R, 3).  Per
+    ray it recomputes the forward scan and runs the division-free reverse
+    recurrence R_j = alpha_j q_j + (1 - alpha_j + 1e-10) R_{j+1},
+    q_j = rgb_j . g, from R_{S+1} = env . g (0 without the envmap: JAX's
+    background is a last sample of alpha 1), g = d_rgb_map times JAX's clip
+    gradient of the blended sum; then d alpha_j = T_j (q_j - R_{j+1}),
+    d rgb_j = w_j g and d env = bg_weight g.  depth, acc and bg take no
+    gradient (JAX stops depth's; z and dists are constants).
 
-    feat, dists (R, S), rgb (R, S, 3), d_rgb_map (R, 3), float32.  Returns
-    d_feat (R, S) and d_rgb (R, S, 3).
+    feat, dists (R, S), rgb (R, S, 3), d_rgb_map (R, 3), env (R, 3) or
+    None, float32.  Returns d_feat (R, S) and d_rgb (R, S, 3), and d_env
+    (R, 3) with ``env``.
 
     Replaces the autodiff of ``raw2alpha`` + ``feature2density`` + the
-    composite (egonerf_tpu/ops/volrend.py:11-24,
+    composite and its envmap blend (egonerf_tpu/ops/volrend.py:11-24,
     models/egonerf.py:466-493).  Kernel: csrc/composite.cu.  CPU tensors
     take :func:`composite_bwd_plain`."""
     check_tensor("feat", feat, torch.float32, (None, None))
@@ -156,26 +179,29 @@ def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
     for name, t, shape in (("dists", dists, (r, s)), ("rgb", rgb, (r, s, 3)),
                            ("d_rgb_map", d_rgb_map, (r, 3))):
         check_tensor(name, t, torch.float32, shape, feat.device)
+    if env is not None:
+        check_tensor("env", env, torch.float32, (r, 3), feat.device)
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown density activation {act!r}")
     if s < 1 or s > 1536:  # the kernel keeps 4 warps x 2S floats in 48 KB
         raise ValueError(f"composite_bwd takes 1..1536 samples per ray, got {s}")
     if feat.device.type == "cpu":
         return composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift,
-                                   distance_scale, act)
+                                   distance_scale, act, env)
     dev = feat.device
     d_feat = torch.empty(r, s, dtype=torch.float32, device=dev)
     d_rgb = torch.empty(r, s, 3, dtype=torch.float32, device=dev)
+    d_env = None if env is None else torch.empty(r, 3, dtype=torch.float32, device=dev)
     if r:
         fn = kernel("composite", "composite_bwd", _BWD_ARGS)
         with torch.cuda.device(dev):
             err = fn(feat.data_ptr(), dists.data_ptr(), rgb.data_ptr(), d_rgb_map.data_ptr(),
-                     r, s, float(density_shift), float(distance_scale),
+                     _ptr(env), r, s, float(density_shift), float(distance_scale),
                      ACTIVATIONS.index(act), d_feat.data_ptr(), d_rgb.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     _ptr(d_env), torch.cuda.current_stream(dev).cuda_stream)
         check_launch("composite_bwd", err)
         composite_bwd.launches += 1
-    return d_feat, d_rgb
+    return (d_feat, d_rgb) if env is None else (d_feat, d_rgb, d_env)
 
 
 composite_bwd.launches = 0
@@ -186,25 +212,27 @@ class _Composite(torch.autograd.Function):
     so the plain versions run through the same Function)."""
 
     @staticmethod
-    def forward(ctx, feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act,
-                fwd, bwd):
-        outs = fwd(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act)
-        ctx.save_for_backward(feat, dists, rgb)
+    def forward(ctx, feat, dists, z_vals, rgb, ray_dz, env, density_shift, distance_scale,
+                act, fwd, bwd):
+        outs = fwd(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act, env)
+        ctx.save_for_backward(feat, dists, rgb, env)
         ctx.args = (density_shift, distance_scale, act, bwd)
         ctx.mark_non_differentiable(*outs[1:])
         return outs
 
     @staticmethod
     def backward(ctx, d_rgb_map, *_):
-        feat, dists, rgb = ctx.saved_tensors
+        feat, dists, rgb, env = ctx.saved_tensors
         shift, scale, act, bwd = ctx.args
-        d_feat, d_rgb = bwd(feat, dists, rgb, d_rgb_map.contiguous(), shift, scale, act)
-        return d_feat, None, None, d_rgb, None, None, None, None, None, None
+        grads = bwd(feat, dists, rgb, d_rgb_map.contiguous(), shift, scale, act, env)
+        d_env = grads[2] if env is not None else None
+        return grads[0], None, None, grads[1], None, d_env, None, None, None, None, None
 
 
 def composite_train(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act,
-                    fwd=composite, bwd=composite_bwd):
+                    fwd=composite, bwd=composite_bwd, env=None):
     """:func:`composite` with a gradient: rgb_map is differentiable in feat
-    and rgb through ``bwd`` (K6b); depth, acc and bg are not."""
-    return _Composite.apply(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale,
-                            act, fwd, bwd)
+    and rgb (and ``env``) through ``bwd`` (K6b); depth, acc, bg and bg_map
+    are not."""
+    return _Composite.apply(feat, dists, z_vals, rgb, ray_dz, env, density_shift,
+                            distance_scale, act, fwd, bwd)

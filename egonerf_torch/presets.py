@@ -7,13 +7,20 @@ N_voxel 27e6 on the yin-yang chart gives the grid [150, 172, 516];
 n_lamb 16/48 per decomposition; MLP_Fea with featureC 128 and view/feature
 PE 2; exponential sampling with interval_th and r0 0.03; 128 coarse + 128
 fine samples; eval chunks of 4096 rays; near/far [0.01, 15].
+
+The outdoor (envmap) configurations change a few fields of that shape:
+:func:`outdoor_overrides` reads them from ``OUTDOOR_CONFIG``'s include
+chain.
 """
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
 from .coords.yinyang import YinYangSphericalCoords
 from .models.egonerf import EgoNeRF, FieldConfig
+from .train.config import load_config
 
 N_VOXEL = 27_000_000
 R0 = 0.03
@@ -46,6 +53,25 @@ def production_overrides(**deltas) -> dict:
         train_cull_tau=0.0)
     base.update(deltas)
     return base
+
+
+# the OmniBlender outdoor scene whose shape the envmap path runs at, and the
+# fields of its include chain (with ``common.txt``) that differ from the
+# production shape above
+OUTDOOR_CONFIG = (Path(__file__).resolve().parent.parent / "configs" / "egonerf"
+                  / "omniblender" / "bistro_square.txt")
+OUTDOOR_FIELDS = ("near_far", "use_envmap", "envmap_res_H", "iter_pretrain_envmap", "r0")
+
+
+def outdoor_overrides(**deltas) -> dict:
+    """:func:`production_overrides` with the outdoor fields of
+    ``configs/egonerf/omniblender/bistro_square.txt`` as the port's
+    ``load_config`` reads them through its include chain: near/far
+    [0.1, 300], the envmap at ``envmap_res_H`` 1000 with 10000 pretrain
+    steps, r0 0.05 (``common.txt``).  The data stay the procedural scene.
+    ``deltas`` win."""
+    cfg = load_config(str(OUTDOOR_CONFIG))
+    return production_overrides(**{**{k: getattr(cfg, k) for k in OUTDOOR_FIELDS}, **deltas})
 
 
 def scene_aabb(camera_centers: np.ndarray, far: float = NEAR_FAR[1]) -> np.ndarray:

@@ -5,7 +5,8 @@
 Rays go through ``EgoNeRF.forward`` in fixed chunks under
 ``torch.no_grad()``; the tail is padded by repeating the last ray and
 trimmed from the outputs.  The bf16 lookup tables and the coarse grid are
-built once per ``render_*`` call.
+built once per ``render_*`` call.  With the envmap the outputs gain ``bg``,
+and ``pretrain_envmap`` renders the envmap's radiance ``env`` alone.
 """
 from __future__ import annotations
 
@@ -24,10 +25,10 @@ class Renderer:
     exp_sampling, resampling, use_coarse_sample, white_bg, eval_keep), as
     the JAX ``Renderer.from_config`` maps them from a training config."""
 
-    OUT_KEYS = ("rgb", "depth")  # bg and env come with the envmap
-
     def __init__(self, model, chunk: int = 4096, **render_kwargs):
         self.model = model
+        # env is view-independent: the pretrain_envmap render gives it
+        self.out_keys = ("rgb", "depth") + (("bg",) if model.cfg.use_envmap else ())
         self.chunk = int(chunk)
         self.render_kwargs = dict(render_kwargs)
         self._dirs = None
@@ -52,19 +53,22 @@ class Renderer:
         return x
 
     @torch.no_grad()
-    def _render_chunks(self, params, rays_of_chunk, n_chunks: int, n: int) -> dict:
+    def _render_chunks(self, params, rays_of_chunk, n_chunks: int, n: int,
+                       pretrain_envmap: bool = False) -> dict:
         model = self.model
-        tables = model.lookup_tables(params)
-        outs = []
-        for c in range(n_chunks):
-            out = model.forward(params, rays_of_chunk(c), key=None, is_train=False,
-                                tables=tables, **self.render_kwargs)
-            outs.append(out)
-        return {k: torch.cat([o[k] for o in outs])[:n] for k in self.OUT_KEYS}
+        if pretrain_envmap:
+            kw, keys = {"pretrain_envmap": True}, ("env",)
+        else:
+            kw = dict(tables=model.lookup_tables(params), **self.render_kwargs)
+            keys = self.out_keys
+        outs = [model.forward(params, rays_of_chunk(c), key=None, is_train=False, **kw)
+                for c in range(n_chunks)]
+        return {k: torch.cat([o[k] for o in outs])[:n] for k in keys}
 
-    def render_rays(self, params, rays) -> dict:
+    def render_rays(self, params, rays, pretrain_envmap: bool = False) -> dict:
         """rays (N, 6), numpy or tensor -> dict of (N, ...) tensors on the
-        model's device."""
+        model's device; ``pretrain_envmap`` gives the envmap's ``env``
+        alone."""
         dev = self.model.device
         rays = torch.as_tensor(np.asarray(rays, np.float32) if isinstance(rays, np.ndarray)
                                else rays, dtype=torch.float32, device=dev)
@@ -72,7 +76,7 @@ class Renderer:
         rays = self._pad(rays)
         return self._render_chunks(
             params, lambda c: rays[c * self.chunk:(c + 1) * self.chunk],
-            rays.shape[0] // self.chunk, n)
+            rays.shape[0] // self.chunk, n, pretrain_envmap)
 
     def set_directions(self, directions) -> None:
         """Install the camera-frame direction grid (h, w, 3) or (N, 3),
@@ -102,15 +106,27 @@ class Renderer:
 
 
 def evaluation(test_dataset, model, params, renderer: Renderer, save_path=None,
-               n_vis: int = -1, prefix: str = "") -> list:
+               n_vis: int = -1, prefix: str = "", envmap_only: bool = False) -> list:
     """Render the test split and return the PSNR of each rendered view;
     with ``save_path``, write ``{prefix}mean.txt`` in the JAX package's
     five-row layout [psnr, ssim, ws_ssim, lpips_alex, lpips_vgg], nan where
     the port has no metric yet.  ``n_vis`` > 0 renders every
-    (n_images // n_vis)-th view, -1 all, 0 none."""
+    (n_images // n_vis)-th view, -1 all, 0 none.  ``envmap_only`` renders
+    the envmap's radiance of view 0 alone (the pretrain's check, JAX
+    ``renderer.py:220-226``; PNG output waits) and returns []."""
     w, h = test_dataset.img_wh
     n_images = test_dataset.all_rays.shape[0]
     if n_vis == 0:
+        return []
+    if envmap_only:
+        out = renderer.render_rays(params, test_dataset.all_rays[0].reshape(-1, 6),
+                                   pretrain_envmap=True)
+        env = out["env"].reshape(h, w, 3)
+        line = f"envmap of view 0: mean radiance {float(env.mean()):.4f}"
+        if len(test_dataset.all_rgbs):
+            gt = np.asarray(test_dataset.all_rgbs[0]).reshape(h, w, 3)
+            line += f", psnr {psnr_fn(env.cpu().numpy(), gt):.2f} against the image"
+        print(line)
         return []
     interval = 1 if n_vis < 0 else max(n_images // n_vis, 1)
     idxs = list(range(0, n_images, interval))

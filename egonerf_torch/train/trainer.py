@@ -7,14 +7,16 @@ K3 and K4 on the detached coarse grid, the fine field through K1/K2, the
 shader through torch autograd, the composite through K6/K6b), takes the
 MSE, and steps Adam.  Nothing synchronises the host per step: the MSE is
 read with ``.item()`` only every ``progress_refresh_rate`` steps.  Events
-(``vis_list``, ``i_weights``, the end) fire as in JAX.
+(``vis_list``, ``i_weights``, the end) fire as in JAX.  With the envmap a
+fresh run first fits the envmap alone (``pretrain_envmap``, JAX
+``trainer.py:612-645``).
 
 What the JAX trainer does besides, the port does not carry yet and refuses
-by name (ROADMAP.md §1): the envmap and its pretrain; the TV, L1, Ortho,
-entropy, sparsity and depth losses; grid upsampling and the alpha mask
-(their sentinel schedules beyond ``n_iters`` are accepted); the
-empty-space cull, the theta-importance sampler, ray filtering, the device
-mesh and the profiler hook.
+by name (ROADMAP.md §1): the TV, L1, Ortho, entropy, sparsity and depth
+losses; grid upsampling and the alpha mask (their sentinel schedules
+beyond ``n_iters`` are accepted); the empty-space cull, the
+theta-importance sampler, ray filtering, the device mesh and the profiler
+hook.
 """
 from __future__ import annotations
 
@@ -44,8 +46,6 @@ def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every option of the JAX trainer
     that the port does not carry yet."""
     refused = []
-    if cfg.use_envmap or cfg.iter_pretrain_envmap > 0:
-        refused.append("the envmap and its pretrain")
     for name in ("TV_weight_density", "TV_weight_app", "L1_weight_initial", "L1_weight_rest",
                  "Ortho_weight", "entropy_weight", "sparsity_lambda"):
         if getattr(cfg, name) > 0:
@@ -144,18 +144,37 @@ class Trainer:
             self.model.init_params(torch.Generator(device=dev).manual_seed(cfg.seed))
         self.params = self.model.params()
 
-        # -- optimizer: the decay counts from the resume point ------------
-        decay_iters = cfg.lr_decay_iters if cfg.lr_decay_iters > 0 else cfg.n_iters
-        self.optimizer = Optimizer(self.params, cfg.lr_init, cfg.lr_basis, cfg.lr_envmap,
-                                   cfg.lr_decay_target_ratio, decay_iters)
+        # -- optimizer at the main loop's envmap lr (the pretrain builds its
+        # own and rebuilds this one after); the decay counts from the resume
+        # point ----------------------------------------------------------
+        self.optimizer = self._build_optimizer(cfg.lr_envmap)
         self.optimizer.fast_forward(self.start_step)
 
         # -- device-resident training rays and the step's generator -------
         self.generator = torch.Generator(device=dev).manual_seed(cfg.seed + 2)
-        self.sampler = DeviceRaySampler(self.train_dataset.all_rays,
-                                        self.train_dataset.all_rgbs, cfg.batch_size,
-                                        self.generator)
+        self._install_sampler()
         self.renderer = Renderer.from_config(self.model, cfg, self.white_bg)
+
+    def _build_optimizer(self, lr_envmap: float, decay: bool = True) -> Optimizer:
+        cfg = self.cfg
+        decay_iters = cfg.lr_decay_iters if cfg.lr_decay_iters > 0 else cfg.n_iters
+        return Optimizer(self.params, cfg.lr_init, cfg.lr_basis, lr_envmap,
+                         cfg.lr_decay_target_ratio if decay else 1.0, decay_iters)
+
+    def _install_sampler(self) -> None:
+        self.sampler = DeviceRaySampler(self.train_dataset.all_rays,
+                                        self.train_dataset.all_rgbs, self.cfg.batch_size,
+                                        self.generator)
+
+    def set_datasets(self, train_dataset, test_dataset) -> None:
+        """Swap datasets after construction (JAX ``trainer.py:548-563``):
+        the resident training rays and the sampler follow.  The scene
+        geometry taken at construction (aabb, near/far, white_bg and the
+        model built from them) stays: swap datasets of the same scene
+        setup."""
+        self.train_dataset = train_dataset
+        self.test_dataset = test_dataset
+        self._install_sampler()
 
     # ------------------------------------------------------------------
     def train_step(self, iteration: int) -> torch.Tensor:
@@ -175,12 +194,44 @@ class Trainer:
         self.optimizer.step()
         return mse.detach()
 
+    def pretrain_step(self) -> torch.Tensor:
+        """One envmap pretrain step: the MSE of the envmap's radiance alone
+        (``pretrain_envmap`` forward: K8, K8b) on a batch; returns it as a
+        device scalar."""
+        row = self.sampler.next_batch()
+        out = self.model.forward(self.params, row[:, :6], pretrain_envmap=True)
+        mse = torch.mean((out["env"] - row[:, 6:9]) ** 2)
+        self.optimizer.zero_grad()
+        mse.backward()
+        self.optimizer.step()
+        return mse.detach()
+
+    def pretrain_envmap(self) -> None:
+        """Fit the envmap alone to the training images before volume
+        training (JAX ``trainer.py:612-645``); resumed runs skip it.  Adam
+        runs at ``lr_envmap_pretrain`` with no decay (only the envmap has a
+        gradient, so only it moves), then is rebuilt at ``lr_envmap`` with
+        fresh moments and the decay counted from 0."""
+        cfg = self.cfg
+        if not (cfg.use_envmap and cfg.iter_pretrain_envmap > 0) or self.start_step > 0:
+            return
+        print(f"pretraining envmap for {cfg.iter_pretrain_envmap} iters")
+        self.optimizer = self._build_optimizer(cfg.lr_envmap_pretrain, decay=False)
+        for it in range(1, cfg.iter_pretrain_envmap + 1):
+            mse = self.pretrain_step()
+            if it % 200 == 0:
+                print(f"  envmap pretrain {it}: mse {mse.item():.5f}")
+        evaluation(self.test_dataset, self.model, self.params, self.renderer,
+                   save_path=os.path.join(self.logdir, "imgs_vis"), envmap_only=True)
+        self.optimizer = self._build_optimizer(cfg.lr_envmap)
+
     def _evaluate(self, save_path, prefix="", n_vis=-1) -> list:
         return evaluation(self.test_dataset, self.model, self.params, self.renderer,
                           save_path=save_path, n_vis=n_vis, prefix=prefix)
 
     def train(self) -> list:
         cfg = self.cfg
+        self.pretrain_envmap()
         vis_list = set(cfg.vis_list or [])
         psnrs_test = [0.0]
         t_start, rays_done = time.time(), 0

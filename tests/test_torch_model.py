@@ -176,8 +176,7 @@ def test_load_jax_checkpoint(pair, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [dict(is_train=True, exp_sampling=False), dict(eval_keep=8),
-                                    dict(exp_sampling=False), dict(pretrain_envmap=True),
-                                    dict(ndc_ray=True)])
+                                    dict(exp_sampling=False), dict(ndc_ray=True)])
 def test_unported_options_raise(pair, kwargs):
     _, _, _, tm = pair
     with pytest.raises(NotImplementedError):

@@ -215,6 +215,26 @@ def test_resample_plain_matches_jax_composition(rng):
         assert torch.equal(g, p)
 
 
+@pytest.mark.parametrize("s", [3, 16, 77, 128, 200])
+def test_resample_warp_order_matches_jax(rng, s):
+    """K4's plain version takes its products and sums in the kernel's lane
+    order (so the two give the same depths on the card); the weights and
+    the cdf stay JAX's cumprod and cumsum within float32 rounding, with
+    lane chunks of 1 to 7 samples and a ragged last lane.  A product or sum
+    of n terms taken in two associations differs by up to ~n/2 ulps, about
+    sqrt(n) typically: rel 5e-6 holds n = 200."""
+    sigma = rng.exponential(0.5, (8, s)).astype(np.float32)
+    d = rng.uniform(0.0, 0.2, (8, s)).astype(np.float32)
+    alpha, want_w, _ = jvol.raw2alpha(jnp.asarray(sigma), jnp.asarray(d))
+    got_w = pdf._warp_weights(_t(np.asarray(alpha)))
+    np.testing.assert_allclose(_np(got_w), np.asarray(want_w), rtol=5e-6, atol=1e-12)
+    w = np.asarray(want_w)[:, 1:-1]
+    want_cdf = np.cumsum((w + 1e-5) / (w + 1e-5).sum(-1, keepdims=True), -1)
+    got_cdf = _np(pdf._warp_cdf(_t(w)))
+    assert got_cdf.shape == (8, s - 1) and (got_cdf[:, 0] == 0).all()
+    np.testing.assert_allclose(got_cdf[:, 1:], want_cdf, rtol=5e-6, atol=1e-7)
+
+
 def test_composite_plain_matches_jax_composition(rng):
     """K6's plain version against the JAX forward's composite."""
     r, s = 32, 24

@@ -13,7 +13,8 @@ import torch
 
 import egonerf_torch
 from egonerf_torch import _build, _device
-from egonerf_torch.ops import merge, pdf, vm_lookup, volrend
+from egonerf_torch.coords.yinyang import YinYangSphericalCoords
+from egonerf_torch.ops import chart, envmap, merge, pdf, vm_lookup, volrend
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "egonerf_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -77,7 +78,7 @@ def test_build_dir_keyed_by_sources():
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
     assert d == _build.build_dir()
     assert {p.stem for p in _build.sources()} == {"vm_lookup", "resample", "composite",
-                                                  "sorted_uniform"}
+                                                  "sorted_uniform", "chart", "envmap"}
 
 
 def _tables(c=12, dtype=torch.bfloat16):
@@ -123,6 +124,30 @@ def _composite(**over):
     return volrend.composite(**args)
 
 
+def _coords(**over):
+    return YinYangSphericalCoords([[-2.0] * 3, [2.0] * 3], exp_r=True, N_voxel=12 ** 3, r0=0.05,
+                                  **over)
+
+
+def _chart(**over):
+    args = dict(rays_o=torch.zeros(8, 3), viewdirs=torch.ones(8, 3), z=torch.ones(8, 5),
+                coords=_coords(interval_th=True))
+    args.update(over)
+    return chart.chart_fwd(**args)
+
+
+def _envmap(**over):
+    args = dict(table=torch.zeros(8, 4, 3), dirs=torch.ones(6, 3))
+    args.update(over)
+    return envmap.envmap_fwd(**args)
+
+
+def _envmap_bwd(**over):
+    args = dict(dirs=torch.ones(6, 3), env=torch.zeros(6, 3), d_env=torch.zeros(6, 3), h=4)
+    args.update(over)
+    return envmap.envmap_bwd(**args)
+
+
 BAD_CALLS = {
     "field coords float64": (lambda: _field(coords=torch.zeros(16, 4, dtype=torch.float64)),
                              TypeError),
@@ -155,6 +180,20 @@ BAD_CALLS = {
         feat=torch.zeros(1, 1537), dists=torch.zeros(1, 1537), rgb=torch.zeros(1, 1537, 3),
         d_rgb_map=torch.zeros(1, 3)), ValueError),
     "sorted_uniform no draws": (lambda: merge.sorted_uniform(4, 0, 0, 0, "cpu"), ValueError),
+    "composite env shape": (lambda: _composite(env=torch.zeros(8, 4)), ValueError),
+    "composite_bwd env dtype": (lambda: _composite_bwd(env=torch.zeros(8, 3,
+                                                                       dtype=torch.float64)),
+                                TypeError),
+    "chart rays (R, 4)": (lambda: _chart(rays_o=torch.zeros(8, 4)), ValueError),
+    "chart column stride": (lambda: _chart(viewdirs=torch.zeros(3, 8).T), ValueError),
+    "chart z rows": (lambda: _chart(z=torch.ones(7, 5)), ValueError),
+    "chart z float64": (lambda: _chart(z=torch.ones(8, 5, dtype=torch.float64)), TypeError),
+    "chart not yin-yang": (lambda: _chart(coords=object()), TypeError),
+    "envmap table (h, h, 3)": (lambda: _envmap(table=torch.zeros(4, 4, 3)), ValueError),
+    "envmap table strided": (lambda: _envmap(table=torch.zeros(8, 4, 6)[..., :3]), ValueError),
+    "envmap dirs (R, 2)": (lambda: _envmap(dirs=torch.ones(6, 2)), ValueError),
+    "envmap_bwd env shape": (lambda: _envmap_bwd(env=torch.zeros(5, 3)), ValueError),
+    "envmap_bwd h": (lambda: _envmap_bwd(h=1), ValueError),
 }
 
 
@@ -180,6 +219,34 @@ def test_wrappers_on_cpu_take_the_plain_versions():
     assert [g.shape for g in g_planes + g_lines] == [(2, 5, 6, 12)] * 3 + [(2, 7, 12)] * 3
     assert [t.shape for t in _composite_bwd()] == [(8, 32), (8, 32, 3)]
     assert merge.sorted_uniform(8, 5, 0, 0, "cpu").shape == (8, 5)
+    assert [t.shape for t in _composite(env=torch.zeros(8, 3))] == [(8, 3), (8,), (8,), (8, 1),
+                                                                   (8, 3)]
+    assert [t.shape for t in _composite_bwd(env=torch.zeros(8, 3))] == [(8, 32), (8, 32, 3),
+                                                                       (8, 3)]
+    assert [f.launches for f in counters] == before
+
+
+@pytest.mark.parametrize("interval_th", [True, False])
+def test_chart_and_envmap_entries_take_the_plain_versions_on_cpu(interval_th):
+    """The ``Ops`` entries of K7, K8 and K8b give CPU tensors their plain
+    versions (the same values) and launch nothing."""
+    from egonerf_torch import ops
+
+    counters = (chart.chart_fwd, envmap.envmap_fwd, envmap.envmap_bwd)
+    before = [f.launches for f in counters]
+    gen = torch.Generator().manual_seed(0)
+    o, d = torch.rand(8, 3, generator=gen), torch.randn(8, 3, generator=gen)
+    z, table = torch.rand(8, 5, generator=gen) * 3, torch.rand(8, 4, 3, generator=gen)
+    coords = _coords(interval_th=interval_th)
+    for ds in (None, 2):
+        got = ops.KERNELS.chart(o, d, z, coords, ds)
+        assert got.shape == (40, 4)
+        assert torch.equal(got, ops.PLAIN.chart(o, d, z, coords, ds))
+    env = ops.KERNELS.envmap(table, d)
+    assert env.shape == (8, 3) and torch.equal(env, ops.PLAIN.envmap(table, d))
+    g = torch.randn(8, 3, generator=gen)
+    grad = ops.KERNELS.envmap_bwd(d, env, g, 4)
+    assert grad.shape == (8, 4, 3) and torch.equal(grad, ops.PLAIN.envmap_bwd(d, env, g, 4))
     assert [f.launches for f in counters] == before
 
 

@@ -324,7 +324,6 @@ def test_render_test_reads_the_checkpoint(trained):
 
 
 UNPORTED = {
-    "envmap": dict(use_envmap=True),
     "tv": dict(TV_weight_density=0.1),
     "l1": dict(L1_weight_initial=1e-4),
     "ortho": dict(Ortho_weight=1e-3),
