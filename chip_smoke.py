@@ -42,7 +42,22 @@ Phases, each printing its own lines; any failure exits non-zero:
 13. the JAX package's envmap quality recipe (``tools/envmap_e2e.py``:
     500 pretrain + 3000 steps, N_voxel 8e6, 12 + 2 views at 800x400)
     through ``Trainer`` and ``set_datasets``: its test PSNR against the
-    JAX package's 28.67 dB less its seed band.
+    JAX package's 28.67 dB less its seed band;
+14. the TensoRF family (TensorVMSplit, ``presets.tensorf_mask_overrides``:
+    the xyz chart at 256^3, 256 samples a ray) with a 128^3 alpha mask of
+    about half occupancy: one 1000x500 view (K1, K9, K6 once per chunk);
+    phase 2 holds its kernels (K1, K2, K3 on a single grid, K6 and K6b with
+    the sample gates, K9) against their plain versions on the inputs of
+    one of its steps and of its bake;
+15. a few of those chunks with the kernels and with the plain versions;
+16. the JAX ``tensorf_bench`` recipe (1200 steps, the mask baked at 1000)
+    through ``Trainer``, then 20 timed steps (K1, K2, K9, K6, K6b once a
+    step), where the time goes, the bake's time and launches, and the gate
+    occupancy;
+17. one of those steps with the kernels and with the plain versions;
+18. the JAX ``tensorf`` quality recipe unchanged (6000 steps, 128^3 ->
+    256^3 at 1000/2000/3000, 12 + 2 views at 1000x500): its test PSNR
+    against the JAX package's 40.40 dB less the seed band.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
@@ -81,6 +96,8 @@ K5_TOL = 1e-6
 K7_TOL = 1e-5
 # K8 vs plain: the same corners and weights; sigmoids in (0, 1), float32 ulps
 K8_TOL = 1e-6
+# K9 vs plain: the same eight products of 0/1 cells, added in the same order
+K9_TOL = 1e-6
 # one training step, kernels vs plain: the loss to rel 1e-5; each gradient
 # tensor in relative L2 norm, see phase 7
 GRAD_TOL = 1e-3
@@ -92,7 +109,7 @@ SLEEP_CYCLES = 200_000_000
 # device-side names of the kernels in csrc/
 PORT_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
                 "sorted_uniform_kernel", "composite_kernel", "composite_bwd_kernel",
-                "chart_kernel", "envmap_kernel", "envmap_bwd_kernel")
+                "chart_kernel", "envmap_kernel", "envmap_bwd_kernel", "alphamask_kernel")
 TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 5, 20, 3
 SMOKE_ITERS = 300
 DEVICE = "cuda"
@@ -109,6 +126,12 @@ JAX_ENV_E2E_PSNR = 28.67
 # the envmap scene of phases 9-11: the procedural scene's default views,
 # its background at infinity
 ENV_SCENE = dict(n_train=8, n_test=2, height=100, width=200, background="env")
+# the TensoRF view of phase 14 (the quality recipe's test views' size), the
+# bake's resolution cap, and the JAX package's tensorf result
+# (docs/results_tensorf.json; the seed band was measured on EgoNeRF)
+TF_IMAGE_HW = (500, 1000)
+TF_MASK_RESO = 128
+JAX_TENSORF_PSNR = 40.40
 
 
 def fail(msg: str) -> None:
@@ -225,6 +248,58 @@ def kernel_row(name, source, replaces, abs_err, ms, plain_ms, n_bytes, n_ops,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
+def check_case(name, source, replaces, kern, plain, args, n_bytes, n_ops, abs_tol=None,
+               tol_desc=None) -> dict:
+    """One kernel against its plain version on ``args``: same shapes, finite,
+    within rel REL_TOL of max|plain| (or ``abs_tol``); then its row with
+    both times."""
+    with torch.no_grad():
+        out, ref = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for o, r in zip(out, ref):
+        if o.shape != r.shape:
+            fail(f"{name}: shape {tuple(o.shape)} != plain {tuple(r.shape)}")
+        if not torch.isfinite(o).all():
+            fail(f"{name}: non-finite output")
+    abs_err, rel_err = max_err(out, ref)
+    if abs_tol is None:
+        ok, tol_desc = rel_err <= REL_TOL, f"rel <= {REL_TOL:.0e} of max|plain|"
+    else:
+        ok = abs_err <= abs_tol
+    check_close(name, tol_desc, ok, abs_err, rel_err)
+    return kernel_row(name, source, replaces, abs_err, time_ms(lambda: kern(*args)),
+                      time_ms(lambda: plain(*args), reps=5), n_bytes, n_ops)
+
+
+def check_field_bwd(name, args, ops) -> dict:
+    """K2 against its plain version: per cell |kernel - plain| <= K2_TOL *
+    sum|terms| (float32 atomics add in another order)."""
+    coords, planes, lines, d_dens, d_app = args[:5]
+    got, ref = ops.KERNELS.field_bwd(*args), ops.PLAIN.field_bwd(*args)
+    mag = ops.PLAIN.field_bwd(*args, magnitude=True)
+    torch.cuda.synchronize()
+    worst = abs_err = 0.0
+    for g, r, m in zip(got[0] + got[1], ref[0] + ref[1], mag[0] + mag[1]):
+        if not torch.isfinite(g).all():
+            fail(f"{name}: non-finite gradient")
+        d = (g - r).abs()
+        abs_err = max(abs_err, float(d.max()))
+        worst = max(worst, float((d / (m + 1e-30)).max()))
+    check_close(name, f"per cell <= {K2_TOL:.0e} x sum|terms|", worst <= K2_TOL, abs_err, worst)
+    del got, ref, mag
+    n_ch = sum(p.shape[-1] for p in planes)
+    return kernel_row(
+        name, "egonerf_torch/csrc/vm_lookup.cu", "egonerf_tpu/ops/vm_lookup.py:482", abs_err,
+        time_ms(lambda: ops.KERNELS.field_bwd(*args)),
+        time_ms(lambda: ops.PLAIN.field_bwd(*args), reps=5),
+        nbytes(coords, *planes, *lines, d_dens, d_app) + sum(4 * t.numel() for t in planes + lines),
+        # per sample and channel: plane (7) and line (3) recomputed, the
+        # product, dp and dl, 4 + 2 weighted contributions
+        coords.shape[0] * n_ch * 19)
+
+
 def expect_launches(label: str, launches: dict, want: dict) -> None:
     if launches != want:
         fail(f"{label} launch counts {launches}, expected {want}")
@@ -313,29 +388,12 @@ def render_kernel_checks(model, params, dirs, ops, presets, dists_of) -> dict:
          chunk * n_s * 20),
     ]
     table = {}
-    for name, source, replaces, kern, plain, args, n_bytes, n_ops in cases:
-        out = kern(*args)
-        ref = plain(*args)
-        torch.cuda.synchronize()
-        out = out if isinstance(out, tuple) else (out,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        for o, r in zip(out, ref):
-            if o.shape != r.shape:
-                fail(f"{name}: shape {tuple(o.shape)} != plain {tuple(r.shape)}")
-            if not torch.isfinite(o).all():
-                fail(f"{name}: non-finite output")
-        abs_err, rel_err = max_err(out, ref)
-        if name.startswith("K4"):
-            # depths: float32 sums in another order, <= 1e-5 of far
-            ok = abs_err <= REL_TOL * model.near_far[1]
-            tol = f"abs <= {REL_TOL * model.near_far[1]:.1e} (1e-5 x far)"
-        else:
-            ok = rel_err <= REL_TOL
-            tol = f"rel <= {REL_TOL:.0e} of max|plain|"
-        check_close(name, tol, ok, abs_err, rel_err)
-        table[name.split()[0]] = kernel_row(
-            name, source, replaces, abs_err, time_ms(lambda: kern(*args)),
-            time_ms(lambda: plain(*args), reps=5), n_bytes, n_ops)
+    for case in cases:
+        # K4's depths: float32 sums in another order, <= 1e-5 of far
+        far_tol = (dict(abs_tol=REL_TOL * model.near_far[1],
+                        tol_desc=f"abs <= {REL_TOL * model.near_far[1]:.1e} (1e-5 x far)")
+                   if case[0].startswith("K4") else {})
+        table[case[0].split()[0]] = check_case(*case, **far_tol)
 
     # K4's inputs off the eval path: sorted uniforms (the training draws)
     # and no merge with the coarse depths
@@ -390,33 +448,9 @@ def train_kernel_checks(trainer, ops) -> dict:
     torch.cuda.synchronize()
     table = {}
 
-    # K2: per cell |kernel - plain| <= K2_TOL * sum|terms|
-    coords, planes, lines, d_dens, d_app, n_density, line_hat = rec_f.args
+    coords, line_hat = rec_f.args[0], rec_f.args[6]
     n = coords.shape[0]
-    got = ops.KERNELS.field_bwd(*rec_f.args)
-    ref = ops.PLAIN.field_bwd(*rec_f.args)
-    mag = ops.PLAIN.field_bwd(*rec_f.args, magnitude=True)
-    torch.cuda.synchronize()
-    worst = abs_err = 0.0
-    for g, r, m in zip(got[0] + got[1], ref[0] + ref[1], mag[0] + mag[1]):
-        if not torch.isfinite(g).all():
-            fail("K2 field_bwd: non-finite gradient")
-        d = (g - r).abs()
-        abs_err = max(abs_err, float(d.max()))
-        worst = max(worst, float((d / (m + 1e-30)).max()))
-    check_close("K2 field_bwd", f"per cell <= {K2_TOL:.0e} x sum|terms|",
-                worst <= K2_TOL, abs_err, worst)
-    del got, ref, mag
-    n_ch = sum(p.shape[-1] for p in planes)
-    table["K2"] = kernel_row(
-        "K2 field_bwd", "egonerf_torch/csrc/vm_lookup.cu", "egonerf_tpu/ops/vm_lookup.py:482",
-        abs_err, time_ms(lambda: ops.KERNELS.field_bwd(*rec_f.args)),
-        time_ms(lambda: ops.PLAIN.field_bwd(*rec_f.args), reps=5),
-        nbytes(coords, *planes, *lines, d_dens, d_app)
-        + sum(4 * t.numel() for t in planes + lines),
-        # per sample and channel: plane (7) and line (3) recomputed, the
-        # product, dp and dl, 4 + 2 weighted contributions
-        n * n_ch * 19)
+    table["K2"] = check_field_bwd("K2 field_bwd", rec_f.args, ops)
 
     # K5: the same bits; rel K5_TOL
     b, n_f = trainer.cfg.batch_size, trainer.cfg.n_fine
@@ -539,7 +573,7 @@ def envmap_kernel_checks(trainer, ops) -> dict:
         "egonerf_tpu/models/egonerf.py:481", abs_err,
         time_ms(lambda: ops.KERNELS.composite(*c_args)),
         time_ms(lambda: ops.PLAIN.composite(*c_args), reps=5),
-        nbytes(feat, dists, z_vals, rgb, ray_dz, c_args[-1]) + r * 9 * 4, feat.numel() * 20)
+        nbytes(feat, dists, z_vals, rgb, ray_dz, c_args[8]) + r * 9 * 4, feat.numel() * 20)
     bw_args = rec["composite_bwd"].args
     abs_err, rel_err = max_err(ops.KERNELS.composite_bwd(*bw_args),
                                ops.PLAIN.composite_bwd(*bw_args))
@@ -550,21 +584,28 @@ def envmap_kernel_checks(trainer, ops) -> dict:
         "egonerf_tpu/models/egonerf.py:483", abs_err,
         time_ms(lambda: ops.KERNELS.composite_bwd(*bw_args)),
         time_ms(lambda: ops.PLAIN.composite_bwd(*bw_args), reps=5),
-        nbytes(*bw_args[:4], bw_args[-1]) + 4 * (feat.numel() + rgb.numel()) + r * 12,
+        nbytes(*bw_args[:4], bw_args[7]) + 4 * (feat.numel() + rgb.numel()) + r * 12,
         feat.numel() * 60)
     return table
 
 
 def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
-                  phases=(3, 4, 5)) -> dict:
-    """Phases 3-5 (or 9 for the envmap model) under no_grad; returns the
-    launches of the render."""
+                  phases=(3, 4, 5), renderer=None, per_chunk=None, hw=IMAGE_HW) -> dict:
+    """Phases 3-5 (9 for the envmap model, 14-15 for TensoRF) under no_grad:
+    one view of ``hw`` through ``renderer`` (EgoNeRF's production render by
+    default), whose chunks must launch each kernel ``per_chunk`` times
+    (EgoNeRF's K1, K3, K4, K6 once, K7 twice, K8 with the envmap); a few
+    chunks against the plain versions; the profile.  Returns the launches
+    of the view."""
     p_view, p_e2e, p_prof = phases
     env = model.cfg.use_envmap
     dev = model.device
     n_view = dirs_np.shape[0]
     chunk = presets.EVAL_CHUNK
-    renderer = Renderer(model, chunk=chunk, **presets.RENDER)
+    if renderer is None:
+        renderer = Renderer(model, chunk=chunk, **presets.RENDER)
+        per_chunk = dict(K1=1, K3=1, K4=1, K6=1, K7=2, **({"K8": 1} if env else {}))
+    chunk = renderer.chunk
     renderer.set_directions(dirs_np)
     c2w = np.eye(4, dtype=np.float32)[:3]
     renderer.render_view(params, c2w)  # warm: cuBLAS handles, allocator pools
@@ -578,12 +619,11 @@ def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
     s_image = time.time() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     n_chunks = -(-n_view // chunk)
-    per_chunk = ("K1", "K3", "K4", "K6") + (("K8",) if env else ())
+    want = {k: per_chunk.get(k, 0) * n_chunks for k in wrappers}
     rgb_img, depth_img = out["rgb"], out["depth"]
-    print(f"phase {p_view} render {IMAGE_HW[1]}x{IMAGE_HW[0]}: {s_image:.3f} s/image, peak "
+    print(f"phase {p_view} render {hw[1]}x{hw[0]}: {s_image:.3f} s/image, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, launches "
-          f"{launches} (expect {n_chunks} each of {'/'.join(per_chunk)}, {2 * n_chunks} of K7 "
-          f"(the coarse and the fine chart), 0 of the rest)", flush=True)
+          f"{launches} (expect {n_chunks} chunks x {per_chunk}, 0 of the rest)", flush=True)
     if tuple(rgb_img.shape) != (n_view, 3) or tuple(depth_img.shape) != (n_view,):
         fail(f"render shapes {tuple(rgb_img.shape)}, {tuple(depth_img.shape)}")
     if not (torch.isfinite(rgb_img).all() and torch.isfinite(depth_img).all()):
@@ -596,8 +636,6 @@ def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
                 bg.min()) < 0.0 or float(bg.max()) > 1.0:
             fail("bg not a finite (N, 3) map in [0, 1]")
         print(f"phase {p_view} background: bg mean {float(bg.mean()):.6f}", flush=True)
-    want = {k: (n_chunks if k in per_chunk else 2 * n_chunks if k == "K7" else 0)
-            for k in wrappers}
     expect_launches("render", launches, want)
     print(f"phase {p_view} image: rgb mean {float(rgb_img.mean()):.6f}, depth range "
           f"[{float(depth_img.min()):.4f}, {float(depth_img.max()):.4f}]", flush=True)
@@ -608,7 +646,7 @@ def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
     n_e2e = 3 * chunk
     pick = torch.arange(n_e2e, device=dev) * (n_view // n_e2e)
     rays = torch.cat([torch.zeros_like(dirs[pick]), dirs[pick]], dim=-1)
-    e2e = Renderer(model, chunk=chunk, **presets.RENDER)
+    e2e = Renderer(model, chunk=chunk, **renderer.render_kwargs)
     got = e2e.render_rays(params, rays)
     model.ops = ops.PLAIN
     try:
@@ -618,9 +656,9 @@ def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
     d_rgb = max(float((got[k] - want_out[k]).abs().max()) for k in ("rgb", "bg")
                 if k in got)
     d_depth = float((got["depth"] - want_out["depth"]).abs().max())
-    # K4's depths differ from the plain ones in the last float32 bits, which
-    # moves the fine samples a little; rgb (and bg) stay within 1e-5 and
-    # depth within K4's own 1e-5 x far
+    # K4's depths (EgoNeRF) differ from the plain ones in the last float32
+    # bits, which moves the fine samples a little; rgb (and bg) stay within
+    # 1e-5 and depth within K4's own 1e-5 x far
     tol_rgb, tol_depth = REL_TOL, REL_TOL * model.near_far[1]
     print(f"phase {p_e2e} end to end over {n_e2e} rays: max |rgb{', bg' if env else ''} - "
           f"plain| {d_rgb:.3e} (<= {tol_rgb:.1e}), max |depth - plain| {d_depth:.3e} "
@@ -672,9 +710,10 @@ def timed_steps(step, label: str, cfg, wrappers, want: dict, warmup: int = TRAIN
 
 
 def step_launches(wrappers, envmap: bool) -> dict:
-    """The launches of ``TRAIN_STEPS`` training steps: each kernel once a
-    step, K7 twice (the coarse and the fine chart), K8/K8b with the envmap."""
-    return {k: (0 if k in ("K8", "K8b") and not envmap else
+    """The launches of ``TRAIN_STEPS`` EgoNeRF training steps: each kernel
+    once a step, K7 twice (the coarse and the fine chart), K8/K8b with the
+    envmap, never K9 (EgoNeRF's forward reads no mask)."""
+    return {k: (0 if k == "K9" or (k in ("K8", "K8b") and not envmap) else
                 2 * TRAIN_STEPS if k == "K7" else TRAIN_STEPS) for k in wrappers}
 
 
@@ -873,6 +912,210 @@ def envmap_quality_phase(root: str, presets) -> None:
         fail(f"envmap test PSNR {psnr:.2f} dB below {floor:.2f}")
 
 
+def half_mask(n: int, device) -> torch.Tensor:
+    """An (n, n, n) occupancy volume of half occupancy for the phases that
+    run before any bake (2, 14, 15): a smooth random field from SEED (six
+    plane waves of low frequency) thresholded at its median, so the mask
+    has blobs and boundaries as a baked one does."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    ax = torch.linspace(-1.0, 1.0, n, device=device)
+    x = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), dim=-1)
+    field = torch.zeros(n, n, n, device=device)
+    for _ in range(6):
+        k = (torch.rand(3, generator=g, device=device) * 2.0 - 1.0) * 6.0
+        field += torch.cos(x @ k + 6.28 * torch.rand(1, generator=g, device=device))
+    return (field > field.flatten().kthvalue(field.numel() // 2).values).to(torch.uint8)
+
+
+def tensorf_kernel_checks(trainer, ops) -> dict:
+    """Phase 2, the TensoRF path: K3 and K9 on the inputs of its bake (the
+    dense 128^3 grid on the 256^3 tables, under the installed mask), K1,
+    K2, K6 and K6b with the gates and K9 on the inputs of one of its
+    training steps, each against its plain version."""
+    import torch.nn.functional as F
+    from egonerf_torch.ops import volrend
+
+    model, cfg = trainer.model, trainer.model.cfg
+    mask = model.alpha_mask
+    rec = {k: Recorder(getattr(ops.KERNELS, k)) for k in ("density", "alpha")}
+    model.ops = ops.KERNELS._replace(**rec)
+    try:
+        model.update_alpha_mask(trainer.params, [min(r, TF_MASK_RESO) for r in model.grid_size])
+    finally:
+        model.ops, model.alpha_mask = ops.KERNELS, mask
+    d_args = rec["density"].args
+    rec = {k: Recorder(getattr(ops.KERNELS, k))
+           for k in ("field", "field_bwd", "composite", "composite_bwd", "alpha")}
+    model.ops = ops.KERNELS._replace(**rec)
+    try:
+        trainer.train_step(0)
+    finally:
+        model.ops = ops.KERNELS
+    torch.cuda.synchronize()
+    vm_src, vm = "egonerf_torch/csrc/vm_lookup.cu", "egonerf_tpu/ops/vm_lookup.py"
+    comp_src, comp = "egonerf_torch/csrc/composite.cu", "egonerf_tpu/models/tensorf.py"
+    table = {}
+
+    coords, planes, lines = rec["field"].args[:3]
+    n, n_ch = coords.shape[0], sum(p.shape[-1] for p in planes)
+    n_app = n_ch - sum(cfg.density_n_comp)
+    print(f"phase 2 TensoRF inputs: {trainer.cfg.batch_size} rays x {trainer.cfg.n_coarse} "
+          f"samples ({n:,}), grid {model.grid_size}, stacks of {planes[0].shape[0]}; line hat "
+          f"path {list(rec['field'].args[4])}; bake {d_args[0].shape[0]:,} points", flush=True)
+    table["K1 (S=1)"] = check_case(
+        "K1 field_fwd (S=1)", vm_src, f"{vm}:467", ops.KERNELS.field, ops.PLAIN.field,
+        rec["field"].args, nbytes(coords, *planes, *lines) + n * (1 + n_app) * 4, n * n_ch * 11)
+    table["K2 (S=1)"] = check_field_bwd("K2 field_bwd (S=1)", rec["field_bwd"].args, ops)
+    dc, dp, dl = d_args
+    table["K3 (S=1)"] = check_case(
+        "K3 density_fwd (S=1)", vm_src, f"{vm}:436", ops.KERNELS.density, ops.PLAIN.density,
+        d_args, nbytes(dc, *dp, *dl) + dc.shape[0] * 4,
+        dc.shape[0] * sum(p.shape[-1] for p in dp) * 11)
+
+    feat, dists, z, rgb, dz, *_, valid, thres = rec["composite"].args
+    kept = volrend._warp_transmittance(volrend._alpha(
+        feat, dists, cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act, valid))[0] > thres
+    print(f"phase 2 TensoRF gates: {float(valid.float().mean()):.1%} of the samples in the box "
+          f"and the mask, {float(kept.float().mean()):.1%} above the rgb gate {thres:g}",
+          flush=True)
+    table["K6 gated"] = check_case(
+        "K6 composite (gated)", comp_src, f"{comp}:231", ops.KERNELS.composite,
+        ops.PLAIN.composite, rec["composite"].args,
+        nbytes(feat, dists, z, rgb, dz, valid) + feat.shape[0] * 6 * 4, feat.numel() * 20)
+    b_args = rec["composite_bwd"].args
+    table["K6b gated"] = check_case(
+        "K6b composite_bwd (gated)", comp_src, f"{comp}:244", ops.KERNELS.composite_bwd,
+        ops.PLAIN.composite_bwd, b_args,
+        nbytes(*b_args[:4], valid) + 4 * (feat.numel() + rgb.numel()), feat.numel() * 60)
+
+    a_coords, vol = rec["alpha"].args
+    row = check_case("K9 alpha_fwd", "egonerf_torch/csrc/alphamask.cu",
+                     "egonerf_tpu/models/alphamask.py:50", ops.KERNELS.alpha, ops.PLAIN.alpha,
+                     rec["alpha"].args,
+                     # coords read once, the occupancy written once, the volume
+                     nbytes(a_coords, vol) + a_coords.shape[0] * 4,
+                     # three cells (~8 each), 12 weight products, 8 adds
+                     a_coords.shape[0] * 44, abs_tol=K9_TOL, tol_desc=f"abs <= {K9_TOL:.0e}")
+    # the library yardstick: F.grid_sample's trilinear lookup on a float copy
+    # of the volume (zeros padding), which the port never calls
+    image = vol.float()[None]
+    grid = a_coords[:, :3].reshape(1, 1, 1, -1, 3).contiguous()
+    row["library_ms"] = time_ms(lambda: F.grid_sample(image, grid, mode="bilinear",
+                                                      padding_mode="zeros", align_corners=True))
+    print(f"phase 2 K9 inputs: {a_coords.shape[0]:,} samples on a {tuple(vol.shape)} volume "
+          f"({float(vol.float().mean()):.1%} occupied); F.grid_sample {row['library_ms']:.4f} ms",
+          flush=True)
+    table["K9"] = row
+    return table
+
+
+def tensorf_bench_phases(root, presets, ops, wrappers):
+    """Phases 16-17: the JAX ``tensorf_bench`` recipe through ``Trainer``,
+    then timed steps, the profile, the bake, the gate occupancy, and one
+    step against the plain versions.  Returns the launches of the timed
+    steps and of the bake."""
+    import torch.nn.functional as F
+    from egonerf_torch.data.datasets import SyntheticEgoDataset
+    from egonerf_torch.models.egonerf import _dists
+    from egonerf_torch.ops import volrend
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import Trainer
+
+    base = os.path.join(root, "build", "chip_smoke_runs")
+    cfg = load_config(overrides=presets.tensorf_mask_overrides(basedir=base,
+                                                               expname="tensorf_bench"))
+    shutil.rmtree(os.path.join(base, "tensorf_bench"), ignore_errors=True)
+    trainer = Trainer(cfg, device=DEVICE)
+    scene = dict(presets.TENSORF_BENCH_SCENE, near_far=cfg.near_far)
+    trainer.set_datasets(SyntheticEgoDataset(split="train", **scene),
+                         SyntheticEgoDataset(split="test", is_stack=True, **scene))
+    t0 = time.time()
+    trainer.train()
+    torch.cuda.synchronize()
+    model, params = trainer.model, trainer.params
+    if model.alpha_mask is None:
+        fail("the tensorf_bench recipe baked no alpha mask")
+    print(f"phase 16 tensorf_bench recipe ({cfg.n_iters} steps, the mask baked at "
+          f"{cfg.update_AlphaMask_list}, grid {model.grid_size}, {cfg.n_coarse} samples a ray, "
+          f"{scene['n_train']} views at {scene['width']}x{scene['height']}): {time.time() - t0:.1f} "
+          f"s; mask {model.alpha_mask.grid_size}, {float(model.alpha_mask.vol.float().mean()):.1%} "
+          f"occupied", flush=True)
+    per_step = ("K1", "K2", "K9", "K6", "K6b")
+    launches = timed_steps(trainer.train_step, f"phase 16 TensoRF training step, "
+                           f"{cfg.n_coarse} samples, grid {model.grid_size}", cfg, wrappers,
+                           {k: TRAIN_STEPS if k in per_step else 0 for k in wrappers})
+    it = 10 ** 4
+
+    def steps():
+        nonlocal it
+        for _ in range(PROFILE_STEPS):
+            trainer.train_step(it)
+            it += 1
+    profile(steps, PROFILE_STEPS, "phase 16", "step", top=16)
+
+    # the bake, timed, under the mask it replaces (K3, then K9 inside compute_alpha)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.update_alpha_mask()
+    torch.cuda.synchronize()
+    bake_ms = (time.time() - t0) * 1e3
+    bake = {k: w.launches for k, w in wrappers.items()}
+    print(f"phase 16 bake at {[min(r, TF_MASK_RESO) for r in model.grid_size]}: {bake_ms:.1f} ms, "
+          f"launches {bake}", flush=True)
+    if bake["K3"] < 1 or bake["K9"] < 1 or any(v for k, v in bake.items() if k not in ("K3", "K9")):
+        fail(f"the bake launched {bake}, expected K3 and K9 only")
+
+    # gate occupancy, as the JAX tool reports it: the share of the batch's
+    # samples whose weight is above ray_march_weight_thres at eval
+    with torch.no_grad():
+        rays = trainer.sampler.buffer[:cfg.batch_size, :6]
+        pts, z, valid = model.sample_ray(rays[:, :3], rays[:, 3:6], cfg.n_coarse)
+        norm = F.pad(model.coordinates.normalize_coord(pts), (0, 1))
+        valid &= model.alpha_mask.sample_alpha(norm, ops.KERNELS.alpha) > 0
+        feat, _ = model.compute_field(params, norm, model.lookup_tables(params))
+        w = volrend._warp_transmittance(volrend._alpha(
+            feat, _dists(z), model.cfg.density_shift, model.cfg.distance_scale,
+            model.cfg.fea2dense_act, valid))[0]
+        occupancy = float((w > model.cfg.ray_march_weight_thres).float().mean())
+    print(f"phase 16 gate occupancy {occupancy:.4f} (weight > "
+          f"{model.cfg.ray_march_weight_thres:g}; {float(valid.float().mean()):.4f} of the "
+          f"samples in the box and the mask)", flush=True)
+    step_vs_plain(trainer, ops, "phase 17")
+    return launches, bake
+
+
+def tensorf_quality_phase(root, presets) -> None:
+    """Phase 18: the JAX ``tensorf`` quality recipe unchanged through
+    ``Trainer`` + ``set_datasets``."""
+    from egonerf_torch.data.datasets import SyntheticEgoDataset
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import Trainer
+
+    base = os.path.join(root, "build", "chip_smoke_runs")
+    cfg = load_config(overrides=presets.tensorf_overrides(basedir=base, expname="tensorf"))
+    shutil.rmtree(os.path.join(base, "tensorf"), ignore_errors=True)
+    t0 = time.time()
+    trainer = Trainer(cfg, device=DEVICE)
+    scene = dict(presets.TENSORF_QUALITY_SCENE, near_far=cfg.near_far)
+    trainer.set_datasets(SyntheticEgoDataset(split="train", **scene),
+                         SyntheticEgoDataset(split="test", is_stack=True, **scene))
+    t1 = time.time()
+    psnr = float(np.mean(trainer.train()))
+    torch.cuda.synchronize()
+    floor = JAX_TENSORF_PSNR - SEED_BAND_DB
+    print(f"phase 18 tensorf quality recipe ({cfg.n_iters} steps, N_voxel {cfg.N_voxel_init:,} -> "
+          f"{cfg.N_voxel_final:,} at {cfg.upsamp_list}, final grid {trainer.model.grid_size}, "
+          f"{scene['n_train']} + {scene['n_test']} views at {scene['width']}x{scene['height']}): "
+          f"test PSNR {psnr:.2f} dB; the JAX package {JAX_TENSORF_PSNR:.2f} dB "
+          f"(docs/results_tensorf.json), floor {floor:.2f} dB (the seed band measured on "
+          f"EgoNeRF); {time.time() - t1:.1f} s training and evaluation, {t1 - t0:.1f} s set-up",
+          flush=True)
+    if not psnr >= floor:
+        fail(f"tensorf test PSNR {psnr:.2f} dB below {floor:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -883,7 +1126,8 @@ def main() -> int:
     from egonerf_torch.data.ray_utils import get_ray_directions_360
     from egonerf_torch.models.egonerf import _dists
     from egonerf_torch.data.datasets import SyntheticEgoDataset
-    from egonerf_torch.ops import chart, envmap, merge, pdf, vm_lookup, volrend
+    from egonerf_torch.models.alphamask import AlphaGridMask
+    from egonerf_torch.ops import alphamask, chart, envmap, merge, pdf, vm_lookup, volrend
     from egonerf_torch.render.renderer import Renderer
     from egonerf_torch.train.config import load_config
     from egonerf_torch.train.trainer import Trainer
@@ -892,7 +1136,7 @@ def main() -> int:
     wrappers = {"K1": vm_lookup.field_fwd, "K2": vm_lookup.field_bwd,
                 "K3": vm_lookup.density_fwd, "K4": pdf.resample, "K5": merge.sorted_uniform,
                 "K6": volrend.composite, "K6b": volrend.composite_bwd, "K7": chart.chart_fwd,
-                "K8": envmap.envmap_fwd, "K8b": envmap.envmap_bwd}
+                "K8": envmap.envmap_fwd, "K8b": envmap.envmap_bwd, "K9": alphamask.alpha_fwd}
 
     # -- phase 1: card + build ----------------------------------------------
     card = card_line()
@@ -924,12 +1168,26 @@ def main() -> int:
           f"background at infinity, {outdoor.sampler.buffer.shape[0]:,} training rays",
           flush=True)
 
+    # the TensoRF shape with random weights and a 128^3 mask of half occupancy
+    tf = Trainer(load_config(overrides=presets.tensorf_mask_overrides(
+        basedir=os.path.join(root, "build", "chip_smoke_runs"), expname="tensorf_step",
+        n_iters=10 ** 9, progress_refresh_rate=10 ** 9)), device=dev)
+    tf_scene = dict(presets.TENSORF_BENCH_SCENE, near_far=tf.cfg.near_far)
+    tf.set_datasets(SyntheticEgoDataset(split="train", **tf_scene),
+                    SyntheticEgoDataset(split="test", is_stack=True, **tf_scene))
+    tf.model.alpha_mask = AlphaGridMask(half_mask(TF_MASK_RESO, dev), device=dev)
+    print(f"TensoRF trainer ({tf.cfg.model_name}, {tf.cfg.coordinates_name} chart): grid "
+          f"{tf.model.grid_size}, step {tf.model.step_size:.5f}, mask "
+          f"{tf.model.alpha_mask.grid_size}, {tf.sampler.buffer.shape[0]:,} training rays",
+          flush=True)
+
     # -- phase 2: each kernel against its plain version ------------------------
     with torch.no_grad():
         rows = render_kernel_checks(model, params, torch.as_tensor(dirs_np, device=dev), ops,
                                     presets, _dists)
     rows.update(train_kernel_checks(trainer, ops))
     rows.update(envmap_kernel_checks(outdoor, ops))
+    tf_rows = tensorf_kernel_checks(tf, ops)
 
     # -- phases 3-5: the render -------------------------------------------------
     with torch.no_grad():
@@ -966,9 +1224,26 @@ def main() -> int:
     outdoor_cli_phase(root, presets)
     envmap_quality_phase(root, presets)
 
+    # -- phases 14-15: the TensoRF view and its chunks against plain -----------
+    with torch.no_grad():
+        render_phases(tf.model, tf.params, get_ray_directions_360(*TF_IMAGE_HW).reshape(-1, 3),
+                      ops, presets, Renderer, wrappers, phases=(14, 15, 14),
+                      renderer=Renderer.from_config(tf.model, tf.cfg, tf.white_bg),
+                      per_chunk=dict(K1=1, K9=1, K6=1), hw=TF_IMAGE_HW)
+    del tf
+    torch.cuda.empty_cache()
+    # -- phases 16-18: the tensorf_bench recipe and its steps, the quality recipe
+    tf_steps, tf_bake = tensorf_bench_phases(root, presets, ops, wrappers)
+    torch.cuda.empty_cache()
+    for k, row in tf_rows.items():
+        row["launches"] = tf_bake["K3"] if k.startswith("K3") else tf_steps[k.split()[0]]
+    tensorf_quality_phase(root, presets)
+
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6",
                                                      "K6b", "K6+env", "K6b+env", "K7", "K8",
-                                                     "K8b")]}), flush=True)
+                                                     "K8b")]
+                      + [tf_rows[k] for k in ("K1 (S=1)", "K2 (S=1)", "K3 (S=1)", "K6 gated",
+                                              "K6b gated", "K9")]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

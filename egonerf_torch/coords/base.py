@@ -3,7 +3,8 @@
 A ``Coordinates`` object holds static geometry (aabb, resolution, radial
 grid constants) as host numpy values; ``from_cartesian`` and
 ``normalize_coord`` are tensor functions that move those constants to the
-input's device once and keep them there.
+input's device once and keep them there.  ``up_sampling_VM`` resamples a
+plane or a line of the grid onto a new resolution.
 """
 from __future__ import annotations
 
@@ -11,10 +12,29 @@ import numpy as np
 import torch
 
 
+def _linear_resample(arr: torch.Tensor, axis: int, positions: torch.Tensor) -> torch.Tensor:
+    """1-D linear resample of ``arr`` along ``axis`` at normalized positions
+    in [-1, 1], align_corners=True (index = (p + 1) / 2 * (n - 1)), positions
+    out of range clamped to the border (JAX ``coords/base.py:19-33``)."""
+    n = arr.shape[axis]
+    p = ((positions + 1.0) * 0.5 * (n - 1)).clamp(0.0, float(n - 1))
+    if n > 1:
+        lo = torch.floor(p).to(torch.int64).clamp(0, n - 2)
+    else:
+        lo = torch.zeros_like(p, dtype=torch.int64)
+    t = p - lo.to(p.dtype)
+    a = torch.index_select(arr, axis, lo)
+    b = torch.index_select(arr, axis, (lo + 1).clamp_max(n - 1))
+    shape = [1] * arr.dim()
+    shape[axis] = -1
+    t = t.reshape(shape)
+    return a * (1.0 - t) + b * t
+
+
 class Coordinates:
     """Base: subclasses define the chart from world xyz to grid coords
     (``update_aabb``, ``from_cartesian``, ``normalize_coord``,
-    ``N_to_reso``).  Grid upsampling waits for a later slice (ROADMAP.md)."""
+    ``N_to_reso``)."""
 
     def __init__(self, aabb):
         self.aabb = np.asarray(aabb, dtype=np.float32).reshape(2, 3)
@@ -36,6 +56,26 @@ class Coordinates:
                                 device=device)
             self._consts[key] = t
         return t
+
+    def axis_positions(self, dim: int, new_size: int) -> np.ndarray:
+        """Normalized [-1, 1] positions in the current grid at which a new
+        grid of ``new_size`` nodes along coordinate ``dim`` places them:
+        linear (JAX ``coords/base.py:71-77``)."""
+        del dim
+        return np.linspace(-1.0, 1.0, new_size, dtype=np.float32)
+
+    def up_sampling_VM(self, weights: torch.Tensor, res_target, ids) -> torch.Tensor:
+        """Resample a plane (S, H, W, C) with ids [dim_h, dim_w] or a line
+        (S, L, C) with ids [dim] onto ``res_target`` (JAX
+        ``coords/base.py:79-90``)."""
+        if len(ids) not in (1, 2):
+            raise ValueError("len(ids) should be 1 or 2")
+        out = weights
+        for axis, dim in enumerate(ids, start=1):
+            pos = torch.as_tensor(self.axis_positions(dim, int(res_target[dim])),
+                                  device=weights.device)
+            out = _linear_resample(out, axis, pos)
+        return out
 
     def extra_spec(self) -> dict:
         return {}

@@ -54,6 +54,14 @@ class GenericSphericalCoords(SphericalCoords):
             if self.interval_th:
                 self.ref_grid = make_reference_r_grid(self.r0, self.far_r, self.resolution[0])
 
+    def axis_positions(self, dim: int, new_size: int):
+        """The exponential radius needs JAX's r-aware positions
+        (``coords/spherical.py:128-135``), which are not ported."""
+        if dim == 0 and self.exp_r:
+            raise NotImplementedError("upsampling the exponential radius is not ported yet "
+                                      "(ROADMAP.md §1)")
+        return super().axis_positions(dim, new_size)
+
     def extra_spec(self) -> dict:
         return {"exp_r": self.exp_r, "interval_th": self.interval_th, "r0": self.r0}
 

@@ -2,7 +2,9 @@
 //
 // Replaces egonerf_tpu/ops/volrend.py raw2alpha + feature2density
 // (models/egonerf.py:99-104) + the composite of EgoNeRF.forward
-// (models/egonerf.py:466-493), with its envmap branch.  JAX
+// (models/egonerf.py:466-493), with its envmap branch, and of
+// TensorBase.forward (models/tensorf.py:226-258) with its two sample gates.
+// JAX
 // differentiates that composite with autodiff; the port's forward is a
 // kernel that autograd cannot see through, so its backward is one too.
 //
@@ -15,6 +17,18 @@
 // rgb) + bg_map, 0, 1), the clip after the blend; depth = sum(weights * z)
 // + (1 - acc) * ray_dz.
 //
+// TensoRF's gates: with a valid mask (in the box and inside the alpha
+// mask) sigma = where(valid, feature2density(feat), 0); with a threshold,
+// rgb_j counts only where w_j > thres (ray_march_weight_thres; -inf, the
+// default, passes every weight).  The gates are a template parameter: the
+// ungated instantiation (EgoNeRF's) is the code, registers and time it was
+// before the gates came in.  The gate decision must be the same bit in
+// K6 and K6b, or K6b gives rgb a gradient the forward dropped: K6b
+// recomputes each weight as K6 does, alpha_j times the exclusive
+// transmittance from the same lane chunks, warp scan and __fmul_rn products
+// (no saved mask), and the plain versions take the kernels' order
+// (ops/volrend.py::_warp_transmittance).
+//
 // Backward of rgb only (depth is under stop_gradient in JAX, z and dists
 // carry no gradient): with g the clip-masked d rgb (JAX's clip passes 1
 // inside (0, 1) and 1/2 at exactly 0 or 1, taken on the blended sum) and
@@ -25,7 +39,9 @@
 //   d feat_j = d alpha_j exp(-sigma_j d_j s) d_j s sigma'(feat_j)
 //   d env    = T_S g.
 // R_S is 0 without the envmap.  The reverse recurrence never divides by
-// 1 - alpha + 1e-10, which reaches 1e-10 where alpha rounds to 1.
+// 1 - alpha + 1e-10, which reaches 1e-10 where alpha rounds to 1.  A sample
+// the rgb gate drops has q_j = 0 and d rgb_j = 0; d feat_j = 0 where valid
+// is false.
 //
 // Bound on the card: bytes (forward 6 x S floats read per ray, ~25 MB per
 // 4096 x 256 chunk, ~7.5 us at 3.35 TB/s; backward 5 x S read and 4 x S
@@ -46,11 +62,21 @@ using namespace egonerf;
 
 constexpr int kWarpsPerBlock = 4;
 
+// alpha of sample j: sigma = 0 where the valid mask (if any) is false.
+__device__ __forceinline__ float gated_alpha(const float* feat, const float* dists,
+                                             const unsigned char* valid, int j, float shift,
+                                             float scale, int act) {
+  const float sigma = (valid != nullptr && !valid[j]) ? 0.0f : density_act(feat[j], shift, act);
+  return __fsub_rn(1.0f, expf(-__fmul_rn(sigma, __fmul_rn(dists[j], scale))));
+}
+
+template <bool kGates>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 composite_kernel(const float* __restrict__ feat, const float* __restrict__ dists,
                  const float* __restrict__ z, const float* __restrict__ rgb,
-                 const float* __restrict__ ray_dz, const float* __restrict__ env, int R, int S,
-                 float shift, float scale, int act, float* __restrict__ rgb_out,
+                 const float* __restrict__ ray_dz, const float* __restrict__ env,
+                 const unsigned char* __restrict__ valid, int R, int S, float shift, float scale,
+                 int act, float thres, float* __restrict__ rgb_out,
                  float* __restrict__ depth_out, float* __restrict__ acc_out,
                  float* __restrict__ bg_out, float* __restrict__ bg_map) {
   extern __shared__ float smem[];
@@ -63,12 +89,14 @@ composite_kernel(const float* __restrict__ feat, const float* __restrict__ dists
   dists += ray * S;
   z += ray * S;
   rgb += ray * S * 3;
+  if (kGates && valid != nullptr) valid += ray * S;
 
   const int per = (S + 31) / 32;
   const int a = min(lane * per, S), b = min(a + per, S);
   float prod = 1.0f;
   for (int j = a; j < b; ++j) {
-    const float alpha = alpha_of(feat[j], dists[j], shift, scale, act);
+    const float alpha = kGates ? gated_alpha(feat, dists, valid, j, shift, scale, act)
+                               : alpha_of(feat[j], dists[j], shift, scale, act);
     al[j] = alpha;
     prod = __fmul_rn(prod, trans_factor(alpha));
   }
@@ -80,9 +108,11 @@ composite_kernel(const float* __restrict__ feat, const float* __restrict__ dists
     const float wj = __fmul_rn(alpha, t);
     t = __fmul_rn(t, trans_factor(alpha));
     acc += wj;
-    r += wj * rgb[3 * j];
-    g += wj * rgb[3 * j + 1];
-    bl += wj * rgb[3 * j + 2];
+    if (!kGates || wj > thres) {
+      r += wj * rgb[3 * j];
+      g += wj * rgb[3 * j + 1];
+      bl += wj * rgb[3 * j + 2];
+    }
     depth += wj * z[j];
   }
   acc = warp_sum(acc);
@@ -118,11 +148,13 @@ __device__ __forceinline__ float clip_grad(float x) {
   return (x == 0.0f || x == 1.0f) ? 0.5f : 0.0f;
 }
 
+template <bool kGates>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ dists,
                      const float* __restrict__ rgb, const float* __restrict__ g_rgb,
-                     const float* __restrict__ env, int R, int S, float shift, float scale,
-                     int act, float* __restrict__ d_feat, float* __restrict__ d_rgb,
+                     const float* __restrict__ env, const unsigned char* __restrict__ valid,
+                     int R, int S, float shift, float scale, int act, float thres,
+                     float* __restrict__ d_feat, float* __restrict__ d_rgb,
                      float* __restrict__ d_env) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
@@ -136,13 +168,15 @@ composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ d
   rgb += ray * S * 3;
   d_feat += ray * S;
   d_rgb += ray * S * 3;
+  if (kGates && valid != nullptr) valid += ray * S;
 
   // the forward scan: alpha, the exclusive transmittance, the unclipped sum
   const int per = (S + 31) / 32;
   const int a = min(lane * per, S), b = min(a + per, S);
   float prod = 1.0f;
   for (int j = a; j < b; ++j) {
-    const float alpha = alpha_of(feat[j], dists[j], shift, scale, act);
+    const float alpha = kGates ? gated_alpha(feat, dists, valid, j, shift, scale, act)
+                               : alpha_of(feat[j], dists[j], shift, scale, act);
     al[j] = alpha;
     prod = __fmul_rn(prod, trans_factor(alpha));
   }
@@ -154,9 +188,11 @@ composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ d
     tr[j] = t;
     const float wj = __fmul_rn(alpha, t);
     t = __fmul_rn(t, trans_factor(alpha));
-    r += wj * rgb[3 * j];
-    g += wj * rgb[3 * j + 1];
-    bl += wj * rgb[3 * j + 2];
+    if (!kGates || wj > thres) {
+      r += wj * rgb[3 * j];
+      g += wj * rgb[3 * j + 1];
+      bl += wj * rgb[3 * j + 2];
+    }
   }
   r = warp_sum(r);
   g = warp_sum(g);
@@ -183,8 +219,10 @@ composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ d
 
   // this chunk's affine map R_a = A + B R_b, then a suffix scan over lanes
   float A = 0.0f, B = 1.0f;
+  // the gate of sample j: K6's weight, the same product of the same bits
+  auto kept = [&](int j) { return !kGates || __fmul_rn(al[j], tr[j]) > thres; };
   for (int j = b - 1; j >= a; --j) {
-    const float q = rgb[3 * j] * gr + rgb[3 * j + 1] * gg + rgb[3 * j + 2] * gb;
+    const float q = kept(j) ? rgb[3 * j] * gr + rgb[3 * j + 1] * gg + rgb[3 * j + 2] * gb : 0.0f;
     const float f = trans_factor(al[j]);
     A = al[j] * q + f * A;
     B = f * B;
@@ -205,45 +243,68 @@ composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ d
 
   for (int j = b - 1; j >= a; --j) {
     const float alpha = al[j], T = tr[j];
+    const bool keep = kept(j);
     const float c0 = rgb[3 * j], c1 = rgb[3 * j + 1], c2 = rgb[3 * j + 2];
-    const float q = c0 * gr + c1 * gg + c2 * gb;
+    const float q = keep ? c0 * gr + c1 * gg + c2 * gb : 0.0f;
     const float d_alpha = T * (q - Rn);
     Rn = alpha * q + trans_factor(alpha) * Rn;
-    const float f = feat[j];
-    const float D = __fmul_rn(dists[j], scale);
-    const float e = expf(-__fmul_rn(density_act(f, shift, act), D));
-    d_feat[j] = d_alpha * e * D * density_act_grad(f, shift, act);
-    const float wj = alpha * T;
+    if (kGates && valid != nullptr && !valid[j]) {
+      d_feat[j] = 0.0f;
+    } else {
+      const float f = feat[j];
+      const float D = __fmul_rn(dists[j], scale);
+      const float e = expf(-__fmul_rn(density_act(f, shift, act), D));
+      d_feat[j] = d_alpha * e * D * density_act_grad(f, shift, act);
+    }
+    const float wj = keep ? alpha * T : 0.0f;
     d_rgb[3 * j] = wj * gr;
     d_rgb[3 * j + 1] = wj * gg;
     d_rgb[3 * j + 2] = wj * gb;
   }
 }
 
+// The gated instantiation where a valid mask or a threshold above -inf
+// (which every weight passes) is given.
+bool gated(const unsigned char* valid, float thres) { return valid != nullptr || thres > -1e30f; }
+
 }  // namespace
 
 extern "C" int composite_bwd(const float* feat, const float* dists, const float* rgb,
-                             const float* g_rgb, const float* env, int R, int S, float shift,
-                             float scale, int act, float* d_feat, float* d_rgb, float* d_env,
-                             void* stream) {
+                             const float* g_rgb, const float* env, const unsigned char* valid,
+                             int R, int S, float shift, float scale, int act, float thres,
+                             float* d_feat, float* d_rgb, float* d_env, void* stream) {
   const size_t smem = sizeof(float) * kWarpsPerBlock * 2 * S;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  composite_bwd_kernel<<<blocks, kWarpsPerBlock * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      feat, dists, rgb, g_rgb, env, R, S, shift, scale, act, d_feat, d_rgb, d_env);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gated(valid, thres)) {
+    composite_bwd_kernel<true><<<blocks, kWarpsPerBlock * 32, smem, st>>>(
+        feat, dists, rgb, g_rgb, env, valid, R, S, shift, scale, act, thres, d_feat, d_rgb, d_env);
+  } else {
+    composite_bwd_kernel<false><<<blocks, kWarpsPerBlock * 32, smem, st>>>(
+        feat, dists, rgb, g_rgb, env, valid, R, S, shift, scale, act, thres, d_feat, d_rgb, d_env);
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int composite_fwd(const float* feat, const float* dists, const float* z,
-                             const float* rgb, const float* ray_dz, const float* env, int R,
-                             int S, float shift, float scale, int act, float* rgb_out,
+                             const float* rgb, const float* ray_dz, const float* env,
+                             const unsigned char* valid, int R, int S, float shift, float scale,
+                             int act, float thres, float* rgb_out,
                              float* depth_out, float* acc_out, float* bg_out, float* bg_map,
                              void* stream) {
   const size_t smem = sizeof(float) * kWarpsPerBlock * S;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  composite_kernel<<<blocks, kWarpsPerBlock * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      feat, dists, z, rgb, ray_dz, env, R, S, shift, scale, act, rgb_out, depth_out, acc_out,
-      bg_out, bg_map);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gated(valid, thres)) {
+    composite_kernel<true><<<blocks, kWarpsPerBlock * 32, smem, st>>>(
+        feat, dists, z, rgb, ray_dz, env, valid, R, S, shift, scale, act, thres, rgb_out,
+        depth_out, acc_out, bg_out, bg_map);
+  } else {
+    composite_kernel<false><<<blocks, kWarpsPerBlock * 32, smem, st>>>(
+        feat, dists, z, rgb, ray_dz, env, valid, R, S, shift, scale, act, thres, rgb_out,
+        depth_out, acc_out, bg_out, bg_map);
+  }
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,9 @@
 //       _corner_cotangents are TPU layout answers and are not copied.
 //
 // For i in 0..2 each sample reads 4 corners of plane_i and 2 rows of line_i
-// (bf16 tables, the {0,1} chart flag selecting the stacked grid), multiplies
+// (bf16 tables; with a stack of two grids, EgoNeRF's yin and yang, the {0,1}
+// chart flag selects one; a stack of one, TensoRF's single grid, ignores the
+// flag as JAX's sel=None lookups do), multiplies
 // plane and line per channel, reduces the density channels to
 // sum_i relu(sum_c) and (K1) writes the appearance channels.
 //
@@ -79,7 +81,10 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-template <bool kApp>
+// kTwoGrids: a stack of two grids selected by the flag; a single grid is
+// its own instantiation (the flag never read), so that EgoNeRF's keeps the
+// registers and the time it had before single grids came in.
+template <bool kApp, bool kTwoGrids>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb,
                  float* __restrict__ density, float* __restrict__ app, int n_app) {
@@ -88,7 +93,7 @@ vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb,
   if (s >= n) return;
   const float* q = coords + 4 * s;
   const float xyz[3] = {q[0], q[1], q[2]};
-  const int sel = q[3] != 0.0f ? 1 : 0;  // the chart flag is exactly 0 or 1
+  const int sel = (kTwoGrids && q[3] != 0.0f) ? 1 : 0;  // the flag is exactly 0 or 1
   float dsum = 0.0f;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -177,6 +182,7 @@ vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb,
 // tables have at most ~1,000 stacked rows and take ~2M hits per step, and
 // samples of one ray share their theta/phi rows; a per-block shared-memory
 // pre-sum of the line rows is the next step (not done here).
+template <bool kTwoGrids>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 vm_field_bwd_kernel(const float* __restrict__ coords, long long n, Tables tb,
                     const float* __restrict__ d_dens, const float* __restrict__ d_app,
@@ -186,7 +192,7 @@ vm_field_bwd_kernel(const float* __restrict__ coords, long long n, Tables tb,
   if (s >= n) return;
   const float* q = coords + 4 * s;
   const float xyz[3] = {q[0], q[1], q[2]};
-  const int sel = q[3] != 0.0f ? 1 : 0;
+  const int sel = (kTwoGrids && q[3] != 0.0f) ? 1 : 0;
   const float dd_s = d_dens[s];
   const float* da = d_app + s * n_app;
 #pragma unroll
@@ -271,7 +277,7 @@ vm_field_bwd_kernel(const float* __restrict__ coords, long long n, Tables tb,
   }
 }
 
-// dims: per decomposition i, {H, W, L, C, n_density, hat}
+// dims: per decomposition i, {H, W, L, C, n_density, hat}, then the stack size
 Tables make_tables(const void* const* planes, const void* const* lines, const int* dims) {
   Tables tb;
   int off = 0;
@@ -295,10 +301,15 @@ int launch(const float* coords, long long n, const void* const* planes,
            const void* const* lines, const int* dims, float* density, float* app,
            int n_app, void* stream) {
   const Tables tb = make_tables(planes, lines, dims);
-  const long long blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  vm_lookup_kernel<kApp><<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
-                           static_cast<cudaStream_t>(stream)>>>(coords, n, tb, density,
-                                                                 app, n_app);
+  const unsigned blocks = (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dims[18] > 1) {
+    vm_lookup_kernel<kApp, true><<<blocks, kWarpsPerBlock * 32, 0, st>>>(coords, n, tb, density,
+                                                                        app, n_app);
+  } else {
+    vm_lookup_kernel<kApp, false><<<blocks, kWarpsPerBlock * 32, 0, st>>>(coords, n, tb,
+                                                                         density, app, n_app);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -320,10 +331,15 @@ extern "C" int vm_field_bwd(const float* coords, long long n, const void* const*
     gr.plane[i] = static_cast<float*>(gplanes[i]);
     gr.line[i] = static_cast<float*>(glines[i]);
   }
-  const long long blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  vm_field_bwd_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(coords, n, tb, d_dens, d_app,
-                                                             n_app, gr);
+  const unsigned blocks = (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dims[18] > 1) {
+    vm_field_bwd_kernel<true><<<blocks, kWarpsPerBlock * 32, 0, st>>>(coords, n, tb, d_dens,
+                                                                     d_app, n_app, gr);
+  } else {
+    vm_field_bwd_kernel<false><<<blocks, kWarpsPerBlock * 32, 0, st>>>(coords, n, tb, d_dens,
+                                                                      d_app, n_app, gr);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -3,14 +3,15 @@
 JAX checkpoints (``egonerf_tpu/train/checkpoint.py``) are an ``.npz`` of
 the flattened parameter tree under ``/``-joined keys (``density_planes/0``,
 ``basis``, ``shader/l1/w``, ``envmap``, ...) plus a JSON ``__header__``
-with the ``coords_spec`` and ``model_meta``.  Plane, line, basis and
-envmap arrays keep their layout (the envmap channel-last (2h, h, 3)).
+with the ``coords_spec`` and ``model_meta``, and the bit-packed alpha
+masks.  Plane, line, basis and envmap arrays keep their layout (the
+envmap channel-last (2h, h, 3)), for EgoNeRF's stacked grids and
+TensorVMSplit's single one alike.
 MLP weights are the one trap: JAX stores them (n_in, n_out),
 ``nn.Linear.weight`` is (out, in), so the converter transposes them.
 """
 from __future__ import annotations
 
-import json
 from typing import Dict, Tuple
 
 import numpy as np
@@ -18,7 +19,8 @@ import torch
 
 from .._device import resolve_device
 from ..coords import coords_from_spec
-from .egonerf import EgoNeRF, FieldConfig
+from .alphamask import mask_from_volumes
+from .egonerf import FieldConfig
 
 _GRIDS = ("density_planes", "density_lines", "app_planes", "app_lines")
 _LINEAR = {"w": "weight", "b": "bias"}
@@ -70,21 +72,21 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 def load_jax_checkpoint(path: str, near_far=(0.01, 15.0), device="cuda"):
     """Read a JAX ``.npz`` checkpoint with numpy alone.  Builds the chart
-    from ``coords_spec`` and the model from ``model_meta`` (``near_far`` is
-    not stored; it comes from the dataset), loads the weights into it and
-    returns (model, params, header)."""
-    with np.load(path, allow_pickle=False) as data:
-        header = json.loads(bytes(data["__header__"]).decode())
-        flat = {k: data[k] for k in header["param_keys"]}
-    if header.get("alpha_masks"):
-        raise NotImplementedError("checkpoints with an alpha mask are not "
-                                  "ported yet (ROADMAP.md)")
+    from ``coords_spec`` and the model (EgoNeRF or TensorVMSplit) from
+    ``model_meta`` (``near_far`` is not stored; it comes from the dataset),
+    loads the weights and the alpha mask into it and returns (model,
+    params, header)."""
+    from . import model_class
+    from ..train.checkpoint import load_alpha_masks, load_checkpoint
+
+    flat, header = load_checkpoint(path)
     meta = dict(header["model_meta"])
-    if meta.get("model_name", "EgoNeRF") != "EgoNeRF":
-        raise NotImplementedError(f"model {meta['model_name']!r} is not ported yet "
-                                  f"(ROADMAP.md)")
     coords = coords_from_spec(header["coords_spec"])
-    model = EgoNeRF(coords.aabb, coords.resolution, coords, FieldConfig.from_meta(meta),
-                    near_far=near_far, device=device)
+    model = model_class(meta.get("model_name", "EgoNeRF"))(
+        coords.aabb, coords.resolution, coords, FieldConfig.from_meta(meta),
+        near_far=near_far, device=device)
     model.load_state_dict(params_from_jax(flat, device=device))
+    masks = load_alpha_masks(path)
+    if masks:
+        model.alpha_mask = mask_from_volumes([masks[k] for k in sorted(masks)], model.device)
     return model, model.params(), header

@@ -18,6 +18,9 @@ fused tables, and the composite through ``ops.volrend.composite_train``
 With ``use_envmap`` the (2h, h, 3) ``envmap`` parameter gives each ray its
 background radiance (K8, K8b backward), blended behind the last sample.
 The kernels come from ``self.ops`` (``ops.KERNELS``).
+
+The regularizers (L1, TV, Ortho) and the alpha-mask bake are here as in
+JAX; the forward never reads the mask, in JAX as here.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from ..coords.yinyang import YinYangSphericalCoords
 from ..ops import KERNELS
 from ..ops.vm_lookup import MAT_MODE, VEC_MODE, field_train, line_hat_ok
 from ..ops.volrend import composite_train, density_activation
+from .alphamask import YinYangAlphaGridMask, bake_alpha_mask, dense_alpha
 from .envmap import envmap_radiance, init_envmap
 from .shading import MLPFea
 
@@ -43,20 +47,27 @@ _LATER = "is not ported yet (ROADMAP.md §1)"
 
 @dataclasses.dataclass(frozen=True)
 class FieldConfig:
-    """Static model hyperparameters: the fields of the JAX ``FieldConfig``
-    that the render and training paths read (the alpha-mask, ray-march and
-    linear-sampling fields come with their slices; checkpoints carry them
-    through ``model_meta``)."""
+    """Static model hyperparameters: every field of the JAX ``FieldConfig``
+    (``pos_pe`` is kept for checkpoints and read by no shading mode of the
+    port)."""
     density_n_comp: Sequence[int] = (16, 16, 16)
     app_n_comp: Sequence[int] = (48, 48, 48)
     app_dim: int = 27
     shading_mode: str = "MLP_Fea"
+    pos_pe: int = 6
     view_pe: int = 2
     fea_pe: int = 2
     feature_c: int = 128
     density_shift: float = -8.0
     distance_scale: float = 25.0
     fea2dense_act: str = "softplus"
+    # TensoRF's rgb gate: a sample's rgb counts where its weight is above
+    ray_march_weight_thres: float = 1e-4
+    # the alpha-mask bake's threshold
+    alpha_mask_thres: float = 1e-3
+    # march step = mean grid unit x step_ratio (TensoRF's linear sampler,
+    # the bake's alpha length)
+    step_ratio: float = 0.5
     use_envmap: bool = False
     envmap_res_h: int = 1000
     # 'bfloat16': the fine line lookup takes the bf16 hat weights while the
@@ -90,6 +101,29 @@ def _avg_pool_line(l: torch.Tensor) -> torch.Tensor:
     s, n, c = l.shape
     l = l[:, : (n // 2) * 2, :]
     return l.reshape(s, n // 2, 2, c).mean(dim=2)
+
+
+def tv_plane(plane: torch.Tensor) -> torch.Tensor:
+    """Squared-difference total variation of (S, H, W, C) planes, as JAX's
+    ``_tv`` normalizes it."""
+    s, h, w, c = plane.shape
+    h_tv = ((plane[:, 1:] - plane[:, :-1]) ** 2).sum()
+    w_tv = ((plane[:, :, 1:] - plane[:, :, :-1]) ** 2).sum()
+    return 2.0 * (h_tv / ((h - 1) * w * c) + w_tv / (h * (w - 1) * c)) / s
+
+
+def vector_diffs(lines) -> torch.Tensor:
+    """The Ortho term: per (S, L, C) line and grid, the mean |off-diagonal|
+    of the C x C Gram matrix of its components (JAX ``_vector_diffs``)."""
+    total = 0.0
+    for l in lines:
+        for s in range(l.shape[0]):
+            v = l[s].T
+            gram = v @ v.T
+            n = gram.shape[0]
+            off = gram.abs() * (1.0 - torch.eye(n, dtype=gram.dtype, device=gram.device))
+            total = total + off.sum() / (n * (n - 1))
+    return total
 
 
 def _bf16(ts) -> List[torch.Tensor]:
@@ -140,7 +174,9 @@ class EgoNeRF(nn.Module):
         self.near_far = (float(near_far[0]), float(near_far[1]))
         self.ops = KERNELS
         self._sample_grid_cache: dict = {}
-        self.grid_size = gs = [int(g) for g in grid_size]
+        self.alpha_mask: Optional[YinYangAlphaGridMask] = None
+        self.update_step_size(grid_size)
+        gs = self.grid_size
 
         def planes(n_comp):
             return nn.ParameterList([
@@ -164,6 +200,15 @@ class EgoNeRF(nn.Module):
         if cfg.use_envmap:
             self.envmap = nn.Parameter(init_envmap(cfg.envmap_res_h, init_strategy="zero",
                                                    device=self.device))
+
+    def update_step_size(self, grid_size) -> None:
+        """Grid bookkeeping (JAX ``update_step_size``): the grid size and the
+        march step, mean grid unit x ``step_ratio`` (the bake's alpha
+        length)."""
+        self.grid_size = [int(g) for g in grid_size]
+        units = (self.aabb[1] - self.aabb[0]) / (np.asarray(self.grid_size) - 1)
+        self.step_size = float(np.mean(units) * self.cfg.step_ratio)
+        self._sample_grid_cache.clear()
 
     # ------------------------------------------------------------------
     # parameters
@@ -303,8 +348,44 @@ class EgoNeRF(nn.Module):
     def sample_ray_linear(self, rays_o, rays_d, n_samples: int):
         raise NotImplementedError(f"linear ray sampling {_LATER}")
 
+    # ------------------------------------------------------------------
+    # alpha mask and regularizers (JAX models/egonerf.py:503-542,579-630)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
     def update_alpha_mask(self, params, grid_size=None):
-        raise NotImplementedError(f"the alpha mask {_LATER}")
+        """Bake both occupancy volumes: alpha = 1 - exp(-sigma step_size)
+        over the dense normalized grid of each chart (K3 on the stacked
+        density tables), dilated and thresholded; installs a
+        ``YinYangAlphaGridMask`` and returns the unchanged aabb."""
+        gs = self.grid_size if grid_size is None else [int(g) for g in grid_size]
+        planes = _bf16(params[f"density_planes.{i}"] for i in range(3))
+        lines = _bf16(params[f"density_lines.{i}"] for i in range(3))
+
+        def alpha_of(coords):
+            sigma = feature2density(self.ops.density(coords, planes, lines), self.cfg)
+            return 1.0 - torch.exp(-sigma * self.step_size)
+
+        yin, yang = dense_alpha(alpha_of, gs, planes[0].device, n_grids=2)
+        vols = [bake_alpha_mask(a, self.cfg.alpha_mask_thres) for a in (yin, yang)]
+        self.alpha_mask = YinYangAlphaGridMask(*vols, device=planes[0].device)
+        total = int(vols[0].sum() + vols[1].sum())
+        print(f"alpha rest %{total / (2 * np.prod(gs)) * 100:.2f}")
+        return self.aabb
+
+    def vector_comp_diffs(self, params) -> torch.Tensor:
+        return (vector_diffs([params[f"density_lines.{i}"] for i in range(3)])
+                + vector_diffs([params[f"app_lines.{i}"] for i in range(3)]))
+
+    def density_l1(self, params) -> torch.Tensor:
+        """Per grid means summed, as JAX's separate yin and yang terms (x2)."""
+        return sum(params[f"density_planes.{i}"].abs().mean() * 2
+                   + params[f"density_lines.{i}"].abs().mean() * 2 for i in range(3))
+
+    def tv_loss_density(self, params) -> torch.Tensor:
+        return sum(tv_plane(params[f"density_planes.{i}"]) * 2.0 * 1e-2 for i in range(3))
+
+    def tv_loss_app(self, params) -> torch.Tensor:
+        return sum(tv_plane(params[f"app_planes.{i}"]) * 2.0 * 1e-2 for i in range(3))
 
     # ------------------------------------------------------------------
     # forward

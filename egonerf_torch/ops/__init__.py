@@ -14,6 +14,7 @@ K6b   volrend.composite_bwd       composite_bwd_plain     csrc/composite.cu
 K7    chart.chart_fwd             chart_fwd_plain         csrc/chart.cu
 K8    envmap.envmap_fwd           envmap_fwd_plain        csrc/envmap.cu
 K8b   envmap.envmap_bwd           envmap_bwd_plain        csrc/envmap.cu
+K9    alphamask.alpha_fwd         alpha_fwd_plain         csrc/alphamask.cu
 ====  ==========================  ======================  =======================
 
 ``KERNELS`` is what the model calls.  ``PLAIN`` runs the plain versions on
@@ -24,6 +25,7 @@ Functions ``vm_lookup.field_train``, ``volrend.composite_train`` and
 """
 from typing import Callable, NamedTuple
 
+from .alphamask import alpha_fwd, alpha_fwd_plain
 from .chart import chart_fwd, chart_fwd_plain
 from .envmap import envmap_bwd, envmap_bwd_plain, envmap_fwd, envmap_fwd_plain
 from .merge import sorted_uniform, sorted_uniform_plain
@@ -44,10 +46,11 @@ class Ops(NamedTuple):
     chart: Callable
     envmap: Callable
     envmap_bwd: Callable
+    alpha: Callable
 
 
 KERNELS = Ops(field_fwd, field_bwd, density_fwd, resample, sorted_uniform, composite,
-              composite_bwd, chart_fwd, envmap_fwd, envmap_bwd)
+              composite_bwd, chart_fwd, envmap_fwd, envmap_bwd, alpha_fwd)
 PLAIN = Ops(field_fwd_plain, field_bwd_plain, density_fwd_plain, resample_plain,
             sorted_uniform_plain, composite_plain, composite_bwd_plain, chart_fwd_plain,
-            envmap_fwd_plain, envmap_bwd_plain)
+            envmap_fwd_plain, envmap_bwd_plain, alpha_fwd_plain)

@@ -16,7 +16,8 @@ import torch
 from .._build import check_launch, kernel
 from .._device import check_tensor
 from .merge import merge_sorted
-from .volrend import ACTIVATIONS, density_activation, raw2alpha
+from .volrend import (ACTIVATIONS, _chunk_fold, _lane_chunks, _warp_exclusive_scan,
+                      _warp_weights, density_activation, raw2alpha)
 
 
 def linspace01(n: int, device=None) -> torch.Tensor:
@@ -32,52 +33,9 @@ def linspace01(n: int, device=None) -> torch.Tensor:
     return torch.cat([step, torch.ones(1, dtype=torch.float32, device=device)])
 
 
-# K4 keeps a ray on one warp: lane l owns the contiguous chunk [l per,
-# (l + 1) per) of its samples, per = ceil(n / 32), and the products and sums
-# across lanes are the scans and the butterfly of csrc/warp_scan.cuh.  The
-# plain version takes them in that order, so its depths are K4's to the bit
-# and the fine samples of the two paths do not part on the card.
-WARP = 32
-
-
-def _lane_chunks(x: torch.Tensor, identity: float) -> torch.Tensor:
-    """(R, n) -> (R, 32, per): each lane's chunk, padded with ``identity``."""
-    per = -(-x.shape[1] // WARP)
-    x = torch.nn.functional.pad(x, (0, WARP * per - x.shape[1]), value=identity)
-    return x.reshape(x.shape[0], WARP, per)
-
-
-def _chunk_fold(chunks: torch.Tensor, op) -> torch.Tensor:
-    """(R, 32, per) -> (R, 32): each lane's chunk folded left to right."""
-    acc = chunks[..., 0]
-    for j in range(1, chunks.shape[-1]):
-        acc = op(acc, chunks[..., j])
-    return acc
-
-
-def _warp_exclusive_scan(v: torch.Tensor, op, identity: float) -> torch.Tensor:
-    """(R, 32): ``warp_exclusive_prod`` / ``_sum``: Hillis-Steele over the
-    offsets 1, 2, 4, 8, 16, then a shift by one lane."""
-    for off in (1, 2, 4, 8, 16):
-        v = torch.cat([v[:, :off], op(v[:, off:], v[:, :-off])], dim=1)
-    return torch.cat([torch.full_like(v[:, :1], identity), v[:, :-1]], dim=1)
-
-
-def _warp_weights(alpha: torch.Tensor) -> torch.Tensor:
-    """raw2alpha's weights alpha * exclusive transmittance, in K4's order."""
-    s = alpha.shape[1]
-    f = _lane_chunks(1.0 - alpha + 1e-10, 1.0)
-    al = _lane_chunks(alpha, 0.0)
-    t = _warp_exclusive_scan(_chunk_fold(f, torch.mul), torch.mul, 1.0)
-    w = []
-    for j in range(f.shape[-1]):
-        w.append(al[..., j] * t)
-        t = t * f[..., j]
-    return torch.stack(w, dim=-1).reshape(alpha.shape[0], -1)[:, :s]
-
-
 def _warp_cdf(weights: torch.Tensor) -> torch.Tensor:
-    """The cdf of ``weights`` + 1e-5 with its leading 0, in K4's order: the
+    """K4 keeps a ray on one warp, as K6 does (``volrend._lane_chunks``).
+    The cdf of ``weights`` + 1e-5 with its leading 0, in K4's order: the
     total by a butterfly of the lanes' chunk sums, the cumulative sum by
     an exclusive scan of them."""
     m = weights.shape[1]

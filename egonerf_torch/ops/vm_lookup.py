@@ -9,8 +9,11 @@ no channel padding.  What carries over exactly:
 * Tables are read as bf16 (the JAX forward casts in ``pack_plane`` /
   ``pack_line``); corner weights and sums are float32.
 * Cell semantics of ``_axis_cells``: indices clamp, a coord one cell below
-  -1 puts its weight t on corner 0, out-of-range corners weigh 0; the
-  {0, 1} chart flag selects the stacked grid.
+  -1 puts its weight t on corner 0, out-of-range corners weigh 0.
+* Stacks of one or two grids: with two (EgoNeRF's yin and yang) the {0, 1}
+  chart flag in the coords' fourth column selects one; with one
+  (TensoRF's single grid) the flag column is ignored, as JAX's lookups
+  with ``sel=None``.  ``line_hat_ok`` counts the stacked rows S*L.
 * The fine line lookup takes the hat path of ``sample_line_hat`` while
   :func:`line_hat_ok` holds (as JAX's ``_onehot_ok`` gate): the two line
   weights are tents max(0, 1-|pos-j|) at pos = p + sel*L, rounded to bf16.
@@ -58,6 +61,14 @@ def _axis_cells(coord: torch.Tensor, size: int):
     w0 = torch.where(i0 == -1, t, (1.0 - t) * v0)
     w1 = t * (v1 & (i0 >= 0))
     return i0.clamp(0, size - 1), w0, w1
+
+
+def chart_sel(coords: torch.Tensor, n_grids: int) -> torch.Tensor:
+    """(N,) int64 grid of each sample: the chart flag of (N, 4) coords on a
+    stack of two grids, 0 on a single grid."""
+    if n_grids == 1:
+        return torch.zeros(coords.shape[0], dtype=torch.int64, device=coords.device)
+    return coords[:, 3].to(torch.int64)
 
 
 def sample_plane(plane: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -113,7 +124,7 @@ def sample_line_hat(line: torch.Tensor, coord: torch.Tensor, sel: torch.Tensor) 
 def field_fwd_plain(coords, planes, lines, n_density, line_hat):
     """Plain version of K1: see :func:`field_fwd`."""
     xyz = coords[:, :3]
-    sel = coords[:, 3].to(torch.int64)
+    sel = chart_sel(coords, planes[0].shape[0])
     dens = torch.zeros(coords.shape[0], dtype=torch.float32, device=coords.device)
     parts = []
     for i in range(3):
@@ -129,7 +140,7 @@ def field_fwd_plain(coords, planes, lines, n_density, line_hat):
 def density_fwd_plain(coords, planes, lines):
     """Plain version of K3: see :func:`density_fwd`."""
     xyz = coords[:, :3]
-    sel = coords[:, 3].to(torch.int64)
+    sel = chart_sel(coords, planes[0].shape[0])
     dens = torch.zeros(coords.shape[0], dtype=torch.float32, device=coords.device)
     for i in range(3):
         m0, m1 = MAT_MODE[i]
@@ -151,29 +162,39 @@ def _check_field_args(coords, planes, lines, n_density):
     check_tensor("coords", coords, torch.float32, (None, 4))
     if len(planes) != 3 or len(lines) != 3 or len(n_density) != 3:
         raise ValueError("expected three planes, three lines and three density widths")
+    s = planes[0].shape[0] if planes[0].dim() == 4 else 0
+    if s not in (1, 2):
+        raise ValueError(f"expected stacks of 1 or 2 grids, got planes[0] of shape "
+                         f"{tuple(planes[0].shape)}")
     for i in range(3):
-        check_tensor(f"planes[{i}]", planes[i], torch.bfloat16, (2, None, None, None),
+        check_tensor(f"planes[{i}]", planes[i], torch.bfloat16, (s, None, None, None),
                      coords.device)
         c = planes[i].shape[-1]
-        check_tensor(f"lines[{i}]", lines[i], torch.bfloat16, (2, None, c), coords.device)
+        check_tensor(f"lines[{i}]", lines[i], torch.bfloat16, (s, None, c), coords.device)
         if not 0 <= n_density[i] <= c:
             raise ValueError(f"n_density[{i}]={n_density[i]} outside [0, {c}]")
     if coords.shape[0] >= 2 ** 31:
         raise ValueError("more than 2**31 samples in one call")
 
 
-def _launch(fn_name, coords, planes, lines, n_density, line_hat, dens, app):
+def _dims(planes, lines, n_density, line_hat):
+    """The kernels' int array: per decomposition {H, W, L, C, n_density,
+    hat}, then the stack size."""
     dims = []
     for i in range(3):
         _, h, w, c = planes[i].shape
         dims += [h, w, lines[i].shape[1], c, int(n_density[i]), int(bool(line_hat[i]))]
+    return (ctypes.c_int * 19)(*dims, planes[0].shape[0])
+
+
+def _launch(fn_name, coords, planes, lines, n_density, line_hat, dens, app):
     fn = kernel("vm_lookup", fn_name, _ARGS)
     dev = coords.device
     with torch.cuda.device(dev):
         err = fn(coords.data_ptr(), coords.shape[0],
                  (ctypes.c_void_p * 3)(*[p.data_ptr() for p in planes]),
                  (ctypes.c_void_p * 3)(*[l.data_ptr() for l in lines]),
-                 (ctypes.c_int * 18)(*dims), dens.data_ptr(),
+                 _dims(planes, lines, n_density, line_hat), dens.data_ptr(),
                  0 if app is None else app.data_ptr(),
                  0 if app is None else app.shape[1],
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -190,12 +211,15 @@ def field_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     three decompositions side by side.
 
     coords (N, 4) float32 normalized [x0, x1, x2, flag]; planes
-    (2, H_i, W_i, C_i) and lines (2, L_i, C_i) bfloat16.  Returns density
+    (S, H_i, W_i, C_i) and lines (S, L_i, C_i) bfloat16, S = 2 (the flag
+    selects the grid) or 1 (the flag is ignored).  Returns density
     (N,) and appearance (N, sum_i C_i - n_density[i]), float32.
 
     Replaces ``sample_plane_packed_fastgrad`` + ``sample_line_hat`` as
-    composed by ``EgoNeRF._fused_products`` / ``compute_field``
-    (egonerf_tpu/ops/vm_lookup.py:467,582; models/egonerf.py:207-247).
+    composed by ``EgoNeRF._fused_products`` / ``compute_field`` and by
+    ``TensorVMSplit.compute_field`` with ``sel=None``
+    (egonerf_tpu/ops/vm_lookup.py:467,582; models/egonerf.py:207-247,
+    models/tensorf.py:325-349).
     Kernel: csrc/vm_lookup.cu.  CPU tensors take :func:`field_fwd_plain`."""
     _check_field_args(coords, planes, lines, n_density)
     if coords.device.type == "cpu":
@@ -220,8 +244,10 @@ def density_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     Returns (N,) float32.
 
     Replaces ``sample_plane_packed`` + ``sample_line_packed`` as composed by
-    ``EgoNeRF.compute_density_feature`` (egonerf_tpu/ops/vm_lookup.py:436,504;
-    models/egonerf.py:249-270).  Kernel: csrc/vm_lookup.cu.  CPU tensors
+    ``EgoNeRF.compute_density_feature`` and
+    ``TensorVMSplit.compute_density_feature_only``, over the real channels
+    only (egonerf_tpu/ops/vm_lookup.py:436,504; models/egonerf.py:249-270,
+    models/tensorf.py:351-367).  Kernel: csrc/vm_lookup.cu.  CPU tensors
     take :func:`density_fwd_plain`."""
     n_density = [p.shape[-1] for p in planes]
     _check_field_args(coords, planes, lines, n_density)
@@ -293,7 +319,7 @@ def field_bwd_plain(coords, planes, lines, d_dens, d_app, n_density, line_hat,
     scatters |contribution| instead, so that each cell holds the sum of the
     absolute terms that a float32 tolerance is stated against."""
     xyz = coords[:, :3]
-    sel = coords[:, 3].to(torch.int64)
+    sel = chart_sel(coords, planes[0].shape[0])
     g_planes, g_lines = [], []
     off = 0
     for i in range(3):
@@ -364,15 +390,12 @@ def field_bwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     g_planes = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in planes]
     g_lines = [torch.zeros(l.shape, dtype=torch.float32, device=dev) for l in lines]
     if n:
-        dims = []
-        for i in range(3):
-            _, h, w, c = planes[i].shape
-            dims += [h, w, lines[i].shape[1], c, int(n_density[i]), int(bool(line_hat[i]))]
         fn = kernel("vm_lookup", "vm_field_bwd", _BWD_ARGS)
         ptrs = ctypes.c_void_p * 3
         with torch.cuda.device(dev):
             err = fn(coords.data_ptr(), n, ptrs(*[p.data_ptr() for p in planes]),
-                     ptrs(*[l.data_ptr() for l in lines]), (ctypes.c_int * 18)(*dims),
+                     ptrs(*[l.data_ptr() for l in lines]),
+                     _dims(planes, lines, n_density, line_hat),
                      d_dens.data_ptr(), d_app.data_ptr(), n_app,
                      ptrs(*[g.data_ptr() for g in g_planes]),
                      ptrs(*[g.data_ptr() for g in g_lines]),

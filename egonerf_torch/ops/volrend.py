@@ -1,10 +1,14 @@
 """Volume rendering: ``raw2alpha``, the composite kernel K6 and its
 backward K6b (counterpart of ``egonerf_tpu/ops/volrend.py`` and the
-composite in ``egonerf_tpu/models/egonerf.py:466-493``), with the
-envmap's background blend where the caller gives its radiance."""
+composites of ``egonerf_tpu/models/egonerf.py:466-493`` and
+``models/tensorf.py:226-258``), with the envmap's background blend where
+the caller gives its radiance, and TensoRF's two sample gates where the
+caller gives them: ``valid`` (sigma 0 outside the box and the alpha mask)
+and ``rgb_thres`` (rgb 0 where the weight is not above it)."""
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -36,11 +40,87 @@ def raw2alpha(sigma: torch.Tensor, dist: torch.Tensor):
     return alpha, alpha * t_excl, trans[..., -1:]
 
 
-def composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift=-8.0,
-                    distance_scale=25.0, act="softplus", env=None):
-    """Plain version of K6: see :func:`composite`."""
+# The per-ray kernels (K4, K6, K6b) keep a ray on one warp: lane l owns the
+# contiguous chunk [l per, (l + 1) per) of its samples, per = ceil(n / 32),
+# and the products and sums across lanes are the scans and the butterfly of
+# csrc/warp_scan.cuh.  The plain versions take them in that order, so that a
+# decision on a weight (K4's fine samples, TensoRF's rgb gate) is the
+# kernels' to the bit.
+WARP = 32
+
+
+def _lane_chunks(x: torch.Tensor, identity: float) -> torch.Tensor:
+    """(R, n) -> (R, 32, per): each lane's chunk, padded with ``identity``."""
+    per = -(-x.shape[1] // WARP)
+    x = torch.nn.functional.pad(x, (0, WARP * per - x.shape[1]), value=identity)
+    return x.reshape(x.shape[0], WARP, per)
+
+
+def _chunk_fold(chunks: torch.Tensor, op) -> torch.Tensor:
+    """(R, 32, per) -> (R, 32): each lane's chunk folded left to right."""
+    acc = chunks[..., 0]
+    for j in range(1, chunks.shape[-1]):
+        acc = op(acc, chunks[..., j])
+    return acc
+
+
+def _warp_inclusive_scan(v: torch.Tensor, op) -> torch.Tensor:
+    """(R, 32): Hillis-Steele over the offsets 1, 2, 4, 8, 16."""
+    for off in (1, 2, 4, 8, 16):
+        v = torch.cat([v[:, :off], op(v[:, off:], v[:, :-off])], dim=1)
+    return v
+
+
+def _warp_exclusive_scan(v: torch.Tensor, op, identity: float) -> torch.Tensor:
+    """(R, 32): ``warp_exclusive_prod`` / ``_sum``: the inclusive scan
+    shifted by one lane."""
+    v = _warp_inclusive_scan(v, op)
+    return torch.cat([torch.full_like(v[:, :1], identity), v[:, :-1]], dim=1)
+
+
+def _warp_transmittance(alpha: torch.Tensor):
+    """raw2alpha's weights alpha * exclusive transmittance (R, S) and the
+    transmittance over the whole ray (R, 1), in the kernels' order."""
+    s = alpha.shape[1]
+    f = _lane_chunks(1.0 - alpha + 1e-10, 1.0)
+    al = _lane_chunks(alpha, 0.0)
+    incl = _warp_inclusive_scan(_chunk_fold(f, torch.mul), torch.mul)
+    t = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
+    w = []
+    for j in range(f.shape[-1]):
+        w.append(al[..., j] * t)
+        t = t * f[..., j]
+    return torch.stack(w, dim=-1).reshape(alpha.shape[0], -1)[:, :s], incl[:, -1:]
+
+
+def _warp_weights(alpha: torch.Tensor) -> torch.Tensor:
+    """raw2alpha's weights alpha * exclusive transmittance, in K4's order."""
+    return _warp_transmittance(alpha)[0]
+
+
+def _alpha(feat, dists, density_shift, distance_scale, act, valid=None):
+    """alpha = 1 - exp(-sigma * dists * distance_scale) with sigma =
+    feature2density(feat), 0 where ``valid`` is False."""
     sigma = density_activation(feat, density_shift, act)
-    _, weight, bg_weight = raw2alpha(sigma, dists * distance_scale)
+    if valid is not None:
+        sigma = torch.where(valid, sigma, torch.zeros_like(sigma))
+    return 1.0 - torch.exp(-sigma * (dists * distance_scale))
+
+
+def _gate(weight: torch.Tensor, rgb: torch.Tensor, rgb_thres: Optional[float]):
+    """rgb where weight > rgb_thres, else 0 (no gate for None)."""
+    if rgb_thres is None:
+        return rgb
+    return torch.where((weight > rgb_thres)[..., None], rgb, torch.zeros_like(rgb))
+
+
+def composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift=-8.0,
+                    distance_scale=25.0, act="softplus", env=None, valid=None, rgb_thres=None):
+    """Plain version of K6: see :func:`composite`.  The transmittance is
+    taken in K6's order, so the rgb gate decides as K6 does."""
+    weight, bg_weight = _warp_transmittance(
+        _alpha(feat, dists, density_shift, distance_scale, act, valid))
+    rgb = _gate(weight, rgb, rgb_thres)
     acc = weight.sum(-1)
     x = (weight[..., None] * rgb).sum(-2)
     depth = (weight * z_vals).sum(-1) + (1.0 - acc) * ray_dz
@@ -50,19 +130,30 @@ def composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift=-8.0,
     return (x + bg_map).clamp(0.0, 1.0), depth, acc, bg_weight, bg_map
 
 
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 6
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_float, ctypes.c_int, ctypes.c_float] + \
+    [ctypes.c_void_p] * 6
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _check_gates(valid, rgb_thres, r, s, device):
+    """The gates as the kernels take them: ``valid`` as bytes (or None) and
+    the threshold, -inf for no gate (every weight passes)."""
+    if valid is not None:
+        check_tensor("valid", valid, torch.bool, (r, s), device)
+    return -math.inf if rgb_thres is None else float(rgb_thres)
+
+
 def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
               rgb: torch.Tensor, ray_dz: torch.Tensor, density_shift: float = -8.0,
               distance_scale: float = 25.0, act: str = "softplus",
-              env: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
-    """K6: per ray, sigma = feature2density(feat); alpha = 1 -
+              env: Optional[torch.Tensor] = None, valid: Optional[torch.Tensor] = None,
+              rgb_thres: Optional[float] = None) -> Tuple[torch.Tensor, ...]:
+    """K6: per ray, sigma = feature2density(feat), 0 where ``valid`` is
+    False; alpha = 1 -
     exp(-sigma * dists * distance_scale); the exclusive transmittance;
     weights; acc = sum(weights); rgb_map = clip(sum(weights * rgb), 0, 1);
     depth = sum(weights * z) + (1 - acc) * ray_dz (the reference fills the
@@ -70,15 +161,19 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
     transmittance over the whole ray.  With the envmap radiance ``env`` the
     background is a last sample of alpha 1: bg_map = bg_weight * env and
     rgb_map = clip(sum(weights * rgb) + bg_map, 0, 1), the clip after the
-    blend.
+    blend.  With ``rgb_thres`` a sample's rgb counts only where its weight
+    is above it (TensoRF's ``ray_march_weight_thres``); acc and depth keep
+    every weight.
 
     feat, dists, z_vals (R, S), rgb (R, S, 3), ray_dz (R,), env (R, 3) or
-    None, all float32.  Returns rgb_map (R, 3), depth (R,), acc (R,),
-    bg_weight (R, 1), and bg_map (R, 3) with ``env``.
+    None, all float32; valid (R, S) bool or None.  Returns rgb_map (R, 3),
+    depth (R,), acc (R,), bg_weight (R, 1), and bg_map (R, 3) with ``env``.
 
     Replaces ``raw2alpha`` + ``feature2density`` + the composite of
-    ``EgoNeRF.forward`` with its envmap blend (egonerf_tpu/ops/volrend.py:11-24,
-    models/egonerf.py:99-104,466-493), forward only.  Kernel:
+    ``EgoNeRF.forward`` with its envmap blend and of ``TensorBase.forward``
+    with its gates (egonerf_tpu/ops/volrend.py:11-24,
+    models/egonerf.py:99-104,466-493, models/tensorf.py:226-258), forward
+    only.  Kernel:
     csrc/composite.cu.  CPU tensors take :func:`composite_plain`."""
     check_tensor("feat", feat, torch.float32, (None, None))
     r, s = feat.shape
@@ -91,9 +186,10 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
         raise ValueError(f"unknown density activation {act!r}")
     if s < 1 or s > 3072:  # the kernel keeps 4 warps x S alphas in 48 KB
         raise ValueError(f"composite takes 1..3072 samples per ray, got {s}")
+    thres = _check_gates(valid, rgb_thres, r, s, feat.device)
     if feat.device.type == "cpu":
         return composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift,
-                               distance_scale, act, env)
+                               distance_scale, act, env, valid, rgb_thres)
     dev = feat.device
     rgb_map = torch.empty(r, 3, dtype=torch.float32, device=dev)
     depth = torch.empty(r, dtype=torch.float32, device=dev)
@@ -104,9 +200,9 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
         fn = kernel("composite", "composite_fwd", _ARGS)
         with torch.cuda.device(dev):
             err = fn(feat.data_ptr(), dists.data_ptr(), z_vals.data_ptr(),
-                     rgb.data_ptr(), ray_dz.data_ptr(), _ptr(env), r, s, float(density_shift),
-                     float(distance_scale), ACTIVATIONS.index(act),
-                     rgb_map.data_ptr(), depth.data_ptr(), acc.data_ptr(),
+                     rgb.data_ptr(), ray_dz.data_ptr(), _ptr(env), _ptr(valid), r, s,
+                     float(density_shift), float(distance_scale), ACTIVATIONS.index(act),
+                     thres, rgb_map.data_ptr(), depth.data_ptr(), acc.data_ptr(),
                      bg.data_ptr(), _ptr(bg_map), torch.cuda.current_stream(dev).cuda_stream)
         check_launch("composite_fwd", err)
         composite.launches += 1
@@ -126,11 +222,12 @@ def clip_grad(x: torch.Tensor) -> torch.Tensor:
 
 
 def composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift=-8.0,
-                        distance_scale=25.0, act="softplus", env=None):
+                        distance_scale=25.0, act="softplus", env=None, valid=None,
+                        rgb_thres=None):
     """Plain version of K6b: see :func:`composite_bwd`.  torch autograd
     through the forward of :func:`composite_plain`, with the slopes the
     kernel uses: sigmoid(feat + shift) for softplus, [feat > 0] for relu,
-    and JAX's clip gradient."""
+    and JAX's clip gradient; the rgb gate is a constant mask."""
     with torch.enable_grad():
         f = feat.detach().requires_grad_(True)
         c = rgb.detach().requires_grad_(True)
@@ -138,8 +235,10 @@ def composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift=-8.0,
                  else (f > 0.0).to(f.dtype)).detach()
         # the forward's sigma to the bit, with d sigma / d feat = slope
         sigma = density_activation(f, density_shift, act).detach() + (f - f.detach()) * slope
-        _, weight, bg_weight = raw2alpha(sigma, dists * distance_scale)
-        x = (weight[..., None] * c).sum(-2)
+        if valid is not None:
+            sigma = torch.where(valid, sigma, torch.zeros_like(sigma))
+        weight, bg_weight = _warp_transmittance(1.0 - torch.exp(-sigma * (dists * distance_scale)))
+        x = (weight[..., None] * _gate(weight.detach(), c, rgb_thres)).sum(-2)
         leaves = (f, c)
         if env is not None:
             e = env.detach().requires_grad_(True)
@@ -148,14 +247,16 @@ def composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift=-8.0,
         return torch.autograd.grad(x, leaves, d_rgb_map * clip_grad(x.detach()))
 
 
-_BWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                     ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
+_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_float, ctypes.c_int, ctypes.c_float] + \
+    [ctypes.c_void_p] * 4
 
 
 def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
                   d_rgb_map: torch.Tensor, density_shift: float = -8.0,
                   distance_scale: float = 25.0, act: str = "softplus",
-                  env: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+                  env: Optional[torch.Tensor] = None, valid: Optional[torch.Tensor] = None,
+                  rgb_thres: Optional[float] = None) -> Tuple[torch.Tensor, ...]:
     """K6b: the gradient of :func:`composite`'s rgb_map with respect to
     feat and rgb (and ``env``, where given), given d_rgb_map (R, 3).  Per
     ray it recomputes the forward scan and runs the division-free reverse
@@ -163,16 +264,20 @@ def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
     q_j = rgb_j . g, from R_{S+1} = env . g (0 without the envmap: JAX's
     background is a last sample of alpha 1), g = d_rgb_map times JAX's clip
     gradient of the blended sum; then d alpha_j = T_j (q_j - R_{j+1}),
-    d rgb_j = w_j g and d env = bg_weight g.  depth, acc and bg take no
-    gradient (JAX stops depth's; z and dists are constants).
+    d rgb_j = w_j g and d env = bg_weight g.  A sample the rgb gate drops
+    has q_j = 0 and d rgb_j = 0 (the gate recomputes K6's weight with K6's
+    arithmetic, so both decide alike); d feat_j = 0 where ``valid`` is
+    False.  depth, acc and bg take no gradient (JAX stops depth's; z and
+    dists are constants).
 
     feat, dists (R, S), rgb (R, S, 3), d_rgb_map (R, 3), env (R, 3) or
-    None, float32.  Returns d_feat (R, S) and d_rgb (R, S, 3), and d_env
-    (R, 3) with ``env``.
+    None, float32; valid (R, S) bool or None.  Returns d_feat (R, S) and
+    d_rgb (R, S, 3), and d_env (R, 3) with ``env``.
 
     Replaces the autodiff of ``raw2alpha`` + ``feature2density`` + the
-    composite and its envmap blend (egonerf_tpu/ops/volrend.py:11-24,
-    models/egonerf.py:466-493).  Kernel: csrc/composite.cu.  CPU tensors
+    composite with its envmap blend or its gates
+    (egonerf_tpu/ops/volrend.py:11-24, models/egonerf.py:466-493,
+    models/tensorf.py:226-258).  Kernel: csrc/composite.cu.  CPU tensors
     take :func:`composite_bwd_plain`."""
     check_tensor("feat", feat, torch.float32, (None, None))
     r, s = feat.shape
@@ -185,9 +290,10 @@ def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
         raise ValueError(f"unknown density activation {act!r}")
     if s < 1 or s > 1536:  # the kernel keeps 4 warps x 2S floats in 48 KB
         raise ValueError(f"composite_bwd takes 1..1536 samples per ray, got {s}")
+    thres = _check_gates(valid, rgb_thres, r, s, feat.device)
     if feat.device.type == "cpu":
         return composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift,
-                                   distance_scale, act, env)
+                                   distance_scale, act, env, valid, rgb_thres)
     dev = feat.device
     d_feat = torch.empty(r, s, dtype=torch.float32, device=dev)
     d_rgb = torch.empty(r, s, 3, dtype=torch.float32, device=dev)
@@ -196,8 +302,8 @@ def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
         fn = kernel("composite", "composite_bwd", _BWD_ARGS)
         with torch.cuda.device(dev):
             err = fn(feat.data_ptr(), dists.data_ptr(), rgb.data_ptr(), d_rgb_map.data_ptr(),
-                     _ptr(env), r, s, float(density_shift), float(distance_scale),
-                     ACTIVATIONS.index(act), d_feat.data_ptr(), d_rgb.data_ptr(),
+                     _ptr(env), _ptr(valid), r, s, float(density_shift), float(distance_scale),
+                     ACTIVATIONS.index(act), thres, d_feat.data_ptr(), d_rgb.data_ptr(),
                      _ptr(d_env), torch.cuda.current_stream(dev).cuda_stream)
         check_launch("composite_bwd", err)
         composite_bwd.launches += 1
@@ -212,27 +318,29 @@ class _Composite(torch.autograd.Function):
     so the plain versions run through the same Function)."""
 
     @staticmethod
-    def forward(ctx, feat, dists, z_vals, rgb, ray_dz, env, density_shift, distance_scale,
-                act, fwd, bwd):
-        outs = fwd(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act, env)
-        ctx.save_for_backward(feat, dists, rgb, env)
-        ctx.args = (density_shift, distance_scale, act, bwd)
+    def forward(ctx, feat, dists, z_vals, rgb, ray_dz, env, valid, density_shift,
+                distance_scale, act, rgb_thres, fwd, bwd):
+        outs = fwd(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act, env,
+                   valid, rgb_thres)
+        ctx.save_for_backward(feat, dists, rgb, env, valid)
+        ctx.args = (density_shift, distance_scale, act, rgb_thres, bwd)
         ctx.mark_non_differentiable(*outs[1:])
         return outs
 
     @staticmethod
     def backward(ctx, d_rgb_map, *_):
-        feat, dists, rgb, env = ctx.saved_tensors
-        shift, scale, act, bwd = ctx.args
-        grads = bwd(feat, dists, rgb, d_rgb_map.contiguous(), shift, scale, act, env)
+        feat, dists, rgb, env, valid = ctx.saved_tensors
+        shift, scale, act, rgb_thres, bwd = ctx.args
+        grads = bwd(feat, dists, rgb, d_rgb_map.contiguous(), shift, scale, act, env, valid,
+                    rgb_thres)
         d_env = grads[2] if env is not None else None
-        return grads[0], None, None, grads[1], None, d_env, None, None, None, None, None
+        return (grads[0], None, None, grads[1], None, d_env) + (None,) * 7
 
 
 def composite_train(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act,
-                    fwd=composite, bwd=composite_bwd, env=None):
+                    fwd=composite, bwd=composite_bwd, env=None, valid=None, rgb_thres=None):
     """:func:`composite` with a gradient: rgb_map is differentiable in feat
     and rgb (and ``env``) through ``bwd`` (K6b); depth, acc, bg and bg_map
     are not."""
-    return _Composite.apply(feat, dists, z_vals, rgb, ray_dz, env, density_shift,
-                            distance_scale, act, fwd, bwd)
+    return _Composite.apply(feat, dists, z_vals, rgb, ray_dz, env, valid, density_shift,
+                            distance_scale, act, rgb_thres, fwd, bwd)

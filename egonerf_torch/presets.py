@@ -10,7 +10,9 @@ fine samples; eval chunks of 4096 rays; near/far [0.01, 15].
 
 The outdoor (envmap) configurations change a few fields of that shape:
 :func:`outdoor_overrides` reads them from ``OUTDOOR_CONFIG``'s include
-chain.
+chain.  The TensoRF family's shapes are :func:`tensorf_overrides` (the
+JAX ``tensorf`` quality preset) and :func:`tensorf_mask_overrides` (the
+JAX ``tensorf_bench`` recipe, with the alpha mask).
 """
 from __future__ import annotations
 
@@ -92,3 +94,41 @@ def production_model(aabb=None, device="cuda") -> EgoNeRF:
                                     interval_th=True)
     return EgoNeRF(aabb, coords.resolution, coords, FIELD, near_far=NEAR_FAR,
                    device=device)
+
+
+# the TensorVMSplit shape shared by the JAX ``tensorf`` quality preset
+# (egonerf_tpu/tools/quality_run.py:106-117) and ``tensorf_bench``
+# (egonerf_tpu/tools/tensorf_bench.py:56-67): the xyz chart, uniform steps
+# from the aabb entry, 256 samples a ray, no resampling, L1 8e-5 -> 4e-5
+TENSORF_SHAPE = dict(
+    model_name="TensorVMSplit", coordinates_name="xyz", exp_sampling=False,
+    interval_th=False, resampling=False, use_coarse_sample=False, n_coarse=256,
+    near_far="[0.05, 8.5]", L1_weight_initial=8e-5, L1_weight_rest=4e-5)
+# their procedural scenes: 12 + 2 views at 1000x500 (quality), 8 + 1 at
+# 800x400 (bench)
+TENSORF_QUALITY_SCENE = dict(n_train=12, n_test=2, height=500, width=1000)
+TENSORF_BENCH_SCENE = dict(n_train=8, n_test=1, height=400, width=800)
+
+
+def tensorf_overrides(**deltas) -> dict:
+    """The JAX ``tensorf`` quality preset: TensorVMSplit on the xyz chart,
+    6000 steps of batch 4096 with 256 samples a ray, N_voxel 2,097,152 ->
+    16,777,216 (128^3 -> 256^3 on a cube) upsampled at 1000, 2000, 3000,
+    L1 8e-5 (no alpha mask, so the weight never switches), no TV, one
+    evaluation at the end.  ``deltas`` win."""
+    return production_overrides(**{**TENSORF_SHAPE, **dict(
+        n_iters=6000, N_voxel_init=2_097_152, N_voxel_final=16_777_216,
+        upsamp_list="[1000,2000,3000]", TV_weight_density=0.0, TV_weight_app=0.0,
+        N_vis=-1, vis_list="[6000]", progress_refresh_rate=500, render_test=True,
+        i_weights=2000), **deltas})
+
+
+def tensorf_mask_overrides(**deltas) -> dict:
+    """The JAX ``tensorf_bench`` recipe: the TensorVMSplit shape at a fixed
+    256^3 grid (N_voxel 16,777,216), 1200 steps with the alpha mask baked
+    at 1000 (at 128^3, the cap of the bake), where the L1 weight switches to
+    4e-5.  ``deltas`` win."""
+    return production_overrides(**{**TENSORF_SHAPE, **dict(
+        n_iters=1200, N_voxel_init=16_777_216, N_voxel_final=16_777_216,
+        update_AlphaMask_list="[1000]", progress_refresh_rate=400, N_vis=0,
+        vis_list="[1000000000]", i_weights=10**9), **deltas})

@@ -2,10 +2,11 @@
 ``egonerf_tpu/render/renderer.py``: ``Renderer`` and ``evaluation``).
 ``evaluation_path`` waits (ROADMAP.md §1).
 
-Rays go through ``EgoNeRF.forward`` in fixed chunks under
-``torch.no_grad()``; the tail is padded by repeating the last ray and
-trimmed from the outputs.  The bf16 lookup tables and the coarse grid are
-built once per ``render_*`` call.  With the envmap the outputs gain ``bg``,
+Rays go through the model's forward (``EgoNeRF`` or ``TensorVMSplit``) in
+fixed chunks under ``torch.no_grad()``; the tail is padded by repeating the
+last ray and trimmed from the outputs.  The bf16 lookup tables (and
+EgoNeRF's coarse grid) come from ``model.lookup_tables`` once per
+``render_*`` call.  With the envmap the outputs gain ``bg``,
 and ``pretrain_envmap`` renders the envmap's radiance ``env`` alone.
 """
 from __future__ import annotations
@@ -21,9 +22,11 @@ from .metrics import psnr as psnr_fn
 
 class Renderer:
     """Chunked renderer for one model and render configuration; the
-    keyword arguments are ``EgoNeRF.forward``'s (n_coarse, n_fine,
+    keyword arguments are the model forward's (n_coarse, n_fine,
     exp_sampling, resampling, use_coarse_sample, white_bg, eval_keep), as
-    the JAX ``Renderer.from_config`` maps them from a training config."""
+    the JAX ``Renderer.from_config`` maps them from a training config
+    (TensorVMSplit marches ``n_coarse`` samples a ray and ignores the
+    rest)."""
 
     def __init__(self, model, chunk: int = 4096, **render_kwargs):
         self.model = model

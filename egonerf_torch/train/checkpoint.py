@@ -2,7 +2,9 @@
 ``egonerf_tpu/train/checkpoint.py``): an ``.npz`` of the parameters under
 JAX's flat keys (``density_planes/0``, ``basis``, ``shader/l1/w``, ...)
 plus a JSON ``__header__`` with ``global_step``, ``coords_spec``,
-``model_meta`` and ``param_keys``.  JAX's ``load_checkpoint`` reads what
+``model_meta`` and ``param_keys``.  Alpha masks are bit-packed under
+``__alphamask__/<name>`` with their shapes in the header's ``alpha_masks``,
+as JAX packs them.  JAX's ``load_checkpoint`` reads what
 :func:`save_checkpoint` writes, and the port resumes from JAX's files.
 Optimizer moments are not stored, as in JAX.
 """
@@ -20,7 +22,9 @@ from ..models.convert import params_to_jax
 
 
 def save_checkpoint(path: str, params: Mapping[str, torch.Tensor], *, global_step: int,
-                    coords_spec: dict, model_meta: dict) -> None:
+                    coords_spec: dict, model_meta: dict,
+                    alpha_masks: Optional[Mapping[str, np.ndarray]] = None) -> None:
+    """``alpha_masks``: {name: boolean volume}, bit-packed into the file."""
     arrays = params_to_jax(dict(params))
     header = {
         "global_step": int(global_step),
@@ -28,21 +32,45 @@ def save_checkpoint(path: str, params: Mapping[str, torch.Tensor], *, global_ste
         "model_meta": model_meta,
         "param_keys": sorted(arrays.keys()),
     }
+    if alpha_masks:
+        header["alpha_masks"] = {}
+        for name, vol in alpha_masks.items():
+            vol = np.asarray(vol).astype(bool)
+            arrays[f"__alphamask__/{name}"] = np.packbits(vol.reshape(-1))
+            header["alpha_masks"][name] = list(vol.shape)
     arrays["__header__"] = np.frombuffer(json.dumps(header).encode(), dtype=np.uint8)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, **arrays)
 
 
 def load_checkpoint(path: str):
-    """(flat parameters under JAX keys, header).  Checkpoints with alpha
-    masks raise: the port has no alpha mask yet."""
+    """(flat parameters under JAX keys, header); :func:`load_alpha_masks`
+    reads the masks."""
     with np.load(path, allow_pickle=False) as data:
         header = json.loads(bytes(data["__header__"]).decode())
-        if header.get("alpha_masks"):
-            raise NotImplementedError("checkpoints with an alpha mask are not "
-                                      "ported yet (ROADMAP.md §1)")
         flat = {k: data[k] for k in header["param_keys"]}
     return flat, header
+
+
+def load_alpha_masks(path: str) -> dict:
+    """{name: boolean volume} of the alpha masks a checkpoint holds."""
+    with np.load(path, allow_pickle=False) as data:
+        header = json.loads(bytes(data["__header__"]).decode())
+        masks = {}
+        for name, shape in header.get("alpha_masks", {}).items():
+            n = int(np.prod(shape))
+            masks[name] = np.unpackbits(data[f"__alphamask__/{name}"])[:n].reshape(shape) > 0
+    return masks
+
+
+def mask_volumes(model) -> Optional[dict]:
+    """The model's alpha mask as checkpoint volumes {alpha_i: (D, H, W)
+    bool}, one per grid, as JAX's trainer saves them; None without one."""
+    mask = getattr(model, "alpha_mask", None)
+    if mask is None:
+        return None
+    vols = mask.vol.cpu().numpy() > 0
+    return {f"alpha_{i}": vols[i] for i in range(vols.shape[0])}
 
 
 def checkpoint_step(path: str) -> int:

@@ -2,21 +2,24 @@
 ``Trainer`` and ``render_test``), cut to what the port carries.
 
 One step draws a batch of ray ids on the card from the resident (N, 9)
-buffer, runs ``EgoNeRF.forward`` in training mode (K5's sorted uniforms,
-K3 and K4 on the detached coarse grid, the fine field through K1/K2, the
-shader through torch autograd, the composite through K6/K6b), takes the
-MSE, and steps Adam.  Nothing synchronises the host per step: the MSE is
-read with ``.item()`` only every ``progress_refresh_rate`` steps.  Events
-(``vis_list``, ``i_weights``, the end) fire as in JAX.  With the envmap a
+buffer, runs the model's forward in training mode (EgoNeRF: K5's sorted
+uniforms, K3 and K4 on the detached coarse grid, K7, the fine field through
+K1/K2; TensorVMSplit: jittered uniform steps, K9's mask gate, K1/K2 on its
+single grid; both: the shader through torch autograd, the composite through
+K6/K6b), takes the MSE plus the L1, TV and Ortho terms at JAX's schedules,
+and steps Adam.  Nothing synchronises the host per step: the MSE is read
+with ``.item()`` only every ``progress_refresh_rate`` steps.  Events fire
+after a step as in JAX: ``vis_list``, ``i_weights``, the alpha-mask bake
+(``update_AlphaMask_list``; its first switches the L1 weight) and the grid
+upsample (``upsamp_list``, TensorVMSplit), then the end.  With the envmap a
 fresh run first fits the envmap alone (``pretrain_envmap``, JAX
 ``trainer.py:612-645``).
 
 What the JAX trainer does besides, the port does not carry yet and refuses
-by name (ROADMAP.md §1): the TV, L1, Ortho, entropy, sparsity and depth
-losses; grid upsampling and the alpha mask (their sentinel schedules
-beyond ``n_iters`` are accepted); the empty-space cull, the
-theta-importance sampler, ray filtering, the device mesh and the profiler
-hook.
+by name (ROADMAP.md §1): the entropy, sparsity and depth losses; EgoNeRF's
+grid upsampling and linear sampling (sentinel schedules beyond ``n_iters``
+are accepted); the empty-space cull, the theta-importance sampler, ray
+filtering, NDC rays, the device mesh and the profiler hook.
 """
 from __future__ import annotations
 
@@ -33,9 +36,11 @@ from ..coords import coords_from_spec, make_coordinates
 from ..data.datasets import dataset_class
 from ..data.samplers import DeviceRaySampler
 from ..models import StepKey, build_model, model_meta, params_from_jax
+from ..models.alphamask import mask_from_volumes
 from ..render.metrics import mse2psnr
 from ..render.renderer import Renderer, evaluation
-from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from .checkpoint import (latest_checkpoint, load_alpha_masks, load_checkpoint, mask_volumes,
+                         save_checkpoint)
 from .config import Config, export_config
 from .optim import Optimizer
 
@@ -46,16 +51,16 @@ def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every option of the JAX trainer
     that the port does not carry yet."""
     refused = []
-    for name in ("TV_weight_density", "TV_weight_app", "L1_weight_initial", "L1_weight_rest",
-                 "Ortho_weight", "entropy_weight", "sparsity_lambda"):
+    for name in ("entropy_weight", "sparsity_lambda"):
         if getattr(cfg, name) > 0:
             refused.append(f"{name} > 0")
     if cfg.use_depth:
         refused.append("depth supervision")
-    for name in ("upsamp_list", "update_AlphaMask_list"):
-        early = [v for v in (getattr(cfg, name) or []) if v < cfg.n_iters]
-        if early:
-            refused.append(f"{name} entries {early} below n_iters")
+    egonerf = cfg.model_name == "EgoNeRF"
+    early = [v for v in (cfg.upsamp_list or []) if v < cfg.n_iters]
+    if egonerf and early:
+        # the radial axis needs JAX's r-aware positions
+        refused.append(f"EgoNeRF's grid upsampling (upsamp_list entries {early} below n_iters)")
     if cfg.train_keep or cfg.eval_keep:
         refused.append("the empty-space cull (train_keep, eval_keep)")
     if cfg.sampling_method != "simple":
@@ -68,8 +73,8 @@ def check_supported(cfg: Config) -> None:
         refused.append("the profiler hook (profile_dir)")
     if cfg.coarse_sigma_grid_update_rule == "samp":
         refused.append("the 'samp' coarse-grid rule")
-    if not cfg.exp_sampling:
-        refused.append("linear ray sampling (exp_sampling off)")
+    if egonerf and not cfg.exp_sampling:
+        refused.append("EgoNeRF's linear ray sampling (exp_sampling off)")
     if cfg.ndc_ray:
         refused.append("NDC rays")
     if cfg.render_path or cfg.export_mesh:
@@ -91,13 +96,25 @@ class MetricsLogger:
             f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
 
 
+def initial_l1_weight(cfg: Config, start_step: int) -> float:
+    """The L1 weight at ``start_step``: the switch from the initial to the
+    rest weight fires at the first alpha-mask update, so a run resumed past
+    it starts on the rest weight (JAX ``trainer.py:89-97``)."""
+    lst = cfg.update_AlphaMask_list or []
+    return cfg.L1_weight_rest if lst and start_step > lst[0] else cfg.L1_weight_initial
+
+
 def _load_model(cfg: Config, path: str, aabb, near_far, device):
-    """(model, header) of a checkpoint written by either package."""
+    """(model, header) of a checkpoint written by either package, its alpha
+    mask reinstalled."""
     flat, header = load_checkpoint(path)
     coords = coords_from_spec(header["coords_spec"])
     model = build_model(cfg, aabb, coords.resolution, coords, near_far,
                         meta=header.get("model_meta"), device=device)
     model.load_state_dict(params_from_jax(flat, device=device))
+    masks = load_alpha_masks(path)
+    if masks:
+        model.alpha_mask = mask_from_volumes([masks[k] for k in sorted(masks)], model.device)
     return model, header
 
 
@@ -139,10 +156,13 @@ class Trainer:
             self.coords = make_coordinates(cfg.coordinates_name, aabb, exp_r=cfg.exp_sampling,
                                            N_voxel=cfg.N_voxel_init, r0=cfg.r0,
                                            interval_th=cfg.interval_th)
+            if self.coords.resolution is None:
+                self.coords.set_resolution(self.coords.N_to_reso(cfg.N_voxel_init))
             self.model = build_model(cfg, aabb, self.coords.resolution, self.coords,
                                      self.near_far, device=dev)
             self.model.init_params(torch.Generator(device=dev).manual_seed(cfg.seed))
         self.params = self.model.params()
+        self.reso_cur = list(self.coords.resolution)
 
         # -- optimizer at the main loop's envmap lr (the pretrain builds its
         # own and rebuilds this one after); the decay counts from the resume
@@ -150,16 +170,35 @@ class Trainer:
         self.optimizer = self._build_optimizer(cfg.lr_envmap)
         self.optimizer.fast_forward(self.start_step)
 
+        # -- the voxel upsample schedule, log-linear, realigned on resume
+        # (JAX trainer.py:200-210) ---------------------------------------
+        ups = cfg.upsamp_list or []
+        self.upsamp_list = [u for u in ups if u < cfg.n_iters]
+        self.n_voxel_list = np.round(np.exp(np.linspace(
+            np.log(cfg.N_voxel_init), np.log(cfg.N_voxel_final), len(ups) + 1))).astype(
+                np.int64).tolist()[1:]
+        for u in ups:
+            if u < self.start_step and self.n_voxel_list:
+                self.n_voxel_list.pop(0)
+        # the TV weights decay by lr_factor a step, counted from the resume
+        # point (JAX trainer.py:217-221)
+        decay_iters = cfg.lr_decay_iters if cfg.lr_decay_iters > 0 else cfg.n_iters
+        self.lr_factor = cfg.lr_decay_target_ratio ** (1.0 / decay_iters)
+        self._sched_start = self.start_step
+        self.l1_weight = initial_l1_weight(cfg, self.start_step)
+
         # -- device-resident training rays and the step's generator -------
         self.generator = torch.Generator(device=dev).manual_seed(cfg.seed + 2)
         self._install_sampler()
         self.renderer = Renderer.from_config(self.model, cfg, self.white_bg)
 
-    def _build_optimizer(self, lr_envmap: float, decay: bool = True) -> Optimizer:
+    def _build_optimizer(self, lr_envmap: float, decay: bool = True,
+                         lr_scale: float = 1.0) -> Optimizer:
         cfg = self.cfg
         decay_iters = cfg.lr_decay_iters if cfg.lr_decay_iters > 0 else cfg.n_iters
-        return Optimizer(self.params, cfg.lr_init, cfg.lr_basis, lr_envmap,
-                         cfg.lr_decay_target_ratio if decay else 1.0, decay_iters)
+        return Optimizer(self.params, cfg.lr_init * lr_scale, cfg.lr_basis * lr_scale,
+                         lr_envmap * lr_scale, cfg.lr_decay_target_ratio if decay else 1.0,
+                         decay_iters)
 
     def _install_sampler(self) -> None:
         self.sampler = DeviceRaySampler(self.train_dataset.all_rays,
@@ -177,6 +216,34 @@ class Trainer:
         self._install_sampler()
 
     # ------------------------------------------------------------------
+    def tv_weights(self, iteration: int):
+        """(density, app) TV weights at ``iteration``: decayed by lr_factor
+        once a step from the resume point up to ``iter_ignore_TV`` - 1, in
+        float32 as JAX's step computes them; 0 from ``iter_ignore_TV`` on."""
+        cfg = self.cfg
+        if iteration >= cfg.iter_ignore_TV:
+            return 0.0, 0.0
+        n_dec = max(min(iteration, cfg.iter_ignore_TV - 1) - self._sched_start + 1, 0)
+        f = float(np.float32(self.lr_factor) ** np.float32(n_dec))
+        return cfg.TV_weight_density * f, cfg.TV_weight_app * f
+
+    def loss(self, out, rgbs: torch.Tensor, iteration: int):
+        """(total loss, MSE): the MSE plus Ortho, L1 (at the current weight)
+        and TV (at :meth:`tv_weights`) where their weights are positive."""
+        cfg, model, p = self.cfg, self.model, self.params
+        mse = torch.mean((out["rgb"] - rgbs) ** 2)
+        total = mse
+        if cfg.Ortho_weight > 0:
+            total = total + cfg.Ortho_weight * model.vector_comp_diffs(p)
+        if self.l1_weight > 0:
+            total = total + self.l1_weight * model.density_l1(p)
+        tv_d, tv_a = self.tv_weights(iteration)
+        if tv_d > 0:
+            total = total + tv_d * model.tv_loss_density(p)
+        if tv_a > 0:
+            total = total + tv_a * model.tv_loss_app(p)
+        return total, mse
+
     def train_step(self, iteration: int) -> torch.Tensor:
         """One optimizer step at ``iteration``; returns the batch MSE as a
         device scalar (reading it synchronises the host)."""
@@ -188,9 +255,9 @@ class Trainer:
             exp_sampling=cfg.exp_sampling,
             resampling=cfg.resampling and iteration > cfg.iter_ignore_resampling,
             use_coarse_sample=cfg.use_coarse_sample, white_bg=self.white_bg)
-        mse = torch.mean((out["rgb"] - row[:, 6:9]) ** 2)
+        total, mse = self.loss(out, row[:, 6:9], iteration)
         self.optimizer.zero_grad()
-        mse.backward()
+        total.backward()
         self.optimizer.step()
         return mse.detach()
 
@@ -258,6 +325,14 @@ class Trainer:
             if cfg.i_weights > 0 and iteration % cfg.i_weights == 0 and iteration != 0:
                 self.save(os.path.join(self.logdir, f"{cfg.expname}_{iteration:06d}.npz"),
                           iteration)
+
+            alpha_list = cfg.update_AlphaMask_list or []
+            if iteration in alpha_list:
+                self.update_alpha_mask()
+                if iteration == alpha_list[0]:
+                    self.l1_weight = cfg.L1_weight_rest
+            if iteration in self.upsamp_list:
+                self.upsample(iteration)
             iteration += 1
 
         self.save(os.path.join(self.logdir, f"{cfg.expname}.npz"), cfg.n_iters)
@@ -274,10 +349,33 @@ class Trainer:
             print(f"======> {cfg.expname} test all psnr: {np.mean(psnrs_test)} <====")
         return psnrs_test
 
+    def update_alpha_mask(self) -> None:
+        """The alpha-mask event (JAX ``trainer.py:743-752``): bake at the
+        current resolution capped at 128 per axis.  The tight aabb the bake
+        returns is ignored (no shrink), as in JAX; Adam is kept."""
+        self.model.update_alpha_mask(self.params, [min(r, 128) for r in self.reso_cur])
+
+    def upsample(self, iteration: int) -> None:
+        """The upsample event (JAX ``trainer.py:803-819``): resample the grids
+        onto the next voxel count, set the chart's resolution and the march
+        step, and rebuild Adam with fresh moments and the decay from 0, at
+        lr scale 1 (``lr_upsample_reset``) or the decay reached so far."""
+        cfg = self.cfg
+        reso = self.coords.N_to_reso(self.n_voxel_list.pop(0))
+        print(f"upsampling grid to {reso} at iter {iteration}")
+        self.params = self.model.upsample_params(self.params, reso)
+        self.coords.set_resolution(reso)
+        self.model.update_step_size(reso)
+        self.reso_cur = list(reso)
+        lr_scale = (1.0 if cfg.lr_upsample_reset
+                    else cfg.lr_decay_target_ratio ** (iteration / cfg.n_iters))
+        self.optimizer = self._build_optimizer(cfg.lr_envmap, lr_scale=lr_scale)
+
     def save(self, path: str, global_step: int) -> None:
         save_checkpoint(path, self.params, global_step=global_step,
                         coords_spec=self.coords.to_spec(),
-                        model_meta=model_meta(self.cfg, self.model))
+                        model_meta=model_meta(self.cfg, self.model),
+                        alpha_masks=mask_volumes(self.model))
         print(f"saved checkpoint {path}")
 
 

@@ -14,7 +14,7 @@ import torch
 import egonerf_torch
 from egonerf_torch import _build, _device
 from egonerf_torch.coords.yinyang import YinYangSphericalCoords
-from egonerf_torch.ops import chart, envmap, merge, pdf, vm_lookup, volrend
+from egonerf_torch.ops import alphamask, chart, envmap, merge, pdf, vm_lookup, volrend
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "egonerf_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -78,7 +78,8 @@ def test_build_dir_keyed_by_sources():
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
     assert d == _build.build_dir()
     assert {p.stem for p in _build.sources()} == {"vm_lookup", "resample", "composite",
-                                                  "sorted_uniform", "chart", "envmap"}
+                                                  "sorted_uniform", "chart", "envmap",
+                                                  "alphamask"}
 
 
 def _tables(c=12, dtype=torch.bfloat16):
@@ -148,7 +149,28 @@ def _envmap_bwd(**over):
     return envmap.envmap_bwd(**args)
 
 
+def _alpha(**over):
+    args = dict(coords=torch.zeros(16, 4), volume=torch.zeros(2, 3, 4, 5, dtype=torch.uint8))
+    args.update(over)
+    return alphamask.alpha_fwd(**args)
+
+
 BAD_CALLS = {
+    "alpha volume float32": (lambda: _alpha(volume=torch.zeros(2, 3, 4, 5)), TypeError),
+    "alpha three volumes": (lambda: _alpha(volume=torch.zeros(3, 3, 4, 5, dtype=torch.uint8)),
+                            ValueError),
+    "alpha two volumes without a flag": (lambda: _alpha(coords=torch.zeros(16, 3)), ValueError),
+    "alpha coords (N, 5)": (lambda: _alpha(coords=torch.zeros(16, 5)), ValueError),
+    "alpha coords float64": (lambda: _alpha(coords=torch.zeros(16, 4, dtype=torch.float64)),
+                             TypeError),
+    "field mixed stacks": (lambda: _field(lines=[torch.zeros(1, 7, 12, dtype=torch.bfloat16)] * 3),
+                           ValueError),
+    "composite valid shape": (lambda: _composite(valid=torch.ones(8, 31, dtype=torch.bool)),
+                              ValueError),
+    "composite valid dtype": (lambda: _composite(valid=torch.ones(8, 32)), TypeError),
+    "composite_bwd valid dtype": (lambda: _composite_bwd(valid=torch.ones(8, 32,
+                                                                           dtype=torch.uint8)),
+                                  TypeError),
     "field coords float64": (lambda: _field(coords=torch.zeros(16, 4, dtype=torch.float64)),
                              TypeError),
     "field coords (N, 3)": (lambda: _field(coords=torch.zeros(16, 3)), ValueError),
@@ -223,6 +245,27 @@ def test_wrappers_on_cpu_take_the_plain_versions():
                                                                    (8, 3)]
     assert [t.shape for t in _composite_bwd(env=torch.zeros(8, 3))] == [(8, 32), (8, 32, 3),
                                                                        (8, 3)]
+    assert [f.launches for f in counters] == before
+
+
+def test_single_grid_and_gates_take_the_plain_versions_on_cpu():
+    """K1/K2/K3 on a stack of one grid, K6/K6b with the gates and K9 give
+    CPU tensors their plain versions and launch nothing."""
+    counters = (vm_lookup.field_fwd, vm_lookup.field_bwd, vm_lookup.density_fwd,
+                volrend.composite, volrend.composite_bwd, alphamask.alpha_fwd)
+    before = [f.launches for f in counters]
+    one = [[t[:1].contiguous() for t in ts] for ts in _tables()]
+    dens, app = _field(planes=one[0], lines=one[1])
+    assert dens.shape == (16,) and app.shape == (16, 24)
+    assert vm_lookup.density_fwd(torch.zeros(16, 4), *one).shape == (16,)
+    g_planes, _ = _field_bwd(planes=one[0], lines=one[1])
+    assert [g.shape for g in g_planes] == [(1, 5, 6, 12)] * 3
+    gates = dict(valid=torch.ones(8, 32, dtype=torch.bool), rgb_thres=1e-4)
+    assert [t.shape for t in _composite(**gates)] == [(8, 3), (8,), (8,), (8, 1)]
+    assert [t.shape for t in _composite_bwd(**gates)] == [(8, 32), (8, 32, 3)]
+    assert _alpha().shape == (16,)
+    assert _alpha(coords=torch.zeros(16, 3), volume=torch.ones(1, 3, 4, 5,
+                                                               dtype=torch.uint8)).shape == (16,)
     assert [f.launches for f in counters] == before
 
 

@@ -324,14 +324,10 @@ def test_render_test_reads_the_checkpoint(trained):
 
 
 UNPORTED = {
-    "tv": dict(TV_weight_density=0.1),
-    "l1": dict(L1_weight_initial=1e-4),
-    "ortho": dict(Ortho_weight=1e-3),
     "entropy": dict(entropy_weight=1e-3),
     "sparsity": dict(sparsity_lambda=0.1),
     "depth": dict(use_depth=True),
     "upsample": dict(upsamp_list="[10]"),
-    "alpha_mask": dict(update_AlphaMask_list="[10]"),
     "cull": dict(train_keep=8),
     "theta_importance": dict(sampling_method="theta_importance"),
     "filter_ray": dict(filter_ray=True),
@@ -345,6 +341,21 @@ def test_unported_options_raise(tmp_path, name):
     cfg = load_config(overrides=_tiny_cfg(tmp_path, **UNPORTED[name]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(cfg)
+
+
+# the losses and the alpha mask that EgoNeRF's trainer carries since the
+# TensoRF slice (EgoNeRF's upsampling and linear sampling stay refused above)
+PORTED = {
+    "tv": dict(TV_weight_density=0.1),
+    "l1": dict(L1_weight_initial=1e-4),
+    "ortho": dict(Ortho_weight=1e-3),
+    "alpha_mask": dict(update_AlphaMask_list="[10]"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_options_are_accepted(tmp_path, name):
+    check_supported(load_config(overrides=_tiny_cfg(tmp_path, **PORTED[name])))
 
 
 def test_sentinel_schedules_are_accepted(tmp_path):
