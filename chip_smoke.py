@@ -3,14 +3,17 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
 
-1. the card's name and power limit, and the build of every kernel in
-   ``egonerf_torch/csrc`` from the checkout;
+1. the card's name and power limit, the build of every kernel in
+   ``egonerf_torch/csrc`` from the checkout, and each kernel's registers
+   and spills from ptxas (a spill in the VM-grid lookups fails);
 2. each kernel of the render path (K1, K3, K4, K6, K7) against its plain
    PyTorch version on the card, on the inputs one 4096-ray chunk of the
    production model gives it, each kernel of the training step (K2, K5,
-   K6b) on the inputs of one production training step, and the envmap's
-   (K8, K8b, K6 and K6b with the background) on the inputs of one
-   production step of the outdoor shape, with times from CUDA events;
+   K6b) on the inputs of one production training step, K1, K3 and K2 at
+   the smoke config's widths and at one the kernels' scalar instantiation
+   takes, and the envmap's (K8, K8b, K6 and K6b with the background) on
+   the inputs of one production step of the outdoor shape, with times from
+   CUDA events (K1 and K3 also with a cold L2);
 3. one 2000x1000 equirectangular view at full production width through
    ``Renderer.render_view``, with seeded random weights: finite rgb in
    [0, 1], finite depth, and each render kernel launched once per chunk
@@ -106,6 +109,17 @@ IMAGE_HW = (1000, 2000)
 # ~0.1 s of device spin at H100 clocks: longer than the host needs to
 # enqueue one timed run
 SLEEP_CYCLES = 200_000_000
+# read between two launches of a cold-L2 time: five times the 50 MB L2
+FLUSH_BYTES = 256 << 20
+# phase 2's K1/K2/K3 at the other widths: random tables from SEED on a grid
+# of the smoke config's size (N_voxel 64e3), samples of its batch (2048 rays
+# x 96) spread over [-1.05, 1.05].  (C, n_density): the smoke config's fine
+# grid (configs/smoke/synthetic.txt); its coarse grid's C = 8 (K3 reads all
+# channels; K1 and K2 split them mid-lane at 4); a width off the 8-channel
+# grid, which takes the scalar instantiation
+WIDTH_GRID = (40, 40, 40)
+WIDTH_SAMPLES = 2048 * 96
+WIDTHS = (("smoke fine", 24, 8), ("smoke coarse", 8, 4), ("scalar", 20, 4))
 # device-side names of the kernels in csrc/
 PORT_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
                 "sorted_uniform_kernel", "composite_kernel", "composite_bwd_kernel",
@@ -160,6 +174,25 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cold_ms(fn, reps: int = 10) -> float:
+    """Device time of one ``fn`` call with a cold L2: before each call a
+    read of FLUSH_BYTES evicts what the last one left; the events bracket
+    the call alone, all queued behind a device-side sleep."""
+    flush = torch.zeros(FLUSH_BYTES // 4, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
 def nbytes(*ts) -> int:
@@ -249,10 +282,10 @@ def kernel_row(name, source, replaces, abs_err, ms, plain_ms, n_bytes, n_ops,
 
 
 def check_case(name, source, replaces, kern, plain, args, n_bytes, n_ops, abs_tol=None,
-               tol_desc=None) -> dict:
+               tol_desc=None, cold=False) -> dict:
     """One kernel against its plain version on ``args``: same shapes, finite,
     within rel REL_TOL of max|plain| (or ``abs_tol``); then its row with
-    both times."""
+    both times (and, with ``cold``, the kernel's cold-L2 time printed)."""
     with torch.no_grad():
         out, ref = kern(*args), plain(*args)
     torch.cuda.synchronize()
@@ -269,8 +302,13 @@ def check_case(name, source, replaces, kern, plain, args, n_bytes, n_ops, abs_to
     else:
         ok = abs_err <= abs_tol
     check_close(name, tol_desc, ok, abs_err, rel_err)
-    return kernel_row(name, source, replaces, abs_err, time_ms(lambda: kern(*args)),
-                      time_ms(lambda: plain(*args), reps=5), n_bytes, n_ops)
+    row = kernel_row(name, source, replaces, abs_err, time_ms(lambda: kern(*args)),
+                     time_ms(lambda: plain(*args), reps=5), n_bytes, n_ops)
+    if cold:
+        print(f"phase 2 {name}: kernel {time_cold_ms(lambda: kern(*args)):.4f} ms with a cold "
+              f"L2 ({FLUSH_BYTES >> 20} MB read before each call), {row['ms']:.4f} ms warm",
+              flush=True)
+    return row
 
 
 def check_field_bwd(name, args, ops) -> dict:
@@ -298,6 +336,46 @@ def check_field_bwd(name, args, ops) -> dict:
         # per sample and channel: plane (7) and line (3) recomputed, the
         # product, dp and dl, 4 + 2 weighted contributions
         coords.shape[0] * n_ch * 19)
+
+
+def width_checks(ops) -> None:
+    """Phase 2, K1, K3 and K2 at the widths of WIDTHS on stacks of two grids
+    and of one, each against its plain version (rel REL_TOL; K2 per cell)
+    on random bf16 tables and samples from SEED; K1 also with float32 line
+    weights (off the hat gate)."""
+    from egonerf_torch.ops import vm_lookup
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    gs = WIDTH_GRID
+    n = WIDTH_SAMPLES
+    src, vm = "egonerf_torch/csrc/vm_lookup.cu", "egonerf_tpu/ops/vm_lookup.py"
+    for s in (2, 1):
+        xyz = torch.rand(n, 3, generator=g, device=DEVICE) * 2.1 - 1.05
+        flag = torch.randint(0, s, (n, 1), generator=g, device=DEVICE).float()
+        coords = torch.cat([xyz, flag], dim=-1).contiguous()
+        for label, c, cd in WIDTHS:
+            planes = [(0.1 * torch.randn(s, gs[vm_lookup.MAT_MODE[i][1]],
+                                         gs[vm_lookup.MAT_MODE[i][0]], c, generator=g,
+                                         device=DEVICE)).to(torch.bfloat16) for i in range(3)]
+            lines = [(0.1 * torch.randn(s, gs[vm_lookup.VEC_MODE[i]], c, generator=g,
+                                        device=DEVICE)).to(torch.bfloat16) for i in range(3)]
+            n_app = 3 * (c - cd)
+            n_ch = 3 * c
+            layout = vm_lookup.lookup_layout(coords, planes, lines, n_app)
+            tag = (f"C={c}/{cd} S={s} ({label}: {layout.group} lanes a sample, "
+                   f"{'vector' if layout.vector else 'scalar'})")
+            for hat in (True, False):
+                check_case(f"K1 field_fwd {tag}{'' if hat else ' f32 lines'}", src, f"{vm}:467",
+                           ops.KERNELS.field, ops.PLAIN.field,
+                           (coords, planes, lines, (cd,) * 3, (hat,) * 3),
+                           nbytes(coords, *planes, *lines) + n * (1 + n_app) * 4, n * n_ch * 11)
+            check_case(f"K3 density_fwd {tag}", src, f"{vm}:436", ops.KERNELS.density,
+                       ops.PLAIN.density, (coords, planes, lines),
+                       nbytes(coords, *planes, *lines) + n * 4, n * n_ch * 11)
+            d_dens = torch.randn(n, generator=g, device=DEVICE)
+            d_app = torch.randn(n, n_app, generator=g, device=DEVICE)
+            check_field_bwd(f"K2 field_bwd {tag}",
+                            (coords, planes, lines, d_dens, d_app, (cd,) * 3, (True,) * 3), ops)
 
 
 def expect_launches(label: str, launches: dict, want: dict) -> None:
@@ -393,7 +471,8 @@ def render_kernel_checks(model, params, dirs, ops, presets, dists_of) -> dict:
         far_tol = (dict(abs_tol=REL_TOL * model.near_far[1],
                         tol_desc=f"abs <= {REL_TOL * model.near_far[1]:.1e} (1e-5 x far)")
                    if case[0].startswith("K4") else {})
-        table[case[0].split()[0]] = check_case(*case, **far_tol)
+        table[case[0].split()[0]] = check_case(*case, **far_tol,
+                                               cold=case[0].startswith(("K1", "K3")))
 
     # K4's inputs off the eval path: sorted uniforms (the training draws)
     # and no merge with the coarse depths
@@ -964,13 +1043,14 @@ def tensorf_kernel_checks(trainer, ops) -> dict:
           f"path {list(rec['field'].args[4])}; bake {d_args[0].shape[0]:,} points", flush=True)
     table["K1 (S=1)"] = check_case(
         "K1 field_fwd (S=1)", vm_src, f"{vm}:467", ops.KERNELS.field, ops.PLAIN.field,
-        rec["field"].args, nbytes(coords, *planes, *lines) + n * (1 + n_app) * 4, n * n_ch * 11)
+        rec["field"].args, nbytes(coords, *planes, *lines) + n * (1 + n_app) * 4, n * n_ch * 11,
+        cold=True)
     table["K2 (S=1)"] = check_field_bwd("K2 field_bwd (S=1)", rec["field_bwd"].args, ops)
     dc, dp, dl = d_args
     table["K3 (S=1)"] = check_case(
         "K3 density_fwd (S=1)", vm_src, f"{vm}:436", ops.KERNELS.density, ops.PLAIN.density,
         d_args, nbytes(dc, *dp, *dl) + dc.shape[0] * 4,
-        dc.shape[0] * sum(p.shape[-1] for p in dp) * 11)
+        dc.shape[0] * sum(p.shape[-1] for p in dp) * 11, cold=True)
 
     feat, dists, z, rgb, dz, *_, valid, thres = rec["composite"].args
     kept = volrend._warp_transmittance(volrend._alpha(
@@ -1145,6 +1225,12 @@ def main() -> int:
     libs = _build.build_all()
     print(f"phase 1 build: {len(libs)} libraries ({', '.join(sorted(libs))}) "
           f"in {time.time() - t0:.1f} s", flush=True)
+    for stem in sorted(libs):
+        for name, regs, spill in _build.ptxas_report(stem):
+            print(f"phase 1 ptxas {stem}: {regs} registers, {spill} bytes spilled: {name}",
+                  flush=True)
+            if stem == "vm_lookup" and spill:
+                fail(f"{name} spills {spill} bytes")
 
     model = presets.production_model(device=dev)
     params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
@@ -1186,6 +1272,7 @@ def main() -> int:
         rows = render_kernel_checks(model, params, torch.as_tensor(dirs_np, device=dev), ops,
                                     presets, _dists)
     rows.update(train_kernel_checks(trainer, ops))
+    width_checks(ops)
     rows.update(envmap_kernel_checks(outdoor, ops))
     tf_rows = tensorf_kernel_checks(tf, ops)
 

@@ -4,11 +4,13 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared library
 with a plain C interface, and loaded with ``ctypes``::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o lib<name>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
 All sources compile in parallel at first use, into
 ``build/egonerf_torch/<hash>/`` beside the package (``.gitignore`` lists
 ``build/``); the hash covers the sources and the flags, so an edit rebuilds.
+Each library's compiler output is kept beside it (``lib<name>.log``): ptxas
+reports every kernel's registers and spills there (:func:`ptxas_report`).
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check_launch` raises on anything but 0.
 A CUDA machine without ``nvcc`` is an error, not a fallback.
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "egonerf_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -79,6 +82,7 @@ def build_all() -> dict:
             if proc.returncode != 0:
                 failures.append(f"{src.name} (nvcc exit {proc.returncode}):\n{log}")
             else:
+                lib.with_suffix(".log").write_text(log)
                 os.replace(tmp, lib)
     finally:
         for *_, proc in procs:
@@ -88,6 +92,32 @@ def build_all() -> dict:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return libs
+
+
+def ptxas_report(stem: str) -> list:
+    """[(kernel, registers, spilled bytes)] for every kernel of
+    ``lib<stem>.so`` from its build log, demangled where ``c++filt`` is
+    found; spilled bytes are the spill stores plus the spill loads."""
+    log = (build_dir() / f"lib{stem}.log").read_text()
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            rows = [(n, regs, sp) for n, (_, regs, sp) in zip(out, rows)]
+    return rows
 
 
 def kernel(stem: str, fn: str, argtypes: list):

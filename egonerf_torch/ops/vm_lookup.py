@@ -23,7 +23,7 @@ no channel padding.  What carries over exactly:
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -177,14 +177,51 @@ def _check_field_args(coords, planes, lines, n_density):
         raise ValueError("more than 2**31 samples in one call")
 
 
-def _dims(planes, lines, n_density, line_hat):
+# K1/K3's block, the channels one lane reads (16 bytes of bf16), and the
+# largest appearance tile K1's vector instantiation stages in shared memory
+THREADS_PER_BLOCK = 256
+CHUNK = 8
+MAX_TILE_BYTES = 48 * 1024
+
+
+class Layout(NamedTuple):
+    """How K1 and K3 spread samples over lanes (csrc/vm_lookup.cu)."""
+    group: int              # lanes a sample takes: a power of two, at most 32
+    samples_per_warp: int
+    samples_per_block: int
+    vector: bool            # 16-byte loads (and K1's bulk-copy store), else 2-byte loads
+
+
+def lookup_layout(coords: torch.Tensor, planes: Sequence[torch.Tensor],
+                  lines: Sequence[torch.Tensor], n_app: int = 0) -> Layout:
+    """The instantiation and geometry K1/K3 take for these tables (and K1's
+    ``n_app`` appearance channels): a sample takes the power of two of
+    lanes that covers ceil(max C / 8) chunks of 8 channels (at most 32;
+    lanes then loop over the further chunks).  The vector instantiation
+    needs every C % 8 == 0, 16-byte aligned coords and tables, and, for
+    K1's bulk copy, n_app % 4 == 0 and a block's appearance rows within
+    48 KB; anything else takes the scalar one."""
+    chunks = max(1, -(-max(p.shape[-1] for p in planes) // CHUNK))
+    group = min(32, 1 << (chunks - 1).bit_length())
+    per_block = THREADS_PER_BLOCK // group
+    vector = (all(p.shape[-1] % CHUNK == 0 for p in planes)
+              and all(t.data_ptr() % 16 == 0 for t in (coords, *planes, *lines))
+              and n_app % 4 == 0 and per_block * n_app * 4 <= MAX_TILE_BYTES)
+    return Layout(group, 32 // group, per_block, vector)
+
+
+def _dims(coords, planes, lines, n_density, line_hat):
     """The kernels' int array: per decomposition {H, W, L, C, n_density,
-    hat}, then the stack size."""
+    hat}; then the stack size, log2 of K1/K3's lanes a sample and their
+    vector flag (:func:`lookup_layout`)."""
     dims = []
     for i in range(3):
         _, h, w, c = planes[i].shape
         dims += [h, w, lines[i].shape[1], c, int(n_density[i]), int(bool(line_hat[i]))]
-    return (ctypes.c_int * 19)(*dims, planes[0].shape[0])
+    n_app = sum(p.shape[-1] - int(d) for p, d in zip(planes, n_density))
+    layout = lookup_layout(coords, planes, lines, n_app)
+    return (ctypes.c_int * 21)(*dims, planes[0].shape[0], layout.group.bit_length() - 1,
+                               int(layout.vector))
 
 
 def _launch(fn_name, coords, planes, lines, n_density, line_hat, dens, app):
@@ -194,7 +231,7 @@ def _launch(fn_name, coords, planes, lines, n_density, line_hat, dens, app):
         err = fn(coords.data_ptr(), coords.shape[0],
                  (ctypes.c_void_p * 3)(*[p.data_ptr() for p in planes]),
                  (ctypes.c_void_p * 3)(*[l.data_ptr() for l in lines]),
-                 _dims(planes, lines, n_density, line_hat), dens.data_ptr(),
+                 _dims(coords, planes, lines, n_density, line_hat), dens.data_ptr(),
                  0 if app is None else app.data_ptr(),
                  0 if app is None else app.shape[1],
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -267,18 +304,28 @@ density_fwd.launches = 0
 # K2: the fine field's backward
 # ---------------------------------------------------------------------------
 def _warp_order_sum(prod: torch.Tensor) -> torch.Tensor:
-    """(N, CD) -> (N,): the sum in the order K1 and K2 take it on the card
-    (lane l adds channels l, l+32, ... in turn, then a butterfly over
-    offsets 16, 8, 4, 2, 1), so the relu masks agree to the bit."""
+    """(N, CD) -> (N,): the sum in the order K1 and K2 take it on the card,
+    so that the relu masks agree to the bit.  Channel c lies in chunk
+    c // 8 and chunk q belongs to lane q mod 32; each lane adds its
+    channels in increasing c, then a butterfly over xor offsets 16, 8, 4,
+    2, 1.  K1 spreads the chunks over a group of G lanes instead (chunk q
+    to lane q mod G, butterfly G/2 .. 1, csrc/vm_lookup.cu).  Lanes past
+    the last chunk hold zeros, and adding a zero changes no bit, so both
+    equal the butterfly over the smallest power of two of lanes that holds
+    every chunk, which is what this takes."""
     n, cd = prod.shape
-    lanes = -(-cd // 32) * 32
-    x = torch.nn.functional.pad(prod, (0, lanes - cd)).reshape(n, -1, 32)
-    acc = x[:, 0]
-    for k in range(1, x.shape[1]):
-        acc = acc + x[:, k]
-    lane = torch.arange(32, device=prod.device)
-    for off in (16, 8, 4, 2, 1):
+    lanes = min(32, 1 << (max(1, -(-cd // CHUNK)) - 1).bit_length())
+    width = max(1, -(-cd // (lanes * CHUNK))) * lanes * CHUNK
+    x = torch.nn.functional.pad(prod, (0, width - cd)).reshape(n, -1, lanes, CHUNK)
+    terms = x.permute(0, 2, 1, 3).reshape(n, lanes, -1)  # per lane, in its order
+    acc = terms[:, :, 0]
+    for k in range(1, terms.shape[2]):
+        acc = acc + terms[:, :, k]
+    lane = torch.arange(lanes, device=prod.device)
+    off = lanes // 2
+    while off:
         acc = acc + acc[:, lane ^ off]
+        off //= 2
     return acc[:, 0]
 
 
@@ -395,7 +442,7 @@ def field_bwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
         with torch.cuda.device(dev):
             err = fn(coords.data_ptr(), n, ptrs(*[p.data_ptr() for p in planes]),
                      ptrs(*[l.data_ptr() for l in lines]),
-                     _dims(planes, lines, n_density, line_hat),
+                     _dims(coords, planes, lines, n_density, line_hat),
                      d_dens.data_ptr(), d_app.data_ptr(), n_app,
                      ptrs(*[g.data_ptr() for g in g_planes]),
                      ptrs(*[g.data_ptr() for g in g_lines]),
