@@ -13,7 +13,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    the smoke config's widths and at one the kernels' scalar instantiation
    takes, and the envmap's (K8, K8b, K6 and K6b with the background) on
    the inputs of one production step of the outdoor shape, with times from
-   CUDA events (K1 and K3 also with a cold L2);
+   CUDA events (K1, K2 and K3 also with a cold L2); K1's training
+   instantiation's relu mask against the states of its lane-order sums;
+   K2's layout (``bwd_layout``), and K2 (two grids and S=1) also on two
+   hard inputs: every sample at one point, and the samples shuffled; and
+   K2 on recorded steps of the smoke config and of the JAX ``tensorf``
+   preset's first two grids (128^3 and, after its first upsample, 161^3);
 3. one 2000x1000 equirectangular view at full production width through
    ``Renderer.render_view``, with seeded random weights: finite rgb in
    [0, 1], finite depth, and each render kernel launched once per chunk
@@ -24,7 +29,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. production training steps through ``Trainer.train_step`` (batch 4096,
    128 + 128 samples, N_voxel 27e6, MSE, Adam) on the synthetic scene:
    step ms, train rays/s, peak memory, every kernel launched once per
-   step, and where the time goes from torch.profiler;
+   step, and where the time goes from torch.profiler (K2's share of the
+   step too, as in phases 10 and 16);
 7. one production training step with the kernels and with the plain
    versions, same weights and draws: the loss and every gradient;
 8. the smoke run of ``configs/smoke/synthetic.txt`` (300 iterations)
@@ -116,10 +122,12 @@ FLUSH_BYTES = 256 << 20
 # x 96) spread over [-1.05, 1.05].  (C, n_density): the smoke config's fine
 # grid (configs/smoke/synthetic.txt); its coarse grid's C = 8 (K3 reads all
 # channels; K1 and K2 split them mid-lane at 4); a width off the 8-channel
-# grid, which takes the scalar instantiation
+# grid, which takes K1/K3's scalar instantiation; one off the 4-channel grid,
+# which takes K2's too
 WIDTH_GRID = (40, 40, 40)
 WIDTH_SAMPLES = 2048 * 96
-WIDTHS = (("smoke fine", 24, 8), ("smoke coarse", 8, 4), ("scalar", 20, 4))
+WIDTHS = (("smoke fine", 24, 8), ("smoke coarse", 8, 4), ("scalar", 20, 4),
+          ("K2 scalar", 18, 6))
 # device-side names of the kernels in csrc/
 PORT_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
                 "sorted_uniform_kernel", "composite_kernel", "composite_bwd_kernel",
@@ -215,10 +223,11 @@ def max_err(outs, refs):
     return abs_err, rel
 
 
-def profile(run, n: int, label: str, unit: str, top: int = 12) -> None:
+def profile(run, n: int, label: str, unit: str, top: int = 12) -> dict:
     """Device time by kernel over ``run()`` (``n`` units of work), and the
     share of the wall time the device was busy (under the profiler's
-    overhead)."""
+    overhead).  Returns {kernel name: device ms a unit} ({} when the
+    profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -236,7 +245,7 @@ def profile(run, n: int, label: str, unit: str, top: int = 12) -> None:
     if not rows:
         print(f"{label} profile: the profiler recorded no device time (not measured)",
               flush=True)
-        return
+        return {}
     print(f"{label} profile over {n} {unit}s: device busy {busy_ms:.3f} ms of "
           f"{wall_ms:.3f} ms wall ({busy_ms / wall_ms:.1%}), {busy_ms / n:.3f} "
           f"ms/{unit} on the device", flush=True)
@@ -249,6 +258,18 @@ def profile(run, n: int, label: str, unit: str, top: int = 12) -> None:
         if any(f"::{k}" in name or name.startswith(k) for k in PORT_KERNELS):
             print(f"{label} in the run: {ms / count:.4f} ms/launch x{count} "
                   f"{name[:60]}", flush=True)
+    return {name: ms / n for name, ms, _ in rows}
+
+
+def k2_share(label: str, rows: dict, step_ms: float) -> None:
+    """K2's device time a step from a profile's rows, and its share of the
+    step's device time and of the median step."""
+    busy = sum(rows.values())
+    k2 = sum(ms for name, ms in rows.items() if "vm_field_bwd_kernel" in name)
+    if busy:
+        print(f"{label} K2 in the step: {k2:.4f} ms a step, {k2 / busy:.1%} of the step's "
+              f"device time, {k2 / step_ms:.1%} of the median step ({step_ms:.3f} ms)",
+              flush=True)
 
 
 def check_close(name: str, tol_desc: str, ok: bool, abs_err: float, rel_err: float):
@@ -264,9 +285,9 @@ class Recorder:
     def __init__(self, fn):
         self.fn, self.args = fn, None
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         self.args = args
-        return self.fn(*args)
+        return self.fn(*args, **kwargs)
 
 
 def kernel_row(name, source, replaces, abs_err, ms, plain_ms, n_bytes, n_ops,
@@ -311,31 +332,117 @@ def check_case(name, source, replaces, kern, plain, args, n_bytes, n_ops, abs_to
     return row
 
 
-def check_field_bwd(name, args, ops) -> dict:
+def k2_compare(name, args, ops) -> float:
     """K2 against its plain version: per cell |kernel - plain| <= K2_TOL *
-    sum|terms| (float32 atomics add in another order)."""
-    coords, planes, lines, d_dens, d_app = args[:5]
-    got, ref = ops.KERNELS.field_bwd(*args), ops.PLAIN.field_bwd(*args)
-    mag = ops.PLAIN.field_bwd(*args, magnitude=True)
+    sum|terms| (float32 atomics add in another order), the plain version's
+    float32 terms summed in float64 (its float32 index_add rounds by up to
+    ~3e-4 of the terms where a million samples hit one cell); the float32
+    plain version's error is printed beside.  Returns the max abs error."""
+    got = ops.KERNELS.field_bwd(*args)
+    ref = ops.PLAIN.field_bwd(*args, accumulate=torch.float64)
+    ref32 = ops.PLAIN.field_bwd(*args)
+    mag = ops.PLAIN.field_bwd(*args, magnitude=True, accumulate=torch.float64)
     torch.cuda.synchronize()
-    worst = abs_err = 0.0
-    for g, r, m in zip(got[0] + got[1], ref[0] + ref[1], mag[0] + mag[1]):
+    worst = worst32 = abs_err = 0.0
+    for g, r, r32, m in zip(got[0] + got[1], ref[0] + ref[1], ref32[0] + ref32[1],
+                            mag[0] + mag[1]):
         if not torch.isfinite(g).all():
             fail(f"{name}: non-finite gradient")
-        d = (g - r).abs()
+        d = (g.double() - r).abs()
         abs_err = max(abs_err, float(d.max()))
         worst = max(worst, float((d / (m + 1e-30)).max()))
-    check_close(name, f"per cell <= {K2_TOL:.0e} x sum|terms|", worst <= K2_TOL, abs_err, worst)
-    del got, ref, mag
+        worst32 = max(worst32, float(((g.double() - r32.double()).abs() / (m + 1e-30)).max()))
+    check_close(name, f"per cell <= {K2_TOL:.0e} x sum|terms| of the float64-summed plain; "
+                f"{worst32:.2e} against the float32 plain", worst <= K2_TOL, abs_err, worst)
+    return abs_err
+
+
+def k2_adversarial(args):
+    """K2's two hard inputs from one recorded call, every sample's
+    cotangents and mask kept: all samples at one point (one plane cell and
+    one line row each: the longest runs, the hottest shared rows), and the
+    samples shuffled (no ray structure, so no runs)."""
+    coords, planes, lines, d_dens, d_app, mask, *rest = args
+    n = coords.shape[0]
+    one = coords[n // 2].expand(n, 4).contiguous()
+    perm = torch.randperm(n, generator=torch.Generator(device=coords.device).manual_seed(SEED),
+                          device=coords.device)
+    return (("one cell", (one, planes, lines, d_dens, d_app, mask, *rest)),
+            ("shuffled", (coords[perm].contiguous(), planes, lines, d_dens[perm].contiguous(),
+                          d_app[perm].contiguous(), mask[perm].contiguous(), *rest)))
+
+
+def check_field_bwd(name, args, ops, adversarial=False) -> dict:
+    """K2 against its plain version (:func:`k2_compare`), its layout, its
+    row with a cold-L2 time printed, and with ``adversarial`` the same on
+    :func:`k2_adversarial`'s inputs."""
+    from egonerf_torch.ops import vm_lookup
+
+    coords, planes, lines, d_dens, d_app, mask, n_density = args[:7]
+    layout = vm_lookup._bwd_layout_of(coords, planes, lines, n_density, d_app)
+    print(f"phase 2 {name}: bwd_layout {layout.group} lanes a sample, "
+          f"{'vector' if layout.vector else 'scalar'}", flush=True)
+    abs_err = k2_compare(name, args, ops)
     n_ch = sum(p.shape[-1] for p in planes)
-    return kernel_row(
+    row = kernel_row(
         name, "egonerf_torch/csrc/vm_lookup.cu", "egonerf_tpu/ops/vm_lookup.py:482", abs_err,
         time_ms(lambda: ops.KERNELS.field_bwd(*args)),
         time_ms(lambda: ops.PLAIN.field_bwd(*args), reps=5),
-        nbytes(coords, *planes, *lines, d_dens, d_app) + sum(4 * t.numel() for t in planes + lines),
-        # per sample and channel: plane (7) and line (3) recomputed, the
-        # product, dp and dl, 4 + 2 weighted contributions
-        coords.shape[0] * n_ch * 19)
+        nbytes(coords, *planes, *lines, d_dens, d_app, mask)
+        + sum(4 * t.numel() for t in planes + lines),
+        # per sample and channel: plane (7) and line (3) recomputed, dp and
+        # dl, 4 + 2 weighted contributions
+        coords.shape[0] * n_ch * 18)
+    print(f"phase 2 {name}: kernel {time_cold_ms(lambda: ops.KERNELS.field_bwd(*args)):.4f} ms "
+          f"with a cold L2 ({FLUSH_BYTES >> 20} MB read before each call), {row['ms']:.4f} ms "
+          f"warm", flush=True)
+    if adversarial:
+        for label, a in k2_adversarial(args):
+            k2_compare(f"{name}, {label}", a, ops)
+            print(f"phase 2 {name}, {label}: kernel "
+                  f"{time_ms(lambda: ops.KERNELS.field_bwd(*a)):.4f} ms", flush=True)
+    return row
+
+
+def lane_order_mask(coords, planes, lines, n_density, line_hat):
+    """The relu mask K1 must write: the state of each density partial
+    summed in K1's lane order from the plain products (which K1's equal
+    bit for bit)."""
+    from egonerf_torch.ops import vm_lookup as vm
+
+    xyz = coords[:, :3]
+    sel = vm.chart_sel(coords, planes[0].shape[0])
+    mask = torch.zeros(coords.shape[0], dtype=torch.uint8, device=coords.device)
+    for i in range(3):
+        m0, m1 = vm.MAT_MODE[i]
+        line_fn = vm.sample_line_hat if line_hat[i] else vm.sample_line
+        prod = (vm.sample_plane(planes[i], xyz[:, m0], xyz[:, m1], sel)
+                * line_fn(lines[i], xyz[:, vm.VEC_MODE[i]], sel))
+        mask |= vm.relu_states(vm._warp_order_sum(prod[:, :n_density[i]])) << (2 * i)
+    return mask
+
+
+def check_relu_mask(name, args, ops) -> None:
+    """K1's training instantiation: density and appearance as the eval one
+    writes them, and the relu mask equal to :func:`lane_order_mask` on
+    every sample; both instantiations' times."""
+    with torch.no_grad():
+        dens, app, mask = ops.KERNELS.field(*args, with_mask=True)
+        want_d, want_a = ops.KERNELS.field(*args)
+        want_m = lane_order_mask(*args)
+    torch.cuda.synchronize()
+    flips = int((mask != want_m).sum())
+    ties = int(sum(((want_m >> (2 * i)) & 3 == 1).sum() for i in range(3)))
+    same = torch.equal(dens, want_d) and torch.equal(app, want_a)
+    ok = flips == 0 and same
+    print(f"phase 2 {name}: mask differs on {flips} of {mask.numel():,} samples ({ties:,} "
+          f"exact-zero partials), density and appearance "
+          f"{'equal' if same else 'NOT equal'} to the eval instantiation's -> "
+          f"{'ok' if ok else 'MISS'}; kernel "
+          f"{time_ms(lambda: ops.KERNELS.field(*args, with_mask=True)):.4f} ms with the mask, "
+          f"{time_ms(lambda: ops.KERNELS.field(*args)):.4f} ms without", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with the lane-order mask or the eval instantiation")
 
 
 def width_checks(ops) -> None:
@@ -372,10 +479,17 @@ def width_checks(ops) -> None:
             check_case(f"K3 density_fwd {tag}", src, f"{vm}:436", ops.KERNELS.density,
                        ops.PLAIN.density, (coords, planes, lines),
                        nbytes(coords, *planes, *lines) + n * 4, n * n_ch * 11)
+            check_relu_mask(f"K1 relu mask {tag}", (coords, planes, lines, (cd,) * 3, (True,) * 3),
+                            ops)
             d_dens = torch.randn(n, generator=g, device=DEVICE)
             d_app = torch.randn(n, n_app, generator=g, device=DEVICE)
+            # each decomposition's state drawn from {0, 1, 2}: the tie's
+            # half gradient on a third of the samples
+            mask = sum(torch.randint(0, 3, (n,), generator=g, device=DEVICE, dtype=torch.uint8)
+                       << (2 * i) for i in range(3)).to(torch.uint8)
             check_field_bwd(f"K2 field_bwd {tag}",
-                            (coords, planes, lines, d_dens, d_app, (cd,) * 3, (True,) * 3), ops)
+                            (coords, planes, lines, d_dens, d_app, mask, (cd,) * 3, (True,) * 3),
+                            ops)
 
 
 def expect_launches(label: str, launches: dict, want: dict) -> None:
@@ -519,17 +633,19 @@ def train_kernel_checks(trainer, ops) -> dict:
     training step gives them (recorded from a real step)."""
     model = trainer.model
     cfg = model.cfg
+    rec_k1 = Recorder(ops.KERNELS.field)
     rec_f = Recorder(ops.KERNELS.field_bwd)
     rec_c = Recorder(ops.KERNELS.composite_bwd)
-    model.ops = ops.KERNELS._replace(field_bwd=rec_f, composite_bwd=rec_c)
+    model.ops = ops.KERNELS._replace(field=rec_k1, field_bwd=rec_f, composite_bwd=rec_c)
     trainer.train_step(0)
     model.ops = ops.KERNELS
     torch.cuda.synchronize()
     table = {}
 
-    coords, line_hat = rec_f.args[0], rec_f.args[6]
+    coords, line_hat = rec_f.args[0], rec_f.args[7]
     n = coords.shape[0]
-    table["K2"] = check_field_bwd("K2 field_bwd", rec_f.args, ops)
+    check_relu_mask("K1 relu mask (training step)", rec_k1.args, ops)
+    table["K2"] = check_field_bwd("K2 field_bwd", rec_f.args, ops, adversarial=True)
 
     # K5: the same bits; rel K5_TOL
     b, n_f = trainer.cfg.batch_size, trainer.cfg.n_fine
@@ -753,7 +869,7 @@ def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
 def timed_steps(step, label: str, cfg, wrappers, want: dict, warmup: int = TRAIN_WARMUP):
     """``TRAIN_STEPS`` calls of ``step(i)`` after ``warmup`` ones, each
     between two CUDA events: the median ms/step, rays/s and peak memory;
-    the launches must be ``want``.  Returns the launches."""
+    the launches must be ``want``.  Returns the launches and the median."""
     it = 1
     for _ in range(warmup):
         step(it)
@@ -785,7 +901,7 @@ def timed_steps(step, label: str, cfg, wrappers, want: dict, warmup: int = TRAIN
     expect_launches(label, launches, want)
     if not np.isfinite(mse_v):
         fail(f"{label}: non-finite training loss")
-    return launches
+    return launches, median
 
 
 def step_launches(wrappers, envmap: bool) -> dict:
@@ -845,9 +961,9 @@ def step_vs_plain(trainer, ops, label: str) -> None:
 def train_phases(trainer, ops, wrappers) -> dict:
     """Phases 6 and 7; returns the launches of the timed steps."""
     cfg = trainer.cfg
-    launches = timed_steps(trainer.train_step, f"phase 6 training step, {cfg.n_coarse} + "
-                           f"{cfg.n_fine} samples, grid {trainer.model.grid_size}", cfg,
-                           wrappers, step_launches(wrappers, envmap=False))
+    launches, median = timed_steps(
+        trainer.train_step, f"phase 6 training step, {cfg.n_coarse} + {cfg.n_fine} samples, "
+        f"grid {trainer.model.grid_size}", cfg, wrappers, step_launches(wrappers, envmap=False))
     it = 10 ** 4
 
     def steps():
@@ -855,7 +971,7 @@ def train_phases(trainer, ops, wrappers) -> dict:
         for _ in range(PROFILE_STEPS):
             trainer.train_step(it)
             it += 1
-    profile(steps, PROFILE_STEPS, "phase 6", "step", top=16)
+    k2_share("phase 6", profile(steps, PROFILE_STEPS, "phase 6", "step", top=16), median)
     step_vs_plain(trainer, ops, "phase 7")
     return launches
 
@@ -873,9 +989,10 @@ def envmap_train_phases(trainer, ops, wrappers) -> dict:
         for _ in range(PROFILE_STEPS):
             trainer.pretrain_step()
     profile(pretrain_steps, PROFILE_STEPS, "phase 10 pretrain", "step")
-    launches = timed_steps(trainer.train_step, f"phase 10 envmap training step, {cfg.n_coarse} "
-                           f"+ {cfg.n_fine} samples, grid {trainer.model.grid_size}", cfg,
-                           wrappers, step_launches(wrappers, envmap=True))
+    launches, median = timed_steps(
+        trainer.train_step, f"phase 10 envmap training step, {cfg.n_coarse} + {cfg.n_fine} "
+        f"samples, grid {trainer.model.grid_size}", cfg, wrappers,
+        step_launches(wrappers, envmap=True))
     it = 10 ** 4
 
     def steps():
@@ -883,7 +1000,7 @@ def envmap_train_phases(trainer, ops, wrappers) -> dict:
         for _ in range(PROFILE_STEPS):
             trainer.train_step(it)
             it += 1
-    profile(steps, PROFILE_STEPS, "phase 10", "step", top=16)
+    k2_share("phase 10", profile(steps, PROFILE_STEPS, "phase 10", "step", top=16), median)
     step_vs_plain(trainer, ops, "phase 11")
     return launches
 
@@ -1045,7 +1162,9 @@ def tensorf_kernel_checks(trainer, ops) -> dict:
         "K1 field_fwd (S=1)", vm_src, f"{vm}:467", ops.KERNELS.field, ops.PLAIN.field,
         rec["field"].args, nbytes(coords, *planes, *lines) + n * (1 + n_app) * 4, n * n_ch * 11,
         cold=True)
-    table["K2 (S=1)"] = check_field_bwd("K2 field_bwd (S=1)", rec["field_bwd"].args, ops)
+    check_relu_mask("K1 relu mask (S=1)", rec["field"].args, ops)
+    table["K2 (S=1)"] = check_field_bwd("K2 field_bwd (S=1)", rec["field_bwd"].args, ops,
+                                        adversarial=True)
     dc, dp, dl = d_args
     table["K3 (S=1)"] = check_case(
         "K3 density_fwd (S=1)", vm_src, f"{vm}:436", ops.KERNELS.density, ops.PLAIN.density,
@@ -1089,6 +1208,53 @@ def tensorf_kernel_checks(trainer, ops) -> dict:
     return table
 
 
+def k2_stage_checks(root, presets, ops) -> None:
+    """Phase 2, K2 on recorded steps of the main paths that phase 2 meets
+    nowhere else: the smoke config's (``SMOKE_CONFIG``, its own scene) and
+    the JAX ``tensorf`` preset's first two grids (128^3, and 161^3 after
+    its first upsample) on its quality recipe's scene, random weights from
+    SEED; each held to its plain version and timed
+    (:func:`check_field_bwd`)."""
+    from egonerf_torch.data.datasets import SyntheticEgoDataset
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import Trainer
+
+    base = os.path.join(root, "build", "chip_smoke_runs")
+
+    def recorded(trainer, it):
+        rec = Recorder(ops.KERNELS.field_bwd)
+        trainer.model.ops = ops.KERNELS._replace(field_bwd=rec)
+        try:
+            trainer.train_step(it)
+        finally:
+            trainer.model.ops = ops.KERNELS
+        torch.cuda.synchronize()
+        return rec.args
+
+    smoke = Trainer(load_config(os.path.join(root, SMOKE_CONFIG), overrides=dict(
+        basedir=base, expname="k2_smoke")), device=DEVICE)
+    args = recorded(smoke, 0)
+    print(f"phase 2 smoke step inputs: {smoke.cfg.batch_size} rays, {args[0].shape[0]:,} fine "
+          f"samples, grid {smoke.model.grid_size}", flush=True)
+    check_field_bwd("K2 field_bwd (smoke step)", args, ops)
+    del smoke, args
+    tf = Trainer(load_config(overrides=presets.tensorf_overrides(
+        basedir=base, expname="k2_stages", progress_refresh_rate=10 ** 9)), device=DEVICE)
+    scene = dict(presets.TENSORF_QUALITY_SCENE, near_far=tf.cfg.near_far)
+    tf.set_datasets(SyntheticEgoDataset(split="train", **scene),
+                    SyntheticEgoDataset(split="test", is_stack=True, **scene))
+    for it in (0, tf.upsamp_list[0]):
+        if it:
+            tf.upsample(it)
+        args = recorded(tf, it)
+        print(f"phase 2 tensorf step inputs at {it}: {tf.cfg.batch_size} rays x "
+              f"{tf.cfg.n_coarse} samples ({args[0].shape[0]:,}), grid {tf.model.grid_size}",
+              flush=True)
+        check_field_bwd(f"K2 field_bwd (S=1, {tf.model.grid_size[0]}^3)", args, ops)
+    del tf, args
+    torch.cuda.empty_cache()
+
+
 def tensorf_bench_phases(root, presets, ops, wrappers):
     """Phases 16-17: the JAX ``tensorf_bench`` recipe through ``Trainer``,
     then timed steps, the profile, the bake, the gate occupancy, and one
@@ -1121,9 +1287,10 @@ def tensorf_bench_phases(root, presets, ops, wrappers):
           f"s; mask {model.alpha_mask.grid_size}, {float(model.alpha_mask.vol.float().mean()):.1%} "
           f"occupied", flush=True)
     per_step = ("K1", "K2", "K9", "K6", "K6b")
-    launches = timed_steps(trainer.train_step, f"phase 16 TensoRF training step, "
-                           f"{cfg.n_coarse} samples, grid {model.grid_size}", cfg, wrappers,
-                           {k: TRAIN_STEPS if k in per_step else 0 for k in wrappers})
+    launches, median = timed_steps(
+        trainer.train_step, f"phase 16 TensoRF training step, {cfg.n_coarse} samples, grid "
+        f"{model.grid_size}", cfg, wrappers, {k: TRAIN_STEPS if k in per_step else 0
+                                              for k in wrappers})
     it = 10 ** 4
 
     def steps():
@@ -1131,7 +1298,7 @@ def tensorf_bench_phases(root, presets, ops, wrappers):
         for _ in range(PROFILE_STEPS):
             trainer.train_step(it)
             it += 1
-    profile(steps, PROFILE_STEPS, "phase 16", "step", top=16)
+    k2_share("phase 16", profile(steps, PROFILE_STEPS, "phase 16", "step", top=16), median)
 
     # the bake, timed, under the mask it replaces (K3, then K9 inside compute_alpha)
     for w in wrappers.values():
@@ -1275,6 +1442,7 @@ def main() -> int:
     width_checks(ops)
     rows.update(envmap_kernel_checks(outdoor, ops))
     tf_rows = tensorf_kernel_checks(tf, ops)
+    k2_stage_checks(root, presets, ops)
 
     # -- phases 3-5: the render -------------------------------------------------
     with torch.no_grad():

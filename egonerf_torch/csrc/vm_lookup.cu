@@ -51,13 +51,15 @@
 // The single grid, the appearance output and the vector load are template
 // parameters: a run-time flag costs registers.
 //
-// The density sum's order, which K2 and ops/vm_lookup.py::_warp_order_sum
-// repeat so that the relu mask is the same bit everywhere: channel c < CD
-// lies in chunk c / 8 and chunk q belongs to lane q mod G; each lane adds
-// its channels in increasing c, from 0.0f; then a butterfly over the
-// group, xor offsets G/2, ..., 1.  K2 takes the same chunks over a whole
-// warp (lane q mod 32): the lanes past the last density chunk hold exact
-// zeros, so the wider butterfly adds the same values in the same tree.
+// The density sum's order, which ops/vm_lookup.py::_warp_order_sum repeats
+// for K3's plain version: channel c < CD lies in chunk c / 8 and chunk q
+// belongs to lane q mod G; each lane adds its channels in increasing c, from
+// 0.0f; then a butterfly over the group, xor offsets G/2, ..., 1.  K1's
+// training instantiation also writes, from the same sums, one byte a sample
+// (the relu mask): two bits for decomposition i at bit 2i, 2 where the
+// partial is > 0, 1 where it is == 0, 0 where it is < 0.  K2 scales the
+// density cotangent by half the state (1, 0.5 or 0: jnp.maximum's gradient,
+// which splits a tie), so it repeats no sum and needs no order.
 //
 // Arithmetic follows the JAX forward operation for operation (explicit _rn
 // intrinsics keep nvcc from contracting into FMAs): corner weights of
@@ -72,8 +74,7 @@
 namespace {
 
 constexpr int kThreads = 256;      // K1/K3 block
-constexpr int kWarpsPerBlock = 8;  // K2: one warp per sample
-constexpr int kChunk = 8;          // channels of one lane: 16 bytes of bf16
+constexpr int kChunk = 8;          // K1/K3: channels of one lane, 16 bytes of bf16
 // K1's vector instantiation: 4 blocks an SM in its launch bound (64
 // registers, no spills), and its appearance tile within the static limit
 constexpr int kBulkBlocksPerSM = 4;
@@ -121,12 +122,18 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
 
 // The four plane corners and two line rows of decomposition i at one
 // sample: element offsets of the rows and their weights.
-struct Lookup {
-  size_t p00, p01, p10, p11, l0, l1;
+// Off: size_t in K1/K3, int in K2 (whose wrapper holds every table below
+// 2^31 elements), where the registers it saves keep the walk from spilling.
+template <typename Off>
+struct LookupT {
+  Off p00, p01, p10, p11, l0, l1;
   float w00, w01, w10, w11, lw0, lw1;
 };
+using Lookup = LookupT<size_t>;
 
-__device__ __forceinline__ Lookup lookup(const Tables& tb, int i, const float xyz[3], int sel) {
+template <typename Off = size_t>
+__device__ __forceinline__ LookupT<Off> lookup(const Tables& tb, int i, const float xyz[3],
+                                               int sel) {
   // MAT_MODE = ((0, 1), (0, 2), (1, 2)), VEC_MODE = (2, 1, 0)
   const int m0 = i == 2 ? 1 : 0;
   const int m1 = i == 0 ? 1 : 2;
@@ -136,16 +143,16 @@ __device__ __forceinline__ Lookup lookup(const Tables& tb, int i, const float xy
   const Cell cy = axis_cell(xyz[m1], H);
   const int x1 = min(cx.i0 + 1, W - 1);
   const int y1 = min(cy.i0 + 1, H - 1);
-  Lookup k;
+  LookupT<Off> k;
   k.w00 = __fmul_rn(cy.w0, cx.w0);
   k.w01 = __fmul_rn(cy.w0, cx.w1);
   k.w10 = __fmul_rn(cy.w1, cx.w0);
   k.w11 = __fmul_rn(cy.w1, cx.w1);
-  const size_t base = (size_t)sel * H * W;
-  k.p00 = (base + (size_t)cy.i0 * W + cx.i0) * C;
-  k.p01 = (base + (size_t)cy.i0 * W + x1) * C;
-  k.p10 = (base + (size_t)y1 * W + cx.i0) * C;
-  k.p11 = (base + (size_t)y1 * W + x1) * C;
+  const Off base = (Off)sel * H * W;
+  k.p00 = (base + (Off)cy.i0 * W + cx.i0) * C;
+  k.p01 = (base + (Off)cy.i0 * W + x1) * C;
+  k.p10 = (base + (Off)y1 * W + cx.i0) * C;
+  k.p11 = (base + (Off)y1 * W + x1) * C;
   int j0, j1;
   if (tb.hat[i]) {
     const float p = __fmul_rn(__fmul_rn(__fadd_rn(xyz[vm], 1.0f), 0.5f), (float)(L - 1));
@@ -165,8 +172,8 @@ __device__ __forceinline__ Lookup lookup(const Tables& tb, int i, const float xy
     k.lw0 = cz.w0;
     k.lw1 = cz.w1;
   }
-  k.l0 = ((size_t)sel * L + j0) * C;
-  k.l1 = ((size_t)sel * L + j1) * C;
+  k.l0 = ((Off)sel * L + j0) * C;
+  k.l1 = ((Off)sel * L + j1) * C;
   return k;
 }
 
@@ -212,27 +219,18 @@ __device__ __forceinline__ void products(const __nv_bfloat16* __restrict__ P,
   }
 }
 
-// The plane and line values of channel c (K2: one channel a lane)
-__device__ __forceinline__ void plane_line(const __nv_bfloat16* __restrict__ P,
-                                           const __nv_bfloat16* __restrict__ Ln, const Lookup& k,
-                                           int c, float& pv, float& lv) {
-  pv = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(k.w00, ld(P + k.p00 + c)),
-                                     __fmul_rn(k.w01, ld(P + k.p01 + c))),
-                           __fmul_rn(k.w10, ld(P + k.p10 + c))),
-                 __fmul_rn(k.w11, ld(P + k.p11 + c)));
-  lv = __fadd_rn(__fmul_rn(k.lw0, ld(Ln + k.l0 + c)), __fmul_rn(k.lw1, ld(Ln + k.l1 + c)));
-}
-
 // K1 (kApp) and K3.  Block: kThreads lanes, 2^log2_group lanes a sample.
 // K1's vector instantiation stages the block's appearance rows, one
 // contiguous [samples x n_app] range of the output, in shared memory and
 // writes them with one bulk asynchronous copy (the layout guarantees
 // n_app % 4 == 0 and a tile of at most 48 KB); the scalar one writes
-// streaming 4-byte stores.
-template <bool kApp, bool kTwoGrids, bool kVec>
+// streaming 4-byte stores.  kMask (K1 in training) also writes the relu
+// mask, one byte a sample; the eval instantiation has no trace of it.
+template <bool kApp, bool kTwoGrids, bool kVec, bool kMask>
 __global__ void __launch_bounds__(kThreads, kApp && kVec ? kBulkBlocksPerSM : 1)
 vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb, int log2_group,
-                 float* __restrict__ density, float* __restrict__ app, int n_app) {
+                 float* __restrict__ density, float* __restrict__ app, int n_app,
+                 uint8_t* __restrict__ mask) {
   constexpr bool kBulk = kApp && kVec;
   extern __shared__ float4 tile4[];
   float* tile = reinterpret_cast<float*>(tile4);
@@ -254,6 +252,7 @@ vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb, int l
   const int sel = (kTwoGrids && q.w != 0.0f) ? 1 : 0;  // the flag is exactly 0 or 1
   float* arow = kBulk ? tile + (threadIdx.x >> log2_group) * n_app : app + s * n_app;
   float dsum = 0.0f;
+  unsigned relu_bits = 0;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const Lookup k = lookup(tb, i, xyz, sel);
@@ -290,8 +289,12 @@ vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb, int l
       part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
     }
     dsum = __fadd_rn(dsum, fmaxf(part, 0.0f));
+    if (kMask) relu_bits |= (part > 0.0f ? 2u : part == 0.0f ? 1u : 0u) << (2 * i);
   }
-  if (live && g == 0) density[s] = dsum;
+  if (live && g == 0) {
+    density[s] = dsum;
+    if (kMask) mask[s] = (uint8_t)relu_bits;
+  }
   if (kBulk && n_app > 0) {
     // the tile's generic-proxy writes, then one thread hands it to the
     // bulk copy and keeps the block (and its shared memory) alive until the
@@ -314,11 +317,9 @@ vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb, int l
 
 // K2.  Per sample and decomposition it recomputes K1's corner and line
 // weights and the plane and line values (from the bf16 tables: saving the
-// N x 384 per-channel values would cost 1.5 GB per production step), the
-// pre-relu density partial in K1's order (the chunks of 8 channels over the
-// warp's lanes, see the head of this file; so the relu mask is K1's to the
-// bit), and then
-//   dprod_c = d_dens [partial > 0]  (c < n_density), d_app[c - n_density]
+// N x 384 per-channel values would cost 1.5 GB per production step), reads
+// the relu state K1 wrote (the mask; no partial is summed again), and then
+//   dprod_c = d_dens * state / 2  (c < n_density),  d_app[c - n_density]
 //   dp = dprod l,  dl = dprod p
 //   plane cell of corner k  += w_k dp          (float32)
 //   line row j              += lw_j bf16(dl)   (hat path, bf16 tents as K1)
@@ -331,81 +332,223 @@ vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb, int l
 //
 // Bound on the card: bytes, d_app (N x 144 float32, 604 MB at the
 // production step) plus the float32 gradient tables (98 MB of planes).
-// Design: one warp per sample, lanes over channels; every
-// contribution is an atomicAdd (RED) in float32.  Contention: the line
-// tables have at most ~1,000 stacked rows and take ~2M hits per step, and
-// samples of one ray share their theta/phi rows; a per-block shared-memory
-// pre-sum of the line rows is the next step (not done here).
-template <bool kTwoGrids>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-vm_field_bwd_kernel(const float* __restrict__ coords, long long n, Tables tb,
+// On an H100 80GB HBM3 at 700 W the one-warp-a-sample kernel this replaces
+// took 2.54 ms a production step and 2.23 ms with every RED removed: the
+// work around the atomics (32 lanes a sample computing its cells, 2-byte
+// loads, the partial summed again for the mask) cost far more than they.
+// Design:
+// * a sample takes a group of G lanes; in the vector instantiation lane g
+//   owns the 4 consecutive channels 4g .. 4g+3 of every row (G = the power
+//   of two >= C / 4): one 8-byte load a row, one 16-byte d_app load and
+//   one 16-byte RED (an atomicAdd on a float4, REDG.E.ADD.F32x4) a cell.
+//   It needs C % 4 == 0, n_density % 4 == 0 and aligned tables; any other
+//   width takes the scalar instantiation, the same code with one channel a
+//   lane (G >= C), whose 4-byte REDs the group's lanes issue to
+//   consecutive addresses;
+// * each group walks one contiguous run of samples (a ray's samples are
+//   consecutive), one decomposition at a time, and for each of its six
+//   slots (4 plane corners, 2 line rows) keeps the pending (row, sum) in
+//   registers: it adds while the row repeats and issues the RED only when
+//   the row changes or the run ends.  So the grid is persistent: each group
+//   takes one run of ceil(N / groups) samples;
+// * every RED goes to global memory.  Lines summed in shared memory per
+//   block and flushed at its end were measured and removed: a float
+//   atomicAdd there is a compare-and-swap loop (ATOMS.CAST.SPIN), its bytes
+//   come out of L1, and each block flushes every row, so on every recorded
+//   step one shared line lost 12-14% against none (the smoke config's
+//   three lines, TensoRF at 128^3, 161^3 and 256^3, EgoNeRF's radial line);
+//   it won only on random samples with no runs to merge;
+// * a sample whose cotangents are all zero on a lane's channels (the gated
+//   TensoRF samples) is skipped.
+// The single grid and the vector width are template parameters.  The
+// vector instantiation takes 768 lanes a block (80 registers; under 1024
+// lanes' 64-register cap it spills), the scalar one 1024.  Measured (H100
+// 80GB HBM3, 700 W, the recorded production step): 1.148 ms against the
+// old kernel's 2.545.  Merging carried the most (a 768-lane build took
+// 2.11 ms without it, 1.59 with it); issuing no RED at all saved only 0.14
+// ms more, so what is left is the walk itself (the lookups and the 604 MB
+// of d_app).
+template <bool kVec>
+struct BwdShape {
+  static constexpr int kChannels = kVec ? 4 : 1;  // a lane's channels
+  static constexpr int kThreads = kVec ? 768 : 1024;
+};
+
+// A lane's channels c0 .. c0 + kCh - 1 of a bf16 row as float32: one 8-byte
+// load (kVec), or one 2-byte load below C and zero past it.
+template <bool kVec, int kCh = BwdShape<kVec>::kChannels>
+__device__ __forceinline__ void load_lane(const __nv_bfloat16* __restrict__ row, int c0, int C,
+                                          float f[kCh]) {
+  if constexpr (kVec) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(row + c0));
+    f[0] = __uint_as_float(v.x << 16);
+    f[1] = __uint_as_float(v.x & 0xffff0000u);
+    f[2] = __uint_as_float(v.y << 16);
+    f[3] = __uint_as_float(v.y & 0xffff0000u);
+  } else {
+    f[0] = c0 < C ? ld(row + c0) : 0.0f;
+  }
+}
+
+// Add a lane's pending sums to channels c0 .. of a float32 gradient row:
+// one 16-byte RED (kVec) or one 4-byte RED below C.
+template <bool kVec, int kCh = BwdShape<kVec>::kChannels>
+__device__ __forceinline__ void red_global(float* row, int c0, int C, const float v[kCh]) {
+  if constexpr (kVec) {
+    atomicAdd(reinterpret_cast<float4*>(row + c0), make_float4(v[0], v[1], v[2], v[3]));
+  } else if (c0 < C) {
+    atomicAdd(row + c0, v[0]);
+  }
+}
+
+// One sample's inputs for a lane of K2: its coords and the cotangents of
+// its channels of decomposition i (the density ones scaled by half the
+// relu state the mask holds at bits 2i, 2i+1).
+template <int kCh>
+struct Sample {
+  float4 q;
+  float dprod[kCh];
+};
+
+template <bool kVec, int kCh = BwdShape<kVec>::kChannels>
+__device__ __forceinline__ Sample<kCh> load_sample(int s, int i, int c0, int C, int CD,
+                                                   const float* __restrict__ coords,
+                                                   const float* __restrict__ d_dens,
+                                                   const float* __restrict__ d_app,
+                                                   const uint8_t* __restrict__ mask, int n_app,
+                                                   int app0) {
+  Sample<kCh> in;
+  if (kVec) {
+    in.q = __ldg(reinterpret_cast<const float4*>(coords) + s);
+  } else {
+    const float* c4 = coords + 4 * (size_t)s;
+    in.q = make_float4(c4[0], c4[1], c4[2], c4[3]);
+  }
+  const float* da = d_app + (size_t)s * n_app + app0;  // channel c >= CD at da[c]
+  if constexpr (kVec) {
+    if (c0 >= CD) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(da + c0));
+      in.dprod[0] = v.x, in.dprod[1] = v.y, in.dprod[2] = v.z, in.dprod[3] = v.w;
+      return in;
+    }
+  }
+  const float dd = __fmul_rn(d_dens[s], 0.5f * (float)((mask[s] >> (2 * i)) & 3));
+#pragma unroll
+  for (int j = 0; j < kCh; ++j) {
+    const int c = c0 + j;
+    in.dprod[j] = c < CD ? dd : (c < C ? da[c] : 0.0f);
+  }
+  return in;
+}
+
+// One slot of a walking group: while the row repeats, add w * v to the
+// pending sum; on another row hand the sum to flush(row, sum) and start
+// anew.  row < 0: nothing pending.  A zero weight adds nothing.
+template <int kCh, typename Flush>
+__device__ __forceinline__ void merge(int& row, float acc[kCh], int next, float w,
+                                      const float v[kCh], Flush flush) {
+  if (w == 0.0f) return;
+  if (next != row) {
+    if (row >= 0) flush(row, acc);
+    row = next;
+#pragma unroll
+    for (int j = 0; j < kCh; ++j) acc[j] = __fmul_rn(w, v[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kCh; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(w, v[j]));
+  }
+}
+
+// run: the samples of one group's run.  Rows are element offsets
+// (row * C) in int: the wrapper holds every table below 2^31 elements.
+template <bool kTwoGrids, bool kVec>
+__global__ void __launch_bounds__(BwdShape<kVec>::kThreads, 1)
+vm_field_bwd_kernel(const float* __restrict__ coords, int n, Tables tb,
                     const float* __restrict__ d_dens, const float* __restrict__ d_app,
-                    int n_app, Grads gr) {
-  const int lane = threadIdx.x & 31;
-  const long long s = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (s >= n) return;
-  const float* q = coords + 4 * s;
-  const float xyz[3] = {q[0], q[1], q[2]};
-  const int sel = (kTwoGrids && q[3] != 0.0f) ? 1 : 0;
-  const float dd_s = d_dens[s];
-  const float* da = d_app + s * n_app;
+                    const uint8_t* __restrict__ mask, int n_app, Grads gr, int log2_group,
+                    int run) {
+  constexpr int kCh = BwdShape<kVec>::kChannels;
+  constexpr int kBlock = BwdShape<kVec>::kThreads;
+  const int group = 1 << log2_group;
+  const int g = threadIdx.x & (group - 1);
+  const int walker = (int)(((long long)blockIdx.x * kBlock + threadIdx.x) >> log2_group);
+  const int s_begin = (int)min((long long)walker * run, (long long)n);
+  const int s_end = min(n - s_begin, run) + s_begin;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const int C = tb.c[i], CD = tb.cd[i];
-    const Lookup k = lookup(tb, i, xyz, sel);
+    const bool hat = tb.hat[i];
     const __nv_bfloat16* P = tb.plane[i];
     const __nv_bfloat16* Ln = tb.line[i];
-
-    // the pre-relu density partial in K1's order: lane l reads channel
-    // 32m + l as the scatter below does, and chunk q's owner, lane q mod 32,
-    // chains its 8 channels by shuffles (chunks 4m .. 4m+3 of block m)
-    float part = 0.0f;
-    for (int m = 0; 32 * m < CD; ++m) {
-      const int c = 32 * m + lane;
-      float prod = 0.0f;
-      if (c < CD) {
-        float pv, lv;
-        plane_line(P, Ln, k, c, pv, lv);
-        prod = __fmul_rn(pv, lv);
-      }
-      const int own = (lane - 4 * m) & 31;  // this lane's chunk in the block, if < 4
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int src = (own & 3) * kChunk + j;
-        const float v = __shfl_sync(0xffffffffu, prod, src);
-        if (own < 4 && 32 * m + src < CD) part = __fadd_rn(part, v);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
-    }
-    const float dd = part > 0.0f ? dd_s : 0.0f;
-
     float* gP = gr.plane[i];
     float* gL = gr.line[i];
-    const bool hat = tb.hat[i];
-    for (int c = lane; c < C; c += 32) {
-      const float dprod = c < CD ? dd : da[tb.app_off[i] + (c - CD)];
-      if (dprod == 0.0f) continue;
-      float pv, lv;
-      plane_line(P, Ln, k, c, pv, lv);
-      const float dp = __fmul_rn(dprod, lv);
-      const float dl = __fmul_rn(dprod, pv);
-      if (k.w00 != 0.0f) atomicAdd(gP + k.p00 + c, __fmul_rn(k.w00, dp));
-      if (k.w01 != 0.0f) atomicAdd(gP + k.p01 + c, __fmul_rn(k.w01, dp));
-      if (k.w10 != 0.0f) atomicAdd(gP + k.p10 + c, __fmul_rn(k.w10, dp));
-      if (k.w11 != 0.0f) atomicAdd(gP + k.p11 + c, __fmul_rn(k.w11, dp));
-      const float dlr = hat ? bf16_round(dl) : dl;
-      if (k.lw0 != 0.0f) atomicAdd(gL + k.l0 + c, __fmul_rn(k.lw0, dlr));
-      if (k.lw1 != 0.0f) atomicAdd(gL + k.l1 + c, __fmul_rn(k.lw1, dlr));
+    const int app0 = tb.app_off[i] - CD;  // d_app column of channel c >= CD
+    for (int c0 = g * kCh; c0 < C; c0 += group * kCh) {
+      int row[6] = {-1, -1, -1, -1, -1, -1};
+      float acc[6][kCh];
+      auto to_plane = [&](int at, const float* v) { red_global<kVec>(gP + at, c0, C, v); };
+      auto to_line = [&](int at, const float* v) { red_global<kVec>(gL + at, c0, C, v); };
+      for (int s = s_begin; s < s_end; ++s) {
+        const Sample<kCh> cur =
+            load_sample<kVec>(s, i, c0, C, CD, coords, d_dens, d_app, mask, n_app, app0);
+        float dprod[kCh];
+        bool any = false;
+#pragma unroll
+        for (int j = 0; j < kCh; ++j) {
+          dprod[j] = cur.dprod[j];
+          any |= dprod[j] != 0.0f;
+        }
+        if (!any) continue;
+        const float xyz[3] = {cur.q.x, cur.q.y, cur.q.z};
+        const int sel = (kTwoGrids && cur.q.w != 0.0f) ? 1 : 0;
+        const LookupT<int> k = lookup<int>(tb, i, xyz, sel);
+        float lv[kCh], pv[kCh], a[kCh], b[kCh];
+        load_lane<kVec>(Ln + k.l0, c0, C, a);
+        load_lane<kVec>(Ln + k.l1, c0, C, b);
+#pragma unroll
+        for (int j = 0; j < kCh; ++j) {
+          lv[j] = __fadd_rn(__fmul_rn(k.lw0, a[j]), __fmul_rn(k.lw1, b[j]));
+        }
+        load_lane<kVec>(P + k.p00, c0, C, a);
+        load_lane<kVec>(P + k.p01, c0, C, b);
+#pragma unroll
+        for (int j = 0; j < kCh; ++j) {
+          pv[j] = __fadd_rn(__fmul_rn(k.w00, a[j]), __fmul_rn(k.w01, b[j]));
+        }
+        load_lane<kVec>(P + k.p10, c0, C, a);
+        load_lane<kVec>(P + k.p11, c0, C, b);
+        float dp[kCh], dl[kCh];
+#pragma unroll
+        for (int j = 0; j < kCh; ++j) {
+          pv[j] = __fadd_rn(__fadd_rn(pv[j], __fmul_rn(k.w10, a[j])), __fmul_rn(k.w11, b[j]));
+          dp[j] = __fmul_rn(dprod[j], lv[j]);
+          dl[j] = __fmul_rn(dprod[j], pv[j]);
+          if (hat) dl[j] = bf16_round(dl[j]);
+        }
+        merge<kCh>(row[0], acc[0], k.p00, k.w00, dp, to_plane);
+        merge<kCh>(row[1], acc[1], k.p01, k.w01, dp, to_plane);
+        merge<kCh>(row[2], acc[2], k.p10, k.w10, dp, to_plane);
+        merge<kCh>(row[3], acc[3], k.p11, k.w11, dp, to_plane);
+        merge<kCh>(row[4], acc[4], k.l0, k.lw0, dl, to_line);
+        merge<kCh>(row[5], acc[5], k.l1, k.lw1, dl, to_line);
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (row[t] >= 0) to_plane(row[t], acc[t]);
+      }
+#pragma unroll
+      for (int t = 4; t < 6; ++t) {
+        if (row[t] >= 0) to_line(row[t], acc[t]);
+      }
     }
   }
 }
 
 // dims: per decomposition i, {H, W, L, C, n_density, hat}; then the stack
-// size, log2 of the lanes a sample takes in K1/K3, and 1 for their vector
-// instantiation (ops/vm_lookup.py::lookup_layout)
+// size, log2 of the lanes a sample takes in K1/K3 and 1 for their vector
+// instantiation (ops/vm_lookup.py::lookup_layout); then K2's: log2 of its
+// lanes a sample and 1 for its vector instantiation
+// (ops/vm_lookup.py::bwd_layout)
 Tables make_tables(const void* const* planes, const void* const* lines, const int* dims) {
   Tables tb;
   int off = 0;
@@ -424,17 +567,37 @@ Tables make_tables(const void* const* planes, const void* const* lines, const in
   return tb;
 }
 
-template <bool kApp, bool kTwoGrids, bool kVec>
+template <bool kApp, bool kTwoGrids, bool kVec, bool kMask>
 void launch_one(unsigned blocks, size_t smem, cudaStream_t st, const float* coords, long long n,
-                const Tables& tb, int log2_group, float* density, float* app, int n_app) {
-  vm_lookup_kernel<kApp, kTwoGrids, kVec><<<blocks, kThreads, smem, st>>>(
-      coords, n, tb, log2_group, density, app, n_app);
+                const Tables& tb, int log2_group, float* density, float* app, int n_app,
+                uint8_t* mask) {
+  vm_lookup_kernel<kApp, kTwoGrids, kVec, kMask><<<blocks, kThreads, smem, st>>>(
+      coords, n, tb, log2_group, density, app, n_app, mask);
+}
+
+template <bool kApp, bool kMask>
+void launch_grid(bool two, bool vec, unsigned blocks, size_t smem, cudaStream_t st,
+                 const float* coords, long long n, const Tables& tb, int log2_group,
+                 float* density, float* app, int n_app, uint8_t* mask) {
+  if (two && vec) {
+    launch_one<kApp, true, true, kMask>(blocks, smem, st, coords, n, tb, log2_group, density,
+                                        app, n_app, mask);
+  } else if (two) {
+    launch_one<kApp, true, false, kMask>(blocks, 0, st, coords, n, tb, log2_group, density, app,
+                                         n_app, mask);
+  } else if (vec) {
+    launch_one<kApp, false, true, kMask>(blocks, smem, st, coords, n, tb, log2_group, density,
+                                         app, n_app, mask);
+  } else {
+    launch_one<kApp, false, false, kMask>(blocks, 0, st, coords, n, tb, log2_group, density,
+                                          app, n_app, mask);
+  }
 }
 
 template <bool kApp>
 int launch(const float* coords, long long n, const void* const* planes,
            const void* const* lines, const int* dims, float* density, float* app,
-           int n_app, void* stream) {
+           int n_app, uint8_t* mask, void* stream) {
   const Tables tb = make_tables(planes, lines, dims);
   const int log2_group = dims[19];
   const long long per_block = kThreads >> log2_group;
@@ -445,53 +608,74 @@ int launch(const float* coords, long long n, const void* const* planes,
   if (smem > kMaxTileBytes || (kApp && vec && (n_app & 3) != 0)) {
     return (int)cudaErrorInvalidValue;  // ops/vm_lookup.py::lookup_layout takes the scalar one
   }
-  if (two && vec) {
-    launch_one<kApp, true, true>(blocks, smem, st, coords, n, tb, log2_group, density, app,
-                                 n_app);
-  } else if (two) {
-    launch_one<kApp, true, false>(blocks, 0, st, coords, n, tb, log2_group, density, app, n_app);
-  } else if (vec) {
-    launch_one<kApp, false, true>(blocks, smem, st, coords, n, tb, log2_group, density, app,
-                                  n_app);
+  if (kApp && mask != nullptr) {
+    launch_grid<kApp, true>(two, vec, blocks, smem, st, coords, n, tb, log2_group, density, app,
+                            n_app, mask);
   } else {
-    launch_one<kApp, false, false>(blocks, 0, st, coords, n, tb, log2_group, density, app,
-                                   n_app);
+    launch_grid<kApp, false>(two, vec, blocks, smem, st, coords, n, tb, log2_group, density,
+                             app, n_app, nullptr);
   }
   return (int)cudaGetLastError();
+}
+
+template <bool kTwoGrids, bool kVec>
+void launch_bwd(unsigned blocks, cudaStream_t st, const float* coords, int n, const Tables& tb,
+                const float* d_dens, const float* d_app, const uint8_t* mask, int n_app,
+                const Grads& gr, int log2_group, int run) {
+  vm_field_bwd_kernel<kTwoGrids, kVec><<<blocks, BwdShape<kVec>::kThreads, 0, st>>>(
+      coords, n, tb, d_dens, d_app, mask, n_app, gr, log2_group, run);
 }
 
 }  // namespace
 
 extern "C" int vm_field_fwd(const float* coords, long long n, const void* const* planes,
                             const void* const* lines, const int* dims, float* density,
-                            float* app, int n_app, void* stream) {
-  return launch<true>(coords, n, planes, lines, dims, density, app, n_app, stream);
+                            float* app, int n_app, uint8_t* mask, void* stream) {
+  return launch<true>(coords, n, planes, lines, dims, density, app, n_app, mask, stream);
 }
 
 extern "C" int vm_field_bwd(const float* coords, long long n, const void* const* planes,
                             const void* const* lines, const int* dims, const float* d_dens,
-                            const float* d_app, int n_app, void* const* gplanes,
-                            void* const* glines, void* stream) {
+                            const float* d_app, const uint8_t* mask, int n_app,
+                            void* const* gplanes, void* const* glines, void* stream) {
   const Tables tb = make_tables(planes, lines, dims);
   Grads gr;
   for (int i = 0; i < 3; ++i) {
     gr.plane[i] = static_cast<float*>(gplanes[i]);
     gr.line[i] = static_cast<float*>(glines[i]);
   }
-  const unsigned blocks = (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const int log2_group = dims[21];
+  const bool two = dims[18] > 1, vec = dims[22] != 0;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // the persistent grid: one block an SM, every group one run of samples
+  const long long per_block =
+      (vec ? BwdShape<true>::kThreads : BwdShape<false>::kThreads) >> log2_group;
+  const long long run = (n + sms * per_block - 1) / (sms * per_block);
+  const long long walkers = (n + run - 1) / run;
+  const unsigned blocks = (unsigned)((walkers + per_block - 1) / per_block);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dims[18] > 1) {
-    vm_field_bwd_kernel<true><<<blocks, kWarpsPerBlock * 32, 0, st>>>(coords, n, tb, d_dens,
-                                                                     d_app, n_app, gr);
+  const int ni = (int)n, r = (int)run;
+  if (two && vec) {
+    launch_bwd<true, true>(blocks, st, coords, ni, tb, d_dens, d_app, mask, n_app, gr,
+                           log2_group, r);
+  } else if (two) {
+    launch_bwd<true, false>(blocks, st, coords, ni, tb, d_dens, d_app, mask, n_app, gr,
+                            log2_group, r);
+  } else if (vec) {
+    launch_bwd<false, true>(blocks, st, coords, ni, tb, d_dens, d_app, mask, n_app, gr,
+                            log2_group, r);
   } else {
-    vm_field_bwd_kernel<false><<<blocks, kWarpsPerBlock * 32, 0, st>>>(coords, n, tb, d_dens,
-                                                                      d_app, n_app, gr);
+    launch_bwd<false, false>(blocks, st, coords, ni, tb, d_dens, d_app, mask, n_app, gr,
+                             log2_group, r);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int vm_density_fwd(const float* coords, long long n, const void* const* planes,
                               const void* const* lines, const int* dims, float* density,
-                              float* app, int n_app, void* stream) {
-  return launch<false>(coords, n, planes, lines, dims, density, app, n_app, stream);
+                              void* stream) {
+  return launch<false>(coords, n, planes, lines, dims, density, nullptr, 0, nullptr, stream);
 }

@@ -19,6 +19,10 @@ no channel padding.  What carries over exactly:
   weights are tents max(0, 1-|pos-j|) at pos = p + sel*L, rounded to bf16.
   Otherwise, and always for the coarse lookup, the line weights are the
   float32 ``_axis_cells`` pair.
+* The fine density ``sum_i jnp.maximum(partial_i, 0)`` has JAX's gradient:
+  1 where a partial is > 0, 0.5 where it is exactly 0, 0 below.  K1 in
+  training writes each partial's state (the relu mask) from the sums that
+  gave the relu, and K2 takes it, so one sum decides the relu both ways.
 """
 from __future__ import annotations
 
@@ -121,24 +125,71 @@ def sample_line_hat(line: torch.Tensor, coord: torch.Tensor, sel: torch.Tensor) 
     return out
 
 
-def field_fwd_plain(coords, planes, lines, n_density, line_hat):
-    """Plain version of K1: see :func:`field_fwd`."""
+def _warp_order_sum(prod: torch.Tensor) -> torch.Tensor:
+    """(N, CD) -> (N,): the sum in the order K1 and K3 take it on the card.
+    Channel c lies in chunk c // 8 and chunk q belongs to lane q mod 32;
+    each lane adds its channels in increasing c, then a butterfly over xor
+    offsets 16, 8, 4, 2, 1.  K1 and K3 spread the chunks over a group of G
+    lanes instead (chunk q to lane q mod G, butterfly G/2 .. 1,
+    csrc/vm_lookup.cu).  Lanes past the last chunk hold zeros, and adding a
+    zero changes no bit, so both equal the butterfly over the smallest
+    power of two of lanes that holds every chunk, which is what this
+    takes."""
+    n, cd = prod.shape
+    lanes = min(32, 1 << (max(1, -(-cd // CHUNK)) - 1).bit_length())
+    width = max(1, -(-cd // (lanes * CHUNK))) * lanes * CHUNK
+    x = torch.nn.functional.pad(prod, (0, width - cd)).reshape(n, -1, lanes, CHUNK)
+    terms = x.permute(0, 2, 1, 3).reshape(n, lanes, -1)  # per lane, in its order
+    acc = terms[:, :, 0]
+    for k in range(1, terms.shape[2]):
+        acc = acc + terms[:, :, k]
+    lane = torch.arange(lanes, device=prod.device)
+    off = lanes // 2
+    while off:
+        acc = acc + acc[:, lane ^ off]
+        off //= 2
+    return acc[:, 0]
+
+
+def relu_states(partial: torch.Tensor) -> torch.Tensor:
+    """(N,) uint8 relu state of density partials: 2 where > 0, 1 where
+    == 0, 0 where < 0 (NaN included).  Half the state is the factor
+    ``jnp.maximum(partial, 0)``'s gradient passes: 1, 0.5 (a tie) or 0."""
+    return (partial > 0).to(torch.uint8) * 2 + (partial == 0).to(torch.uint8)
+
+
+def relu_scale(mask: torch.Tensor, i: int) -> torch.Tensor:
+    """(N,) float32 factor of decomposition ``i``'s density cotangent under
+    the relu ``mask`` (bits 2i, 2i+1 hold its state): 1, 0.5 or 0."""
+    return ((mask >> (2 * i)) & 3).to(torch.float32) * 0.5
+
+
+def field_fwd_plain(coords, planes, lines, n_density, line_hat, with_mask=False):
+    """Plain version of K1: see :func:`field_fwd`.  The density partials
+    are ``.sum(-1)`` (eager JAX's bits); the mask, with ``with_mask``,
+    comes from the same sums that give the relu."""
     xyz = coords[:, :3]
     sel = chart_sel(coords, planes[0].shape[0])
     dens = torch.zeros(coords.shape[0], dtype=torch.float32, device=coords.device)
+    mask = torch.zeros(coords.shape[0], dtype=torch.uint8, device=coords.device)
     parts = []
     for i in range(3):
         m0, m1 = MAT_MODE[i]
         p = sample_plane(planes[i], xyz[:, m0], xyz[:, m1], sel)
         line_fn = sample_line_hat if line_hat[i] else sample_line
         prod = p * line_fn(lines[i], xyz[:, VEC_MODE[i]], sel)
-        dens = dens + torch.relu(prod[:, : n_density[i]].sum(-1))
+        partial = prod[:, : n_density[i]].sum(-1)
+        dens = dens + torch.relu(partial)
+        mask |= relu_states(partial) << (2 * i)
         parts.append(prod[:, n_density[i]:])
-    return dens, torch.cat(parts, dim=-1)
+    app = torch.cat(parts, dim=-1)
+    return (dens, app, mask) if with_mask else (dens, app)
 
 
 def density_fwd_plain(coords, planes, lines):
-    """Plain version of K3: see :func:`density_fwd`."""
+    """Plain version of K3: see :func:`density_fwd`.  Each partial is summed
+    in K3's lane order (:func:`_warp_order_sum`): K4 places the fine
+    samples from these densities, so a last bit moves a sample."""
     xyz = coords[:, :3]
     sel = chart_sel(coords, planes[0].shape[0])
     dens = torch.zeros(coords.shape[0], dtype=torch.float32, device=coords.device)
@@ -146,16 +197,19 @@ def density_fwd_plain(coords, planes, lines):
         m0, m1 = MAT_MODE[i]
         p = sample_plane(planes[i], xyz[:, m0], xyz[:, m1], sel)
         l = sample_line(lines[i], xyz[:, VEC_MODE[i]], sel)
-        dens = dens + torch.relu((p * l).sum(-1))
+        dens = dens + torch.relu(_warp_order_sum(p * l))
     return dens
 
 
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
-         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_FWD_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
+             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+_DENSITY_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
+                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                 ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _check_field_args(coords, planes, lines, n_density):
@@ -182,6 +236,9 @@ def _check_field_args(coords, planes, lines, n_density):
 THREADS_PER_BLOCK = 256
 CHUNK = 8
 MAX_TILE_BYTES = 48 * 1024
+# K2's channels a lane in its vector instantiation (one 16-byte RED; the
+# scalar one takes one)
+BWD_CHUNK = 4
 
 
 class Layout(NamedTuple):
@@ -210,37 +267,55 @@ def lookup_layout(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     return Layout(group, 32 // group, per_block, vector)
 
 
-def _dims(coords, planes, lines, n_density, line_hat):
+class BwdLayout(NamedTuple):
+    """How K2 spreads samples over lanes (csrc/vm_lookup.cu)."""
+    group: int       # lanes a sample takes
+    vector: bool     # 4 channels a lane: 8-byte loads, 16-byte REDs; else one channel a lane
+
+
+def bwd_layout(plane_shapes: Sequence[Sequence[int]], n_density: Sequence[int],
+               aligned: bool = True) -> BwdLayout:
+    """K2's layout for planes (S, H, W, C) of these shapes.  The vector
+    instantiation (every C and n_density a multiple of 4, and ``aligned``:
+    16-byte aligned coords, tables and d_app) gives a lane 4 channels, the
+    scalar one 1; a sample takes the power of two of lanes that covers the
+    widest row (at most 32; further channels take further passes)."""
+    cs = [int(p[-1]) for p in plane_shapes]
+    vector = aligned and all(c % BWD_CHUNK == 0 and int(d) % BWD_CHUNK == 0
+                             for c, d in zip(cs, n_density))
+    chunks = max(1, -(-max(cs) // (BWD_CHUNK if vector else 1)))
+    return BwdLayout(min(32, 1 << (chunks - 1).bit_length()), vector)
+
+
+def _bwd_layout_of(coords, planes, lines, n_density, d_app) -> BwdLayout:
+    return bwd_layout([p.shape for p in planes], n_density,
+                      all(t.data_ptr() % 16 == 0 for t in (coords, d_app, *planes, *lines)))
+
+
+def _dims(coords, planes, lines, n_density, line_hat, bwd=None):
     """The kernels' int array: per decomposition {H, W, L, C, n_density,
     hat}; then the stack size, log2 of K1/K3's lanes a sample and their
-    vector flag (:func:`lookup_layout`)."""
+    vector flag (:func:`lookup_layout`); then log2 of K2's lanes a sample
+    and its vector flag (``bwd``, a :class:`BwdLayout`; zeros for K1/K3)."""
     dims = []
     for i in range(3):
         _, h, w, c = planes[i].shape
         dims += [h, w, lines[i].shape[1], c, int(n_density[i]), int(bool(line_hat[i]))]
     n_app = sum(p.shape[-1] - int(d) for p, d in zip(planes, n_density))
     layout = lookup_layout(coords, planes, lines, n_app)
-    return (ctypes.c_int * 21)(*dims, planes[0].shape[0], layout.group.bit_length() - 1,
-                               int(layout.vector))
+    dims += [planes[0].shape[0], layout.group.bit_length() - 1, int(layout.vector)]
+    dims += [0, 0] if bwd is None else [bwd.group.bit_length() - 1, int(bwd.vector)]
+    return (ctypes.c_int * 23)(*dims)
 
 
-def _launch(fn_name, coords, planes, lines, n_density, line_hat, dens, app):
-    fn = kernel("vm_lookup", fn_name, _ARGS)
-    dev = coords.device
-    with torch.cuda.device(dev):
-        err = fn(coords.data_ptr(), coords.shape[0],
-                 (ctypes.c_void_p * 3)(*[p.data_ptr() for p in planes]),
-                 (ctypes.c_void_p * 3)(*[l.data_ptr() for l in lines]),
-                 _dims(coords, planes, lines, n_density, line_hat), dens.data_ptr(),
-                 0 if app is None else app.data_ptr(),
-                 0 if app is None else app.shape[1],
-                 torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(fn_name, err)
+def _tables(planes, lines):
+    ptrs = ctypes.c_void_p * 3
+    return ptrs(*[p.data_ptr() for p in planes]), ptrs(*[l.data_ptr() for l in lines])
 
 
 def field_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
               lines: Sequence[torch.Tensor], n_density: Sequence[int],
-              line_hat: Sequence[bool]) -> Tuple[torch.Tensor, torch.Tensor]:
+              line_hat: Sequence[bool], with_mask: bool = False):
     """K1: the fused fine field.  For i in 0..2 the bilinear sample of
     plane_i at (x_{m0}, x_{m1}) times the linear sample of line_i at
     x_{vec}, per channel; density = sum_i relu(sum of the first
@@ -250,7 +325,10 @@ def field_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     coords (N, 4) float32 normalized [x0, x1, x2, flag]; planes
     (S, H_i, W_i, C_i) and lines (S, L_i, C_i) bfloat16, S = 2 (the flag
     selects the grid) or 1 (the flag is ignored).  Returns density
-    (N,) and appearance (N, sum_i C_i - n_density[i]), float32.
+    (N,) and appearance (N, sum_i C_i - n_density[i]), float32; with
+    ``with_mask`` also the relu mask (N,) uint8, decomposition i's
+    :func:`relu_states` at bits 2i, 2i+1, from the sums that gave the
+    density (K2's input).
 
     Replaces ``sample_plane_packed_fastgrad`` + ``sample_line_hat`` as
     composed by ``EgoNeRF._fused_products`` / ``compute_field`` and by
@@ -260,15 +338,23 @@ def field_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     Kernel: csrc/vm_lookup.cu.  CPU tensors take :func:`field_fwd_plain`."""
     _check_field_args(coords, planes, lines, n_density)
     if coords.device.type == "cpu":
-        return field_fwd_plain(coords, planes, lines, n_density, line_hat)
+        return field_fwd_plain(coords, planes, lines, n_density, line_hat, with_mask)
     n = coords.shape[0]
+    dev = coords.device
     n_app = sum(p.shape[-1] - d for p, d in zip(planes, n_density))
-    dens = torch.empty(n, dtype=torch.float32, device=coords.device)
-    app = torch.empty(n, n_app, dtype=torch.float32, device=coords.device)
+    dens = torch.empty(n, dtype=torch.float32, device=dev)
+    app = torch.empty(n, n_app, dtype=torch.float32, device=dev)
+    mask = torch.empty(n, dtype=torch.uint8, device=dev) if with_mask else None
     if n:
-        _launch("vm_field_fwd", coords, planes, lines, n_density, line_hat, dens, app)
+        fn = kernel("vm_lookup", "vm_field_fwd", _FWD_ARGS)
+        with torch.cuda.device(dev):
+            err = fn(coords.data_ptr(), n, *_tables(planes, lines),
+                     _dims(coords, planes, lines, n_density, line_hat), dens.data_ptr(),
+                     app.data_ptr(), n_app, 0 if mask is None else mask.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+        check_launch("vm_field_fwd", err)
         field_fwd.launches += 1
-    return dens, app
+    return (dens, app, mask) if with_mask else (dens, app)
 
 
 field_fwd.launches = 0
@@ -290,9 +376,15 @@ def density_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     _check_field_args(coords, planes, lines, n_density)
     if coords.device.type == "cpu":
         return density_fwd_plain(coords, planes, lines)
-    dens = torch.empty(coords.shape[0], dtype=torch.float32, device=coords.device)
+    dev = coords.device
+    dens = torch.empty(coords.shape[0], dtype=torch.float32, device=dev)
     if coords.shape[0]:
-        _launch("vm_density_fwd", coords, planes, lines, n_density, (0, 0, 0), dens, None)
+        fn = kernel("vm_lookup", "vm_density_fwd", _DENSITY_ARGS)
+        with torch.cuda.device(dev):
+            err = fn(coords.data_ptr(), coords.shape[0], *_tables(planes, lines),
+                     _dims(coords, planes, lines, n_density, (0, 0, 0)), dens.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+        check_launch("vm_density_fwd", err)
         density_fwd.launches += 1
     return dens
 
@@ -303,32 +395,6 @@ density_fwd.launches = 0
 # ---------------------------------------------------------------------------
 # K2: the fine field's backward
 # ---------------------------------------------------------------------------
-def _warp_order_sum(prod: torch.Tensor) -> torch.Tensor:
-    """(N, CD) -> (N,): the sum in the order K1 and K2 take it on the card,
-    so that the relu masks agree to the bit.  Channel c lies in chunk
-    c // 8 and chunk q belongs to lane q mod 32; each lane adds its
-    channels in increasing c, then a butterfly over xor offsets 16, 8, 4,
-    2, 1.  K1 spreads the chunks over a group of G lanes instead (chunk q
-    to lane q mod G, butterfly G/2 .. 1, csrc/vm_lookup.cu).  Lanes past
-    the last chunk hold zeros, and adding a zero changes no bit, so both
-    equal the butterfly over the smallest power of two of lanes that holds
-    every chunk, which is what this takes."""
-    n, cd = prod.shape
-    lanes = min(32, 1 << (max(1, -(-cd // CHUNK)) - 1).bit_length())
-    width = max(1, -(-cd // (lanes * CHUNK))) * lanes * CHUNK
-    x = torch.nn.functional.pad(prod, (0, width - cd)).reshape(n, -1, lanes, CHUNK)
-    terms = x.permute(0, 2, 1, 3).reshape(n, lanes, -1)  # per lane, in its order
-    acc = terms[:, :, 0]
-    for k in range(1, terms.shape[2]):
-        acc = acc + terms[:, :, k]
-    lane = torch.arange(lanes, device=prod.device)
-    off = lanes // 2
-    while off:
-        acc = acc + acc[:, lane ^ off]
-        off //= 2
-    return acc[:, 0]
-
-
 def _plane_corners(x, y, sel, h, w):
     """The four (flat cell index, weight) pairs of :func:`sample_plane`."""
     x0, wx0, wx1 = _axis_cells(x, w)
@@ -360,11 +426,14 @@ def _line_rows(coord, sel, l, hat):
     return ((sel * l + i0, w0), (sel * l + (i0 + 1).clamp_max(l - 1), w1))
 
 
-def field_bwd_plain(coords, planes, lines, d_dens, d_app, n_density, line_hat,
-                    magnitude=False):
+def field_bwd_plain(coords, planes, lines, d_dens, d_app, mask, n_density, line_hat,
+                    magnitude=False, accumulate=torch.float32):
     """Plain version of K2: see :func:`field_bwd`.  With ``magnitude`` it
     scatters |contribution| instead, so that each cell holds the sum of the
-    absolute terms that a float32 tolerance is stated against."""
+    absolute terms that a float32 tolerance is stated against.  The float32
+    terms are summed in ``accumulate``: float64 gives the exact sum of the
+    same terms, a reference for a cell that a million samples hit, where
+    float32's own rounding reaches 1e-4 of the terms."""
     xyz = coords[:, :3]
     sel = chart_sel(coords, planes[0].shape[0])
     g_planes, g_lines = [], []
@@ -377,8 +446,7 @@ def field_bwd_plain(coords, planes, lines, d_dens, d_app, n_density, line_hat,
         pv = sample_plane(planes[i], xyz[:, m0], xyz[:, m1], sel)
         line_fn = sample_line_hat if line_hat[i] else sample_line
         lv = line_fn(lines[i], xyz[:, VEC_MODE[i]], sel)
-        partial = _warp_order_sum(pv[:, :cd] * lv[:, :cd])
-        dd = torch.where(partial > 0, d_dens, torch.zeros_like(d_dens))
+        dd = d_dens * relu_scale(mask, i)
         dprod = torch.cat([dd[:, None].expand(-1, cd), d_app[:, off:off + c - cd]], dim=-1)
         off += c - cd
         dp = dprod * lv
@@ -387,12 +455,12 @@ def field_bwd_plain(coords, planes, lines, d_dens, d_app, n_density, line_hat,
             dl = dl.to(torch.bfloat16).float()
         if magnitude:
             dp, dl = dp.abs(), dl.abs()
-        gp = torch.zeros(s * h * w, c, dtype=torch.float32, device=coords.device)
+        gp = torch.zeros(s * h * w, c, dtype=accumulate, device=coords.device)
         for idx, wt in _plane_corners(xyz[:, m0], xyz[:, m1], sel, h, w):
-            gp.index_add_(0, idx, wt[:, None] * dp)
-        gl = torch.zeros(s * l, c, dtype=torch.float32, device=coords.device)
+            gp.index_add_(0, idx, (wt[:, None] * dp).to(accumulate))
+        gl = torch.zeros(s * l, c, dtype=accumulate, device=coords.device)
         for idx, wt in _line_rows(xyz[:, VEC_MODE[i]], sel, l, line_hat[i]):
-            gl.index_add_(0, idx, wt[:, None] * dl)
+            gl.index_add_(0, idx, (wt[:, None] * dl).to(accumulate))
         g_planes.append(gp.reshape(s, h, w, c))
         g_lines.append(gl.reshape(s, l, c))
     return g_planes, g_lines
@@ -400,27 +468,30 @@ def field_bwd_plain(coords, planes, lines, d_dens, d_app, n_density, line_hat,
 
 _BWD_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
              ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
              ctypes.c_void_p]
 
 
 def field_bwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
               lines: Sequence[torch.Tensor], d_dens: torch.Tensor, d_app: torch.Tensor,
-              n_density: Sequence[int], line_hat: Sequence[bool]
+              mask: torch.Tensor, n_density: Sequence[int], line_hat: Sequence[bool]
               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """K2: the gradient of :func:`field_fwd` with respect to its tables.
-    Per sample and decomposition: the pre-relu density partial as K1 sums
-    it; dprod = d_dens [partial > 0] on the density channels and d_app on
-    the rest; dp = dprod * line and dl = dprod * plane; w_k * dp into the
-    four plane corners and the line weights times dl (rounded to bf16 on
-    the hat path, as ``_hat_bwd`` rounds its cotangent) into the two line
-    rows, all summed in float32.  The gradient treats the bf16 cast of the
-    tables as the identity, as JAX's custom VJPs do.
+    Per sample and decomposition i: dprod = d_dens times
+    :func:`relu_scale` of the forward's ``mask`` (1, 0.5 at an exact zero
+    partial, 0; ``jnp.maximum``'s gradient) on the density channels and
+    d_app on the rest; dp = dprod * line and dl = dprod * plane; w_k * dp
+    into the four plane corners and the line weights times dl (rounded to
+    bf16 on the hat path, as ``_hat_bwd`` rounds its cotangent) into the
+    two line rows, all summed in float32.  The gradient treats the bf16
+    cast of the tables as the identity, as JAX's custom VJPs do.
 
     coords (N, 4), d_dens (N,) and d_app (N, sum_i C_i - n_density[i])
-    float32; planes and lines bfloat16 as for :func:`field_fwd`.  Returns
-    float32 gradients shaped like the planes and the lines.
+    float32; mask (N,) uint8 from ``field_fwd(..., with_mask=True)``;
+    planes and lines bfloat16 as for :func:`field_fwd`.  Returns float32
+    gradients shaped like the planes and the lines.  The kernel's lanes
+    follow :func:`bwd_layout`.
 
     Replaces ``_plane_bwd_bf16`` + ``_hat_bwd`` (``_plane_bwd`` +
     ``_line_bwd`` where the lines take float32 weights)
@@ -431,22 +502,22 @@ def field_bwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     n_app = sum(p.shape[-1] - d for p, d in zip(planes, n_density))
     check_tensor("d_dens", d_dens, torch.float32, (n,), coords.device)
     check_tensor("d_app", d_app, torch.float32, (n, n_app), coords.device)
+    check_tensor("mask", mask, torch.uint8, (n,), coords.device)
+    if any(t.numel() >= 2 ** 31 for t in (*planes, *lines)):
+        raise ValueError("a table of 2**31 elements or more (K2 indexes rows in int)")
     if coords.device.type == "cpu":
-        return field_bwd_plain(coords, planes, lines, d_dens, d_app, n_density, line_hat)
+        return field_bwd_plain(coords, planes, lines, d_dens, d_app, mask, n_density, line_hat)
     dev = coords.device
     g_planes = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in planes]
     g_lines = [torch.zeros(l.shape, dtype=torch.float32, device=dev) for l in lines]
     if n:
         fn = kernel("vm_lookup", "vm_field_bwd", _BWD_ARGS)
-        ptrs = ctypes.c_void_p * 3
+        layout = _bwd_layout_of(coords, planes, lines, n_density, d_app)
         with torch.cuda.device(dev):
-            err = fn(coords.data_ptr(), n, ptrs(*[p.data_ptr() for p in planes]),
-                     ptrs(*[l.data_ptr() for l in lines]),
-                     _dims(coords, planes, lines, n_density, line_hat),
-                     d_dens.data_ptr(), d_app.data_ptr(), n_app,
-                     ptrs(*[g.data_ptr() for g in g_planes]),
-                     ptrs(*[g.data_ptr() for g in g_lines]),
-                     torch.cuda.current_stream(dev).cuda_stream)
+            err = fn(coords.data_ptr(), n, *_tables(planes, lines),
+                     _dims(coords, planes, lines, n_density, line_hat, layout),
+                     d_dens.data_ptr(), d_app.data_ptr(), mask.data_ptr(), n_app,
+                     *_tables(g_planes, g_lines), torch.cuda.current_stream(dev).cuda_stream)
         check_launch("vm_field_bwd", err)
         field_bwd.launches += 1
     return g_planes, g_lines
@@ -458,23 +529,23 @@ field_bwd.launches = 0
 class _Field(torch.autograd.Function):
     """K1 forward, K2 backward on float32 tables (``fwd`` and ``bwd`` are
     an ``Ops`` pair, so the plain versions run through the same Function).
-    The tables are cast to bf16 inside; only the coords and the bf16
-    tables are saved, and the backward recomputes the lookups."""
+    The tables are cast to bf16 inside; the coords, the bf16 tables and
+    K1's relu mask are saved, and the backward recomputes the lookups."""
 
     @staticmethod
     def forward(ctx, coords, n_density, line_hat, fwd, bwd, *tables):
         bf16 = [t.detach().to(torch.bfloat16).contiguous() for t in tables]
-        dens, app = fwd(coords, bf16[:3], bf16[3:], n_density, line_hat)
-        ctx.save_for_backward(coords, *bf16)
+        dens, app, mask = fwd(coords, bf16[:3], bf16[3:], n_density, line_hat, with_mask=True)
+        ctx.save_for_backward(coords, mask, *bf16)
         ctx.args = (n_density, line_hat, bwd)
         return dens, app
 
     @staticmethod
     def backward(ctx, d_dens, d_app):
-        coords, *bf16 = ctx.saved_tensors
+        coords, mask, *bf16 = ctx.saved_tensors
         n_density, line_hat, bwd = ctx.args
         g_planes, g_lines = bwd(coords, bf16[:3], bf16[3:], d_dens.contiguous(),
-                                d_app.contiguous(), n_density, line_hat)
+                                d_app.contiguous(), mask, n_density, line_hat)
         return (None, None, None, None, None, *g_planes, *g_lines)
 
 

@@ -1,8 +1,9 @@
 """The training loop (counterpart of ``egonerf_tpu/train/trainer.py``:
 ``Trainer`` and ``render_test``), cut to what the port carries.
 
-One step draws a batch of ray ids on the card from the resident (N, 9)
-buffer, runs the model's forward in training mode (EgoNeRF: K5's sorted
+One step draws a batch of ray ids on the card (on the host, by JAX's
+``SimpleSampler``, under ``device_sampling = False``) from the resident
+(N, 9) buffer, runs the model's forward in training mode (EgoNeRF: K5's sorted
 uniforms, K3 and K4 on the detached coarse grid, K7, the fine field through
 K1/K2; TensorVMSplit: jittered uniform steps, K9's mask gate, K1/K2 on its
 single grid; both: the shader through torch autograd, the composite through
@@ -34,7 +35,7 @@ import torch
 from .._device import resolve_device
 from ..coords import coords_from_spec, make_coordinates
 from ..data.datasets import dataset_class
-from ..data.samplers import DeviceRaySampler
+from ..data.samplers import DeviceRaySampler, HostRaySampler, host_sampling
 from ..models import StepKey, build_model, model_meta, params_from_jax
 from ..models.alphamask import mask_from_volumes
 from ..render.metrics import mse2psnr
@@ -49,7 +50,10 @@ _ROADMAP = "is not ported yet (ROADMAP.md §1)"
 
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every option of the JAX trainer
-    that the port does not carry yet."""
+    that the port does not carry yet.  ``steps_per_call`` is accepted: in
+    JAX it only fuses that many steps into one compiled call, and the port
+    runs each step eagerly, so it changes no result.  ``device_sampling =
+    False`` selects JAX's host sampler (``data/samplers.py``)."""
     refused = []
     for name in ("entropy_weight", "sparsity_lambda"):
         if getattr(cfg, name) > 0:
@@ -201,9 +205,16 @@ class Trainer:
                          decay_iters)
 
     def _install_sampler(self) -> None:
-        self.sampler = DeviceRaySampler(self.train_dataset.all_rays,
-                                        self.train_dataset.all_rgbs, self.cfg.batch_size,
-                                        self.generator)
+        """JAX's choice of sampler (``trainer.py:531-537``): the host's
+        ``SimpleSampler`` under ``device_sampling = False`` or a ray buffer
+        of 6 GiB or more, else ids drawn on the card."""
+        ds = self.train_dataset
+        if host_sampling(ds.all_rays.shape[0], self.cfg.device_sampling):
+            self.sampler = HostRaySampler(ds.all_rays, ds.all_rgbs, self.cfg.batch_size,
+                                          self.cfg.seed, self.device)
+        else:
+            self.sampler = DeviceRaySampler(ds.all_rays, ds.all_rgbs, self.cfg.batch_size,
+                                            self.generator)
 
     def set_datasets(self, train_dataset, test_dataset) -> None:
         """Swap datasets after construction (JAX ``trainer.py:548-563``):

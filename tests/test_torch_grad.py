@@ -82,10 +82,13 @@ def _jax_field_grads(plane_fn, line_fn, planes, lines, coords, d_dens, d_app):
 
 
 def _port_grads(planes, lines, coords, d_dens, d_app, line_hat, magnitude=False):
+    """K2's plain version, with the relu mask of K1's plain version."""
     bf = [torch.tensor(t).to(torch.bfloat16) for t in planes + lines]
-    gp, gl = vm_lookup.field_bwd_plain(torch.from_numpy(coords), bf[:3], bf[3:],
-                                       torch.from_numpy(d_dens), torch.from_numpy(d_app),
-                                       N_DENSITY, line_hat, magnitude=magnitude)
+    c = torch.from_numpy(coords)
+    _, _, mask = vm_lookup.field_fwd_plain(c, bf[:3], bf[3:], N_DENSITY, line_hat, with_mask=True)
+    gp, gl = vm_lookup.field_bwd_plain(c, bf[:3], bf[3:], torch.from_numpy(d_dens),
+                                       torch.from_numpy(d_app), mask, N_DENSITY, line_hat,
+                                       magnitude=magnitude)
     return [g.numpy() for g in gp], [g.numpy() for g in gl]
 
 

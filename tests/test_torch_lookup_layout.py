@@ -1,9 +1,9 @@
-"""The lane layout of the VM-grid lookup kernels K1/K3 and the density
-order K1 and K2 share, on the CPU: the wrapper's pure-Python geometry
-(lanes a sample takes, samples a warp holds, the vector or the scalar
-instantiation), ``_warp_order_sum`` against a numpy emulation of the lane
-order written down in ``csrc/vm_lookup.cu``, and K2's plain version with
-that order against ``jax.vjp`` at the widths the kernels meet.  Inputs come
+"""The lane layout of the VM-grid lookup kernels K1/K3 and their density
+order, on the CPU: the wrapper's pure-Python geometry (lanes a sample
+takes, samples a warp holds, the vector or the scalar instantiation),
+``_warp_order_sum`` against a numpy emulation of the lane order written
+down in ``csrc/vm_lookup.cu``, and K2's plain version, with the relu mask
+of K1's plain version, against ``jax.vjp`` at the widths the kernels meet.  Inputs come
 from numpy seeds and go to both sides."""
 import jax
 import jax.numpy as jnp
@@ -51,9 +51,10 @@ def test_layout_geometry(c, s):
     assert layout == vm_lookup.Layout(group=g, samples_per_warp=32 // g,
                                       samples_per_block=256 // g, vector=c % 8 == 0)
     # the kernel's int array carries the stack size, log2 of the group and
-    # the vector flag after the 18 per-decomposition entries
+    # the vector flag after the 18 per-decomposition entries; K2's two
+    # entries follow, zeros for K1/K3
     dims = list(vm_lookup._dims(torch.zeros(16, 4), planes, lines, (c // 2,) * 3, (True,) * 3))
-    assert dims[18:] == [s, g.bit_length() - 1, int(c % 8 == 0)]
+    assert dims[18:] == [s, g.bit_length() - 1, int(c % 8 == 0), 0, 0]
     assert dims[3:5] == [c, c // 2]
 
 
@@ -117,7 +118,7 @@ def _lane_order_sum(prod: np.ndarray, group: int) -> np.ndarray:
                          ids=["cd8_c24", "cd16_c64", "cd16_c16", "cd13_c20", "cd13_c64",
                               "cd300_c304"])
 def test_warp_order_sum_is_the_documented_lane_order(cd, c):
-    """``_warp_order_sum`` (K2's 32 lanes) equals K1's lane-group order bit
+    """``_warp_order_sum`` (32 lanes) equals K1's lane-group order bit
     for bit, for the group K1 takes at width ``c``; the values span six
     decades and both signs, so another order gives other bits."""
     rng = np.random.default_rng(cd * 1000 + c)
@@ -164,7 +165,7 @@ def _jax_field_grads(line_fn, planes, lines, coords, d_dens, d_app, n_density):
 @pytest.mark.parametrize("c, cd", [(8, 8), (16, 5), (24, 8), (64, 16), (20, 4)],
                          ids=["c8_cd8", "c16_cd5", "c24_cd8", "c64_cd16", "c20_cd4"])
 def test_field_bwd_plain_in_lane_order_matches_jax_vjp(c, cd, hat):
-    """K2's plain version, its relu mask summed in the lane order, against
+    """K2's plain version, its relu mask from K1's plain version, against
     the float32 custom VJPs (_plane_bwd and _line_bwd or _hat_bwd): float32
     sums in another order, rel 1e-5 of each gradient's largest entry."""
     rng = np.random.default_rng(c * 100 + cd)
@@ -178,9 +179,12 @@ def test_field_bwd_plain_in_lane_order_matches_jax_vjp(c, cd, hat):
     line_fn = jvm.sample_line_hat if hat else jvm.sample_line_packed
     want_p, want_l = _jax_field_grads(line_fn, planes, lines, coords, d_dens, d_app, cd)
     bf = [torch.tensor(t).to(torch.bfloat16) for t in planes + lines]
-    got_p, got_l = vm_lookup.field_bwd_plain(torch.from_numpy(coords), bf[:3], bf[3:],
-                                             torch.from_numpy(d_dens), torch.from_numpy(d_app),
-                                             (cd,) * 3, (hat,) * 3)
+    c_t = torch.from_numpy(coords)
+    _, _, mask = vm_lookup.field_fwd_plain(c_t, bf[:3], bf[3:], (cd,) * 3, (hat,) * 3,
+                                           with_mask=True)
+    got_p, got_l = vm_lookup.field_bwd_plain(c_t, bf[:3], bf[3:], torch.from_numpy(d_dens),
+                                             torch.from_numpy(d_app), mask, (cd,) * 3,
+                                             (hat,) * 3)
     for got, want in zip(got_p + got_l, want_p + want_l):
         assert got.shape == want.shape
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())

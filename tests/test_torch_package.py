@@ -99,7 +99,8 @@ def _field(**over):
 def _field_bwd(**over):
     planes, lines = _tables()
     args = dict(coords=torch.zeros(16, 4), planes=planes, lines=lines, d_dens=torch.zeros(16),
-                d_app=torch.zeros(16, 24), n_density=(4, 4, 4), line_hat=(True, True, True))
+                d_app=torch.zeros(16, 24), mask=torch.zeros(16, dtype=torch.uint8),
+                n_density=(4, 4, 4), line_hat=(True, True, True))
     args.update(over)
     return vm_lookup.field_bwd(**args)
 
@@ -196,6 +197,8 @@ BAD_CALLS = {
                                TypeError),
     "field_bwd float32 tables": (lambda: _field_bwd(planes=_tables(dtype=torch.float32)[0]),
                                  TypeError),
+    "field_bwd mask dtype": (lambda: _field_bwd(mask=torch.zeros(16, dtype=torch.int32)),
+                             TypeError),
     "composite_bwd grad shape": (lambda: _composite_bwd(d_rgb_map=torch.zeros(8, 4)),
                                  ValueError),
     "composite_bwd too many samples": (lambda: _composite_bwd(

@@ -166,7 +166,8 @@ def test_field_single_grid_matches_jax(hat):
                                     [jnp.asarray(l) for l in lines])
     bf = [torch.tensor(t).to(torch.bfloat16) for t in planes + lines]
     c = torch.from_numpy(coords)
-    got_d, got_a = vm_lookup.field_fwd(c, bf[:3], bf[3:], n_density, (hat,) * 3)
+    got_d, got_a, mask = vm_lookup.field_fwd(c, bf[:3], bf[3:], n_density, (hat,) * 3,
+                                             with_mask=True)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), rtol=1e-6, atol=1e-6)
     if hat:
@@ -176,7 +177,7 @@ def test_field_single_grid_matches_jax(hat):
     d_app = rng.normal(size=(3000, 24)).astype(np.float32)
     want_p, want_l = vjp((jnp.asarray(d_dens), jnp.asarray(d_app)))
     got_p, got_l = vm_lookup.field_bwd(c, bf[:3], bf[3:], torch.from_numpy(d_dens),
-                                       torch.from_numpy(d_app), n_density, (hat,) * 3)
+                                       torch.from_numpy(d_app), mask, n_density, (hat,) * 3)
     for g, w in zip(got_p + got_l, list(want_p) + list(want_l)):
         w = np.asarray(w)
         assert g.shape == w.shape

@@ -151,8 +151,8 @@ def test_step_gradients_match_jax(step):
     assert sorted(got) == sorted(want)
     bf16_planes = step["compute_dtype"] == "bfloat16"
     if bf16_planes:
-        coords, planes, lines, d_dens, d_app, n_density, line_hat = step["rec"].args
-        mag_p, mag_l = vm_lookup.field_bwd_plain(coords, planes, lines, d_dens, d_app,
+        coords, planes, lines, d_dens, d_app, mask, n_density, line_hat = step["rec"].args
+        mag_p, mag_l = vm_lookup.field_bwd_plain(coords, planes, lines, d_dens, d_app, mask,
                                                  n_density, line_hat, magnitude=True)
     for k in sorted(want):
         g, w = got[k], np.asarray(want[k])
