@@ -5,32 +5,37 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. the card's name and power limit, the build of every kernel in
    ``egonerf_torch/csrc`` from the checkout, and each kernel's registers
-   and spills from ptxas (a spill in the VM-grid lookups fails);
-2. each kernel of the render path (K1, K3, K4, K6, K7) against its plain
-   PyTorch version on the card, on the inputs one 4096-ray chunk of the
-   production model gives it, each kernel of the training step (K2, K5,
-   K6b) on the inputs of one production training step, K1, K3 and K2 at
-   the smoke config's widths and at one the kernels' scalar instantiation
-   takes, and the envmap's (K8, K8b, K6 and K6b with the background) on
-   the inputs of one production step of the outdoor shape, with times from
-   CUDA events (K1, K2 and K3 also with a cold L2); K1's training
-   instantiation's relu mask against the states of its lane-order sums;
-   K2's layout (``bwd_layout``), and K2 (two grids and S=1) also on two
-   hard inputs: every sample at one point, and the samples shuffled; and
-   K2 on recorded steps of the smoke config and of the JAX ``tensorf``
+   and spills from ptxas (a spill in the VM-grid lookups or in K4 fails);
+2. each kernel of the render path (K1, K3, K4 with its fine-chart epilogue,
+   K6, K7) against its plain PyTorch version on the card, on the inputs one
+   4096-ray chunk of the production model gives it (K4 also on K5's sorted
+   uniforms, without the merge, at the smoke config's 48 + 48 samples and
+   on hard rays: zero density, one spike, repeated coarse depths, u near 1
+   and on the cdf's edges, u reversed; its epilogue's coords equal to K7's
+   on the same depths bit for bit), each kernel of the training step (K2,
+   K4, K5, K6b) on the inputs of one production training step, K1, K3 and
+   K2 at the smoke config's widths and at one the kernels' scalar
+   instantiation takes, and the envmap's (K8, K8b, K6 and K6b with the
+   background) on the inputs of one production step of the outdoor shape,
+   with times from CUDA events (K1, K2 and K3 also with a cold L2); K1's
+   training instantiation's relu mask against the states of its lane-order
+   sums; K2's layout (``bwd_layout``), and K2 (two grids and S=1) also on
+   two hard inputs: every sample at one point, and the samples shuffled;
+   and K2 on recorded steps of the smoke config and of the JAX ``tensorf``
    preset's first two grids (128^3 and, after its first upsample, 161^3);
 3. one 2000x1000 equirectangular view at full production width through
    ``Renderer.render_view``, with seeded random weights: finite rgb in
    [0, 1], finite depth, and each render kernel launched once per chunk
-   (K7 twice: the coarse and the fine chart);
+   (K7 for the coarse chart; the fine chart is K4's epilogue);
 4. a few chunks rendered with the kernels and with the plain versions on
    the card, end to end;
 5. where the time of those chunks goes on the device, from torch.profiler;
 6. production training steps through ``Trainer.train_step`` (batch 4096,
    128 + 128 samples, N_voxel 27e6, MSE, Adam) on the synthetic scene:
    step ms, train rays/s, peak memory, every kernel launched once per
-   step, and where the time goes from torch.profiler (K2's share of the
-   step too, as in phases 10 and 16);
+   step (K7 for the coarse chart, the fine one in K4), and where the time
+   goes from torch.profiler (K2's share of the step too, as in phases 10
+   and 16);
 7. one production training step with the kernels and with the plain
    versions, same weights and draws: the loss and every gradient;
 8. the smoke run of ``configs/smoke/synthetic.txt`` (300 iterations)
@@ -527,8 +532,113 @@ def chart_cost(rays_o, z, n_grid):
     return rays_o.shape[0] * 24 + n * 4 + n_grid * 4 + n * 16, n * 170
 
 
+def k4_cost(c_feat, n_f, n_out, n_grid=None):
+    """K4's bytes at eval (c_feat, the coarse depths and dists read once,
+    z_vals and dists written once; with the chart epilogue also the rays'
+    origins and directions and the radial grid of ``n_grid`` entries read,
+    the coords written) and float32 operations (a ray's weights and pdf,
+    ~12 a coarse sample; a draw's search and bracket; the merge and the
+    dists, 2 a merged sample; the chart, ~170 a merged sample)."""
+    r, s = c_feat.shape
+    n_bytes = 3 * r * s * 4 + 2 * r * n_out * 4
+    n_ops = r * (12 * s + n_f * (int(np.log2(s)) + 8) + 2 * n_out)
+    if n_grid is not None:
+        n_bytes += r * 24 + n_grid * 4 + r * n_out * 16
+        n_ops += r * n_out * 170
+    return n_bytes, n_ops
+
+
+def k4_compare(name, ops, args, far, rays=None) -> float:
+    """K4 against its plain version on ``args``: z_vals and dists within
+    1e-5 x far (float32 sums in another order move a draw by a few ulps of
+    far).  With ``rays`` = (rays_o, viewdirs, coords) the fused op: its
+    coords equal to K7's on the kernel's own z_vals bit for bit (both take
+    the chart from csrc/chart.cuh), so every flag too, and within K7_TOL
+    of the plain chart of those depths with every flag equal.  Returns the
+    max abs error of the depths."""
+    tol = REL_TOL * far
+    got = (ops.pdf.resample(*args) if rays is None
+           else ops.KERNELS.resample_chart(*args, *rays))
+    ref = ops.pdf.resample_plain(*args)
+    torch.cuda.synchronize()
+    for o, r in zip(got, ref):
+        if o.shape != r.shape or not torch.isfinite(o).all():
+            fail(f"{name}: shape {tuple(o.shape)} (plain {tuple(r.shape)}) or non-finite")
+    abs_err = max_err(got[:2], ref)[0]
+    ok, msg = abs_err <= tol, ""
+    if rays is not None:
+        norm = got[2]
+        k7 = ops.KERNELS.chart(*rays[:2], got[0], rays[2])
+        plain = ops.PLAIN.chart(*rays[:2], got[0], rays[2])
+        torch.cuda.synchronize()
+        if norm.shape != k7.shape or not torch.isfinite(norm).all():
+            fail(f"{name}: coords {tuple(norm.shape)} (K7 {tuple(k7.shape)}) or non-finite")
+        bits = int((norm.view(torch.int32) != k7.view(torch.int32)).any(1).sum())
+        flips = int((norm[:, 3] != plain[:, 3]).sum())
+        c_err = float((norm - plain).abs().max())
+        ok = ok and bits == 0 and flips == 0 and c_err <= K7_TOL
+        msg = (f"; coords: {bits} of {norm.shape[0]:,} samples differ from K7's on the same "
+               f"depths (0 allowed), chart flag differs from the plain chart's on {flips}, "
+               f"max abs {c_err:.3e} (<= {K7_TOL:.0e})")
+    print(f"phase 2 {name}: max abs err {abs_err:.3e} (abs <= {tol:.1e}, 1e-5 x far){msg} -> "
+          f"{'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return abs_err
+
+
+def k4_hard_inputs(c_feat, coarse_z, n_f, act, u):
+    """K4's hard rays, from the chunk's first 1024: [(label, c_feat,
+    coarse_z, coarse_dists, u)].  Zero density (every weight 0, the pdf at
+    its 1e-5 floor: near-degenerate brackets); one spike (one coarse
+    sample holds the ray); every coarse depth twice (the bin edges equal
+    coarse depths, so draws at t = 0 tie with them); u near 1 (1 - k 2^-24,
+    at and past cdf[-1]); u on the cdf's edges (the bracket's own ends);
+    u reversed (draws out of order: the kernel's full-rank merge)."""
+    from egonerf_torch.models.egonerf import _dists
+    from egonerf_torch.ops import pdf, volrend
+
+    r = min(1024, c_feat.shape[0])
+    dev = c_feat.device
+    f, z = c_feat[:r].contiguous(), coarse_z[:r].contiguous()
+    d = _dists(z)
+    s = f.shape[1]
+    zero = torch.full_like(f, -1e4)  # softplus(-1e4 - 8) is 0
+    spike = zero.clone()
+    at = torch.randint(1, s - 1, (r,), generator=torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    spike[torch.arange(r, device=dev), at] = 30.0
+    z_rep = z[:, ::2].repeat_interleave(2, dim=1)[:, :s].contiguous()
+    near_one = (1.0 - torch.arange(n_f - 1, -1, -1, device=dev, dtype=torch.float32)
+                * 2.0 ** -24).expand(r, n_f).contiguous()
+    sigma = volrend.density_activation(f, *act[::2])
+    alpha = volrend.raw2alpha(sigma, d * act[1])[0]
+    cdf = pdf._warp_cdf(pdf._warp_weights(alpha)[:, 1:-1])
+    pick = torch.arange(n_f, device=dev) * (cdf.shape[1] - 1) // max(n_f - 1, 1)
+    edges = cdf[:, pick].contiguous()
+    return [("zero density", zero, z, d, None), ("one spike", spike, z, d, None),
+            ("repeated coarse depths", f, z_rep, _dists(z_rep), None),
+            ("u near 1", f, z, d, near_one), ("u on the cdf's edges", f, z, d, edges),
+            ("u reversed", f, z, d, u[:r].flip(1).contiguous())]
+
+
+def k4_checks(label, ops, args, far, rays) -> None:
+    """K4 with and without its chart epilogue on ``args`` (the inputs of a
+    chunk or of a recorded step): each against its plain version, and the
+    fused launch timed against K4 and K7 launched apart."""
+    k4_compare(f"K4 resample ({label})", ops, args, far)
+    k4_compare(f"K4 resample + chart ({label})", ops, args, far, rays)
+    fused = time_ms(lambda: ops.KERNELS.resample_chart(*args, *rays))
+    apart = time_ms(lambda: ops.pdf.resample(*args))
+    z_vals = ops.pdf.resample(*args)[0]
+    k7 = time_ms(lambda: ops.KERNELS.chart(*rays[:2], z_vals, rays[2]))
+    print(f"phase 2 K4 ({label}): fused with the fine chart {fused:.4f} ms; apart K4 "
+          f"{apart:.4f} + K7 {k7:.4f} = {apart + k7:.4f} ms", flush=True)
+
+
 def render_kernel_checks(model, params, dirs, ops, presets, dists_of) -> dict:
-    """Phase 2, render path: K1, K3, K4, K6, K7 on one production chunk."""
+    """Phase 2, render path: K1, K3, K4 (with and without its fine-chart
+    epilogue), K6, K7 on one production chunk."""
     dev = dirs.device
     cfg, coords = model.cfg, model.coordinates
     n_view = dirs.shape[0]
@@ -545,7 +655,8 @@ def render_kernel_checks(model, params, dirs, ops, presets, dists_of) -> dict:
     c_feat = ops.PLAIN.density(c_norm, tables.coarse_planes, tables.coarse_lines)
     c_feat = c_feat.reshape(chunk, n_c)
     act = (cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act)
-    z_vals, dists = ops.PLAIN.resample(c_feat, coarse_z, coarse_dists, n_f, None, True, *act)
+    z_vals, dists = ops.pdf.resample_plain(c_feat, coarse_z, coarse_dists, n_f, None, True,
+                                           *act)
     f_norm = ops.PLAIN.chart(rays_o, viewdirs, z_vals, coords)
     hat = model._line_hat(tables.fine_lines, f_norm.shape[0])
     feat, app_feat = model.compute_field(params, f_norm, tables)
@@ -568,11 +679,6 @@ def render_kernel_checks(model, params, dirs, ops, presets, dists_of) -> dict:
          (c_norm, tables.coarse_planes, tables.coarse_lines),
          nbytes(c_norm, *tables.coarse_planes, *tables.coarse_lines) + c_norm.shape[0] * 4,
          c_norm.shape[0] * sum(p.shape[-1] for p in tables.coarse_planes) * 11),
-        ("K4 resample", "egonerf_torch/csrc/resample.cu",
-         "egonerf_tpu/ops/pdf.py:14", ops.KERNELS.resample, ops.PLAIN.resample,
-         (c_feat, coarse_z, coarse_dists, n_f, None, True, *act),
-         nbytes(c_feat, coarse_z, coarse_dists) + n_f * 4 + 2 * chunk * n_s * 4,
-         chunk * (12 * n_c + n_f * (int(np.log2(n_c)) + 8) + 2 * n_s)),
         ("K6 composite", "egonerf_torch/csrc/composite.cu",
          "egonerf_tpu/ops/volrend.py:11", ops.KERNELS.composite, ops.PLAIN.composite,
          (feat, dists, z_vals, rgb, ray_dz, *act),
@@ -581,29 +687,55 @@ def render_kernel_checks(model, params, dirs, ops, presets, dists_of) -> dict:
     ]
     table = {}
     for case in cases:
-        # K4's depths: float32 sums in another order, <= 1e-5 of far
-        far_tol = (dict(abs_tol=REL_TOL * model.near_far[1],
-                        tol_desc=f"abs <= {REL_TOL * model.near_far[1]:.1e} (1e-5 x far)")
-                   if case[0].startswith("K4") else {})
-        table[case[0].split()[0]] = check_case(*case, **far_tol,
-                                               cold=case[0].startswith(("K1", "K3")))
+        table[case[0].split()[0]] = check_case(*case, cold=case[0].startswith(("K1", "K3")))
 
-    # K4's inputs off the eval path: sorted uniforms (the training draws)
-    # and no merge with the coarse depths
-    u = ops.KERNELS.sorted_uniform(chunk, n_f, SEED, 0, dev)
-    for label, u_in, merge in (("sorted uniforms", u, True), ("no merge", None, False)):
-        args = (c_feat, coarse_z, coarse_dists, n_f, u_in, merge, *act)
-        abs_err, _ = max_err(ops.KERNELS.resample(*args), ops.PLAIN.resample(*args))
-        ok = abs_err <= REL_TOL * model.near_far[1]
-        print(f"phase 2 K4 resample, {label}: max abs err {abs_err:.3e} -> "
-              f"{'ok' if ok else 'MISS'}", flush=True)
-        if not ok:
-            fail(f"K4 resample ({label}) disagrees with its plain version")
-
-    # K7, the coarse (downsample 2) and the fine chart of the chunk, on the
-    # column slices of its (R, 6) rays as the model passes them
+    # K4 on the chunk with and without its fine-chart epilogue, on the
+    # column slices of the (R, 6) rays as the model passes them; then on K5's
+    # sorted uniforms (the training draws), without the merge, at the smoke
+    # config's 48 + 48 samples, and on the hard rays
     rays = torch.cat([rays_o, viewdirs], dim=-1)
     n_grid = coords.ref_grid.shape[0]
+    far = model.near_far[1]
+    fine_rays = (rays[:, :3], rays[:, 3:6], coords)
+    args = (c_feat, coarse_z, coarse_dists, n_f, None, True, *act)
+    k4_checks("eval chunk", ops, args, far, fine_rays)
+    u = ops.KERNELS.sorted_uniform(chunk, n_f, SEED, 0, dev)
+    k4_compare("K4 resample + chart (sorted uniforms)", ops,
+               (c_feat, coarse_z, coarse_dists, n_f, u, True, *act), far, fine_rays)
+    k4_compare("K4 resample + chart (no merge)", ops,
+               (c_feat, coarse_z, coarse_dists, n_f, None, False, *act), far, fine_rays)
+    z48 = model.sample_depths_exp(chunk, 48, dev)
+    f48 = ops.KERNELS.density(ops.KERNELS.chart(rays[:, :3], rays[:, 3:6], z48, coords, 2),
+                              tables.coarse_planes, tables.coarse_lines).reshape(chunk, 48)
+    u48 = ops.KERNELS.sorted_uniform(chunk, 48, SEED, 1, dev)
+    for label, u_in in (("48 + 48, eval", None), ("48 + 48, sorted uniforms", u48)):
+        k4_compare(f"K4 resample + chart ({label})", ops,
+                   (f48, z48, dists_of(z48), 48, u_in, True, *act), far, fine_rays)
+    for label, f_h, z_h, d_h, u_h in k4_hard_inputs(c_feat, coarse_z, n_f, act, u):
+        r_h = f_h.shape[0]
+        h_args = (f_h, z_h, d_h, n_f, u_h, True, *act)
+        k4_compare(f"K4 resample ({label})", ops, h_args, far)
+        k4_compare(f"K4 resample + chart ({label})", ops, h_args, far,
+                   (rays[:r_h, :3], rays[:r_h, 3:6], coords))
+        z_p = ops.pdf.resample_plain(*h_args)[0]
+        fine_p = ops.pdf.resample_plain(f_h, z_h, d_h, n_f, u_h, False, *act)[0]
+        print(f"phase 2 K4 ({label}): {int((fine_p[:, 1:] < fine_p[:, :-1]).any(1).sum())} "
+              f"of {r_h} rays' plain draws out of order (the kernel's full-rank merge), "
+              f"{int((z_p[:, 1:] == z_p[:, :-1]).sum()):,} equal neighbours in the merged "
+              f"depths", flush=True)
+    # the row: the fused launch the forward makes, its bytes with the coords
+    table["K4"] = kernel_row(
+        "K4 resample + fine chart", "egonerf_torch/csrc/resample.cu",
+        "egonerf_tpu/ops/pdf.py:14",
+        k4_compare("K4 resample + chart (row)", ops, args, far, fine_rays),
+        time_ms(lambda: ops.KERNELS.resample_chart(*args, *fine_rays)),
+        time_ms(lambda: ops.PLAIN.resample_chart(*args, *fine_rays), reps=5),
+        *k4_cost(c_feat, n_f, n_s, n_grid=n_grid))
+    print(f"phase 2 K4 resample + fine chart: kernel "
+          f"{time_cold_ms(lambda: ops.KERNELS.resample_chart(*args, *fine_rays)):.4f} ms with a "
+          f"cold L2 ({FLUSH_BYTES >> 20} MB read before each call)", flush=True)
+
+    # K7, the coarse (downsample 2) and the fine chart of the chunk
     errs, times = [], {}
     for label, z, ds in (("coarse", coarse_z, 2), ("fine", z_vals, None)):
         args = (rays[:, :3], rays[:, 3:6], z, coords, ds)
@@ -621,26 +753,32 @@ def render_kernel_checks(model, params, dirs, ops, presets, dists_of) -> dict:
         other = type(coords)(coords.aabb, exp_r=exp_r, N_voxel=presets.N_VOXEL, r0=coords.r0,
                              interval_th=False)
         check_chart(f"K7 chart {label}", ops, (rays[:, :3], rays[:, 3:6], z_vals, other, ds))
-    # the row: the fine chart, the larger of the two
-    table["K7"] = kernel_row("K7 chart (fine)", "egonerf_torch/csrc/chart.cu",
-                             "egonerf_tpu/coords/yinyang.py:47", max(errs), *times["fine"],
-                             *chart_cost(rays, z_vals, n_grid))
+    # the row: the coarse chart, the one the forward launches K7 for
+    table["K7"] = kernel_row("K7 chart (coarse)", "egonerf_torch/csrc/chart.cu",
+                             "egonerf_tpu/coords/yinyang.py:47", max(errs), *times["coarse"],
+                             *chart_cost(rays, coarse_z, n_grid))
+    c_args = (rays[:, :3], rays[:, 3:6], coarse_z, coords, 2)
+    print(f"phase 2 K7 chart (coarse): kernel "
+          f"{time_cold_ms(lambda: ops.KERNELS.chart(*c_args)):.4f} ms with a cold L2", flush=True)
     return table
 
 
 def train_kernel_checks(trainer, ops) -> dict:
-    """Phase 2, training step: K2, K5, K6b on the inputs one production
+    """Phase 2, training step: K2, K4, K5, K6b on the inputs one production
     training step gives them (recorded from a real step)."""
     model = trainer.model
     cfg = model.cfg
     rec_k1 = Recorder(ops.KERNELS.field)
     rec_f = Recorder(ops.KERNELS.field_bwd)
     rec_c = Recorder(ops.KERNELS.composite_bwd)
-    model.ops = ops.KERNELS._replace(field=rec_k1, field_bwd=rec_f, composite_bwd=rec_c)
+    rec_r = Recorder(ops.KERNELS.resample_chart)
+    model.ops = ops.KERNELS._replace(field=rec_k1, field_bwd=rec_f, composite_bwd=rec_c,
+                                     resample_chart=rec_r)
     trainer.train_step(0)
     model.ops = ops.KERNELS
     torch.cuda.synchronize()
     table = {}
+    k4_checks("training step", ops, rec_r.args[:9], model.near_far[1], rec_r.args[9:12])
 
     coords, line_hat = rec_f.args[0], rec_f.args[7]
     n = coords.shape[0]
@@ -789,7 +927,7 @@ def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
     """Phases 3-5 (9 for the envmap model, 14-15 for TensoRF) under no_grad:
     one view of ``hw`` through ``renderer`` (EgoNeRF's production render by
     default), whose chunks must launch each kernel ``per_chunk`` times
-    (EgoNeRF's K1, K3, K4, K6 once, K7 twice, K8 with the envmap); a few
+    (EgoNeRF's K1, K3, K4, K6, K7 once, K8 with the envmap); a few
     chunks against the plain versions; the profile.  Returns the launches
     of the view."""
     p_view, p_e2e, p_prof = phases
@@ -799,7 +937,7 @@ def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
     chunk = presets.EVAL_CHUNK
     if renderer is None:
         renderer = Renderer(model, chunk=chunk, **presets.RENDER)
-        per_chunk = dict(K1=1, K3=1, K4=1, K6=1, K7=2, **({"K8": 1} if env else {}))
+        per_chunk = dict(K1=1, K3=1, K4=1, K6=1, K7=1, **({"K8": 1} if env else {}))
     chunk = renderer.chunk
     renderer.set_directions(dirs_np)
     c2w = np.eye(4, dtype=np.float32)[:3]
@@ -906,10 +1044,10 @@ def timed_steps(step, label: str, cfg, wrappers, want: dict, warmup: int = TRAIN
 
 def step_launches(wrappers, envmap: bool) -> dict:
     """The launches of ``TRAIN_STEPS`` EgoNeRF training steps: each kernel
-    once a step, K7 twice (the coarse and the fine chart), K8/K8b with the
-    envmap, never K9 (EgoNeRF's forward reads no mask)."""
-    return {k: (0 if k == "K9" or (k in ("K8", "K8b") and not envmap) else
-                2 * TRAIN_STEPS if k == "K7" else TRAIN_STEPS) for k in wrappers}
+    once a step (K7 the coarse chart, the fine one in K4's epilogue),
+    K8/K8b with the envmap, never K9 (EgoNeRF's forward reads no mask)."""
+    return {k: (0 if k == "K9" or (k in ("K8", "K8b") and not envmap) else TRAIN_STEPS)
+            for k in wrappers}
 
 
 def step_vs_plain(trainer, ops, label: str) -> None:
@@ -1396,7 +1534,7 @@ def main() -> int:
         for name, regs, spill in _build.ptxas_report(stem):
             print(f"phase 1 ptxas {stem}: {regs} registers, {spill} bytes spilled: {name}",
                   flush=True)
-            if stem == "vm_lookup" and spill:
+            if stem in ("vm_lookup", "resample") and spill:
                 fail(f"{name} spills {spill} bytes")
 
     model = presets.production_model(device=dev)

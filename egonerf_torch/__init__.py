@@ -9,9 +9,10 @@ It covers the render path (``Renderer.render_view`` over
 command line ``python -m egonerf_torch``).  Seven hand-written CUDA kernels
 carry them (``csrc/``): the fine-field lookup (K1) and its backward (K2),
 the coarse density lookup (K3), the fused coarse weights + inverse-CDF
-resampling + merge (K4), the sorted uniform draws (K5), and the composite
-(K6) and its backward (K6b).  Each has a plain PyTorch version beside its
-wrapper; the wrapper takes it only for tensors on the CPU.
+resampling + merge with the fine chart in its epilogue (K4), the sorted
+uniform draws (K5), and the composite (K6) and its backward (K6b).  Each
+has a plain PyTorch version beside its wrapper; the wrapper takes it only
+for tensors on the CPU.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -14,7 +14,8 @@ grid) once per render, where JAX rebuilds them per chunk with the same
 numbers.  In training the fine field goes through the autograd Function
 of ``ops.vm_lookup.field_train`` (K1 forward, K2 backward) on the float32
 fused tables, and the composite through ``ops.volrend.composite_train``
-(K6, K6b).  Both charts of a forward, the coarse and the fine, are K7.
+(K6, K6b).  The coarse chart of a forward is K7; the fine one runs in
+K4's epilogue (``ops.resample_chart``), or is K7 without resampling.
 With ``use_envmap`` the (2h, h, 3) ``envmap`` parameter gives each ray its
 background radiance (K8, K8b backward), blended behind the last sample.
 The kernels come from ``self.ops`` (``ops.KERNELS``).
@@ -441,15 +442,16 @@ class EgoNeRF(nn.Module):
 
             if resampling:
                 # 3) coarse density (K3) on the detached grid -> weights,
-                # inverse CDF at u, merge (K4)
+                # inverse CDF at u, merge, and the fine chart of the merged
+                # depths in K4's epilogue
                 c_planes, c_lines = (self.coarse_tables(params) if tables is None
                                      else (tables.coarse_planes, tables.coarse_lines))
                 c_feat = self._density(c_planes, c_lines, coarse_norm)
-                z_vals, dists = self.ops.resample(
+                z_vals, dists, norm = self.ops.resample_chart(
                     c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample,
-                    cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act)
-                norm = self.ops.chart(rays_o, viewdirs, z_vals, coords).reshape(
-                    n_rays, z_vals.shape[1], 4)
+                    cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act, rays_o,
+                    viewdirs, coords)
+                norm = norm.reshape(n_rays, z_vals.shape[1], 4)
             else:
                 z_vals, dists, norm = coarse_z, coarse_dists, coarse_norm
 

@@ -7,7 +7,7 @@ id    wrapper                     plain version           CUDA source
 K1    vm_lookup.field_fwd         field_fwd_plain         csrc/vm_lookup.cu
 K2    vm_lookup.field_bwd         field_bwd_plain         csrc/vm_lookup.cu
 K3    vm_lookup.density_fwd       density_fwd_plain       csrc/vm_lookup.cu
-K4    pdf.resample                resample_plain          csrc/resample.cu
+K4    pdf.resample_chart          resample_chart_plain    csrc/resample.cu
 K5    merge.sorted_uniform        sorted_uniform_plain    csrc/sorted_uniform.cu
 K6    volrend.composite           composite_plain         csrc/composite.cu
 K6b   volrend.composite_bwd       composite_bwd_plain     csrc/composite.cu
@@ -17,7 +17,10 @@ K8b   envmap.envmap_bwd           envmap_bwd_plain        csrc/envmap.cu
 K9    alphamask.alpha_fwd         alpha_fwd_plain         csrc/alphamask.cu
 ====  ==========================  ======================  =======================
 
-``KERNELS`` is what the model calls.  ``PLAIN`` runs the plain versions on
+``resample_chart`` is K4 with K7's chart of the merged depths in its
+epilogue: the EgoNeRF forward's resampling and fine chart in one launch
+(``pdf.resample`` launches K4 without it).  ``KERNELS`` is what the
+models call.  ``PLAIN`` runs the plain versions on
 any device; it is the reference the kernels are held against on the card.
 K2, K6b and K8b are the backwards of K1, K6 and K8 inside the autograd
 Functions ``vm_lookup.field_train``, ``volrend.composite_train`` and
@@ -29,7 +32,7 @@ from .alphamask import alpha_fwd, alpha_fwd_plain
 from .chart import chart_fwd, chart_fwd_plain
 from .envmap import envmap_bwd, envmap_bwd_plain, envmap_fwd, envmap_fwd_plain
 from .merge import sorted_uniform, sorted_uniform_plain
-from .pdf import resample, resample_plain
+from .pdf import resample_chart, resample_chart_plain
 from .vm_lookup import (density_fwd, density_fwd_plain, field_bwd, field_bwd_plain,
                         field_fwd, field_fwd_plain)
 from .volrend import composite, composite_bwd, composite_bwd_plain, composite_plain
@@ -39,7 +42,7 @@ class Ops(NamedTuple):
     field: Callable
     field_bwd: Callable
     density: Callable
-    resample: Callable
+    resample_chart: Callable
     sorted_uniform: Callable
     composite: Callable
     composite_bwd: Callable
@@ -49,8 +52,8 @@ class Ops(NamedTuple):
     alpha: Callable
 
 
-KERNELS = Ops(field_fwd, field_bwd, density_fwd, resample, sorted_uniform, composite,
+KERNELS = Ops(field_fwd, field_bwd, density_fwd, resample_chart, sorted_uniform, composite,
               composite_bwd, chart_fwd, envmap_fwd, envmap_bwd, alpha_fwd)
-PLAIN = Ops(field_fwd_plain, field_bwd_plain, density_fwd_plain, resample_plain,
+PLAIN = Ops(field_fwd_plain, field_bwd_plain, density_fwd_plain, resample_chart_plain,
             sorted_uniform_plain, composite_plain, composite_bwd_plain, chart_fwd_plain,
             envmap_fwd_plain, envmap_bwd_plain, alpha_fwd_plain)

@@ -32,10 +32,51 @@ def _recip(x: float) -> float:
     return float(np.float32(1.0) / np.float32(x))
 
 
-_ARGS = ([ctypes.c_void_p, ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 8
-         + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 5
-         + [ctypes.c_void_p] * 2)
-MAX_GRID = 4096  # radial grid entries the kernel stages in shared memory
+# the chart's own arguments of chart_fwd and of K4's resample_chart_fwd
+CHART_ARGS = ([ctypes.c_float] * 8 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+              + [ctypes.c_float] * 5)
+_ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + CHART_ARGS + \
+    [ctypes.c_void_p] * 2
+MAX_GRID = 4096  # radial grid entries the kernels stage in shared memory
+
+
+def chart_args(coords: YinYangSphericalCoords, downsample: Optional[int], dev) -> list:
+    """The chart's arguments as the kernels take them (``CHART_ARGS``):
+    the centre, the angle bounds, the per-axis reciprocals, the radial
+    mode (0 the grid lookup under ``interval_th``, 1 the closed-form
+    exponential cells, 2 linear), the grid and its length, and the
+    reciprocals of the radial normalization."""
+    if not isinstance(coords, YinYangSphericalCoords):
+        raise TypeError("chart takes the yin-yang chart")
+    n_r = coords.resolution[0]
+    if coords.exp_r and coords.interval_th:
+        mode, grid = 0, coords._const("ref_grid", dev)
+        if grid.shape[0] > MAX_GRID:
+            raise ValueError(f"chart takes radial grids of <= {MAX_GRID} entries")
+        grid_ptr, n_grid = grid.data_ptr(), grid.shape[0]
+    else:
+        mode, grid_ptr, n_grid = (1 if coords.exp_r else 2), None, 0
+    ratio = coords.ratio or 1.0
+    if mode == 1 and downsample is not None:
+        n_r = n_r // downsample
+        ratio = exp_ratio(coords.r0, coords.far_r, n_r)
+    center, near, inv = (np.asarray(a, np.float32) for a in
+                         (coords.center, coords.near, coords.inv_diff))
+    return [*map(float, center), float(near[1]), float(near[2]), *map(float, inv), mode,
+            grid_ptr, n_grid, _recip(n_r), float(np.float32(coords.r0 or 1.0)),
+            _recip(coords.r0 or 1.0), float(np.float32(ratio)),
+            _recip(np.log(ratio)) if ratio != 1.0 else 0.0]
+
+
+def check_rays(rays_o, viewdirs) -> tuple:
+    """(R, device) of the (R, 3) origins and directions, with unit column
+    stride and any row stride."""
+    if not isinstance(rays_o, torch.Tensor) or rays_o.dim() != 2:
+        raise ValueError("rays_o: expected an (R, 3) tensor")
+    r, dev = rays_o.shape[0], rays_o.device
+    check_rows("rays_o", rays_o, r, 3, dev)
+    check_rows("viewdirs", viewdirs, r, 3, dev)
+    return r, dev
 
 
 def chart_fwd(rays_o: torch.Tensor, viewdirs: torch.Tensor, z: torch.Tensor,
@@ -52,15 +93,12 @@ def chart_fwd(rays_o: torch.Tensor, viewdirs: torch.Tensor, z: torch.Tensor,
 
     Replaces ``from_cartesian`` + ``normalize_coord`` +
     ``normalize_r_lookup`` (egonerf_tpu/coords/yinyang.py:47-76,
-    coords/expgrid.py:89-130).  Kernel: csrc/chart.cu.  CPU tensors take
-    :func:`chart_fwd_plain`."""
+    coords/expgrid.py:89-130).  Kernel: csrc/chart.cu (the EgoNeRF forward's
+    fine chart runs in K4's epilogue, ``pdf.resample_chart``).  CPU tensors
+    take :func:`chart_fwd_plain`."""
     if not isinstance(coords, YinYangSphericalCoords):
         raise TypeError("chart takes the yin-yang chart")
-    if not isinstance(rays_o, torch.Tensor) or rays_o.dim() != 2:
-        raise ValueError("rays_o: expected an (R, 3) tensor")
-    r, dev = rays_o.shape[0], rays_o.device
-    check_rows("rays_o", rays_o, r, 3, dev)
-    check_rows("viewdirs", viewdirs, r, 3, dev)
+    r, dev = check_rays(rays_o, viewdirs)
     if not isinstance(z, torch.Tensor) or z.dim() != 2:
         raise ValueError("z: expected an (R, S) tensor")
     s = z.shape[1]
@@ -70,27 +108,12 @@ def chart_fwd(rays_o: torch.Tensor, viewdirs: torch.Tensor, z: torch.Tensor,
     out = torch.empty(r * s, 4, dtype=torch.float32, device=dev)
     if r * s == 0:
         return out
-    n_r = coords.resolution[0]
-    if coords.exp_r and coords.interval_th:
-        mode, grid = 0, coords._const("ref_grid", dev)
-        if grid.shape[0] > MAX_GRID:
-            raise ValueError(f"chart takes radial grids of <= {MAX_GRID} entries")
-    else:
-        mode, grid = (1 if coords.exp_r else 2), out  # the grid pointer is not read
-    ratio = coords.ratio or 1.0
-    if mode == 1 and downsample is not None:
-        n_r = n_r // downsample
-        ratio = exp_ratio(coords.r0, coords.far_r, n_r)
-    center, near, inv = (np.asarray(a, np.float32) for a in
-                         (coords.center, coords.near, coords.inv_diff))
+    args = chart_args(coords, downsample, dev)
     fn = kernel("chart", "chart_fwd", _ARGS)
     with torch.cuda.device(dev):
         err = fn(rays_o.data_ptr(), rays_o.stride(0), viewdirs.data_ptr(), viewdirs.stride(0),
-                 z.data_ptr(), z.stride(0), r, s, *map(float, center), float(near[1]),
-                 float(near[2]), *map(float, inv), mode, grid.data_ptr(), grid.shape[0],
-                 _recip(n_r), float(np.float32(coords.r0 or 1.0)), _recip(coords.r0 or 1.0),
-                 float(np.float32(ratio)), _recip(np.log(ratio)) if ratio != 1.0 else 0.0,
-                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                 z.data_ptr(), z.stride(0), r, s, *args, out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     check_launch("chart_fwd", err)
     chart_fwd.launches += 1
     return out

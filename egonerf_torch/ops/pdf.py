@@ -3,7 +3,9 @@
 Counterpart of ``egonerf_tpu/ops/pdf.py``.  K4 fuses, per ray, the coarse
 weights (``raw2alpha`` on the coarse density), the pdf and cdf over the
 interior weights, the inverse-CDF draw, the merge with the coarse depths
-(``ops/merge.py``) and the ``dists`` diff of ``EgoNeRF.forward``.
+(``ops/merge.py``) and the ``dists`` diff of ``EgoNeRF.forward``;
+:func:`resample_chart` also writes the chart of the merged depths (K7's
+function) from the same launch.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import torch
 
 from .._build import check_launch, kernel
 from .._device import check_tensor
+from ..coords.yinyang import YinYangSphericalCoords
+from .chart import CHART_ARGS, _recip, chart_args, chart_fwd_plain, check_rays
 from .merge import merge_sorted
 from .volrend import (ACTIVATIONS, _chunk_fold, _lane_chunks, _warp_exclusive_scan,
                       _warp_weights, density_activation, raw2alpha)
@@ -98,8 +102,64 @@ def resample_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
     return z_vals, _dists(z_vals)
 
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-         + [ctypes.c_float, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3)
+def resample_chart_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
+                         use_coarse_sample=True, density_shift=-8.0, distance_scale=25.0,
+                         act="softplus", rays_o=None, viewdirs=None, coords=None):
+    """Plain version of K4 with its chart epilogue: :func:`resample_plain`,
+    then :func:`~egonerf_torch.ops.chart.chart_fwd_plain` of the depths."""
+    z_vals, dists = resample_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
+                                   use_coarse_sample, density_shift, distance_scale, act)
+    return z_vals, dists, chart_fwd_plain(rays_o, viewdirs, z_vals, coords)
+
+
+_BASE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 4
+              + [ctypes.c_float, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2)
+_ARGS = _BASE_ARGS + [ctypes.c_void_p]
+_CHART_ARGS = _BASE_ARGS + [ctypes.c_void_p, ctypes.c_longlong] * 2 + CHART_ARGS + \
+    [ctypes.c_void_p] * 2
+SMEM_BYTES = 232448  # the shared memory a block may opt into on sm_90
+
+
+def _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act, n_grid=0):
+    """The arguments' shapes, and the shapes the kernel takes: 4 warps x
+    (3S - 1 + F + T) floats and the radial grid in a block's shared memory.
+    Returns (R, T)."""
+    check_tensor("c_feat", c_feat, torch.float32, (None, None))
+    r, s = c_feat.shape
+    check_tensor("coarse_z", coarse_z, torch.float32, (r, s), c_feat.device)
+    check_tensor("coarse_dists", coarse_dists, torch.float32, (r, s), c_feat.device)
+    if u is not None:
+        check_tensor("u", u, torch.float32, (r, n_fine), c_feat.device)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown density activation {act!r}")
+    n_out = s + n_fine if use_coarse_sample else n_fine
+    smem = 4 * (n_grid + 4 * (3 * s - 1 + n_fine + n_out))
+    if s < 3 or n_fine < 1 or n_out < 2 or smem > SMEM_BYTES:
+        raise ValueError(f"resample cannot take {s} coarse and {n_fine} fine samples")
+    return r, n_out
+
+
+def _launch(name, argtypes, c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample,
+            density_shift, distance_scale, act, n_out, *chart):
+    """K4's launch on the card: z_vals and dists, (R, n_out) each, and the
+    chart arguments ``chart`` passed through after them."""
+    r, s = c_feat.shape
+    dev = c_feat.device
+    z_vals = torch.empty(r, n_out, dtype=torch.float32, device=dev)
+    dists = torch.empty(r, n_out, dtype=torch.float32, device=dev)
+    if r:
+        # eval's u = linspace01(n_fine) is formed in the kernel from its step
+        u_step = _recip(n_fine - 1) if n_fine > 1 else 0.0
+        fn = kernel("resample", name, argtypes)
+        with torch.cuda.device(dev):
+            err = fn(c_feat.data_ptr(), coarse_z.data_ptr(), coarse_dists.data_ptr(),
+                     None if u is None else u.data_ptr(), n_fine, u_step, r, s, n_fine,
+                     int(bool(use_coarse_sample)), float(density_shift),
+                     float(distance_scale), ACTIVATIONS.index(act), z_vals.data_ptr(),
+                     dists.data_ptr(), *chart, torch.cuda.current_stream(dev).cuda_stream)
+        check_launch(name, err)
+        resample.launches += 1
+    return z_vals, dists
 
 
 def resample(c_feat: torch.Tensor, coarse_z: torch.Tensor, coarse_dists: torch.Tensor,
@@ -114,44 +174,65 @@ def resample(c_feat: torch.Tensor, coarse_z: torch.Tensor, coarse_dists: torch.T
     ``use_coarse_sample`` is False); the dists with the last one repeated.
 
     c_feat, coarse_z, coarse_dists (R, S) float32 with coarse_z sorted;
-    u (R, n_fine) sorted uniforms or None for the eval linspace.  Returns
-    z_vals and dists, (R, S + n_fine) or (R, n_fine).
+    u (R, n_fine) uniforms (K5's are sorted; the kernel takes any) or None
+    for the eval linspace.  Returns z_vals and dists, (R, S + n_fine) or
+    (R, n_fine).  A shape beyond the kernel's shared memory raises.
 
     Replaces ``sample_pdf`` + ``merge_sorted`` + the coarse ``raw2alpha``
     and the dists diff (egonerf_tpu/ops/pdf.py:14-77, ops/merge.py:39-71,
     ops/volrend.py:11-24, models/egonerf.py:392-411).  Kernel:
-    csrc/resample.cu.  CPU tensors take :func:`resample_plain`."""
-    check_tensor("c_feat", c_feat, torch.float32, (None, None))
-    r, s = c_feat.shape
-    check_tensor("coarse_z", coarse_z, torch.float32, (r, s), c_feat.device)
-    check_tensor("coarse_dists", coarse_dists, torch.float32, (r, s), c_feat.device)
-    if u is not None:
-        check_tensor("u", u, torch.float32, (r, n_fine), c_feat.device)
-    if act not in ACTIVATIONS:
-        raise ValueError(f"unknown density activation {act!r}")
-    n_out = s + n_fine if use_coarse_sample else n_fine
-    # the kernel keeps 4 warps x (4S - 2 + F + n_out) floats in 48 KB
-    if s < 3 or n_fine < 1 or n_out < 2 or 4 * s - 2 + n_fine + n_out > 3072:
-        raise ValueError(f"resample cannot take {s} coarse and {n_fine} fine samples")
+    csrc/resample.cu.  CPU tensors take :func:`resample_plain`.
+    ``resample.launches`` counts K4's launches, with or without the chart
+    epilogue of :func:`resample_chart`."""
+    _, n_out = _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act)
     if c_feat.device.type == "cpu":
         return resample_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
                               use_coarse_sample, density_shift, distance_scale, act)
+    return _launch("resample_fwd", _ARGS, c_feat, coarse_z, coarse_dists, n_fine, u,
+                   use_coarse_sample, density_shift, distance_scale, act, n_out)
+
+
+def resample_chart(c_feat: torch.Tensor, coarse_z: torch.Tensor, coarse_dists: torch.Tensor,
+                   n_fine: int, u: Optional[torch.Tensor] = None,
+                   use_coarse_sample: bool = True, density_shift: float = -8.0,
+                   distance_scale: float = 25.0, act: str = "softplus",
+                   rays_o: Optional[torch.Tensor] = None,
+                   viewdirs: Optional[torch.Tensor] = None,
+                   coords: Optional[YinYangSphericalCoords] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 with the chart epilogue: :func:`resample`, and from the same
+    launch the normalized [r, theta, phi, flag] coords of ``rays_o +
+    viewdirs * z`` for every merged depth, in ``coords``' full-resolution
+    normalization: what :func:`~egonerf_torch.ops.chart.chart_fwd` gives
+    on the returned z_vals, bit for bit (both kernels take the chart from
+    csrc/chart.cuh).
+
+    rays_o, viewdirs (R, 3) float32 with unit column stride (any row
+    stride).  Returns z_vals, dists (R, T) and coords (R * T, 4), rows
+    ray-major.
+
+    Replaces the EgoNeRF forward's resampling and the fine chart after it
+    (egonerf_tpu/models/egonerf.py:389-406).  Kernel: csrc/resample.cu.
+    CPU tensors take :func:`resample_chart_plain`."""
+    if not isinstance(coords, YinYangSphericalCoords):
+        raise TypeError("chart takes the yin-yang chart")
+    grid = coords.ref_grid if coords.exp_r and coords.interval_th else ()
+    r, n_out = _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act,
+                      len(grid))
     dev = c_feat.device
-    z_vals = torch.empty(r, n_out, dtype=torch.float32, device=dev)
-    dists = torch.empty(r, n_out, dtype=torch.float32, device=dev)
-    if r:
-        u_ptr = linspace01(n_fine, dev) if u is None else u
-        fn = kernel("resample", "resample_fwd", _ARGS)
-        with torch.cuda.device(dev):
-            err = fn(c_feat.data_ptr(), coarse_z.data_ptr(), coarse_dists.data_ptr(),
-                     u_ptr.data_ptr(), 0 if u is None else n_fine, r, s, n_fine,
-                     int(bool(use_coarse_sample)), float(density_shift),
-                     float(distance_scale), ACTIVATIONS.index(act),
-                     z_vals.data_ptr(), dists.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
-        check_launch("resample_fwd", err)
-        resample.launches += 1
-    return z_vals, dists
+    if check_rays(rays_o, viewdirs) != (r, dev):
+        raise ValueError("rays_o, viewdirs: expected one ray per row of c_feat, on its device")
+    if dev.type == "cpu":
+        return resample_chart_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
+                                    use_coarse_sample, density_shift, distance_scale, act,
+                                    rays_o, viewdirs, coords)
+    norm = torch.empty(r * n_out, 4, dtype=torch.float32, device=dev)
+    chart = chart_args(coords, None, dev)
+    z_vals, dists = _launch("resample_chart_fwd", _CHART_ARGS, c_feat, coarse_z, coarse_dists,
+                            n_fine, u, use_coarse_sample, density_shift, distance_scale, act,
+                            n_out, rays_o.data_ptr(), rays_o.stride(0), viewdirs.data_ptr(),
+                            viewdirs.stride(0), *chart, norm.data_ptr())
+    return z_vals, dists, norm
 
 
 resample.launches = 0

@@ -4,8 +4,8 @@
 One step draws a batch of ray ids on the card (on the host, by JAX's
 ``SimpleSampler``, under ``device_sampling = False``) from the resident
 (N, 9) buffer, runs the model's forward in training mode (EgoNeRF: K5's sorted
-uniforms, K3 and K4 on the detached coarse grid, K7, the fine field through
-K1/K2; TensorVMSplit: jittered uniform steps, K9's mask gate, K1/K2 on its
+uniforms, the coarse chart K7, K3 and K4 on the detached coarse grid with
+the fine chart in K4's epilogue, the fine field through K1/K2; TensorVMSplit: jittered uniform steps, K9's mask gate, K1/K2 on its
 single grid; both: the shader through torch autograd, the composite through
 K6/K6b), takes the MSE plus the L1, TV and Ortho terms at JAX's schedules,
 and steps Adam.  Nothing synchronises the host per step: the MSE is read
