@@ -73,12 +73,35 @@ Phases, each printing its own lines; any failure exits non-zero:
     256^3 at 1000/2000/3000, 12 + 2 views at 1000x500): its test PSNR
     against the JAX package's 40.40 dB less the seed band.
 
+The JAX package's opt-in shader and line forms (``EGONERF_MIXED_MM``,
+``EGONERF_BIAS_DOT``, ``EGONERF_SPLIT_L1``, ``EGONERF_HOIST_DIRS``,
+``EGONERF_LINE_HAT=0``) have phases of their own, each run right after the
+phase it is compared with:
+
+2. (also) K10, the mixed-precision product, in its three layouts (the
+   forward, da, db) and K11, the bias gradient, on the inputs of two
+   recorded production steps under the forms (every shader layer, the
+   basis, the hoist's ray term), each against the exact product of its
+   bf16 operands and its plain version (the forward bit for bit), timed
+   beside ``torch.matmul`` on bf16 operands and ``dout.sum(0)``; K2's line
+   mode 2 on the production step's inputs and at the widths;
+7b. on the production trainer, each switch alone and MIXED_MM + BIAS_DOT +
+    HOIST_DIRS together, beside the default in the same process: the
+    render chunk's device ms (median of 7) and the step's (median of 20),
+    the launches of K10 and K11 a chunk and a step, 3 chunks and one step
+    against the plain versions (phases 4 and 7's limits);
+8b. the smoke run of phase 8 under the combined switches: K10 and K11
+    launched, its test PSNR within the seed band of phase 8's;
+15b. TensoRF's view chunks and steps as in 7b under HOIST_DIRS, SPLIT_L1
+    and BIAS_DOT.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
 result and exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -93,6 +116,8 @@ import torch
 # rate outside the tensor cores, which the kernels of this path use
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# the dense bf16 tensor-core rate, which K10's products use
+PEAK_BF16_OPS_PER_S = 989e12
 
 # kernel vs plain on identical inputs: float32 sums taken in another order
 REL_TOL = 1e-5
@@ -115,6 +140,12 @@ K9_TOL = 1e-6
 # one training step, kernels vs plain: the loss to rel 1e-5; each gradient
 # tensor in relative L2 norm, see phase 7
 GRAD_TOL = 1e-3
+# K10 against the exact product of the same bf16 operands (float64), per
+# element, as a share of sum|terms|: both the kernel and the plain version
+# add exact float32 products in float32, K <= 150 of them in the forward and
+# da (recursive summation errs by at most about K u, u = 2**-24, ~9e-6); db
+# and K11 sum a million rows, which are held to K2_TOL as K2's cells are
+MM_TOL = 1e-5
 SEED = 0
 IMAGE_HW = (1000, 2000)
 # ~0.1 s of device spin at H100 clocks: longer than the host needs to
@@ -136,7 +167,9 @@ WIDTHS = (("smoke fine", 24, 8), ("smoke coarse", 8, 4), ("scalar", 20, 4),
 # device-side names of the kernels in csrc/
 PORT_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
                 "sorted_uniform_kernel", "composite_kernel", "composite_bwd_kernel",
-                "chart_kernel", "envmap_kernel", "envmap_bwd_kernel", "alphamask_kernel")
+                "chart_kernel", "envmap_kernel", "envmap_bwd_kernel", "alphamask_kernel",
+                "mm_fwd_kernel", "mm_rows_kernel", "mm_db_kernel", "mm_db_sum_kernel",
+                "bias_grad_part_kernel", "bias_grad_sum_kernel")
 TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 5, 20, 3
 SMOKE_ITERS = 300
 DEVICE = "cuda"
@@ -159,6 +192,17 @@ ENV_SCENE = dict(n_train=8, n_test=2, height=100, width=200, background="env")
 TF_IMAGE_HW = (500, 1000)
 TF_MASK_RESO = 128
 JAX_TENSORF_PSNR = 40.40
+# the shader and line forms (phases 2, 7b, 8b, 15b): each form's switches
+# (keyword arguments of shader_form), EgoNeRF's and TensoRF's, and the
+# render chunks timed for each form
+FORMS = (("default", {}), ("MIXED_MM", dict(mixed=True)), ("BIAS_DOT", dict(bias=True)),
+         ("SPLIT_L1", dict(split=True)), ("HOIST_DIRS", dict(hoist=True)),
+         ("LINE_HAT=0", dict(line_hat=False)),
+         ("MIXED_MM+BIAS_DOT+HOIST_DIRS", dict(mixed=True, bias=True, hoist=True)))
+TF_FORMS = (("default", {}), ("HOIST_DIRS", dict(hoist=True)), ("SPLIT_L1", dict(split=True)),
+            ("BIAS_DOT", dict(bias=True)))
+COMBINED = FORMS[-1]
+FORM_CHUNKS = 7
 
 
 def fail(msg: str) -> None:
@@ -212,9 +256,9 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_OPS_PER_S):
     b = n_bytes / PEAK_BYTES_PER_S * 1e3
-    o = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    o = n_ops / peak_ops * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
 
 
@@ -296,8 +340,8 @@ class Recorder:
 
 
 def kernel_row(name, source, replaces, abs_err, ms, plain_ms, n_bytes, n_ops,
-               library_ms=None) -> dict:
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+               library_ms=None, peak_ops=PEAK_F32_OPS_PER_S) -> dict:
+    bound_ms, bound_by = bound(n_bytes, n_ops, peak_ops)
     lib = "" if library_ms is None else f", library call {library_ms:.4f} ms"
     print(f"phase 2 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
           f"{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} Gop)",
@@ -495,6 +539,9 @@ def width_checks(ops) -> None:
             check_field_bwd(f"K2 field_bwd {tag}",
                             (coords, planes, lines, d_dens, d_app, mask, (cd,) * 3, (True,) * 3),
                             ops)
+            check_field_bwd(f"K2 field_bwd {tag} line mode 2",
+                            (coords, planes, lines, d_dens, d_app, mask, (cd,) * 3,
+                             (vm_lookup.LINEAR_BF16_GRAD,) * 3), ops)
 
 
 def expect_launches(label: str, launches: dict, want: dict) -> None:
@@ -784,6 +831,15 @@ def train_kernel_checks(trainer, ops) -> dict:
     n = coords.shape[0]
     check_relu_mask("K1 relu mask (training step)", rec_k1.args, ops)
     table["K2"] = check_field_bwd("K2 field_bwd", rec_f.args, ops, adversarial=True)
+    # EGONERF_LINE_HAT=0's line mode on the same inputs: linear weights, each
+    # corner's cotangent rounded to bf16 (the production lines hold JAX's
+    # one-hot gate); against its plain version under K2's limit
+    from egonerf_torch.ops import vm_lookup
+    lin = (*rec_f.args[:7], (vm_lookup.LINEAR_BF16_GRAD,) * 3)
+    if not all(vm_lookup.line_onehot_ok(l.shape[0] * l.shape[1], rec_f.args[0].shape[0])
+               for l in rec_f.args[2]):
+        fail("the production step's lines are past JAX's one-hot gate")
+    check_field_bwd("K2 field_bwd (line mode 2, EGONERF_LINE_HAT=0)", lin, ops)
 
     # K5: the same bits; rel K5_TOL
     b, n_f = trainer.cfg.batch_size, trainer.cfg.n_fine
@@ -1043,11 +1099,13 @@ def timed_steps(step, label: str, cfg, wrappers, want: dict, warmup: int = TRAIN
 
 
 def step_launches(wrappers, envmap: bool) -> dict:
-    """The launches of ``TRAIN_STEPS`` EgoNeRF training steps: each kernel
-    once a step (K7 the coarse chart, the fine one in K4's epilogue),
-    K8/K8b with the envmap, never K9 (EgoNeRF's forward reads no mask)."""
-    return {k: (0 if k == "K9" or (k in ("K8", "K8b") and not envmap) else TRAIN_STEPS)
-            for k in wrappers}
+    """The launches of ``TRAIN_STEPS`` EgoNeRF training steps in the default
+    form: each kernel of K1-K7 once a step (K7 the coarse chart, the fine
+    one in K4's epilogue), K8/K8b with the envmap, never K9 (EgoNeRF's
+    forward reads no mask), nor K10 and K11 (the opt-in shader forms)."""
+    per_step = {"K1", "K2", "K3", "K4", "K5", "K6", "K6b", "K7"} | (
+        {"K8", "K8b"} if envmap else set())
+    return {k: TRAIN_STEPS if k in per_step else 0 for k in wrappers}
 
 
 def step_vs_plain(trainer, ops, label: str) -> None:
@@ -1143,8 +1201,9 @@ def envmap_train_phases(trainer, ops, wrappers) -> dict:
     return launches
 
 
-def quality_phase(root: str) -> None:
-    """Phase 8: the smoke run through the command line."""
+def quality_phase(root: str) -> float:
+    """Phase 8: the smoke run through the command line; returns its test
+    PSNR."""
     from egonerf_torch.__main__ import main as cli_main
 
     base = os.path.join(root, "build", "chip_smoke_runs")
@@ -1183,6 +1242,7 @@ def quality_phase(root: str) -> None:
     if abs(reloaded - test_psnr) > 1e-3:
         fail(f"reloaded checkpoint renders {reloaded:.4f} dB, training ended at "
              f"{test_psnr:.4f} dB")
+    return test_psnr
 
 
 def outdoor_cli_phase(root: str, presets) -> None:
@@ -1501,6 +1561,274 @@ def tensorf_quality_phase(root, presets) -> None:
         fail(f"tensorf test PSNR {psnr:.2f} dB below {floor:.2f}")
 
 
+@contextlib.contextmanager
+def shader_form(model, mixed=False, bias=False, split=False, hoist=False, line_hat=True):
+    """One form of the shader and the lines: the switches the models read
+    (``EGONERF_MIXED_MM``, ``EGONERF_BIAS_DOT``, ``EGONERF_SPLIT_L1``,
+    ``EGONERF_HOIST_DIRS``, ``EGONERF_LINE_HAT``, read at import into
+    module attributes) set as the environment would set them, and an
+    EgoNeRF ``model``'s ``mixed_mm`` as its construction decides it from
+    the switch (bf16 compute only); everything restored after."""
+    from egonerf_torch.models import egonerf, shading, tensorf
+
+    values = ((egonerf, "_MIXED_MM", mixed), (shading, "_BIAS_DOT", bias),
+              (shading, "_SPLIT_L1", split), (egonerf, "_HOIST_DIRS", hoist),
+              (tensorf, "_HOIST_DIRS", hoist), (egonerf, "_LINE_HAT", line_hat),
+              (tensorf, "_LINE_HAT", line_hat))
+    saved = [(m, a, getattr(m, a)) for m, a, _ in values]
+    had = getattr(model, "mixed_mm", None)
+    try:
+        for m, a, v in values:
+            setattr(m, a, v)
+        if had is not None:
+            model.mixed_mm = mixed and model.cfg.compute_dtype == "bfloat16"
+        yield
+    finally:
+        for m, a, v in saved:
+            setattr(m, a, v)
+        if had is not None:
+            model.mixed_mm = had
+
+
+def form_launches(model, sw: dict, train: bool) -> dict:
+    """K10's and K11's launches one EgoNeRF (``mixed_mm`` possible) or
+    TensoRF forward (and, with ``train``, its backward) makes under the
+    switches ``sw``: K10 takes the basis (both charts in one call) and each
+    shader product, the hoist's two first-layer products in place of one;
+    its backward gives every product a db and each product whose input
+    carries a gradient a da (not the hoist's viewdir term); K11 takes each
+    of the three layers' bias under the bias-dot add, in the backward."""
+    mixed = getattr(model, "mixed_mm", False)  # as shader_form set it
+    products = (5 if sw.get("hoist") else 4) if mixed else 0
+    out = {"K10": products, "K10da": 0, "K10db": 0, "K11": 0}
+    if train:
+        out.update(K10da=4 if mixed else 0, K10db=products, K11=3 if sw.get("bias") else 0)
+    return out
+
+
+def mm_operands(layout, args):
+    """The (x, y) of K10's product x @ y in each layout."""
+    if layout == "mm":
+        return args
+    if layout == "mm_da":
+        return args[0], args[1].t()
+    return args[0].t(), args[1]
+
+
+def shader_kernel_checks(trainer, ops) -> dict:
+    """Phase 2, K10 in its three layouts and K11 on the inputs two
+    production training steps give them (recorded, under EGONERF_MIXED_MM
+    and under MIXED_MM + BIAS_DOT + HOIST_DIRS): every shader layer, the
+    basis of both charts, the hoist's two first-layer products.  Each
+    against the exact sum of the same bf16 products (float64; MM_TOL of
+    sum|terms| for the forward and da, K2_TOL for db and K11, which sum a
+    million rows) and against its plain version, with its time, the plain
+    version's and the library call's (torch.matmul on bf16 operands,
+    dout.sum(0)).  Returns the rows of l1's three layouts and of K11."""
+    model = trainer.model
+    calls = {k: [] for k in ("mm", "mm_da", "mm_db", "bias_grad")}
+
+    def recording(name):
+        fn = getattr(ops.KERNELS, name)
+
+        def rec(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return rec
+
+    model.ops = ops.KERNELS._replace(**{k: recording(k) for k in calls})
+    try:
+        for sw in (dict(mixed=True), COMBINED[1]):
+            with shader_form(model, **sw):
+                trainer.train_step(0)
+    finally:
+        model.ops = ops.KERNELS
+    torch.cuda.synchronize()
+    src, jax_src = "egonerf_torch/csrc/mixed_mm.cu", "egonerf_tpu/ops/mm.py:31"
+    rows, seen = {}, set()
+    for layout, row_name in (("mm", "fwd"), ("mm_da", "da"), ("mm_db", "db")):
+        for args in calls[layout]:
+            x, y = mm_operands(layout, args)
+            shape = (tuple(x.shape), tuple(y.shape))
+            if (layout, shape) in seen:
+                continue
+            seen.add((layout, shape))
+            name = f"K10 mixed_mm {row_name} ({x.shape[0]}x{x.shape[1]} @ {y.shape[0]}x{y.shape[1]})"
+            kern, plain = getattr(ops.KERNELS, layout), getattr(ops.PLAIN, layout)
+            with torch.no_grad():
+                got, ref = kern(*args), plain(*args)
+                x16, y16 = x.to(torch.bfloat16), y.to(torch.bfloat16)
+                exact = x16.double() @ y16.double()
+                terms = x16.double().abs() @ y16.double().abs()
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                fail(f"{name}: shape {tuple(got.shape)} or non-finite values")
+            share = float(((got.double() - exact).abs() / (terms + 1e-30)).max())
+            abs_err = float((got - ref).abs().max())
+            tol = MM_TOL if layout != "mm_db" else K2_TOL
+            # the forward adds in k order, as its plain version: bit for bit
+            same = layout != "mm" or torch.equal(got, ref)
+            check_close(name, f"per element <= {tol:.0e} x sum|terms| of the exact bf16 "
+                        f"product; {abs_err:.2e} abs against the float32 plain version"
+                        + (", equal to it bit for bit" if layout == "mm" else ""),
+                        share <= tol and same, abs_err, share)
+            del exact, terms
+            row = kernel_row(
+                name, src, jax_src, abs_err, time_ms(lambda: kern(*args)),
+                time_ms(lambda: plain(*args), reps=5),
+                nbytes(*args) + 4 * x.shape[0] * y.shape[1], 2.0 * x.shape[0] * x.shape[1]
+                * y.shape[1], library_ms=time_ms(lambda: torch.matmul(x16, y16)),
+                peak_ops=PEAK_BF16_OPS_PER_S)
+            n_in = model.shader.l1.in_features
+            if {"mm": x.shape[1], "mm_da": y.shape[1], "mm_db": x.shape[0]}[layout] == n_in:
+                rows[f"K10 {row_name}"] = row  # l1's product, its da and its db
+    for (dout,) in calls["bias_grad"]:
+        if ("bias", dout.shape) in seen:
+            continue
+        seen.add(("bias", dout.shape))
+        name = f"K11 bias_grad ({dout.shape[0]}x{dout.shape[1]})"
+        with torch.no_grad():
+            got, ref = ops.KERNELS.bias_grad(dout), ops.PLAIN.bias_grad(dout)
+            exact, terms = dout.double().sum(0), dout.double().abs().sum(0)
+        torch.cuda.synchronize()
+        share = float(((got.double() - exact).abs() / (terms + 1e-30)).max())
+        abs_err = float((got - ref).abs().max())
+        check_close(name, f"per column <= {K2_TOL:.0e} x sum|terms| of the float64 sum; "
+                    f"{abs_err:.2e} abs against the float32 plain version",
+                    share <= K2_TOL and bool(torch.isfinite(got).all()), abs_err, share)
+        row = kernel_row(name, "egonerf_torch/csrc/bias_grad.cu",
+                         "egonerf_tpu/models/shading.py:71", abs_err,
+                         time_ms(lambda: ops.KERNELS.bias_grad(dout)),
+                         time_ms(lambda: ops.PLAIN.bias_grad(dout), reps=5),
+                         nbytes(dout) + 4 * dout.shape[1], dout.numel(),
+                         library_ms=time_ms(lambda: dout.sum(0)))
+        if dout.shape[1] == model.shader.l1.out_features:
+            rows["K11"] = row  # l1's (and l2's) bias
+    missing = {"K10 fwd", "K10 da", "K10 db", "K11"} - set(rows)
+    if missing:
+        fail(f"phase 2: no recorded call for {sorted(missing)}")
+    # the last step's autograd nodes keep the recording functions (their
+    # ctx), and so the recorded activations, alive past this phase
+    for recorded in calls.values():
+        recorded.clear()
+    return rows
+
+
+def chunk_times(model, params, rays, chunk: int, render_kw: dict, wrappers):
+    """Device ms of each of ``FORM_CHUNKS`` eval chunks of ``rays`` (after a
+    warm one; CUDA events around each forward, all queued behind a device
+    sleep), on tables prepared once, and the launches they made."""
+    with torch.no_grad():
+        tables = model.lookup_tables(params)
+
+        def run(c):
+            return model.forward(params, rays[c * chunk:(c + 1) * chunk], key=None,
+                                 is_train=False, tables=tables, **render_kw)
+        run(0)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(FORM_CHUNKS)]
+        torch.cuda._sleep(SLEEP_CYCLES)
+        for c, (start, end) in enumerate(events, start=1):
+            start.record()
+            run(c)
+            end.record()
+        torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    return sorted(s.elapsed_time(e) for s, e in events), launches
+
+
+def form_phases(phase: str, trainer, ops, renderer, dirs_np, per_chunk: dict, wrappers,
+                step_want: dict, forms) -> dict:
+    """Phase 7b (EgoNeRF, the production trainer) or 15b (TensoRF): under
+    each of ``forms``, in this process and on the same weights as the
+    default: the device ms of FORM_CHUNKS render chunks (median), their
+    launches (``per_chunk`` a chunk, K10 as ``form_launches``), three chunks
+    against the plain versions (rgb within REL_TOL, depth within
+    REL_TOL x far), TRAIN_STEPS timed steps (median; ``step_want`` the
+    default form's launches over them, K10/K11 as ``form_launches``) and one
+    step against the plain versions (phase 7's limits).  Returns each
+    form's (chunk ms, step ms, launches of the steps)."""
+    model, params, cfg = trainer.model, trainer.params, trainer.cfg
+    dev = trainer.device
+    chunk = renderer.chunk
+    dirs = torch.as_tensor(dirs_np, device=dev)
+    n = FORM_CHUNKS + 1
+    pick = torch.arange(n * chunk, device=dev) * (dirs.shape[0] // (n * chunk))
+    rays = torch.cat([torch.zeros_like(dirs[pick]), dirs[pick]], dim=-1)
+    e2e_rays = rays[:3 * chunk]
+    far = model.near_far[1]
+    out = {}
+    for label, sw in forms:
+        with shader_form(model, **sw):
+            times, launches = chunk_times(model, params, rays, chunk, renderer.render_kwargs,
+                                          wrappers)
+            want = {k: per_chunk.get(k, 0) * FORM_CHUNKS for k in wrappers}
+            want.update({k: v * FORM_CHUNKS for k, v in form_launches(model, sw, False).items()})
+            expect_launches(f"phase {phase} {label} render", launches, want)
+            got = renderer.render_rays(params, e2e_rays)
+            model.ops = ops.PLAIN
+            try:
+                ref = renderer.render_rays(params, e2e_rays)
+            finally:
+                model.ops = ops.KERNELS
+            d_rgb = float((got["rgb"] - ref["rgb"]).abs().max())
+            d_depth = float((got["depth"] - ref["depth"]).abs().max())
+            print(f"phase {phase} {label}: render chunk {times[len(times) // 2]:.3f} ms median "
+                  f"of {FORM_CHUNKS} (min {times[0]:.3f}, max {times[-1]:.3f}); K10 "
+                  f"{launches['K10']} launches over {FORM_CHUNKS} chunks; {3 * chunk} rays "
+                  f"against the plain versions: max |rgb - plain| {d_rgb:.3e} (<= "
+                  f"{REL_TOL:.1e}), max |depth - plain| {d_depth:.3e} (<= {REL_TOL * far:.1e})",
+                  flush=True)
+            if d_rgb > REL_TOL or d_depth > REL_TOL * far:
+                fail(f"phase {phase} {label}: the render disagrees with the plain versions")
+            want = dict(step_want)
+            want.update({k: v * TRAIN_STEPS for k, v in form_launches(model, sw, True).items()})
+            step_l, median = timed_steps(trainer.train_step, f"phase {phase} {label} training "
+                                         "step", cfg, wrappers, want)
+            step_vs_plain(trainer, ops, f"phase {phase} {label}")
+        out[label] = (times[len(times) // 2], median, step_l)
+    base_chunk, base_step, _ = out[forms[0][0]]
+    for label, (c_ms, s_ms, step_l) in out.items():
+        per = {k: step_l[k] // TRAIN_STEPS for k in ("K10", "K10da", "K10db", "K11")}
+        print(f"phase {phase} summary {label}: chunk {c_ms:.3f} ms ({c_ms - base_chunk:+.3f} "
+              f"against the default's {base_chunk:.3f}), step {s_ms:.3f} ms ({s_ms - base_step:+.3f} "
+              f"against {base_step:.3f}); K10/K10da/K10db/K11 a step {per}", flush=True)
+    return out
+
+
+def combined_quality_phase(root: str, default_psnr: float, wrappers) -> None:
+    """Phase 8b: the smoke run of phase 8 again, through the command line,
+    under MIXED_MM + BIAS_DOT + HOIST_DIRS: it must launch K10 and K11 and
+    land within the seed band of phase 8's test PSNR."""
+    from egonerf_torch.__main__ import main as cli_main
+
+    base = os.path.join(root, "build", "chip_smoke_runs", "forms")
+    shutil.rmtree(base, ignore_errors=True)
+    argv = ["--config", os.path.join(root, SMOKE_CONFIG), "--n_iters", str(SMOKE_ITERS),
+            "--vis_list", f"[{SMOKE_ITERS}]", "--N_vis", "-1", "--basedir", base]
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    with shader_form(None, **COMBINED[1]):
+        cli_main(argv)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    psnr = float(np.loadtxt(os.path.join(base, "smoke", "imgs_vis",
+                                         f"{SMOKE_ITERS - 1:06d}_mean.txt"))[0])
+    print(f"phase 8b smoke run under {COMBINED[0]} ({SMOKE_ITERS} iterations, "
+          f"{time.time() - t0:.1f} s with its evaluation): test PSNR {psnr:.2f} dB against "
+          f"phase 8's {default_psnr:.2f} dB ({psnr - default_psnr:+.2f}; band +-{SEED_BAND_DB}); "
+          f"launches {launches}", flush=True)
+    if min(launches[k] for k in ("K10", "K10da", "K10db", "K11")) < 1:
+        fail("the smoke run under the combined forms launched no K10 or K11")
+    if not abs(psnr - default_psnr) <= SEED_BAND_DB:
+        fail(f"the combined forms' smoke PSNR {psnr:.2f} dB is outside the {SEED_BAND_DB} dB "
+             f"band of the default's {default_psnr:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1512,7 +1840,8 @@ def main() -> int:
     from egonerf_torch.models.egonerf import _dists
     from egonerf_torch.data.datasets import SyntheticEgoDataset
     from egonerf_torch.models.alphamask import AlphaGridMask
-    from egonerf_torch.ops import alphamask, chart, envmap, merge, pdf, vm_lookup, volrend
+    from egonerf_torch.ops import (alphamask, bias, chart, envmap, merge, mm, pdf, vm_lookup,
+                                   volrend)
     from egonerf_torch.render.renderer import Renderer
     from egonerf_torch.train.config import load_config
     from egonerf_torch.train.trainer import Trainer
@@ -1521,7 +1850,9 @@ def main() -> int:
     wrappers = {"K1": vm_lookup.field_fwd, "K2": vm_lookup.field_bwd,
                 "K3": vm_lookup.density_fwd, "K4": pdf.resample, "K5": merge.sorted_uniform,
                 "K6": volrend.composite, "K6b": volrend.composite_bwd, "K7": chart.chart_fwd,
-                "K8": envmap.envmap_fwd, "K8b": envmap.envmap_bwd, "K9": alphamask.alpha_fwd}
+                "K8": envmap.envmap_fwd, "K8b": envmap.envmap_bwd, "K9": alphamask.alpha_fwd,
+                "K10": mm.mixed_mm, "K10da": mm.mixed_mm_da, "K10db": mm.mixed_mm_db,
+                "K11": bias.bias_grad}
 
     # -- phase 1: card + build ----------------------------------------------
     card = card_line()
@@ -1577,6 +1908,7 @@ def main() -> int:
         rows = render_kernel_checks(model, params, torch.as_tensor(dirs_np, device=dev), ops,
                                     presets, _dists)
     rows.update(train_kernel_checks(trainer, ops))
+    form_rows = shader_kernel_checks(trainer, ops)
     width_checks(ops)
     rows.update(envmap_kernel_checks(outdoor, ops))
     tf_rows = tensorf_kernel_checks(tf, ops)
@@ -1589,11 +1921,20 @@ def main() -> int:
     del model, params
     # -- phases 6-7: the training step ------------------------------------------
     train_launches = train_phases(trainer, ops, wrappers)
+    # -- phase 7b: the shader and line forms on the production trainer ---------
+    forms = form_phases("7b", trainer, ops, Renderer(trainer.model, chunk=presets.EVAL_CHUNK,
+                                                      **presets.RENDER),
+                        dirs_np, dict(K1=1, K3=1, K4=1, K6=1, K7=1), wrappers,
+                        step_launches(wrappers, envmap=False), FORMS)
+    # K10's and K11's rows report their launches over the combined form's steps
+    for k, w in (("K10 fwd", "K10"), ("K10 da", "K10da"), ("K10 db", "K10db"), ("K11", "K11")):
+        form_rows[k]["launches"] = forms[COMBINED[0]][2][w]
     del trainer
     torch.cuda.empty_cache()
 
-    # -- phase 8: the smoke run through the command line ------------------------
-    quality_phase(root)
+    # -- phase 8: the smoke run through the command line, and under the forms ---
+    smoke_psnr = quality_phase(root)
+    combined_quality_phase(root, smoke_psnr, wrappers)
 
     # -- phases 9-11: the outdoor shape: render, envmap training --------------
     with torch.no_grad():
@@ -1623,6 +1964,11 @@ def main() -> int:
                       ops, presets, Renderer, wrappers, phases=(14, 15, 14),
                       renderer=Renderer.from_config(tf.model, tf.cfg, tf.white_bg),
                       per_chunk=dict(K1=1, K9=1, K6=1), hw=TF_IMAGE_HW)
+    # -- phase 15b: TensoRF's view chunks and steps under the shader forms ----
+    form_phases("15b", tf, ops, Renderer.from_config(tf.model, tf.cfg, tf.white_bg),
+                get_ray_directions_360(*TF_IMAGE_HW).reshape(-1, 3), dict(K1=1, K9=1, K6=1),
+                wrappers, {k: TRAIN_STEPS if k in ("K1", "K2", "K9", "K6", "K6b") else 0
+                           for k in wrappers}, TF_FORMS)
     del tf
     torch.cuda.empty_cache()
     # -- phases 16-18: the tensorf_bench recipe and its steps, the quality recipe
@@ -1636,7 +1982,9 @@ def main() -> int:
                                                      "K6b", "K6+env", "K6b+env", "K7", "K8",
                                                      "K8b")]
                       + [tf_rows[k] for k in ("K1 (S=1)", "K2 (S=1)", "K3 (S=1)", "K6 gated",
-                                              "K6b gated", "K9")]}), flush=True)
+                                              "K6b gated", "K9")]
+                      + [form_rows[k] for k in ("K10 fwd", "K10 da", "K10 db", "K11")]}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

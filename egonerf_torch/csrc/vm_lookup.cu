@@ -9,7 +9,9 @@
 //       EgoNeRF.compute_density_feature (models/egonerf.py:249-270)
 //   K2  the custom VJPs of K1's lookups: _plane_bwd_bf16 and _hat_bwd
 //       (ops/vm_lookup.py:482,611), and _plane_bwd / _line_bwd (:456,519)
-//       under compute_dtype="float32" or off the hat gate.  The corner
+//       under compute_dtype="float32" or off the hat gate, and
+//       _line_bwd_onehot (:544, sample_line_packed_fastgrad's backward)
+//       under EGONERF_LINE_HAT=0.  The corner
 //       packing, _scatter_chunked, _unpack_plane_grads and
 //       _corner_cotangents are TPU layout answers and are not copied.
 //
@@ -324,11 +326,16 @@ vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb, int l
 //   plane cell of corner k  += w_k dp          (float32)
 //   line row j              += lw_j bf16(dl)   (hat path, bf16 tents as K1)
 //                           += lw_j dl          (float32 _axis_cells weights)
+//                           += bf16(lw_j dl)    (the same weights, line mode 2)
 // The planes accumulate in float32, unrounded.  JAX's fastgrad backward
 // scatter-adds in bf16, rounding at every add in an order the TPU
 // chooses, so no bit-level reference exists; float32 is the semantics of
 // its _plane_bwd.  The hat path rounds dl to bf16 and sums in float32, as
-// _hat_bwd's bf16 x bf16 -> float32 matmul does.
+// _hat_bwd's bf16 x bf16 -> float32 matmul does.  Line mode 2
+// (EGONERF_LINE_HAT=0, sample_line_packed_fastgrad) rounds each corner's
+// cotangent lw_j dl to bf16 and sums those in float32, as
+// _line_bwd_onehot's bf16 corner matrix contracted against the one-hot
+// matrix with float32 accumulation does.
 //
 // Bound on the card: bytes, d_app (N x 144 float32, 604 MB at the
 // production step) plus the float32 gradient tables (98 MB of planes).
@@ -360,7 +367,9 @@ vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb, int l
 //   it won only on random samples with no runs to merge;
 // * a sample whose cotangents are all zero on a lane's channels (the gated
 //   TensoRF samples) is skipped.
-// The single grid and the vector width are template parameters.  The
+// The single grid, the vector width and line mode 2's rounding (kLineBf16;
+// the decompositions that take it are bits of line_bf16) are template
+// parameters: the default instantiations hold no trace of mode 2.  The
 // vector instantiation takes 768 lanes a block (80 registers; under 1024
 // lanes' 64-register cap it spills), the scalar one 1024.  Measured (H100
 // 80GB HBM3, 700 W, the recorded production step): 1.148 ms against the
@@ -441,32 +450,41 @@ __device__ __forceinline__ Sample<kCh> load_sample(int s, int i, int c0, int C, 
   return in;
 }
 
+// w * v, rounded to bf16 under kRound and `round` (line mode 2's corner
+// cotangent); without kRound the plain product.
+template <bool kRound>
+__device__ __forceinline__ float corner_term(float w, float v, bool round) {
+  const float t = __fmul_rn(w, v);
+  return (kRound && round) ? bf16_round(t) : t;
+}
+
 // One slot of a walking group: while the row repeats, add w * v to the
 // pending sum; on another row hand the sum to flush(row, sum) and start
-// anew.  row < 0: nothing pending.  A zero weight adds nothing.
-template <int kCh, typename Flush>
+// anew.  row < 0: nothing pending.  A zero weight adds nothing.  With
+// kRound and `round`, each w * v is rounded to bf16 before it is added.
+template <int kCh, bool kRound = false, typename Flush>
 __device__ __forceinline__ void merge(int& row, float acc[kCh], int next, float w,
-                                      const float v[kCh], Flush flush) {
+                                      const float v[kCh], Flush flush, bool round = false) {
   if (w == 0.0f) return;
   if (next != row) {
     if (row >= 0) flush(row, acc);
     row = next;
 #pragma unroll
-    for (int j = 0; j < kCh; ++j) acc[j] = __fmul_rn(w, v[j]);
+    for (int j = 0; j < kCh; ++j) acc[j] = corner_term<kRound>(w, v[j], round);
   } else {
 #pragma unroll
-    for (int j = 0; j < kCh; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(w, v[j]));
+    for (int j = 0; j < kCh; ++j) acc[j] = __fadd_rn(acc[j], corner_term<kRound>(w, v[j], round));
   }
 }
 
 // run: the samples of one group's run.  Rows are element offsets
 // (row * C) in int: the wrapper holds every table below 2^31 elements.
-template <bool kTwoGrids, bool kVec>
+template <bool kTwoGrids, bool kVec, bool kLineBf16>
 __global__ void __launch_bounds__(BwdShape<kVec>::kThreads, 1)
 vm_field_bwd_kernel(const float* __restrict__ coords, int n, Tables tb,
                     const float* __restrict__ d_dens, const float* __restrict__ d_app,
                     const uint8_t* __restrict__ mask, int n_app, Grads gr, int log2_group,
-                    int run) {
+                    int run, unsigned line_bf16) {
   constexpr int kCh = BwdShape<kVec>::kChannels;
   constexpr int kBlock = BwdShape<kVec>::kThreads;
   const int group = 1 << log2_group;
@@ -478,6 +496,7 @@ vm_field_bwd_kernel(const float* __restrict__ coords, int n, Tables tb,
   for (int i = 0; i < 3; ++i) {
     const int C = tb.c[i], CD = tb.cd[i];
     const bool hat = tb.hat[i];
+    const bool round_line = kLineBf16 && ((line_bf16 >> i) & 1u);
     const __nv_bfloat16* P = tb.plane[i];
     const __nv_bfloat16* Ln = tb.line[i];
     float* gP = gr.plane[i];
@@ -529,8 +548,8 @@ vm_field_bwd_kernel(const float* __restrict__ coords, int n, Tables tb,
         merge<kCh>(row[1], acc[1], k.p01, k.w01, dp, to_plane);
         merge<kCh>(row[2], acc[2], k.p10, k.w10, dp, to_plane);
         merge<kCh>(row[3], acc[3], k.p11, k.w11, dp, to_plane);
-        merge<kCh>(row[4], acc[4], k.l0, k.lw0, dl, to_line);
-        merge<kCh>(row[5], acc[5], k.l1, k.lw1, dl, to_line);
+        merge<kCh, kLineBf16>(row[4], acc[4], k.l0, k.lw0, dl, to_line, round_line);
+        merge<kCh, kLineBf16>(row[5], acc[5], k.l1, k.lw1, dl, to_line, round_line);
       }
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
@@ -544,7 +563,8 @@ vm_field_bwd_kernel(const float* __restrict__ coords, int n, Tables tb,
   }
 }
 
-// dims: per decomposition i, {H, W, L, C, n_density, hat}; then the stack
+// dims: per decomposition i, {H, W, L, C, n_density, line mode (0 linear,
+// 1 hat, 2 linear with bf16 corner cotangents in K2)}; then the stack
 // size, log2 of the lanes a sample takes in K1/K3 and 1 for their vector
 // instantiation (ops/vm_lookup.py::lookup_layout); then K2's: log2 of its
 // lanes a sample and 1 for its vector instantiation
@@ -560,7 +580,7 @@ Tables make_tables(const void* const* planes, const void* const* lines, const in
     tb.l[i] = dims[6 * i + 2];
     tb.c[i] = dims[6 * i + 3];
     tb.cd[i] = dims[6 * i + 4];
-    tb.hat[i] = dims[6 * i + 5];
+    tb.hat[i] = dims[6 * i + 5] == 1;
     tb.app_off[i] = off;
     off += tb.c[i] - tb.cd[i];
   }
@@ -618,12 +638,32 @@ int launch(const float* coords, long long n, const void* const* planes,
   return (int)cudaGetLastError();
 }
 
-template <bool kTwoGrids, bool kVec>
+template <bool kTwoGrids, bool kVec, bool kLineBf16>
 void launch_bwd(unsigned blocks, cudaStream_t st, const float* coords, int n, const Tables& tb,
                 const float* d_dens, const float* d_app, const uint8_t* mask, int n_app,
-                const Grads& gr, int log2_group, int run) {
-  vm_field_bwd_kernel<kTwoGrids, kVec><<<blocks, BwdShape<kVec>::kThreads, 0, st>>>(
-      coords, n, tb, d_dens, d_app, mask, n_app, gr, log2_group, run);
+                const Grads& gr, int log2_group, int run, unsigned line_bf16) {
+  vm_field_bwd_kernel<kTwoGrids, kVec, kLineBf16><<<blocks, BwdShape<kVec>::kThreads, 0, st>>>(
+      coords, n, tb, d_dens, d_app, mask, n_app, gr, log2_group, run, line_bf16);
+}
+
+template <bool kLineBf16>
+void launch_bwd_grid(bool two, bool vec, unsigned blocks, cudaStream_t st, const float* coords,
+                     int n, const Tables& tb, const float* d_dens, const float* d_app,
+                     const uint8_t* mask, int n_app, const Grads& gr, int log2_group, int run,
+                     unsigned line_bf16) {
+  if (two && vec) {
+    launch_bwd<true, true, kLineBf16>(blocks, st, coords, n, tb, d_dens, d_app, mask, n_app, gr,
+                                      log2_group, run, line_bf16);
+  } else if (two) {
+    launch_bwd<true, false, kLineBf16>(blocks, st, coords, n, tb, d_dens, d_app, mask, n_app, gr,
+                                       log2_group, run, line_bf16);
+  } else if (vec) {
+    launch_bwd<false, true, kLineBf16>(blocks, st, coords, n, tb, d_dens, d_app, mask, n_app, gr,
+                                       log2_group, run, line_bf16);
+  } else {
+    launch_bwd<false, false, kLineBf16>(blocks, st, coords, n, tb, d_dens, d_app, mask, n_app,
+                                        gr, log2_group, run, line_bf16);
+  }
 }
 
 }  // namespace
@@ -658,18 +698,14 @@ extern "C" int vm_field_bwd(const float* coords, long long n, const void* const*
   const unsigned blocks = (unsigned)((walkers + per_block - 1) / per_block);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ni = (int)n, r = (int)run;
-  if (two && vec) {
-    launch_bwd<true, true>(blocks, st, coords, ni, tb, d_dens, d_app, mask, n_app, gr,
-                           log2_group, r);
-  } else if (two) {
-    launch_bwd<true, false>(blocks, st, coords, ni, tb, d_dens, d_app, mask, n_app, gr,
-                            log2_group, r);
-  } else if (vec) {
-    launch_bwd<false, true>(blocks, st, coords, ni, tb, d_dens, d_app, mask, n_app, gr,
-                            log2_group, r);
+  unsigned line_bf16 = 0;  // the decompositions in line mode 2
+  for (int i = 0; i < 3; ++i) line_bf16 |= (dims[6 * i + 5] == 2 ? 1u : 0u) << i;
+  if (line_bf16) {
+    launch_bwd_grid<true>(two, vec, blocks, st, coords, ni, tb, d_dens, d_app, mask, n_app, gr,
+                          log2_group, r, line_bf16);
   } else {
-    launch_bwd<false, false>(blocks, st, coords, ni, tb, d_dens, d_app, mask, n_app, gr,
-                             log2_group, r);
+    launch_bwd_grid<false>(two, vec, blocks, st, coords, ni, tb, d_dens, d_app, mask, n_app, gr,
+                           log2_group, r, 0u);
   }
   return (int)cudaGetLastError();
 }

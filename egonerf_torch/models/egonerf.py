@@ -22,10 +22,20 @@ The kernels come from ``self.ops`` (``ops.KERNELS``).
 
 The regularizers (L1, TV, Ortho) and the alpha-mask bake are here as in
 JAX; the forward never reads the mask, in JAX as here.
+
+The JAX module's opt-in forms, from the environment at import with JAX's
+names and defaults: ``EGONERF_MIXED_MM=1`` takes the shader's products and
+the basis products through K10 (bf16 operands, float32 sums), decided when
+the model is built and only under ``compute_dtype = "bfloat16"``;
+``EGONERF_LINE_HAT=0`` takes the fine lines off the hat path (float32
+weights, and K2's bf16 corner cotangents while JAX's one-hot gate holds);
+``EGONERF_HOIST_DIRS=1`` hands the shader unexpanded (R, 3) viewdirs.  The
+shader's own switches are in ``models/shading.py``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from math import pi
 from typing import List, Mapping, NamedTuple, Optional, Sequence
 
@@ -37,11 +47,17 @@ from .._device import full_f32_matmul, resolve_device
 from ..coords.expgrid import make_sample_r_grid
 from ..coords.yinyang import YinYangSphericalCoords
 from ..ops import KERNELS
-from ..ops.vm_lookup import MAT_MODE, VEC_MODE, field_train, line_hat_ok
+from ..ops.mm import mixed_matmul
+from ..ops.vm_lookup import LINE_HAT as _vm_lookup_line_hat
+from ..ops.vm_lookup import (HAT, LINEAR, LINEAR_BF16_GRAD, MAT_MODE, VEC_MODE, field_train,
+                             line_hat_ok, line_onehot_ok)
 from ..ops.volrend import composite_train, density_activation
 from .alphamask import YinYangAlphaGridMask, bake_alpha_mask, dense_alpha
 from .envmap import envmap_radiance, init_envmap
-from .shading import MLPFea
+from .shading import _HOIST_DIRS, MLPFea
+
+_MIXED_MM = os.environ.get("EGONERF_MIXED_MM", "0") == "1"
+_LINE_HAT = _vm_lookup_line_hat
 
 _LATER = "is not ported yet (ROADMAP.md §1)"
 
@@ -174,6 +190,8 @@ class EgoNeRF(nn.Module):
         self.cfg = cfg
         self.near_far = (float(near_far[0]), float(near_far[1]))
         self.ops = KERNELS
+        # the shader's and the basis products through K10 (JAX's self._mm)
+        self.mixed_mm = _MIXED_MM and cfg.compute_dtype == "bfloat16"
         self._sample_grid_cache: dict = {}
         self.alpha_mask: Optional[YinYangAlphaGridMask] = None
         self.update_step_size(grid_size)
@@ -271,8 +289,14 @@ class EgoNeRF(nn.Module):
         return LookupTables(_bf16(fine_planes), _bf16(fine_lines), *self.coarse_tables(params))
 
     def _line_hat(self, lines, n: int):
-        return [self.cfg.compute_dtype == "bfloat16" and line_hat_ok(l.shape[0] * l.shape[1], n)
-                for l in lines]
+        """Each fine line's mode (``ops.vm_lookup``) for ``n`` samples, as
+        JAX's ``_fused_products`` picks the line function: under bf16
+        compute the hat path (``EGONERF_LINE_HAT``, the default) or
+        ``sample_line_packed_fastgrad``, each while its gate holds."""
+        if self.cfg.compute_dtype != "bfloat16":
+            return [LINEAR] * len(lines)
+        mode, ok = (HAT, line_hat_ok) if _LINE_HAT else (LINEAR_BF16_GRAD, line_onehot_ok)
+        return [mode if ok(l.shape[0] * l.shape[1], n) else LINEAR for l in lines]
 
     def compute_field(self, params, norm_coords: torch.Tensor,
                       tables: Optional[LookupTables] = None):
@@ -293,8 +317,14 @@ class EgoNeRF(nn.Module):
                                        self._line_hat(lines, flat.shape[0]),
                                        self.ops.field, self.ops.field_bwd)
         basis = params["basis"]
-        yin = feats @ basis[0]
-        yang = feats @ basis[1]
+        if self.mixed_mm:
+            # both charts' products in one K10 launch, reading feats once
+            both = mixed_matmul(feats, torch.cat([basis[0], basis[1]], dim=1), self.ops.mm,
+                                self.ops.mm_da, self.ops.mm_db)
+            yin, yang = both.split(basis.shape[-1], dim=1)
+        else:
+            yin = feats @ basis[0]
+            yang = feats @ basis[1]
         app = torch.where(flat[:, 3:4] == 0, yin, yang)
         return dfeat.reshape(lead), app.reshape(*lead, -1)
 
@@ -457,8 +487,10 @@ class EgoNeRF(nn.Module):
 
         # 4) fine field (K1, K2 backward) + shading
         feat, app_feat = self.compute_field(params, norm, tables)
-        dirs = viewdirs[:, None, :].expand(*norm.shape[:-1], 3)
-        rgb = self.shader.apply_params(params, "shader.", dirs, app_feat)
+        # the hoist hands the shader each ray's direction once
+        dirs = viewdirs if _HOIST_DIRS else viewdirs[:, None, :].expand(*norm.shape[:-1], 3)
+        rgb = self.shader.apply_params(params, "shader.", dirs, app_feat, self.ops,
+                                       self.mixed_mm)
 
         # 5) the envmap's radiance (K8, K8b backward), then the composite with
         # the background as a last sample of alpha 1 (K6, K6b backward)

@@ -11,7 +11,10 @@ from the aabb entry, ``step_size`` apart; K9 gates them with the alpha
 mask once one is baked; the composite (K6, K6b backward) zeroes sigma
 outside the box and the mask, and rgb where the weight is not above
 ``ray_march_weight_thres``.  TensorVM, TensorCP, ``shrink``, ray filtering
-and NDC rays wait (ROADMAP.md §1).
+and NDC rays wait (ROADMAP.md §1).  Of the JAX module's opt-in forms the
+family takes ``EGONERF_LINE_HAT=0`` (float32 line weights) and the
+shader's (``EGONERF_HOIST_DIRS``, ``EGONERF_SPLIT_L1``,
+``EGONERF_BIAS_DOT``), not ``EGONERF_MIXED_MM``, as in JAX.
 """
 from __future__ import annotations
 
@@ -26,12 +29,13 @@ import torch.nn.functional as F
 from .._device import full_f32_matmul, resolve_device
 from ..coords.cartesian import CartesianCoords
 from ..ops import KERNELS
-from ..ops.vm_lookup import MAT_MODE, VEC_MODE, field_train
+from ..ops.vm_lookup import LINE_HAT as _LINE_HAT
+from ..ops.vm_lookup import HAT, LINEAR, MAT_MODE, VEC_MODE, field_train, line_hat_ok
 from ..ops.volrend import composite_train
 from .alphamask import AlphaGridMask, bake_alpha_mask, dense_alpha
 from .egonerf import EgoNeRF, LookupTables, StepKey, _bf16, _dists, feature2density, tv_plane
 from .envmap import envmap_radiance, init_envmap
-from .shading import MLPFea
+from .shading import _HOIST_DIRS, MLPFea
 
 _LATER = "is not ported yet (ROADMAP.md §1)"
 
@@ -128,7 +132,14 @@ class TensorVMSplit(nn.Module):
     # field lookups
     # ------------------------------------------------------------------
     fused_tables = EgoNeRF.fused_tables
-    _line_hat = EgoNeRF._line_hat
+
+    def _line_hat(self, lines, n: int):
+        """Each line's mode: the hat path under bf16 compute while its gate
+        holds, else float32 weights (JAX's ``sample_line_packed``, also
+        under ``EGONERF_LINE_HAT=0``)."""
+        hat = self.cfg.compute_dtype == "bfloat16" and _LINE_HAT
+        return [HAT if hat and line_hat_ok(l.shape[0] * l.shape[1], n) else LINEAR
+                for l in lines]
 
     def lookup_tables(self, params) -> LookupTables:
         """The bf16 fused tables of ``params`` for an eval render (no coarse
@@ -286,8 +297,9 @@ class TensorVMSplit(nn.Module):
                 valid = valid & (self.alpha_mask.sample_alpha(norm, self.ops.alpha) > 0)
 
         feat, app_feat = self.compute_field(params, norm, tables)
-        dirs = viewdirs[:, None, :].expand(n_rays, n, 3)
-        rgb = self.shader.apply_params(params, "shader.", dirs, app_feat)
+        # the hoist hands the shader each ray's direction once
+        dirs = viewdirs if _HOIST_DIRS else viewdirs[:, None, :].expand(n_rays, n, 3)
+        rgb = self.shader.apply_params(params, "shader.", dirs, app_feat, self.ops)
         env = (envmap_radiance(params["envmap"], viewdirs, self.ops) if cfg.use_envmap
                else None)
         outs = composite_train(

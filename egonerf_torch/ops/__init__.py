@@ -15,6 +15,10 @@ K7    chart.chart_fwd             chart_fwd_plain         csrc/chart.cu
 K8    envmap.envmap_fwd           envmap_fwd_plain        csrc/envmap.cu
 K8b   envmap.envmap_bwd           envmap_bwd_plain        csrc/envmap.cu
 K9    alphamask.alpha_fwd         alpha_fwd_plain         csrc/alphamask.cu
+K10   mm.mixed_mm                 mixed_mm_plain          csrc/mixed_mm.cu
+K10   mm.mixed_mm_da              mixed_mm_da_plain       csrc/mixed_mm.cu
+K10   mm.mixed_mm_db              mixed_mm_db_plain       csrc/mixed_mm.cu
+K11   bias.bias_grad              bias_grad_plain         csrc/bias_grad.cu
 ====  ==========================  ======================  =======================
 
 ``resample_chart`` is K4 with K7's chart of the merged depths in its
@@ -24,14 +28,21 @@ models call.  ``PLAIN`` runs the plain versions on
 any device; it is the reference the kernels are held against on the card.
 K2, K6b and K8b are the backwards of K1, K6 and K8 inside the autograd
 Functions ``vm_lookup.field_train``, ``volrend.composite_train`` and
-``envmap.envmap_train``.
+``envmap.envmap_train``.  K10 (``mm``: the forward ``a @ b``; ``mm_da`` and
+``mm_db``: its backward's two contractions, all bf16 x bf16 -> float32) runs
+inside ``mm.mixed_matmul`` and K11 (``bias_grad``) is the backward of
+``bias.bias_add``; only the shader forms that ``EGONERF_MIXED_MM=1`` and
+``EGONERF_BIAS_DOT=1`` select take them (``models/shading.py``).
 """
 from typing import Callable, NamedTuple
 
 from .alphamask import alpha_fwd, alpha_fwd_plain
+from .bias import bias_grad, bias_grad_plain
 from .chart import chart_fwd, chart_fwd_plain
 from .envmap import envmap_bwd, envmap_bwd_plain, envmap_fwd, envmap_fwd_plain
 from .merge import sorted_uniform, sorted_uniform_plain
+from .mm import (mixed_mm, mixed_mm_da, mixed_mm_da_plain, mixed_mm_db, mixed_mm_db_plain,
+                 mixed_mm_plain)
 from .pdf import resample_chart, resample_chart_plain
 from .vm_lookup import (density_fwd, density_fwd_plain, field_bwd, field_bwd_plain,
                         field_fwd, field_fwd_plain)
@@ -50,10 +61,16 @@ class Ops(NamedTuple):
     envmap: Callable
     envmap_bwd: Callable
     alpha: Callable
+    mm: Callable
+    mm_da: Callable
+    mm_db: Callable
+    bias_grad: Callable
 
 
 KERNELS = Ops(field_fwd, field_bwd, density_fwd, resample_chart, sorted_uniform, composite,
-              composite_bwd, chart_fwd, envmap_fwd, envmap_bwd, alpha_fwd)
+              composite_bwd, chart_fwd, envmap_fwd, envmap_bwd, alpha_fwd, mixed_mm, mixed_mm_da,
+              mixed_mm_db, bias_grad)
 PLAIN = Ops(field_fwd_plain, field_bwd_plain, density_fwd_plain, resample_chart_plain,
             sorted_uniform_plain, composite_plain, composite_bwd_plain, chart_fwd_plain,
-            envmap_fwd_plain, envmap_bwd_plain, alpha_fwd_plain)
+            envmap_fwd_plain, envmap_bwd_plain, alpha_fwd_plain, mixed_mm_plain,
+            mixed_mm_da_plain, mixed_mm_db_plain, bias_grad_plain)

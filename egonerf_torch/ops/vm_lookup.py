@@ -14,11 +14,20 @@ no channel padding.  What carries over exactly:
   chart flag in the coords' fourth column selects one; with one
   (TensoRF's single grid) the flag column is ignored, as JAX's lookups
   with ``sel=None``.  ``line_hat_ok`` counts the stacked rows S*L.
-* The fine line lookup takes the hat path of ``sample_line_hat`` while
-  :func:`line_hat_ok` holds (as JAX's ``_onehot_ok`` gate): the two line
-  weights are tents max(0, 1-|pos-j|) at pos = p + sel*L, rounded to bf16.
-  Otherwise, and always for the coarse lookup, the line weights are the
-  float32 ``_axis_cells`` pair.
+* The fine line lookup takes one of three line modes a decomposition,
+  the ``line_hat`` entries of K1 and K2:
+
+  - ``HAT`` (1): the hat path of ``sample_line_hat``, while
+    :func:`line_hat_ok` holds (JAX's ``_onehot_ok`` gate): the two line
+    weights are tents max(0, 1-|pos-j|) at pos = p + sel*L, rounded to
+    bf16, and the backward rounds the line's cotangent to bf16;
+  - ``LINEAR`` (0): the float32 ``_axis_cells`` pair (``sample_line_packed``,
+    always for the coarse lookup), with a float32 backward;
+  - ``LINEAR_BF16_GRAD`` (2): ``sample_line_packed_fastgrad``, which
+    ``EGONERF_LINE_HAT=0`` gives EgoNeRF's fine lines: the forward of
+    ``LINEAR``, and a backward that rounds each corner's cotangent w * dl to
+    bf16 before the float32 sum, as ``_line_bwd_onehot`` does while
+    :func:`line_onehot_ok` holds (``LINEAR`` otherwise).
 * The fine density ``sum_i jnp.maximum(partial_i, 0)`` has JAX's gradient:
   1 where a partial is > 0, 0.5 where it is exactly 0, 0 below.  K1 in
   training writes each partial's state (the relu mask) from the sums that
@@ -27,6 +36,7 @@ no channel padding.  What carries over exactly:
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -37,16 +47,32 @@ from .._device import check_tensor
 MAT_MODE = ((0, 1), (0, 2), (1, 2))
 VEC_MODE = (2, 1, 0)
 
-# JAX's hat-matrix gate (vm_lookup.py:63-73): at most 1,152 stacked rows and
+# JAX's hat-matrix and one-hot gates (vm_lookup.py:63-73): at most 1,152
+# stacked rows for the hat forward, 4,096 for the one-hot line backward, and
 # an (N, rows) bf16 matrix of at most 3e9 bytes
 _ONEHOT_FWD_MAX_ROWS = 1152
+_ONEHOT_BWD_MAX_ROWS = 4096
 _ONEHOT_MAX_BYTES = 3e9
+
+# EGONERF_LINE_HAT=0 takes the fine lines off the hat path, as in JAX
+# (egonerf_tpu/ops/vm_lookup.py:93); read once, at import
+LINE_HAT = os.environ.get("EGONERF_LINE_HAT", "1") == "1"
+
+# the line modes of K1 and K2, one a decomposition (module docstring)
+LINEAR, HAT, LINEAR_BF16_GRAD = 0, 1, 2
 
 
 def line_hat_ok(n_rows: int, n_idx: int) -> bool:
     """Whether JAX's fine line lookup takes the bf16 hat path for a table of
     ``n_rows`` stacked rows sampled at ``n_idx`` points."""
     return n_rows <= _ONEHOT_FWD_MAX_ROWS and n_rows * n_idx * 2 <= _ONEHOT_MAX_BYTES
+
+
+def line_onehot_ok(n_rows: int, n_idx: int) -> bool:
+    """Whether JAX's ``_line_bwd_onehot`` takes the bf16 one-hot
+    contraction (and not the float32 ``_line_bwd``) for a table of
+    ``n_rows`` stacked rows sampled at ``n_idx`` points."""
+    return n_rows <= _ONEHOT_BWD_MAX_ROWS and n_rows * n_idx * 2 <= _ONEHOT_MAX_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +202,7 @@ def field_fwd_plain(coords, planes, lines, n_density, line_hat, with_mask=False)
     for i in range(3):
         m0, m1 = MAT_MODE[i]
         p = sample_plane(planes[i], xyz[:, m0], xyz[:, m1], sel)
-        line_fn = sample_line_hat if line_hat[i] else sample_line
+        line_fn = sample_line_hat if line_hat[i] == HAT else sample_line
         prod = p * line_fn(lines[i], xyz[:, VEC_MODE[i]], sel)
         partial = prod[:, : n_density[i]].sum(-1)
         dens = dens + torch.relu(partial)
@@ -294,13 +320,16 @@ def _bwd_layout_of(coords, planes, lines, n_density, d_app) -> BwdLayout:
 
 def _dims(coords, planes, lines, n_density, line_hat, bwd=None):
     """The kernels' int array: per decomposition {H, W, L, C, n_density,
-    hat}; then the stack size, log2 of K1/K3's lanes a sample and their
+    line mode}; then the stack size, log2 of K1/K3's lanes a sample and their
     vector flag (:func:`lookup_layout`); then log2 of K2's lanes a sample
     and its vector flag (``bwd``, a :class:`BwdLayout`; zeros for K1/K3)."""
     dims = []
     for i in range(3):
         _, h, w, c = planes[i].shape
-        dims += [h, w, lines[i].shape[1], c, int(n_density[i]), int(bool(line_hat[i]))]
+        mode = int(line_hat[i])
+        if mode not in (LINEAR, HAT, LINEAR_BF16_GRAD):
+            raise ValueError(f"line mode {line_hat[i]!r} of decomposition {i}")
+        dims += [h, w, lines[i].shape[1], c, int(n_density[i]), mode]
     n_app = sum(p.shape[-1] - int(d) for p, d in zip(planes, n_density))
     layout = lookup_layout(coords, planes, lines, n_app)
     dims += [planes[0].shape[0], layout.group.bit_length() - 1, int(layout.vector)]
@@ -315,7 +344,7 @@ def _tables(planes, lines):
 
 def field_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
               lines: Sequence[torch.Tensor], n_density: Sequence[int],
-              line_hat: Sequence[bool], with_mask: bool = False):
+              line_hat: Sequence[int], with_mask: bool = False):
     """K1: the fused fine field.  For i in 0..2 the bilinear sample of
     plane_i at (x_{m0}, x_{m1}) times the linear sample of line_i at
     x_{vec}, per channel; density = sum_i relu(sum of the first
@@ -324,7 +353,9 @@ def field_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
 
     coords (N, 4) float32 normalized [x0, x1, x2, flag]; planes
     (S, H_i, W_i, C_i) and lines (S, L_i, C_i) bfloat16, S = 2 (the flag
-    selects the grid) or 1 (the flag is ignored).  Returns density
+    selects the grid) or 1 (the flag is ignored); ``line_hat`` holds each
+    decomposition's line mode (``HAT`` takes the bf16 tents, the others the
+    float32 pair; True and False are ``HAT`` and ``LINEAR``).  Returns density
     (N,) and appearance (N, sum_i C_i - n_density[i]), float32; with
     ``with_mask`` also the relu mask (N,) uint8, decomposition i's
     :func:`relu_states` at bits 2i, 2i+1, from the sums that gave the
@@ -409,7 +440,7 @@ def _plane_corners(x, y, sel, h, w):
 def _line_rows(coord, sel, l, hat):
     """The two (flat row index, weight) pairs of :func:`sample_line_hat`
     (``hat``) or :func:`sample_line`."""
-    if hat:
+    if hat == HAT:
         p = (coord + 1.0) * 0.5 * (l - 1)
         pos = p + sel.to(p.dtype) * l
         jf = torch.floor(pos)
@@ -444,14 +475,14 @@ def field_bwd_plain(coords, planes, lines, d_dens, d_app, mask, n_density, line_
         l = lines[i].shape[1]
         cd = int(n_density[i])
         pv = sample_plane(planes[i], xyz[:, m0], xyz[:, m1], sel)
-        line_fn = sample_line_hat if line_hat[i] else sample_line
+        line_fn = sample_line_hat if line_hat[i] == HAT else sample_line
         lv = line_fn(lines[i], xyz[:, VEC_MODE[i]], sel)
         dd = d_dens * relu_scale(mask, i)
         dprod = torch.cat([dd[:, None].expand(-1, cd), d_app[:, off:off + c - cd]], dim=-1)
         off += c - cd
         dp = dprod * lv
         dl = dprod * pv
-        if line_hat[i]:
+        if line_hat[i] == HAT:
             dl = dl.to(torch.bfloat16).float()
         if magnitude:
             dp, dl = dp.abs(), dl.abs()
@@ -460,7 +491,10 @@ def field_bwd_plain(coords, planes, lines, d_dens, d_app, mask, n_density, line_
             gp.index_add_(0, idx, (wt[:, None] * dp).to(accumulate))
         gl = torch.zeros(s * l, c, dtype=accumulate, device=coords.device)
         for idx, wt in _line_rows(xyz[:, VEC_MODE[i]], sel, l, line_hat[i]):
-            gl.index_add_(0, idx, (wt[:, None] * dl).to(accumulate))
+            corner = wt[:, None] * dl
+            if line_hat[i] == LINEAR_BF16_GRAD:
+                corner = corner.to(torch.bfloat16).float()
+            gl.index_add_(0, idx, corner.to(accumulate))
         g_planes.append(gp.reshape(s, h, w, c))
         g_lines.append(gl.reshape(s, l, c))
     return g_planes, g_lines
@@ -475,16 +509,18 @@ _BWD_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p)
 
 def field_bwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
               lines: Sequence[torch.Tensor], d_dens: torch.Tensor, d_app: torch.Tensor,
-              mask: torch.Tensor, n_density: Sequence[int], line_hat: Sequence[bool]
+              mask: torch.Tensor, n_density: Sequence[int], line_hat: Sequence[int]
               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """K2: the gradient of :func:`field_fwd` with respect to its tables.
     Per sample and decomposition i: dprod = d_dens times
     :func:`relu_scale` of the forward's ``mask`` (1, 0.5 at an exact zero
     partial, 0; ``jnp.maximum``'s gradient) on the density channels and
     d_app on the rest; dp = dprod * line and dl = dprod * plane; w_k * dp
-    into the four plane corners and the line weights times dl (rounded to
-    bf16 on the hat path, as ``_hat_bwd`` rounds its cotangent) into the
-    two line rows, all summed in float32.  The gradient treats the bf16
+    into the four plane corners and the line weights times dl into the two
+    line rows, all summed in float32.  The line mode decides the roundings:
+    ``HAT`` rounds dl to bf16 (as ``_hat_bwd`` rounds its cotangent),
+    ``LINEAR_BF16_GRAD`` each corner's w_j * dl (as ``_line_bwd_onehot``),
+    ``LINEAR`` none.  The gradient treats the bf16
     cast of the tables as the identity, as JAX's custom VJPs do.
 
     coords (N, 4), d_dens (N,) and d_app (N, sum_i C_i - n_density[i])
@@ -494,8 +530,9 @@ def field_bwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     follow :func:`bwd_layout`.
 
     Replaces ``_plane_bwd_bf16`` + ``_hat_bwd`` (``_plane_bwd`` +
-    ``_line_bwd`` where the lines take float32 weights)
-    (egonerf_tpu/ops/vm_lookup.py:482,611,456,519).  Kernel:
+    ``_line_bwd`` where the lines take float32 weights, ``_line_bwd_onehot``
+    under ``EGONERF_LINE_HAT=0``)
+    (egonerf_tpu/ops/vm_lookup.py:482,611,456,519,544).  Kernel:
     csrc/vm_lookup.cu.  CPU tensors take :func:`field_bwd_plain`."""
     _check_field_args(coords, planes, lines, n_density)
     n = coords.shape[0]
@@ -551,9 +588,10 @@ class _Field(torch.autograd.Function):
 
 def field_train(coords: torch.Tensor, planes: Sequence[torch.Tensor],
                 lines: Sequence[torch.Tensor], n_density: Sequence[int],
-                line_hat: Sequence[bool], fwd=field_fwd, bwd=field_bwd):
+                line_hat: Sequence[int], fwd=field_fwd, bwd=field_bwd):
     """:func:`field_fwd` on float32 ``planes`` and ``lines`` (read as
-    bf16), differentiable in them through ``bwd`` (K2); returns density
-    (N,) and appearance (N, n_app)."""
+    bf16), differentiable in them through ``bwd`` (K2); ``line_hat`` holds
+    each decomposition's line mode.  Returns density (N,) and appearance
+    (N, n_app)."""
     return _Field.apply(coords, tuple(int(d) for d in n_density),
-                        tuple(bool(h) for h in line_hat), fwd, bwd, *planes, *lines)
+                        tuple(int(h) for h in line_hat), fwd, bwd, *planes, *lines)
