@@ -168,7 +168,8 @@ WIDTHS = (("smoke fine", 24, 8), ("smoke coarse", 8, 4), ("scalar", 20, 4),
 PORT_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
                 "sorted_uniform_kernel", "composite_kernel", "composite_bwd_kernel",
                 "chart_kernel", "envmap_kernel", "envmap_bwd_kernel", "alphamask_kernel",
-                "mm_fwd_kernel", "mm_rows_kernel", "mm_db_kernel", "mm_db_sum_kernel",
+                "mm_fwd_kernel", "mm_fwd_narrow_kernel", "mm_rows_kernel", "mm_db_kernel",
+                "mm_db_sum_kernel",
                 "bias_grad_part_kernel", "bias_grad_sum_kernel")
 TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 5, 20, 3
 SMOKE_ITERS = 300
@@ -203,6 +204,10 @@ TF_FORMS = (("default", {}), ("HOIST_DIRS", dict(hoist=True)), ("SPLIT_L1", dict
             ("BIAS_DOT", dict(bias=True)))
 COMBINED = FORMS[-1]
 FORM_CHUNKS = 7
+# K10's checks at row counts off the production chunk: one short of it (a
+# tail stage of 31 rows in db, 1-3 floats of a 150- or 135-float row past
+# the bulk copies) and fewer rows than one stage
+MM_ODD_ROWS = (1_048_575, 17)
 
 
 def fail(msg: str) -> None:
@@ -1606,6 +1611,30 @@ def form_launches(model, sw: dict, train: bool) -> dict:
     return out
 
 
+def mm_library():
+    """(label, fn(x16, y16)): the one PyTorch call that computes K10's
+    function on bf16 operands, products summed in float32 with a float32
+    result: ``torch.mm(x16, y16, out_dtype=torch.float32)`` where this
+    torch has it for CUDA; else the operands in float32 (bf16 values are
+    exact in TF32) under TF32 for that call only."""
+    x = torch.ones(16, 16, dtype=torch.bfloat16, device=DEVICE)
+    try:
+        torch.mm(x, x, out_dtype=torch.float32)
+        return "torch.mm(x16, y16, out_dtype=torch.float32)", (
+            lambda x16, y16: torch.mm(x16, y16, out_dtype=torch.float32))
+    except (TypeError, RuntimeError, NotImplementedError):
+        pass
+
+    def tf32(x16, y16):
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return torch.matmul(x16.float(), y16.float())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    return "torch.matmul(x16.float(), y16.float()) under TF32", tf32
+
+
 def mm_operands(layout, args):
     """The (x, y) of K10's product x @ y in each layout."""
     if layout == "mm":
@@ -1615,6 +1644,31 @@ def mm_operands(layout, args):
     return args[0].t(), args[1]
 
 
+def mm_check(name, layout, kern, plain, args):
+    """K10 in ``layout`` on ``args`` against the exact sum of the same bf16
+    products (float64; per element MM_TOL of sum|terms| for the forward and
+    da, K2_TOL for db, which sums a million rows) and its plain version (the
+    forward bit for bit: both add in k order).  Returns (the kernel's
+    output, max abs error against the plain version)."""
+    x, y = mm_operands(layout, args)
+    with torch.no_grad():
+        got, ref = kern(*args), plain(*args)
+        x64, y64 = x.to(torch.bfloat16).double(), y.to(torch.bfloat16).double()
+        exact, terms = x64 @ y64, x64.abs() @ y64.abs()
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"{name}: shape {tuple(got.shape)} or non-finite values")
+    share = float(((got.double() - exact).abs() / (terms + 1e-30)).max())
+    abs_err = float((got - ref).abs().max())
+    tol = MM_TOL if layout != "mm_db" else K2_TOL
+    same = layout != "mm" or torch.equal(got, ref)
+    check_close(name, f"per element <= {tol:.0e} x sum|terms| of the exact bf16 product; "
+                f"{abs_err:.2e} abs against the float32 plain version"
+                + (", equal to it bit for bit" if layout == "mm" else ""),
+                share <= tol and same, abs_err, share)
+    return got, abs_err
+
+
 def shader_kernel_checks(trainer, ops) -> dict:
     """Phase 2, K10 in its three layouts and K11 on the inputs two
     production training steps give them (recorded, under EGONERF_MIXED_MM
@@ -1622,9 +1676,11 @@ def shader_kernel_checks(trainer, ops) -> dict:
     basis of both charts, the hoist's two first-layer products.  Each
     against the exact sum of the same bf16 products (float64; MM_TOL of
     sum|terms| for the forward and da, K2_TOL for db and K11, which sum a
-    million rows) and against its plain version, with its time, the plain
-    version's and the library call's (torch.matmul on bf16 operands,
-    dout.sum(0)).  Returns the rows of l1's three layouts and of K11."""
+    million rows) and against its plain version (K10's forward and db also
+    at MM_ODD_ROWS rows, db twice on the same inputs bit for bit), with its
+    time, the plain version's and the library call's (``mm_library``: the
+    same function; ``dout.sum(0)``).  Returns the rows of l1's three
+    layouts and of K11."""
     model = trainer.model
     calls = {k: [] for k in ("mm", "mm_da", "mm_db", "bias_grad")}
 
@@ -1645,8 +1701,11 @@ def shader_kernel_checks(trainer, ops) -> dict:
         model.ops = ops.KERNELS
     torch.cuda.synchronize()
     src, jax_src = "egonerf_torch/csrc/mixed_mm.cu", "egonerf_tpu/ops/mm.py:31"
+    lib_label, lib_call = mm_library()
+    print(f"phase 2 K10's library call (the same function): {lib_label}", flush=True)
     rows, seen = {}, set()
     for layout, row_name in (("mm", "fwd"), ("mm_da", "da"), ("mm_db", "db")):
+        kern, plain = getattr(ops.KERNELS, layout), getattr(ops.PLAIN, layout)
         for args in calls[layout]:
             x, y = mm_operands(layout, args)
             shape = (tuple(x.shape), tuple(y.shape))
@@ -1654,31 +1713,43 @@ def shader_kernel_checks(trainer, ops) -> dict:
                 continue
             seen.add((layout, shape))
             name = f"K10 mixed_mm {row_name} ({x.shape[0]}x{x.shape[1]} @ {y.shape[0]}x{y.shape[1]})"
-            kern, plain = getattr(ops.KERNELS, layout), getattr(ops.PLAIN, layout)
-            with torch.no_grad():
-                got, ref = kern(*args), plain(*args)
-                x16, y16 = x.to(torch.bfloat16), y.to(torch.bfloat16)
-                exact = x16.double() @ y16.double()
-                terms = x16.double().abs() @ y16.double().abs()
-            torch.cuda.synchronize()
-            if got.shape != ref.shape or not torch.isfinite(got).all():
-                fail(f"{name}: shape {tuple(got.shape)} or non-finite values")
-            share = float(((got.double() - exact).abs() / (terms + 1e-30)).max())
-            abs_err = float((got - ref).abs().max())
-            tol = MM_TOL if layout != "mm_db" else K2_TOL
-            # the forward adds in k order, as its plain version: bit for bit
-            same = layout != "mm" or torch.equal(got, ref)
-            check_close(name, f"per element <= {tol:.0e} x sum|terms| of the exact bf16 "
-                        f"product; {abs_err:.2e} abs against the float32 plain version"
-                        + (", equal to it bit for bit" if layout == "mm" else ""),
-                        share <= tol and same, abs_err, share)
-            del exact, terms
-            row = kernel_row(
-                name, src, jax_src, abs_err, time_ms(lambda: kern(*args)),
-                time_ms(lambda: plain(*args), reps=5),
-                nbytes(*args) + 4 * x.shape[0] * y.shape[1], 2.0 * x.shape[0] * x.shape[1]
-                * y.shape[1], library_ms=time_ms(lambda: torch.matmul(x16, y16)),
-                peak_ops=PEAK_BF16_OPS_PER_S)
+            got, abs_err = mm_check(name, layout, kern, plain, args)
+            if layout == "mm_db":
+                with torch.no_grad():
+                    again = kern(*args)
+                torch.cuda.synchronize()
+                print(f"phase 2 {name}: two calls equal bit for bit: {torch.equal(got, again)}",
+                      flush=True)
+                if not torch.equal(got, again):
+                    fail(f"{name} differs between two calls on the same inputs")
+                del again
+            del got
+            if layout != "mm_da":  # the redesigned layouts, off the production chunk
+                for m in MM_ODD_ROWS:
+                    if m < args[0].shape[0]:
+                        odd = (args[0][:m], args[1] if layout == "mm" else args[1][:m])
+                        mm_check(f"{name} at {m} rows", layout, kern, plain, odd)
+            rows_m, depth, cols = x.shape[0], x.shape[1], y.shape[1]
+            n_bytes, n_ops = nbytes(*args) + 4 * rows_m * cols, 2.0 * rows_m * depth * cols
+            x16, y16 = x.to(torch.bfloat16), y.to(torch.bfloat16)
+            lib_ms = time_ms(lambda: lib_call(x16, y16))
+            cast_ms = time_ms(lambda: lib_call(x.to(torch.bfloat16), y.to(torch.bfloat16)))
+            del x16, y16
+            # the forward sums in k order on the CUDA cores: float32 fmas,
+            # whose time is its floor (above its byte bound for l1, l2);
+            # da and db use the tensor cores' bf16 rate
+            fwd = layout == "mm"
+            row = kernel_row(name, src, jax_src, abs_err, time_ms(lambda: kern(*args)),
+                             time_ms(lambda: plain(*args), reps=5), n_bytes, n_ops,
+                             library_ms=lib_ms,
+                             peak_ops=PEAK_F32_OPS_PER_S if fwd else PEAK_BF16_OPS_PER_S)
+            held = ("the fma floor (k order on the CUDA cores)" if fwd and row["bound_by"] ==
+                    "operations" else "the byte bound")
+            print(f"phase 2 {name}: byte bound {n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms, "
+                  f"float32 fma floor {n_ops / PEAK_F32_OPS_PER_S * 1e3:.4f} ms, bf16 tensor "
+                  f"floor {n_ops / PEAK_BF16_OPS_PER_S * 1e3:.4f} ms; held to {held}; library "
+                  f"call {lib_ms:.4f} ms, {cast_ms:.4f} ms with the casts of the float32 "
+                  "operands", flush=True)
             n_in = model.shader.l1.in_features
             if {"mm": x.shape[1], "mm_da": y.shape[1], "mm_db": x.shape[0]}[layout] == n_in:
                 rows[f"K10 {row_name}"] = row  # l1's product, its da and its db

@@ -13,15 +13,16 @@
 // and every sum is float32, so this and the plain version
 // (ops/mm.py::mixed_mm_plain) differ only in the order of the float32 sums.
 //
-// Bound on the card: bytes.  At the production chunk (M = 1,048,576 rows)
-// the forward of l1 reads 629 MB of float32 operand and writes 537 MB
-// (0.35 ms at 3.35 TB/s) for 40 GFLOP (0.04 ms at 989 TFLOP/s in bf16,
-// 0.6 ms at 67 TFLOP/s in float32); every other layer and layout is thinner
-// still.  So the kernels read the float32 operands once and round them to
-// bf16 in registers while staging them in shared memory (no cast pass),
-// and write float32 straight from the accumulators.
+// Bound on the card.  At the production chunk (M = 1,048,576 rows) l1's
+// layouts each move about 1.17 GB of float32 operand and result (0.35 ms at
+// 3.35 TB/s) for 40 GFLOP: 0.04 ms at 989 TFLOP/s in bf16, but 0.6 ms as
+// float32 fmas on the CUDA cores (132 SMs x 128 lanes at 1.98 GHz).  So da
+// and db, on the tensor cores, are bound by bytes: they read the float32
+// operands once and round them to bf16 on the way to the tensor cores (no
+// cast pass).  The forward sums on the CUDA cores (below), where l1's and
+// l2's fmas take longer than their bytes: its floor is the fma time.
 //
-// Forward (mm_fwd_kernel<TN>): the CUDA cores, in k order.  Each output is
+// Forward: the CUDA cores, in k order.  Each output is
 // acc = fma(bf16(a_k), bf16(b_k), acc) from 0 over k = 0, 1, ..., the
 // float32 sum of exact products taken left to right, which the plain
 // version repeats bit for bit.  The tensor cores add their 16 products and
@@ -33,10 +34,22 @@
 // difference grows through the MLP.  With the forward on the tensor cores
 // the shader's rgb differed from the plain version's by up to 5.1e-4 a
 // sample and the render by 1.5e-5 (700 W; chip_smoke phase 7b allows
-// 1e-5).  A block holds b's block of 16 TN columns for the whole depth in
-// shared memory (float32 of the bf16 values, loaded once: a persistent grid
-// over row tiles) and stages a's rows 32 of depth at a time, the next chunk
-// prefetched into registers; a thread owns TM rows x TN columns.
+// 1e-5).  Two kernels (ops/mm.py::fwd_layout picks one):
+//  - wide (mm_fwd_kernel<CT, RG, CG, NT>, N > 16): a thread owns 16 rows x
+//    8 columns (the shader's 128 columns, two blocks of 128 threads an SM)
+//    or 8 x 4 (the basis's 54 in 64, four blocks), each k-step reading its
+//    operands as float4s from shared memory; a's chunks 32 deep staged
+//    through registers one chunk ahead (below).
+//  - narrow (mm_fwd_narrow_kernel<NW, VEC>, N <= 16: l3's 3 columns): a
+//    thread owns one row and all NW >= N columns, so no column is wasted
+//    past 4 or 16, and streams its row from device memory.
+// Drafts that lost on the card (H100 80GB HBM3): a's chunks copied by
+// 4-byte cp.async and rounded in place (the copies could not keep up with
+// the fmas); 16-byte cp.async pieces into a landing buffer transposed by a
+// second pass, interleaved with the fmas or not (no faster than staging
+// through registers); 8 x 8 a thread (the fmas at about half their rate,
+// as in the earlier design); one block of 256 threads an SM at 16 x 8
+// (its barriers idle the SM; two blocks of 128 hide each other's staging).
 //
 // da (mm_rows_kernel<NT>, b^T as its (N, K) operand): the tensor cores
 // (mma.sync m16n8k16, bf16 x bf16 -> float32), fed from shared memory by
@@ -52,13 +65,27 @@
 // 135, 128, ...): tiles past N are skipped, rows past M are neither read
 // nor written.
 //
-// Reduce layout (db): mm_db_kernel<TPW>.  The reduction runs over the M
-// rows, so each block sums a contiguous range of rows into a partial
-// (K, N) tile held in its warps' accumulators (the m16 x n8 tiles of K x N,
-// up to TPW a warp, more tiles in further block groups that run beside it),
-// staging 32 rows of a and dout a time as they lie and taking the
-// transposed fragments with ldmatrix .trans; a second kernel adds the
-// partials in block order, so the result does not depend on scheduling.
+// Reduce layout (db): mm_db_kernel<S, WK>.  The reduction runs over the M
+// rows, so each block sums a contiguous range of rows into a partial (K, N)
+// tile and a second kernel (mm_db_sum_kernel) adds the partials in range
+// order: the result does not depend on scheduling, the same bits every
+// run.  One block holds a whole group of outputs (160 x 128 for l1, the
+// hoist and the basis; 256 x 16 for l3's 3 columns), so every row of a and
+// dout is read from device memory once, in the accumulators of 16 warps;
+// about one block an SM.  A stage is 32 rows of a and of dout as they lie
+// (float32; a row of 150 floats is 600 bytes, not a multiple of 16, but 32
+// rows from a multiple of 4 rows are one 16-byte aligned range), copied by
+// all threads in 16-byte cp.async pieces (the last 1-3 floats of a tail
+// range by plain loads: ops/mm.py::bulk_copy) into a ring of S = 2-4
+// stages; each stage is rounded to bf16 (round to nearest even) into one of
+// two tiles laid out for ldmatrix .trans while the tensor cores (mma.sync)
+// take the other: one barrier a stage.  The products are ~40 GFLOP at most,
+// far under the tensor rate: the ring keeps the bytes in flight.  (A
+// first draft fed the ring with 1-D bulk copies (cp.async.bulk, the TMA
+// engine) from a producer warp to 8 consumer warps: 0.68 ms for l1, about
+// 2.4 us a stage whatever its bytes; with cp.async and 8 warps 0.59, where
+// the rounding and the tensor cores alone took longer than the copies: 16
+// warps hide their latency, 0.47; egonerf_torch/tools/mm_ab.py.)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,7 +94,6 @@ namespace {
 
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kRows = 128;      // rows layout: a block's row tile, 16 rows a warp
-constexpr int kDepth = 32;      // reduce layout: rows of one staged chunk, two k16 steps
 constexpr int kPad = 8;         // bf16 padding of a shared row (see row_stride)
 
 // A shared row of 32q (+ 8) bf16 is 16q + 4 words: the 8 rows x 4 words of
@@ -215,52 +241,90 @@ mm_rows_kernel(const float* __restrict__ a, long long m, int k, const float* __r
 }
 
 // ---------------------------------------------------------------------------
-// forward: c (M, N) = bf16(a) (M, K) @ bf16(b) (K, N), each output summed
-// in k order with fma from 0; a row-major contiguous, b at element strides
-// (sbk, sbn), c row-major contiguous.  A thread owns TM rows x TN columns,
-// a block 16 TM rows x 16 TN columns.  grid: (persistent blocks, column
-// blocks of 16 TN); dynamic shared memory: b's block [kpad][16 TN] and one
-// a chunk transposed [32][16 TM + 4], float32.  A warp holds 4 column
-// groups x 8 row groups, so that its k-step reads 4 distinct stretches of
-// b's row and 8 of a's column, 16 bytes a load (with 16 column groups a
-// warp the loads of b's row kept the shared memory busier than the fmas).
+// asynchronous copies (cp.async): global -> shared without registers,
+// completed by cp.async.wait_group for the issuing thread
 // ---------------------------------------------------------------------------
-template <int TN, int TM>
-__global__ void __launch_bounds__(kThreads, TN >= 8 ? 1 : 2)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, both addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// the issuing thread's groups but the newest N have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// forward, wide: c (M, N) = bf16(a) (M, K) @ bf16(b) (K, N), each output
+// summed in k order with fma from 0; a row-major contiguous, b at element
+// strides (sbk, sbn), c row-major contiguous.  The kWideThreads threads
+// form CT = 16 columns x RT = 8 rows; a thread owns rows 4 RT g + 4 ty + i
+// (g < RG, i < 4) and columns 4 CT h + 4 tx + j (h < CG, j < 4) of its
+// block's tile of 4 RG RT rows x 4 CG CT columns, so that a warp's 8 row
+// groups read 128 contiguous bytes of the transposed a chunk and its 4
+// column groups 64 of b's row.  b's block of columns stays in shared memory for the whole depth
+// (float32 of the bf16 values, loaded once: a persistent grid over row
+// tiles).  a comes 32 deep a chunk: a thread loads its values of the next
+// chunk into registers (32 consecutive floats a warp) before the fmas of
+// this one and rounds them to bf16 into the transposed chunk [32][rows +
+// 4] between two barriers; a second block on the SM runs its fmas across
+// those barriers.  A full chunk's k loop has a constant trip count
+// (unrolled by 8); the last one stops at K.
+// ---------------------------------------------------------------------------
+constexpr int kFwdDepth = 32;  // a chunk's depth
+
+__host__ __device__ constexpr int round4(int k) { return (k + 3) & ~3; }
+
+constexpr int kWideThreads = 128;  // two blocks an SM at 16 x 8 a thread, four at 8 x 4
+
+template <int RG, int CG>
+__global__ void __launch_bounds__(kWideThreads, 2)
 mm_fwd_kernel(const float* __restrict__ a, long long m, int k, const float* __restrict__ b,
               long long sbk, long long sbn, int n, float* __restrict__ c) {
-  constexpr int kCols = 16 * TN, kRowsOf = TM, kTile = 16 * TM;
-  constexpr int kALd = kTile + 4;  // a chunk's column: 16-byte aligned, 4 banks a step
+  constexpr int NT = kWideThreads, CT = 16, RT = NT / CT;
+  constexpr int kTile = 4 * RG * RT, kCols = 4 * CG * CT;
+  constexpr int kALd = kTile + 4;
+  constexpr int kPer = kTile * kFwdDepth / NT;  // values a thread stages a chunk
   extern __shared__ __align__(16) float fsmem[];
-  const int kpad = (k + kDepth - 1) / kDepth * kDepth;
-  float* bs = fsmem;                // [kpad][kCols]
-  float* as = bs + kpad * kCols;    // [kDepth][kALd]: as[kk][row]
+  const int k4 = round4(k);
+  float* bs = fsmem;             // [k4][kCols]
+  float* as = bs + k4 * kCols;   // [kFwdDepth][kALd]: as[kk][row]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tx = (warp & 3) * 4 + (lane & 3), ty = (warp >> 2) * 8 + (lane >> 2);
+  const int tx = (warp % (CT / 4)) * 4 + (lane & 3), ty = (warp / (CT / 4)) * 8 + (lane >> 2);
   const int n0 = blockIdx.y * kCols;
 
-  for (int f = threadIdx.x; f < kpad * kCols; f += kThreads) {
+  for (int f = threadIdx.x; f < k4 * kCols; f += NT) {
     const int kk = f / kCols, nn = f - kk * kCols;
     bs[f] = (kk < k && n0 + nn < n) ? bf16_value(__ldg(b + kk * sbk + (long long)(n0 + nn) * sbn))
                                     : 0.0f;
   }
   const long long tiles = (m + kTile - 1) / kTile;
-  const int chunks = kpad / kDepth;
-  // a thread's 2 TM values of a chunk: column `lane`, rows warp + 8 i
-  float pa[kTile / 8];
+  const int chunks = (k4 + kFwdDepth - 1) / kFwdDepth;
+  // a thread's values of a chunk: depth `lane`, rows warp + (NT / 32) i
+  float pa[kPer];
   auto load = [&](long long tile, int chunk) {
-    const int kk = chunk * kDepth + lane;
+    const int kk = chunk * kFwdDepth + lane;
 #pragma unroll
-    for (int i = 0; i < kTile / 8; ++i) {
-      const long long r = tile * kTile + warp + 8 * i;
+    for (int i = 0; i < kPer; ++i) {
+      const long long r = tile * kTile + warp + NT / 32 * i;
       pa[i] = (r < m && kk < k) ? __ldg(a + r * k + kk) : 0.0f;
     }
   };
-  float acc[kRowsOf][TN];
+  float acc[4 * RG][4 * CG];
 #pragma unroll
-  for (int i = 0; i < kRowsOf; ++i) {
+  for (int i = 0; i < 4 * RG; ++i) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4 * CG; ++j) acc[i][j] = 0.0f;
   }
   long long tile = blockIdx.x;
   int chunk = 0;
@@ -268,7 +332,7 @@ mm_fwd_kernel(const float* __restrict__ a, long long m, int k, const float* __re
   while (tile < tiles) {
     __syncthreads();  // the last chunk is read (and b is staged)
 #pragma unroll
-    for (int i = 0; i < kTile / 8; ++i) as[lane * kALd + warp + 8 * i] = bf16_value(pa[i]);
+    for (int i = 0; i < kPer; ++i) as[lane * kALd + warp + NT / 32 * i] = bf16_value(pa[i]);
     __syncthreads();
     long long next_tile = tile;
     int next_chunk = chunk + 1;
@@ -276,53 +340,56 @@ mm_fwd_kernel(const float* __restrict__ a, long long m, int k, const float* __re
       next_chunk = 0;
       next_tile += gridDim.x;
     }
-    if (next_tile < tiles) load(next_tile, next_chunk);  // in flight during the products
-    const float* brow = bs + chunk * kDepth * kCols + tx * TN;
+    if (next_tile < tiles) load(next_tile, next_chunk);  // in flight during the fmas
+    const float* ab = as + ty * 4;
+    const float* bb = bs + chunk * kFwdDepth * kCols + tx * 4;
+    auto step = [&](int kk) {
+      float av[4 * RG], bv[4 * CG];
+#pragma unroll
+      for (int g = 0; g < RG; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(ab + kk * kALd + 4 * RT * g);
+        av[4 * g] = v.x, av[4 * g + 1] = v.y, av[4 * g + 2] = v.z, av[4 * g + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < CG; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(bb + kk * kCols + 4 * CT * h);
+        bv[4 * h] = v.x, bv[4 * h + 1] = v.y, bv[4 * h + 2] = v.z, bv[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4 * RG; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4 * CG; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+      }
+    };
+    // a full chunk with a constant trip count, the last one to K
+    const int depth = k - chunk * kFwdDepth;
+    if (depth >= kFwdDepth) {
+#pragma unroll 8
+      for (int kk = 0; kk < kFwdDepth; ++kk) step(kk);
+    } else {
 #pragma unroll 4
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float av[kRowsOf], bv[TN];
-#pragma unroll
-      for (int q = 0; q < kRowsOf / 4; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(as + kk * kALd + ty * kRowsOf + 4 * q);
-        av[4 * q] = v.x, av[4 * q + 1] = v.y, av[4 * q + 2] = v.z, av[4 * q + 3] = v.w;
-      }
-      // b's row kk, the thread's TN columns: 16-byte loads where TN allows
-      if constexpr (TN % 4 == 0) {
-#pragma unroll
-        for (int q = 0; q < TN / 4; ++q) {
-          const float4 v = *reinterpret_cast<const float4*>(brow + kk * kCols + 4 * q);
-          bv[4 * q] = v.x, bv[4 * q + 1] = v.y, bv[4 * q + 2] = v.z, bv[4 * q + 3] = v.w;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < TN; ++j) bv[j] = brow[kk * kCols + j];
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsOf; ++i) {
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-      }
+      for (int kk = 0; kk < depth; ++kk) step(kk);
     }
     if (chunk == chunks - 1) {
 #pragma unroll
-      for (int i = 0; i < kRowsOf; ++i) {
-        const long long r = tile * kTile + ty * kRowsOf + i;
-        const int col0 = n0 + tx * TN;
-        float* dst = c + r * n + col0;
-        if (TN % 4 == 0 && r < m && col0 + TN <= n && ((r * n + col0) & 3) == 0) {
+      for (int i = 0; i < 4 * RG; ++i) {
+        const long long r = tile * kTile + 4 * RT * (i / 4) + ty * 4 + (i % 4);
 #pragma unroll
-          for (int q = 0; q < TN / 4; ++q) {
-            reinterpret_cast<float4*>(dst)[q] = make_float4(acc[i][4 * q], acc[i][4 * q + 1],
-                                                            acc[i][4 * q + 2], acc[i][4 * q + 3]);
-          }
-        } else if (r < m) {
+        for (int h = 0; h < CG; ++h) {
+          const int col0 = n0 + 4 * CT * h + tx * 4;
+          float* out = c + r * n + col0;
+          if (r < m && col0 + 4 <= n && ((r * n + col0) & 3) == 0) {
+            *reinterpret_cast<float4*>(out) = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                                          acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          } else if (r < m) {
 #pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            if (col0 + j < n) dst[j] = acc[i][j];
+            for (int j = 0; j < 4; ++j) {
+              if (col0 + j < n) out[j] = acc[i][4 * h + j];
+            }
           }
         }
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+        for (int j = 0; j < 4 * CG; ++j) acc[i][j] = 0.0f;
       }
     }
     tile = next_tile;
@@ -331,16 +398,65 @@ mm_fwd_kernel(const float* __restrict__ a, long long m, int k, const float* __re
 }
 
 // ---------------------------------------------------------------------------
-// reduce layout: part[s] (K, N) = bf16(a)^T @ bf16(d) over rows
-// [s rows_per_block, (s + 1) rows_per_block) of a (M, K) and d (M, N), both
-// row-major contiguous.  The m16 x n8 tiles of K x N in row-major order;
-// tile group blockIdx.x takes tiles [8 per_warp x, 8 per_warp (x + 1)) and
-// warp w the per_warp (<= TPW) consecutive tiles from there.  32 rows of a
-// and of d are staged a time as they lie (row-major bf16; lane c of a warp
-// on column c, so the loads are coalesced and the stores conflict-free),
-// and ldmatrix .trans hands the tensor cores a^T's and d's fragments from
-// them.  Dynamic shared memory: 32 rows of ld_a and of ld_d bf16.
+// forward, narrow (N <= NW <= 16): a thread owns one row of c and all its
+// columns, summed in k order with fma from 0, reading its row of a from
+// device memory 16 bytes at a time where K and a allow (VEC = 4; else one
+// float): the 32 lines a warp's load touches are read whole over its next
+// loads, from L1.  A persistent grid of kNarrowBlocks blocks an SM keeps
+// 1,024 rows in flight: with 2,048 (8 blocks, the most that fit) the rows'
+// lines evicted each other before their last use (slower than the earlier
+// 16-column wide kernel on the card).  b's values [K][NW] are in shared memory, read as
+// broadcast float4s.
 // ---------------------------------------------------------------------------
+constexpr int kNarrowThreads = 256, kNarrowBlocks = 4;
+
+template <int NW, int VEC>
+__global__ void __launch_bounds__(kNarrowThreads)
+mm_fwd_narrow_kernel(const float* __restrict__ a, long long m, int k, const float* __restrict__ b,
+                     long long sbk, long long sbn, int n, float* __restrict__ c) {
+  extern __shared__ __align__(16) float fsmem[];
+  float* bs = fsmem;  // [k][NW]
+  for (int f = threadIdx.x; f < k * NW; f += kNarrowThreads) {
+    const int kk = f / NW, nn = f - kk * NW;
+    bs[f] = nn < n ? bf16_value(__ldg(b + kk * sbk + nn * sbn)) : 0.0f;
+  }
+  __syncthreads();
+  for (long long r = (long long)blockIdx.x * kNarrowThreads + threadIdx.x; r < m;
+       r += (long long)gridDim.x * kNarrowThreads) {
+    const float* arow = a + r * k;
+    float acc[NW];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) acc[j] = 0.0f;
+    auto step_k = [&](float av, int kk) {
+#pragma unroll
+      for (int q = 0; q < NW / 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + kk * NW + 4 * q);
+        acc[4 * q] = __fmaf_rn(av, v.x, acc[4 * q]);
+        acc[4 * q + 1] = __fmaf_rn(av, v.y, acc[4 * q + 1]);
+        acc[4 * q + 2] = __fmaf_rn(av, v.z, acc[4 * q + 2]);
+        acc[4 * q + 3] = __fmaf_rn(av, v.w, acc[4 * q + 3]);
+      }
+    };
+    if (VEC == 4) {
+#pragma unroll 4
+      for (int kk = 0; kk < k; kk += 4) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(arow + kk));
+        step_k(bf16_value(v.x), kk);
+        step_k(bf16_value(v.y), kk + 1);
+        step_k(bf16_value(v.z), kk + 2);
+        step_k(bf16_value(v.w), kk + 3);
+      }
+    } else {
+#pragma unroll 8
+      for (int kk = 0; kk < k; ++kk) step_k(bf16_value(__ldg(arow + kk)), kk);
+    }
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (j < n) c[r * n + j] = acc[j];
+    }
+  }
+}
+
 // a padded row of bf16 for ldmatrix: a whole number of 16-byte units, odd,
 // so that the 8 rows of one 8x8 matrix fall on 8 distinct bank groups
 __host__ __device__ constexpr int ldm_stride(int width) {
@@ -354,110 +470,171 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t f[4], const __nv_bflo
                : "r"(addr));
 }
 
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t f[2], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(f[0]), "=r"(f[1])
-               : "r"(addr));
+// ---------------------------------------------------------------------------
+// reduce layout: part[s] (K, N) = bf16(a)^T @ bf16(d) over rows
+// [s rows_per_block, (s + 1) rows_per_block) of a (M, K) and d (M, N), both
+// row-major contiguous and 16-byte aligned, rows_per_block a multiple of
+// kDbRows.  blockIdx.y is the block's group of outputs; its 16 warps
+// stand WK along K by 16 / WK along N, each over MT x 2 m16n8 tiles: WK = 2,
+// MT = 5 (groups of 160 x 128: l1, the hoist, the basis) or WK = 16,
+// MT = 1 (256 x 16: l3's 3 columns, whose one n8 tile would otherwise
+// leave the products to 2 warps).  A stage of the ring is kDbRows rows of
+// a then of d as they lie (float32: one contiguous range each, copied in
+// 16-byte pieces, the last (rows K) % 4 floats of a tail by plain loads);
+// the bf16 tiles are kDbRows rows of ldm_stride(K) and of ldm_stride(N),
+// zero past the stage's rows and past K and N (to 16).  Iteration i waits
+// for stage i, puts stage i + S - 1 in flight, rounds stage i into tile
+// i % 2 and feeds the tensor cores from tile (i - 1) % 2: one barrier a
+// stage.  Dynamic shared memory (db_smem): the ring and two tiles.
+// ---------------------------------------------------------------------------
+constexpr int kDbRows = 32;           // rows a stage: two k16 steps
+constexpr int kDbThreads = 512;       // 16 warps
+constexpr int kDbNT = 2;              // n8 tiles a warp
+
+// a group's outputs along K and N for WK warps along K
+__host__ __device__ constexpr int db_mt(int wk) { return wk == 2 ? 5 : 1; }
+__host__ __device__ constexpr int db_group_k(int wk) { return 16 * db_mt(wk) * wk; }
+__host__ __device__ constexpr int db_group_n(int wk) { return 8 * kDbNT * (16 / wk); }
+
+__host__ __device__ constexpr int round16(int w) { return (w + 15) / 16 * 16; }
+
+// `floats` contiguous floats from src (16-byte aligned) to dst: 16-byte
+// cp.async pieces, the last floats % 4 by plain loads
+__device__ __forceinline__ void copy_range(float* dst, const float* src, int floats) {
+  const int pieces = floats / 4;
+  for (int p = threadIdx.x; p < pieces; p += kDbThreads) cp_async16(dst + 4 * p, src + 4 * p);
+  for (int e = 4 * pieces + threadIdx.x; e < floats; e += kDbThreads) dst[e] = __ldg(src + e);
 }
 
-// rows [r0, r0 + rows) of a row-major (M, width) float32 matrix into
-// rows 0 .. 31 of `dst` (row stride ld) as bf16; zeros past rows and width.
-// A batch of 5 column passes (160 columns) issues all its 20 loads a
-// thread before the first store, so they are in flight together.
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld, const float* src, long long r0,
-                                           int rows, int width, int warp, int lane) {
-  constexpr int kPass = 5, kRowsOf = kDepth / 8;
-  const int padded = (width + 15) / 16 * 16;
-  for (int c0 = 0; c0 < padded; c0 += 32 * kPass) {
-    float v[kPass][kRowsOf];
+// rows [0, kDbRows) of a stage's (rows, width) float32 block as bf16 into
+// the tile `dst` (row stride ld): warp w takes rows w and w + 16, lane l
+// the column pairs 2 l + 64 q; zeros past `rows` and past `width` (to 16)
+__device__ __forceinline__ void round_rows(__nv_bfloat16* dst, int ld, const float* src, int rows,
+                                           int width, int warp, int lane) {
+  const int padded = round16(width);
+  for (int col = 2 * lane; col < padded; col += 64) {
 #pragma unroll
-    for (int p = 0; p < kPass; ++p) {
-#pragma unroll
-      for (int i = 0; i < kRowsOf; ++i) {
-        const int c = c0 + 32 * p + lane, r = warp + 8 * i;
-        v[p][i] = (r < rows && c < width) ? __ldg(src + (r0 + r) * width + c) : 0.0f;
+    for (int q = 0; q < kDbRows / 16; ++q) {
+      const int r = warp + 16 * q;
+      const float* row = src + r * width;
+      float2 v = make_float2(0.0f, 0.0f);
+      if (r < rows) {
+        if ((width & 1) == 0) {
+          if (col < width) v = *reinterpret_cast<const float2*>(row + col);
+        } else {
+          if (col < width) v.x = row[col];
+          if (col + 1 < width) v.y = row[col + 1];
+        }
       }
-    }
-#pragma unroll
-    for (int p = 0; p < kPass; ++p) {
-#pragma unroll
-      for (int i = 0; i < kRowsOf; ++i) {
-        const int c = c0 + 32 * p + lane;
-        if (c < padded) dst[(warp + 8 * i) * ld + c] = __float2bfloat16_rn(v[p][i]);
-      }
+      *reinterpret_cast<__nv_bfloat162*>(dst + r * ld + col) = __floats2bfloat162_rn(v.x, v.y);
     }
   }
 }
 
-template <int TPW>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int S, int WK>
+__global__ void __launch_bounds__(kDbThreads, 1)
 mm_db_kernel(const float* __restrict__ a, const float* __restrict__ d, long long m, int k, int n,
-             long long rows_per_block, int per_warp, float* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
+             long long rows_per_block, float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int ld_a = ldm_stride(k), ld_d = ldm_stride(n);
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);  // [32][ld_a]
-  __nv_bfloat16* ds = as + kDepth * ld_a;                       // [32][ld_d]
+  const int stage_floats = kDbRows * (k + n);  // a multiple of 32: 128-byte aligned stages
+  float* ring = reinterpret_cast<float*>(smem);
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(ring + S * stage_floats);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int tiles_n = (n + 7) / 8, tiles = (k + 15) / 16 * tiles_n;
-  const int first = (blockIdx.x * 8 + warp) * per_warp;
-  const long long r_begin = blockIdx.y * rows_per_block;
+  const int mrow = lane & 7, mat = lane >> 3;  // ldmatrix: lane l gives row l % 8 of matrix l / 8
+  const long long r_begin = blockIdx.x * rows_per_block;
   const long long r_end = min(m, r_begin + rows_per_block);
-  // ldmatrix row addresses: lane l gives row l % 8 of 8x8 matrix l / 8
-  const int mrow = lane & 7, mat = lane >> 3;
-
-  float acc[TPW][4];
+  const int iters = (int)((r_end - r_begin + kDbRows - 1) / kDbRows);
+  auto rows_of = [&](int i) {
+    return (int)min((long long)kDbRows, r_end - r_begin - (long long)i * kDbRows);
+  };
+  // stage i's rows into slot i % S (an empty group past the last)
+  auto issue = [&](int i) {
+    if (i < iters) {
+      const long long r0 = r_begin + (long long)i * kDbRows;
+      float* dst = ring + (i % S) * stage_floats;
+      copy_range(dst, a + r0 * k, rows_of(i) * k);
+      copy_range(dst + kDbRows * k, d + r0 * n, rows_of(i) * n);
+    }
+    cp_async_commit();
+  };
+  constexpr int kDbMT = db_mt(WK), WN = 16 / WK;
+  const int groups_n = (n + db_group_n(WK) - 1) / db_group_n(WK);
+  const int mi0 = (blockIdx.y / groups_n) * (db_group_k(WK) / 16) + (warp / WN) * kDbMT;
+  const int ni0 = (blockIdx.y % groups_n) * (db_group_n(WK) / 8) + (warp % WN) * kDbNT;
+  const int mtiles = (k + 15) / 16, ntiles = (n + 7) / 8;
+  float acc[kDbMT][kDbNT][4];
 #pragma unroll
-  for (int j = 0; j < TPW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-
-  for (long long r0 = r_begin; r0 < r_end; r0 += kDepth) {
-    const int rows = (int)min((long long)kDepth, r_end - r0);
-    __syncthreads();
-    stage_rows(as, ld_a, a, r0, rows, k, warp, lane);
-    stage_rows(ds, ld_d, d, r0, rows, n, warp, lane);
-    __syncthreads();
+  for (int i = 0; i < kDbMT; ++i) {
 #pragma unroll
-    for (int ks = 0; ks < kDepth; ks += 16) {
-      int mi = first / tiles_n, ni = first - mi * tiles_n, loaded = -1;
-      uint32_t fa[4];
-#pragma unroll
-      for (int j = 0; j < TPW; ++j) {
-        if (j < per_warp && first + j < tiles) {
-          if (mi != loaded) {
-            // a^T's m16 x k16 fragment at (kk = 16 mi, r = ks): matrices
-            // (kk, r), (kk + 8, r), (kk, r + 8), (kk + 8, r + 8)
-            ldmatrix_x4_trans(fa, as + (ks + mrow + 8 * (mat >> 1)) * ld_a + 16 * mi +
-                                      8 * (mat & 1));
-            loaded = mi;
-          }
-          // d's k16 x n8 fragment at (r = ks, nn = 8 ni): matrices r, r + 8
-          uint32_t fb[2];
-          ldmatrix_x2_trans(fb, ds + (ks + mrow + 8 * (mat & 1)) * ld_d + 8 * ni);
-          mma_bf16(acc[j], fa, fb);
-        }
-        if (++ni == tiles_n) {
-          ni = 0;
-          ++mi;
-        }
-      }
+    for (int j = 0; j < kDbNT; ++j) {
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
     }
   }
-  float* out = part + blockIdx.y * (long long)k * n;
-  int mi = first / tiles_n, ni = first - mi * tiles_n;
+  auto products = [&](const __nv_bfloat16* ta, const __nv_bfloat16* td) {
 #pragma unroll
-  for (int j = 0; j < TPW; ++j) {
-    if (j < per_warp && first + j < tiles) {
+    for (int ks = 0; ks < kDbRows; ks += 16) {
+      // d's k16 x n8 fragments at (r = ks, nn = 8 ni), two tiles a load:
+      // matrices (r, ni), (r + 8, ni), (r, ni + 1), (r + 8, ni + 1)
+      uint32_t fb[kDbNT][2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int kk = mi * 16 + g + 8 * h, nn = ni * 8 + 2 * t;
-        if (kk < k && nn < n) out[kk * n + nn] = acc[j][2 * h];
-        if (kk < k && nn + 1 < n) out[kk * n + nn + 1] = acc[j][2 * h + 1];
+      for (int j = 0; j < kDbNT; j += 2) {
+        if (ni0 + j < ntiles) {
+          uint32_t f[4];
+          ldmatrix_x4_trans(f, td + (ks + mrow + 8 * (mat & 1)) * ld_d + 8 * (ni0 + j) +
+                                   8 * (mat >> 1));
+          fb[j][0] = f[0], fb[j][1] = f[1], fb[j + 1][0] = f[2], fb[j + 1][1] = f[3];
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < kDbMT; ++mi) {
+        if (mi0 + mi < mtiles) {
+          // a^T's m16 x k16 fragment at (kk = 16 (mi0 + mi), r = ks):
+          // matrices (kk, r), (kk + 8, r), (kk, r + 8), (kk + 8, r + 8)
+          uint32_t fa[4];
+          ldmatrix_x4_trans(fa, ta + (ks + mrow + 8 * (mat >> 1)) * ld_a + 16 * (mi0 + mi) +
+                                    8 * (mat & 1));
+#pragma unroll
+          for (int j = 0; j < kDbNT; ++j) {
+            if (ni0 + j < ntiles) mma_bf16(acc[mi][j], fa, fb[j]);
+          }
+        }
       }
     }
-    if (++ni == tiles_n) {
-      ni = 0;
-      ++mi;
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) issue(s);
+  for (int i = 0; i <= iters; ++i) {
+    cp_async_wait<S - 2>();
+    // stage i is in place for every thread; iteration i - 1 has read its
+    // slot and written its tile, and iteration i - 2's tile is read
+    __syncthreads();
+    issue(i + S - 1);  // into the slot of stage i - 1
+    if (i < iters) {
+      __nv_bfloat16* ta = tiles + (i & 1) * kDbRows * (ld_a + ld_d);
+      const float* src = ring + (i % S) * stage_floats;
+      round_rows(ta, ld_a, src, rows_of(i), k, warp, lane);
+      round_rows(ta + kDbRows * ld_a, ld_d, src + kDbRows * k, rows_of(i), n, warp, lane);
+    }
+    if (i > 0) {
+      const __nv_bfloat16* ta = tiles + ((i - 1) & 1) * kDbRows * (ld_a + ld_d);
+      products(ta, ta + kDbRows * ld_a);
+    }
+  }
+  float* out = part + blockIdx.x * (long long)k * n;
+#pragma unroll
+  for (int mi = 0; mi < kDbMT; ++mi) {
+#pragma unroll
+    for (int j = 0; j < kDbNT; ++j) {
+      if (mi0 + mi < mtiles && ni0 + j < ntiles) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kk = (mi0 + mi) * 16 + g + 8 * h, nn = (ni0 + j) * 8 + 2 * t;
+          if (kk < k && nn < n) out[kk * n + nn] = acc[mi][j][2 * h];
+          if (kk < k && nn + 1 < n) out[kk * n + nn + 1] = acc[mi][j][2 * h + 1];
+        }
+      }
     }
   }
 }
@@ -509,52 +686,111 @@ int launch_rows(const float* a, long long m, int k, const float* b, long long sb
   return (int)cudaGetLastError();
 }
 
-template <int TPW>
-void launch_db(dim3 grid, size_t smem, cudaStream_t st, const float* a, const float* d,
-               long long m, int k, int n, long long rows_per_block, int per_warp, float* part) {
-  mm_db_kernel<TPW><<<grid, kThreads, smem, st>>>(a, d, m, k, n, rows_per_block, per_warp, part);
+
+// the forward's instantiations, in ops/mm.py::fwd_layout's order
+enum FwdLayout { kNarrow4 = 0, kNarrow16 = 1, kWide64 = 2, kWide128 = 3 };
+
+// the wide forward's shapes: 4 RG rows x 4 CG columns a thread, 16 thread
+// columns x 8 thread rows: 128 rows x 128 columns a block at 16 x 8 a
+// thread, 64 x 64 at 8 x 4
+constexpr int wide_rg(int layout) { return layout == kWide64 ? 2 : 4; }
+constexpr int wide_cg(int layout) { return layout == kWide64 ? 1 : 2; }
+
+size_t fwd_smem(int layout, int k) {
+  if (layout == kNarrow4 || layout == kNarrow16) {
+    return sizeof(float) * (size_t)k * (layout == kNarrow4 ? 4 : 16);
+  }
+  const int rows = 32 * wide_rg(layout), cols = 64 * wide_cg(layout);
+  return sizeof(float) * ((size_t)round4(k) * cols + (size_t)kFwdDepth * (rows + 4));
 }
 
-// the forward's columns a thread owns: 16 TN columns a block (16 for l3's
-// 3, 64 for the basis's 54, 128 for the shader's layers), more columns in
-// further column blocks
-int fwd_cols(int n) { return n <= 16 ? 1 : n <= 64 ? 4 : 8; }
-
-// a thread's rows (a multiple of 4: 16-byte loads of a's column)
-constexpr int fwd_rows(int tn) { return 8; }
-
-size_t fwd_smem(int tn, int k) {
-  const int kpad = (k + kDepth - 1) / kDepth * kDepth;
-  return sizeof(float) * ((size_t)kpad * 16 * tn + (size_t)kDepth * (16 * fwd_rows(tn) + 4));
+// kNarrowBlocks blocks an SM, at most one a tile of 256 rows; 16-byte loads
+// where K and a allow
+template <int NW>
+int launch_narrow(const float* a, long long m, int k, const float* b, long long sbk,
+                  long long sbn, int n, float* c, cudaStream_t st) {
+  if (n > NW) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem(NW == 4 ? kNarrow4 : kNarrow16, k);
+  int sms = 0;
+  cudaError_t err = (cudaError_t)sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (m + kNarrowThreads - 1) / kNarrowThreads;
+  const unsigned grid = (unsigned)max(1LL, min(tiles, (long long)kNarrowBlocks * sms));
+  auto kern = k % 4 == 0 && (uintptr_t)a % 16 == 0 ? mm_fwd_narrow_kernel<NW, 4>
+                                                   : mm_fwd_narrow_kernel<NW, 1>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kNarrowThreads, smem, st>>>(a, m, k, b, sbk, sbn, n, c);
+  return (int)cudaGetLastError();
 }
 
-template <int TN>
-int launch_fwd(const float* a, long long m, int k, const float* b, long long sbk, long long sbn,
-               int n, float* c, cudaStream_t st) {
-  constexpr int TM = fwd_rows(TN);
-  const size_t smem = fwd_smem(TN, k);
-  cudaError_t err = cudaFuncSetAttribute(mm_fwd_kernel<TN, TM>,
+// a persistent grid: as many blocks as fit on the card, at most one a row
+// tile and column block
+template <int L>
+int launch_wide(const float* a, long long m, int k, const float* b, long long sbk, long long sbn,
+                int n, float* c, cudaStream_t st) {
+  constexpr int RG = wide_rg(L), CG = wide_cg(L), kTile = 32 * RG, kCols = 64 * CG;
+  const size_t smem = fwd_smem(L, k);
+  cudaError_t err = cudaFuncSetAttribute(mm_fwd_kernel<RG, CG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int per_sm = 0, sms = 0;
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mm_fwd_kernel<TN, TM>, kThreads,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mm_fwd_kernel<RG, CG>,
+                                                        kWideThreads, smem);
   }
   if (err == cudaSuccess) err = (cudaError_t)sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const unsigned col_blocks = (unsigned)((n + 16 * TN - 1) / (16 * TN));
-  const long long tiles = (m + 16 * TM - 1) / (16 * TM);
+  const unsigned col_blocks = (unsigned)((n + kCols - 1) / kCols);
+  const long long tiles = (m + kTile - 1) / kTile;
   const long long room = (long long)per_sm * sms / col_blocks;
   const unsigned persistent = (unsigned)max(1LL, min(tiles, room));
-  mm_fwd_kernel<TN, TM><<<dim3(persistent, col_blocks), kThreads, smem, st>>>(a, m, k, b, sbk, sbn,
-                                                                             n, c);
+  mm_fwd_kernel<RG, CG><<<dim3(persistent, col_blocks), kWideThreads, smem, st>>>(a, m, k, b, sbk,
+                                                                                 sbn, n, c);
   return (int)cudaGetLastError();
 }
 
 // da's columns a block holds: 160 (all of l1's 150, x_fea's 135, the
 // basis's 144) or 128, more columns in further column blocks
 int rows_tiles(int n) { return n > 128 && n <= 160 ? 20 : 16; }
+
+// the reduce layout's shared memory: the ring of `stages` stages and two
+// bf16 tiles
+size_t db_smem(int k, int n, int stages) {
+  return sizeof(float) * (size_t)stages * kDbRows * (k + n) +
+         sizeof(__nv_bfloat16) * (size_t)2 * kDbRows * (ldm_stride(k) + ldm_stride(n));
+}
+
+template <int S, int WK>
+int launch_db(const float* a, const float* d, long long m, int k, int n,
+              long long rows_per_block, float* part, cudaStream_t st) {
+  const size_t smem = db_smem(k, n, S);
+  const long long splits = (m + rows_per_block - 1) / rows_per_block;
+  if (splits > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned groups = (unsigned)(((k + db_group_k(WK) - 1) / db_group_k(WK)) *
+                                     ((n + db_group_n(WK) - 1) / db_group_n(WK)));
+  cudaError_t err = cudaFuncSetAttribute(mm_db_kernel<S, WK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  mm_db_kernel<S, WK><<<dim3((unsigned)splits, groups), kDbThreads, smem, st>>>(
+      a, d, m, k, n, rows_per_block, part);
+  return (int)cudaGetLastError();
+}
+
+template <int WK>
+int launch_db_stages(int stages, const float* a, const float* d, long long m, int k, int n,
+                     long long rows_per_block, float* part, cudaStream_t st) {
+  switch (stages) {
+    case 2:
+      return launch_db<2, WK>(a, d, m, k, n, rows_per_block, part, st);
+    case 3:
+      return launch_db<3, WK>(a, d, m, k, n, rows_per_block, part, st);
+    case 4:
+      return launch_db<4, WK>(a, d, m, k, n, rows_per_block, part, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
@@ -569,45 +805,41 @@ extern "C" int mixed_mm_rows(const float* a, long long m, int k, const float* b,
   }
 }
 
+// layout: ops/mm.py::fwd_layout (0 narrow of 4 columns, 1 narrow of 16,
+// 2 wide of 64 columns a block, 3 wide of 128)
 extern "C" int mixed_mm_fwd(const float* a, long long m, int k, const float* b, long long sbk,
-                            long long sbn, int n, float* c, void* stream) {
+                            long long sbn, int n, int layout, float* c, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (fwd_cols(n)) {
-    case 1:
-      return launch_fwd<1>(a, m, k, b, sbk, sbn, n, c, st);
-    case 4:
-      return launch_fwd<4>(a, m, k, b, sbk, sbn, n, c, st);
+  switch (layout) {
+    case kNarrow4:
+      return launch_narrow<4>(a, m, k, b, sbk, sbn, n, c, st);
+    case kNarrow16:
+      return launch_narrow<16>(a, m, k, b, sbk, sbn, n, c, st);
+    case kWide64:
+      return launch_wide<kWide64>(a, m, k, b, sbk, sbn, n, c, st);
+    case kWide128:
+      return launch_wide<kWide128>(a, m, k, b, sbk, sbn, n, c, st);
     default:
-      return launch_fwd<8>(a, m, k, b, sbk, sbn, n, c, st);
+      return (int)cudaErrorInvalidValue;
   }
 }
 
-// part: (splits, K, N) float32 scratch, splits = ceil(M / rows_per_block)
+// part: (splits, K, N) float32 scratch, splits = ceil(M / rows_per_block);
+// a and d 16-byte aligned, rows_per_block a multiple of 32, stages 2 to 4,
+// narrow 1 for 16 warps along K (ops/mm.py::db_row_ranges, db_stages,
+// db_layout)
 extern "C" int mixed_mm_db(const float* a, const float* d, long long m, int k, int n,
-                           long long rows_per_block, float* part, float* out, void* stream) {
+                           long long rows_per_block, int stages, int narrow, float* part,
+                           float* out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (k + 15) / 16 * ((n + 7) / 8);
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)kDepth * (ldm_stride(k) + ldm_stride(n));
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // ops/mm.py raises first
-  const unsigned splits = (unsigned)((m + rows_per_block - 1) / rows_per_block);
-  if (splits > 65535) return (int)cudaErrorInvalidValue;
-  // tile groups of at most 8 x 16 tiles, the tiles spread evenly over them
-  const int groups = (tiles + 127) / 128;
-  const int per_warp = (tiles + 8 * groups - 1) / (8 * groups);
-  const dim3 grid(groups, splits);  // a row range's groups run side by side
-  if (per_warp <= 4) {
-    launch_db<4>(grid, smem, st, a, d, m, k, n, rows_per_block, per_warp, part);
-  } else if (per_warp <= 8) {
-    launch_db<8>(grid, smem, st, a, d, m, k, n, rows_per_block, per_warp, part);
-  } else if (per_warp <= 12) {
-    launch_db<12>(grid, smem, st, a, d, m, k, n, rows_per_block, per_warp, part);
-  } else {
-    launch_db<16>(grid, smem, st, a, d, m, k, n, rows_per_block, per_warp, part);
+  if (rows_per_block <= 0 || rows_per_block % kDbRows || ((uintptr_t)a | (uintptr_t)d) % 16) {
+    return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = narrow ? launch_db_stages<16>(stages, a, d, m, k, n, rows_per_block, part, st)
+                         : launch_db_stages<2>(stages, a, d, m, k, n, rows_per_block, part, st);
+  if (err != 0) return err;
   const int size = k * n;
-  mm_db_sum_kernel<<<(size + kThreads - 1) / kThreads, kThreads, 0, st>>>(part, (int)splits, size,
-                                                                          out);
+  const int splits = (int)((m + rows_per_block - 1) / rows_per_block);
+  mm_db_sum_kernel<<<(size + kThreads - 1) / kThreads, kThreads, 0, st>>>(part, splits, size, out);
   return (int)cudaGetLastError();
 }

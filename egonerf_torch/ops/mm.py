@@ -28,10 +28,23 @@ import torch
 from .._build import check_launch, kernel
 from .._device import check_tensor
 
-# shared memory a block may use on the card, and the reduce layout's static
-# limit (csrc/mixed_mm.cu)
+# shared memory a block may use on the card (every layout sets its dynamic
+# limit to what it takes)
 _SMEM_LIMIT = 227 * 1024
-_DB_SMEM_LIMIT = 48 * 1024
+
+# the forward's instantiations, by index of the C entry point's `layout`
+# (csrc/mixed_mm.cu): narrow (a thread a row and all of 4 or 16 columns,
+# read from device memory) and wide ((rows, columns) a block of 128
+# threads: a thread 8 x 4 or 16 x 8), a's chunks 32 deep transposed in
+# shared memory
+FWD_LAYOUTS = ("narrow4", "narrow16", "wide64", "wide128")
+_FWD_DEPTH = 32
+_WIDE_TILES = {"wide64": (64, 64), "wide128": (128, 128)}
+# the reduce layout (db): rows a stage of its ring, the most stages, and
+# the K x N outputs one block holds in each of its warp layouts (16 warps:
+# 2 along K of 5 x 2 m16n8 tiles each, or 16 along K of 1 x 2 for N <= 16)
+DB_ROWS, DB_MAX_STAGES = 32, 4
+DB_GROUPS = {"wide": (160, 128), "narrow": (256, 16)}
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -59,12 +72,27 @@ def mixed_mm_db_plain(a: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return _bf16(a).t() @ _bf16(dout)
 
 
-def fwd_smem_bytes(k: int, n: int) -> int:
-    """Shared memory of one block of the forward for depth ``k`` and ``n``
-    output columns: b's block of 16 TN columns (TN = 1, 4 or 8) over the
-    depth padded to 32, and a 32 x 132 chunk of a, float32."""
-    tn = 1 if n <= 16 else 4 if n <= 64 else 8
-    return 4 * (-(-k // 32) * 32 * 16 * tn + 32 * (16 * 8 + 4))
+def fwd_layout(k: int, n: int) -> str:
+    """The forward's instantiation for depth ``k`` and ``n`` output columns:
+    the narrow one for n <= 16 (4 or 16 columns a thread), else the wide
+    one with 128 columns a block (further column blocks past 128), or 64
+    where n <= 64 or b's 128 columns over the depth do not fit."""
+    if n <= 16:
+        return "narrow4" if n <= 4 else "narrow16"
+    if n <= 64 or fwd_smem_bytes(k, "wide128") > _SMEM_LIMIT:
+        return "wide64"
+    return "wide128"
+
+
+def fwd_smem_bytes(k: int, layout: str) -> int:
+    """Shared memory of one block of the forward's ``layout`` for depth
+    ``k``, float32: narrow, b (K x 4 or 16); wide, b's block of columns
+    over K rounded up to 4 and a's transposed 32-deep chunk (rows + 4 a
+    depth)."""
+    if layout.startswith("narrow"):
+        return 4 * k * (4 if layout == "narrow4" else 16)
+    rows, cols = _WIDE_TILES[layout]
+    return 4 * (-(-k // 4) * 4 * cols + _FWD_DEPTH * (rows + 4))
 
 
 def rows_smem_bytes(k: int, n: int) -> int:
@@ -78,15 +106,57 @@ def rows_smem_bytes(k: int, n: int) -> int:
 
 
 def _ldm_stride(width: int) -> int:
-    """The reduce layout's padded shared row (csrc/mixed_mm.cu ldm_stride)."""
+    """The reduce layout's padded bf16 row (csrc/mixed_mm.cu ldm_stride)."""
     units = -(-width // 8)
     return units * 8 + (8 if units % 2 == 0 else 16)
 
 
-def db_smem_bytes(k: int, n: int) -> int:
-    """Shared memory of one block of the reduce layout: 32 rows of a and of
-    dout in bf16."""
-    return 2 * 32 * (_ldm_stride(k) + _ldm_stride(n))
+def db_smem_bytes(k: int, n: int, stages: int) -> int:
+    """Shared memory of one block of the reduce layout: a ring of
+    ``stages`` stages of DB_ROWS rows of a and of dout (float32) and two
+    bf16 tiles of DB_ROWS padded rows of each."""
+    return 4 * stages * DB_ROWS * (k + n) + 2 * 2 * DB_ROWS * (_ldm_stride(k) + _ldm_stride(n))
+
+
+def db_stages(k: int, n: int) -> int:
+    """The reduce layout's ring depth: DB_MAX_STAGES stages where they fit,
+    fewer for wide operands, never fewer than two (the kernel's
+    instantiations: 2, 3, 4)."""
+    stages = DB_MAX_STAGES
+    while stages >= 2 and db_smem_bytes(k, n, stages) > _SMEM_LIMIT:
+        stages -= 1
+    if stages < 2:
+        raise ValueError(f"K + N = {k} + {n} too large for the reduce layout's shared memory")
+    return stages
+
+
+def db_layout(n: int) -> str:
+    """The reduce layout's warps: along K only ("narrow") for N <= 16."""
+    return "narrow" if n <= 16 else "wide"
+
+
+def db_groups(k: int, n: int) -> int:
+    """Blocks that share a row range: one a group of outputs of
+    :func:`db_layout` (each reads every row of a and dout)."""
+    gk, gn = DB_GROUPS[db_layout(n)]
+    return -(-k // gk) * -(-n // gn)
+
+
+def db_row_ranges(m: int, sms: int, groups: int = 1) -> tuple:
+    """(rows a block, row ranges) of the reduce layout: about one block an
+    SM over all groups, each block over a contiguous range of a multiple of
+    DB_ROWS rows (so that every stage starts on a 16-byte boundary)."""
+    per_block = -(-m * groups // sms)
+    per_block = max(DB_ROWS, -(-per_block // DB_ROWS) * DB_ROWS)
+    return per_block, -(-m // per_block)
+
+
+def bulk_copy(rows: int, width: int) -> tuple:
+    """(bytes copied in 16-byte pieces, floats loaded plainly) for a stage
+    of ``rows`` rows of ``width`` float32, one contiguous range: the
+    largest multiple of 16 bytes and the last (rows * width) % 4 floats (a
+    tail of 150-float rows)."""
+    return rows * width // 4 * 16, rows * width % 4
 
 
 def _check_operand(name, t, shape, device=None):
@@ -104,12 +174,14 @@ def _check_operand(name, t, shape, device=None):
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
 
 
-# the forward's and the rows layout's C signature
+# the rows layout's C signature; the forward's adds its layout's index
 _ROWS_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p]
+_FWD_ARGS = _ROWS_ARGS[:7] + [ctypes.c_int] + _ROWS_ARGS[7:]
 _DB_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
 
 
 def _rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -138,22 +210,24 @@ def mixed_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a (M, K) float32, contiguous; b (K, N) float32 at any strides (a weight
     and its transpose view alike).  Returns (M, N) float32.  Replaces
     ``mixed_matmul``'s forward (egonerf_tpu/ops/mm.py:24-34).  Kernel:
-    csrc/mixed_mm.cu (mm_fwd_kernel).  CPU tensors take
-    :func:`mixed_mm_plain`."""
+    csrc/mixed_mm.cu (mm_fwd_kernel, or mm_fwd_narrow_kernel for N <= 16:
+    :func:`fwd_layout`).  CPU tensors take :func:`mixed_mm_plain`."""
     check_tensor("a", a, torch.float32, (None, None))
     _check_operand("b", b, (a.shape[1], None), a.device)
     if a.device.type == "cpu":
         return mixed_mm_plain(a, b)
     m, k = a.shape
     n = b.shape[1]
-    if fwd_smem_bytes(k, n) > _SMEM_LIMIT:
+    layout = fwd_layout(k, n)
+    if fwd_smem_bytes(k, layout) > _SMEM_LIMIT:
         raise ValueError(f"depth {k} too large for the forward's shared memory")
     c = torch.empty(m, n, dtype=torch.float32, device=a.device)
     if m and n:
-        fn = kernel("mixed_mm", "mixed_mm_fwd", _ROWS_ARGS)
+        fn = kernel("mixed_mm", "mixed_mm_fwd", _FWD_ARGS)
         dev = a.device
         with torch.cuda.device(dev):
-            err = fn(a.data_ptr(), m, k, b.data_ptr(), b.stride(0), b.stride(1), n, c.data_ptr(),
+            err = fn(a.data_ptr(), m, k, b.data_ptr(), b.stride(0), b.stride(1), n,
+                     FWD_LAYOUTS.index(layout), c.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
         check_launch("mixed_mm_fwd", err)
         mixed_mm.launches += 1
@@ -189,11 +263,13 @@ def mixed_mm_db(a: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """K10, the weight's gradient: ``bf16(a)^T @ bf16(dout)`` with float32
     accumulation over the M rows.
 
-    a (M, K) and dout (M, N) float32, contiguous.  Returns (K, N) float32.
-    The rows are split into ranges that blocks sum into partial (K, N)
-    tiles, which a second kernel adds in range order (the same bits every
-    run).  Replaces ``_bwd``'s ``db`` (egonerf_tpu/ops/mm.py:48-53).
-    Kernel: csrc/mixed_mm.cu (reduce layout).  CPU tensors take
+    a (M, K) and dout (M, N) float32, contiguous (an operand that does not
+    start on a 16-byte boundary is copied first: the kernel's bulk copies
+    need one).  Returns (K, N) float32.  The rows are split into ranges
+    (:func:`db_row_ranges`) that blocks sum into partial (K, N) tiles,
+    which a second kernel adds in range order (the same bits every run).
+    Replaces ``_bwd``'s ``db`` (egonerf_tpu/ops/mm.py:48-53).  Kernel:
+    csrc/mixed_mm.cu (reduce layout).  CPU tensors take
     :func:`mixed_mm_db_plain`."""
     check_tensor("a", a, torch.float32, (None, None))
     check_tensor("dout", dout, torch.float32, (a.shape[0], None), a.device)
@@ -201,23 +277,22 @@ def mixed_mm_db(a: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     n = dout.shape[1]
     if a.device.type == "cpu":
         return mixed_mm_db_plain(a, dout)
-    if db_smem_bytes(k, n) > _DB_SMEM_LIMIT:
-        raise ValueError(f"K + N = {k} + {n} too large for the reduce layout's shared memory")
+    stages = db_stages(k, n)
     out = torch.empty(k, n, dtype=torch.float32, device=a.device)
     if not (k and n):
         return out
     if m == 0:
         return out.zero_()
+    a, dout = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, dout))
     dev = a.device
-    # about two blocks an SM, each over a contiguous range of rows
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_block = max(32, -(-m // (2 * sms)))
-    splits = -(-m // per_block)
+    per_block, splits = db_row_ranges(m, sms, db_groups(k, n))
     part = torch.empty(splits, k, n, dtype=torch.float32, device=dev)
     fn = kernel("mixed_mm", "mixed_mm_db", _DB_ARGS)
     with torch.cuda.device(dev):
-        err = fn(a.data_ptr(), dout.data_ptr(), m, k, n, per_block, part.data_ptr(),
-                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(a.data_ptr(), dout.data_ptr(), m, k, n, per_block, stages,
+                 int(db_layout(n) == "narrow"), part.data_ptr(), out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     check_launch("mixed_mm_db", err)
     mixed_mm_db.launches += 1
     return out

@@ -44,7 +44,7 @@ OTHER_K4_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 
 
 def _edit(src: str, old: str, new: str) -> str:
     if src.count(old) != 1:
-        raise SystemExit(f"resample_ab: the edit does not apply: {old.splitlines()[0]!r}")
+        raise SystemExit(f"the edit does not apply: {old.splitlines()[0]!r}")
     return src.replace(old, new)
 
 
@@ -110,13 +110,14 @@ def _both_angles() -> Path:
     return d
 
 
-def _build_all(jobs: dict) -> dict:
-    """{name: (source, flags)} -> {name: CDLL}, one nvcc each, in parallel."""
-    OUT.mkdir(parents=True, exist_ok=True)
+def _build_all(jobs: dict, out: Path = OUT) -> dict:
+    """{name: (source, flags)} -> {name: CDLL}, one nvcc each, in parallel,
+    into ``out``."""
+    out.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
     for i, (name, (src, flags)) in enumerate(jobs.items()):
-        so = OUT / f"lib{i}.so"
+        so = out / f"lib{i}.so"
         procs[name] = (so, subprocess.Popen([nvcc, *_build.NVCC_FLAGS, *flags, "-o", str(so),
                                              str(src)], stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
@@ -124,7 +125,7 @@ def _build_all(jobs: dict) -> dict:
     for name, (so, p) in procs.items():
         log, _ = p.communicate()
         if p.returncode:
-            raise SystemExit(f"resample_ab: {name} did not build:\n{log}")
+            raise SystemExit(f"{name} did not build:\n{log}")
         regs = [ln.split(":")[-1].strip() for ln in log.splitlines() if "registers" in ln]
         print(f"build {name}: {regs}", flush=True)
         libs[name] = ctypes.CDLL(str(so))

@@ -149,6 +149,36 @@ def test_mixed_matmul_matches_jax_vjp(k, n):
         assert np.all(np.abs(g.astype(np.float64) - w) <= 2 * q * U32 * terms + 1e-30)
 
 
+@pytest.mark.parametrize("m", [17, 1025])
+@pytest.mark.parametrize("n", [128, 54, 3])
+@pytest.mark.parametrize("k", [150, 144, 135, 128, 15])
+def test_mixed_mm_and_db_match_jax_vjp_at_odd_rows(k, n, m):
+    """K10's forward and db wrappers (``mm.mixed_mm``, ``mm.mixed_mm_db``:
+    their plain versions on CPU tensors) on an odd number of rows, fewer
+    than one stage of db's ring and more, at the depths and widths the
+    production shader and basis give them, b as a weight's transpose:
+    against the primal and db of ``jax.vjp`` of JAX's ``mixed_matmul``,
+    per element within 2 q u sum|terms| (q = K for the forward, M for db),
+    and the forward equal to ``mixed_mm_plain`` bit for bit."""
+    rng = np.random.default_rng(10_000 * k + 10 * n + m)
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
+    dout = rng.normal(size=(m, n)).astype(np.float32)
+    want, vjp = jax.vjp(jmm.mixed_matmul, jnp.asarray(a), jnp.asarray(w.T))
+    _, want_db = vjp(jnp.asarray(dout))
+
+    ta, tb = torch.from_numpy(a), torch.from_numpy(w).t()
+    got = mm.mixed_mm(ta, tb)
+    got_db = mm.mixed_mm_db(ta, torch.from_numpy(dout))
+    assert torch.equal(got, mm.mixed_mm_plain(ta, tb))
+    a16, b16, d16 = (np.abs(_bf16(x)) for x in (a, w.T, dout))
+    for g, want_g, terms, q in ((got, want, a16 @ b16, k), (got_db, want_db, a16.T @ d16, m)):
+        g = g.numpy()
+        want_g = np.asarray(want_g)
+        assert g.dtype == np.float32 and g.shape == want_g.shape
+        assert np.all(np.abs(g.astype(np.float64) - want_g) <= 2 * q * U32 * terms + 1e-30)
+
+
 def test_mixed_matmul_kernels_entry_takes_the_plain_versions_on_cpu():
     """On CPU tensors the ``Ops`` entries of K10 give the plain versions'
     values and launch nothing; a weight view (``W.t()``, a column slice)
