@@ -5,7 +5,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. the card's name and power limit, the build of every kernel in
    ``egonerf_torch/csrc`` from the checkout, and each kernel's registers
-   and spills from ptxas (a spill in the VM-grid lookups or in K4 fails);
+   and spills from ptxas (a spill in the VM-grid lookups, K4 or the cull's
+   K12 and K13 fails);
 2. each kernel of the render path (K1, K3, K4 with its fine-chart epilogue,
    K6, K7) against its plain PyTorch version on the card, on the inputs one
    4096-ray chunk of the production model gives it (K4 also on K5's sorted
@@ -95,6 +96,29 @@ phase it is compared with:
 15b. TensoRF's view chunks and steps as in 7b under HOIST_DIRS, SPLIT_L1
     and BIAS_DOT.
 
+The JAX package's opt-in empty-space cull (``eval_keep``, ``train_keep``)
+likewise:
+
+2. (also) K4's weights instantiation against the plain weights
+   (``_warp_weights``), and K12 (the cull score) and K13 (the top-K
+   compaction) against their plain versions bit for bit, on one production
+   chunk at K = 192 and 128, at the smoke config's 48 + 48 samples, on hard
+   rays (all-zero weights, one spike, repeated coarse depths, long runs of
+   equal scores, perturbed scores, K = 1 and S - 1) and on a recorded
+   culled production training step; times and bounds;
+3c-5c. the 2000x1000 view at eval_keep 192 and 128 (one each of K3, K4 as
+    its weights instantiation, K12, K13, K1, K6 and two of K7 a chunk; K12
+    and K13 never without the cull), its s/image and render chunk beside
+    the unculled ones, a few chunks against the plain versions (phase 4's
+    limits) with the rays whose kept set differs, and where the time goes;
+6c. 20 production steps each at train_keep 128: the tie-break, Gumbel
+    scores (tau 1), and a full step every 4; step ms and launches;
+7c. one culled step against the plain versions, the same draws (the
+    cull's uniforms too), at phase 7's limits;
+8c. phase 8's trained smoke model rendered at eval_keep 64 of its 96
+    merged samples: test PSNR against ground truth and against the
+    unculled render (a record).
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
 result and exits 2.
@@ -170,7 +194,8 @@ PORT_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
                 "chart_kernel", "envmap_kernel", "envmap_bwd_kernel", "alphamask_kernel",
                 "mm_fwd_kernel", "mm_fwd_narrow_kernel", "mm_rows_kernel", "mm_db_kernel",
                 "mm_db_sum_kernel",
-                "bias_grad_part_kernel", "bias_grad_sum_kernel")
+                "bias_grad_part_kernel", "bias_grad_sum_kernel", "cull_score_kernel",
+                "top_k_kernel")
 TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 5, 20, 3
 SMOKE_ITERS = 300
 DEVICE = "cuda"
@@ -204,6 +229,13 @@ TF_FORMS = (("default", {}), ("HOIST_DIRS", dict(hoist=True)), ("SPLIT_L1", dict
             ("BIAS_DOT", dict(bias=True)))
 COMBINED = FORMS[-1]
 FORM_CHUNKS = 7
+# the empty-space cull (phases 2, 3c-8c): the JAX package's keeps at the
+# production shape's 256 merged samples (BASELINE.md:223-262, 327-345), the
+# training keep with its full step every 4, and a keep of the smoke run's
+# 48 + 48
+CULL_KEEPS = (192, 128)
+CULL_TRAIN_KEEP, CULL_FULL_EVERY = 128, 4
+SMOKE_KEEP = 64
 # K10's checks at row counts off the production chunk: one short of it (a
 # tail stage of 31 rows in db, 1-3 floats of a 150- or 135-float row past
 # the bulk copies) and fewer rows than one stage
@@ -341,6 +373,18 @@ class Recorder:
 
     def __call__(self, *args, **kwargs):
         self.args = args
+        return self.fn(*args, **kwargs)
+
+
+class CallLog:
+    """A kernel wrapper that keeps the arguments of every call (a
+    Recorder keeps only the last: a bake calls its lookups slab by slab)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kwargs):
+        self.calls.append(args)
         return self.fn(*args, **kwargs)
 
 
@@ -990,7 +1034,7 @@ def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
     default), whose chunks must launch each kernel ``per_chunk`` times
     (EgoNeRF's K1, K3, K4, K6, K7 once, K8 with the envmap); a few
     chunks against the plain versions; the profile.  Returns the launches
-    of the view."""
+    of the view and its seconds."""
     p_view, p_e2e, p_prof = phases
     env = model.cfg.use_envmap
     dev = model.device
@@ -1062,7 +1106,7 @@ def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
 
     # -- phase 5: where the time goes, from torch.profiler
     profile(lambda: e2e.render_rays(params, rays), n_e2e // chunk, f"phase {p_prof}", "chunk")
-    return launches
+    return launches, s_image
 
 
 def timed_steps(step, label: str, cfg, wrappers, want: dict, warmup: int = TRAIN_WARMUP):
@@ -1092,7 +1136,8 @@ def timed_steps(step, label: str, cfg, wrappers, want: dict, warmup: int = TRAIN
     median = step_ms[len(step_ms) // 2]
     mse_v = float(mse)
     print(f"{label}, batch {cfg.batch_size}: median {median:.3f} ms/step (CUDA "
-          f"events; min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}), {cfg.batch_size / median * 1e3:,.0f} "
+          f"events; mean {sum(step_ms) / len(step_ms):.3f}, min {step_ms[0]:.3f}, max "
+          f"{step_ms[-1]:.3f}), {cfg.batch_size / median * 1e3:,.0f} "
           f"train rays/s; {wall / TRAIN_STEPS * 1e3:.3f} ms/step by the host clock; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; last mse "
           f"{mse_v:.6f}", flush=True)
@@ -1113,25 +1158,33 @@ def step_launches(wrappers, envmap: bool) -> dict:
     return {k: TRAIN_STEPS if k in per_step else 0 for k in wrappers}
 
 
-def step_vs_plain(trainer, ops, label: str) -> None:
+def step_vs_plain(trainer, ops, label: str, cull_keep: int = 0) -> None:
     """One training step with the kernels and with the plain versions, the
     same weights and draws: the loss to rel REL_TOL, every gradient to
-    GRAD_TOL in relative L2 norm."""
+    GRAD_TOL in relative L2 norm.  With ``cull_keep`` the step culls to
+    that many samples a ray (the tie-break on the same ``cull_u``), and the
+    rays whose kept set differs on the two sides are printed."""
     cfg = trainer.cfg
     model, params = trainer.model, trainer.params
     dev = trainer.device
     row = trainer.sampler.next_batch()
-    jitter = torch.rand(cfg.batch_size, cfg.n_coarse, device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(SEED + 7))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    jitter = torch.rand(cfg.batch_size, cfg.n_coarse, device=dev, generator=gen)
     u = ops.KERNELS.sorted_uniform(cfg.batch_size, cfg.n_fine, SEED, 10 ** 6, dev)
+    cull = {}
+    if cull_keep:
+        cull = dict(train_keep=cull_keep, cull_u=torch.rand(
+            cfg.batch_size, cfg.n_coarse + cfg.n_fine, device=dev, generator=gen))
+    logs = []
 
     def loss_and_grads(o):
-        model.ops = o
+        logs.append(CallLog(o.select_top_k))
+        model.ops = o._replace(select_top_k=logs[-1])
         try:
             for p in params.values():
                 p.grad = None
             out = model.forward(params, row[:, :6], is_train=True, n_coarse=cfg.n_coarse,
-                                n_fine=cfg.n_fine, jitter=jitter, u=u)
+                                n_fine=cfg.n_fine, jitter=jitter, u=u, **cull)
             loss = torch.mean((out["rgb"] - row[:, 6:9]) ** 2)
             loss.backward()
             return loss.item(), {k: p.grad.detach().clone() for k, p in params.items()}
@@ -1140,6 +1193,11 @@ def step_vs_plain(trainer, ops, label: str) -> None:
 
     loss_k, grads_k = loss_and_grads(ops.KERNELS)
     loss_p, grads_p = loss_and_grads(ops.PLAIN)
+    if cull_keep:
+        n_set, n_score, n_rays = kept_set_diff(logs[0].calls, logs[1].calls)
+        print(f"{label} culled step (train_keep {cull_keep}, tie-break): {n_set} of {n_rays} "
+              f"rays keep a different sample set with the kernels than with the plain "
+              f"versions; {n_score} rays' scores differ in any bit", flush=True)
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
     print(f"{label} training step, kernels vs plain: loss {loss_k:.8f} vs {loss_p:.8f} "
           f"(rel {rel_loss:.2e} <= {REL_TOL:.0e})", flush=True)
@@ -1159,8 +1217,9 @@ def step_vs_plain(trainer, ops, label: str) -> None:
         fail(f"{label}: the training step with the kernels disagrees with the plain versions")
 
 
-def train_phases(trainer, ops, wrappers) -> dict:
-    """Phases 6 and 7; returns the launches of the timed steps."""
+def train_phases(trainer, ops, wrappers) -> tuple:
+    """Phases 6 and 7; returns the launches of the timed steps and their
+    median ms."""
     cfg = trainer.cfg
     launches, median = timed_steps(
         trainer.train_step, f"phase 6 training step, {cfg.n_coarse} + {cfg.n_fine} samples, "
@@ -1174,7 +1233,7 @@ def train_phases(trainer, ops, wrappers) -> dict:
             it += 1
     k2_share("phase 6", profile(steps, PROFILE_STEPS, "phase 6", "step", top=16), median)
     step_vs_plain(trainer, ops, "phase 7")
-    return launches
+    return launches, median
 
 
 def envmap_train_phases(trainer, ops, wrappers) -> dict:
@@ -1900,6 +1959,363 @@ def combined_quality_phase(root: str, default_psnr: float, wrappers) -> None:
              f"band of the default's {default_psnr:.2f}")
 
 
+def k12_cost(z_vals, coarse_z):
+    """K12's bytes (z, the coarse depths and weights read once, the score
+    written once) and operations (the dilation's two max a coarse sample; a
+    search of ceil(log2(C + 1)) steps of ~3 operations and the select a
+    sample)."""
+    r, s = z_vals.shape
+    c = coarse_z.shape[1]
+    return 4 * r * (2 * s + 2 * c), r * (2 * c + s * (3 * int(np.ceil(np.log2(c + 1))) + 2))
+
+
+def k13_cost(r, s, k):
+    """K13's bytes (z, dists and the score read once, the kept z and dists
+    written once) and operations (a key: its order key ~4, 32 radix steps of
+    a compare and an add, the ties and the slot ~6; a ray: 35 warp sums and
+    scans of 5 steps over 32 lanes)."""
+    return 4 * r * (3 * s + 2 * k), r * (s * (4 + 64 + 6) + 35 * 5 * 32)
+
+
+def bits_equal(name, kern, plain, args) -> float:
+    """K12, K13 or K4's weights against the plain version on ``args``: the
+    outputs equal bit for bit; returns the max abs error (0)."""
+    got, ref = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for o, r in zip(got, ref):
+        if o.shape != r.shape or not torch.isfinite(o).all():
+            fail(f"{name}: shape {tuple(o.shape)} (plain {tuple(r.shape)}) or non-finite")
+    diff = sum(int((o.view(torch.int32) != r.view(torch.int32)).sum()) for o, r in zip(got, ref))
+    abs_err = max_err(got, ref)[0]
+    print(f"phase 2 {name}: {diff} of {sum(o.numel() for o in got):,} outputs differ from the "
+          f"plain version's bits (0 allowed), max abs err {abs_err:.3e} -> "
+          f"{'ok' if diff == 0 else 'MISS'}", flush=True)
+    if diff:
+        fail(f"{name} disagrees with its plain version")
+    return abs_err
+
+
+def k4_weights_compare(name, ops, args, far) -> float:
+    """K4's weights instantiation against its plain version: z_vals and
+    dists within 1e-5 x far as K4's (and equal bit for bit to the kernel's
+    other instantiation on the same inputs: one code path), the weights
+    within rel REL_TOL of max|plain| (expf and the products' order, as K6's
+    weights).  Returns the max abs error."""
+    got = ops.KERNELS.resample_weights(*args)
+    ref = ops.PLAIN.resample_weights(*args)
+    other = ops.pdf.resample(*args)
+    torch.cuda.synchronize()
+    for o, r in zip(got, ref):
+        if o.shape != r.shape or not torch.isfinite(o).all():
+            fail(f"{name}: shape {tuple(o.shape)} (plain {tuple(r.shape)}) or non-finite")
+    z_err = max_err(got[:2], ref[:2])[0]
+    w_abs, w_rel = max_err(got[2:], ref[2:])
+    same = all(torch.equal(a, b) for a, b in zip(got[:2], other))
+    w_bits = int((got[2].view(torch.int32) != ref[2].view(torch.int32)).sum())
+    ok = z_err <= REL_TOL * far and w_rel <= REL_TOL and same
+    print(f"phase 2 {name}: depths max abs err {z_err:.3e} (<= {REL_TOL * far:.1e}), equal to "
+          f"resample_fwd's bit for bit: {same}; weights max abs err {w_abs:.3e}, rel "
+          f"{w_rel:.3e} (<= {REL_TOL:.0e} of max|plain|), {w_bits:,} of {got[2].numel():,} "
+          f"differ in their bits -> {'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return max(z_err, w_abs)
+
+
+def cull_chain_checks(label, ops, args, far, keeps) -> tuple:
+    """K4's weights, K12 on its output, K13 on K12's scores at each of
+    ``keeps`` and at 1 and S - 1, each against its plain version on the
+    kernel's own inputs.  Returns (z_vals, dists, weights, score)."""
+    k4_weights_compare(f"K4 weights ({label})", ops, args, far)
+    z_vals, dists, weights = ops.KERNELS.resample_weights(*args)
+    coarse_z = args[1]
+    bits_equal(f"K12 coarse_importance ({label})", ops.KERNELS.coarse_importance,
+               ops.PLAIN.coarse_importance, (z_vals, coarse_z, weights))
+    score = ops.KERNELS.coarse_importance(z_vals, coarse_z, weights)
+    s = z_vals.shape[1]
+    for k in sorted({*keeps, 1, s - 1}, reverse=True):
+        bits_equal(f"K13 select_top_k ({label}, K={k})", ops.KERNELS.select_top_k,
+                   ops.PLAIN.select_top_k, (z_vals, dists, score, k))
+    return z_vals, dists, weights, score
+
+
+@torch.no_grad()
+def cull_kernel_checks(model, params, dirs, ops, presets, trainer) -> dict:
+    """Phase 2, the empty-space cull: K4's weights instantiation, K12 and
+    K13 on one production chunk (eval), at the smoke config's 48 + 48
+    samples, on hard rays (all-zero weights, one spike, repeated coarse
+    depths, long runs of equal scores, perturbed scores) and on a recorded
+    culled production training step, each against its plain version: K12
+    and K13 bit for bit; the rows with their times and bounds."""
+    from egonerf_torch.models.egonerf import _dists
+    from egonerf_torch.ops import cull
+
+    dev = dirs.device
+    cfg, coords = model.cfg, model.coordinates
+    chunk = presets.EVAL_CHUNK
+    n_c, n_f = presets.RENDER["n_coarse"], presets.RENDER["n_fine"]
+    pick = torch.arange(chunk, device=dev) * (dirs.shape[0] // chunk)
+    viewdirs = dirs[pick]
+    rays_o = torch.zeros_like(viewdirs)
+    tables = model.lookup_tables(params)
+    act = (cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act)
+    far = model.near_far[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def coarse(n):
+        z = model.sample_depths_exp(chunk, n, dev)
+        norm = ops.KERNELS.chart(rays_o, viewdirs, z, coords, 2)
+        f = ops.KERNELS.density(norm, tables.coarse_planes, tables.coarse_lines)
+        return f.reshape(chunk, n), z, _dists(z)
+
+    c_feat, coarse_z, coarse_dists = coarse(n_c)
+    args = (c_feat, coarse_z, coarse_dists, n_f, None, True, *act)
+    z_vals, dists, weights, score = cull_chain_checks("eval chunk", ops, args, far, CULL_KEEPS)
+    r, s = z_vals.shape
+    print(f"phase 2 cull inputs: {r} rays x {s} merged samples from {n_c} coarse; "
+          f"{int((weights == 0).sum()):,} of {weights.numel():,} coarse weights 0, "
+          f"{int((score == 0).sum()):,} of {score.numel():,} scores 0", flush=True)
+
+    # the smoke config's widths: 48 + 48 merged, keep SMOKE_KEEP
+    f48, z48, d48 = coarse(48)
+    cull_chain_checks("48 + 48, eval", ops, (f48, z48, d48, 48, None, True, *act), far,
+                      (SMOKE_KEEP,))
+
+    # hard rays, the chunk's first 1024
+    h = min(1024, r)
+    zh, ch = z_vals[:h].contiguous(), coarse_z[:h].contiguous()
+    zero = torch.zeros_like(weights[:h])
+    spike = zero.clone()
+    spike[torch.arange(h, device=dev),
+          torch.randint(0, n_c, (h,), generator=gen, device=dev)] = 0.5
+    for label, w in (("all-zero weights", zero), ("one spike", spike)):
+        bits_equal(f"K12 coarse_importance ({label})", ops.KERNELS.coarse_importance,
+                   ops.PLAIN.coarse_importance, (zh, ch, w))
+        sh = ops.KERNELS.coarse_importance(zh, ch, w)
+        for k in (*CULL_KEEPS, 1, s - 1):
+            bits_equal(f"K13 select_top_k ({label}, K={k})", ops.KERNELS.select_top_k,
+                       ops.PLAIN.select_top_k, (zh, dists[:h].contiguous(), sh, k))
+    z_rep = ch[:, ::2].repeat_interleave(2, dim=1)[:, :n_c].contiguous()
+    _, _, w_rep, s_rep = cull_chain_checks(
+        "repeated coarse depths", ops,
+        (c_feat[:h].contiguous(), z_rep, _dists(z_rep), n_f, None, True, *act), far, CULL_KEEPS)
+    runs = (torch.randint(0, 3, (h, -(-s // 16)), generator=gen, device=dev).float() * 0.25)
+    runs = runs.repeat_interleave(16, dim=1)[:, :s].contiguous()
+    u = torch.rand(r, s, generator=gen, device=dev)
+    for label, sc in (("long runs of equal scores", runs),
+                      ("tie-break scores", cull.train_tiebreak(score, u)[:h].contiguous()),
+                      ("Gumbel scores, tau 1", cull.gumbel_perturb(score, u, 1.0)[:h].contiguous())):
+        for k in (*CULL_KEEPS, 1, s - 1):
+            bits_equal(f"K13 select_top_k ({label}, K={k})", ops.KERNELS.select_top_k,
+                       ops.PLAIN.select_top_k, (zh, dists[:h].contiguous(), sc, k))
+    print(f"phase 2 cull hard rays: {h} rays; repeated coarse depths give "
+          f"{int((z_rep[:, 1:] == z_rep[:, :-1]).sum()):,} empty intervals, "
+          f"{int((s_rep == 0).sum()):,} zero scores", flush=True)
+
+    # a recorded culled production training step (tie-break, keep 128)
+    model_t, cfg_t = trainer.model, trainer.cfg
+    logs = {k: Recorder(getattr(ops.KERNELS, k))
+            for k in ("resample_weights", "coarse_importance", "select_top_k")}
+    model_t.ops = ops.KERNELS._replace(**logs)
+    cfg_t.train_keep = CULL_TRAIN_KEEP
+    try:
+        with torch.enable_grad():
+            trainer.train_step(0)
+    finally:
+        model_t.ops = ops.KERNELS
+        cfg_t.train_keep = 0
+    torch.cuda.synchronize()
+    t_args = logs["resample_weights"].args
+    k4_weights_compare("K4 weights (training step)", ops, t_args, model_t.near_far[1])
+    bits_equal("K12 coarse_importance (training step)", ops.KERNELS.coarse_importance,
+               ops.PLAIN.coarse_importance, logs["coarse_importance"].args)
+    tz, td, ts, _ = logs["select_top_k"].args
+    for k in sorted({CULL_TRAIN_KEEP, *CULL_KEEPS}, reverse=True):
+        bits_equal(f"K13 select_top_k (training step, tie-break, K={k})",
+                   ops.KERNELS.select_top_k, ops.PLAIN.select_top_k, (tz, td, ts, k))
+    print(f"phase 2 cull training inputs: {tz.shape[0]} rays x {tz.shape[1]} merged samples "
+          f"(K5's uniforms, jittered coarse depths), tie-break scores", flush=True)
+
+    # the rows: one production chunk's inputs at keep CULL_KEEPS[0]
+    n_bytes, n_ops = k4_cost(c_feat, n_f, s)
+    table = {"K4w": kernel_row(
+        "K4 weights", "egonerf_torch/csrc/resample.cu", "egonerf_tpu/models/egonerf.py:393",
+        k4_weights_compare("K4 weights (row)", ops, args, far),
+        time_ms(lambda: ops.KERNELS.resample_weights(*args)),
+        time_ms(lambda: ops.PLAIN.resample_weights(*args), reps=5), n_bytes + 4 * r * n_c,
+        n_ops)}
+    k12 = (z_vals, coarse_z, weights)
+    table["K12"] = kernel_row(
+        "K12 coarse_importance", "egonerf_torch/csrc/cull.cu", "egonerf_tpu/ops/cull.py:30",
+        bits_equal("K12 coarse_importance (row)", ops.KERNELS.coarse_importance,
+                   ops.PLAIN.coarse_importance, k12),
+        time_ms(lambda: ops.KERNELS.coarse_importance(*k12)),
+        time_ms(lambda: ops.PLAIN.coarse_importance(*k12), reps=5), *k12_cost(z_vals, coarse_z))
+    for k in CULL_KEEPS:
+        k13 = (z_vals, dists, score, k)
+        row = kernel_row(
+            f"K13 select_top_k (K={k})", "egonerf_torch/csrc/cull.cu",
+            "egonerf_tpu/ops/cull.py:103",
+            bits_equal(f"K13 select_top_k (row, K={k})", ops.KERNELS.select_top_k,
+                       ops.PLAIN.select_top_k, k13),
+            time_ms(lambda: ops.KERNELS.select_top_k(*k13)),
+            time_ms(lambda: ops.PLAIN.select_top_k(*k13), reps=5), *k13_cost(r, s, k))
+        table.setdefault("K13", row)
+    return table
+
+
+def kept_set_diff(calls_a, calls_b) -> tuple:
+    """(rays whose kept sample set differs, rays whose scores differ in any
+    bit, rays) between two logs of K13's calls on the same rays."""
+    from egonerf_torch.ops.cull import select_top_k_plain
+
+    n_set = n_score = n = 0
+    for (za, _, sa, k), (_, _, sb, _) in zip(calls_a, calls_b):
+        idx = torch.arange(za.shape[1], device=za.device, dtype=torch.float32).expand_as(za)
+        ka = select_top_k_plain(idx, idx, sa, k)[0]
+        kb = select_top_k_plain(idx, idx, sb, k)[0]
+        n_set += int((ka != kb).any(1).sum())
+        n_score += int((sa.view(torch.int32) != sb.view(torch.int32)).any(1).sum())
+        n += za.shape[0]
+    return n_set, n_score, n
+
+
+def logged_render(model, params, rays, chunk, render_kw, ops, o) -> list:
+    """Render ``rays`` with the ops ``o``; returns K13's calls."""
+    from egonerf_torch.render.renderer import Renderer
+
+    log = CallLog(o.select_top_k)
+    model.ops = o._replace(select_top_k=log)
+    try:
+        Renderer(model, chunk=chunk, **render_kw).render_rays(params, rays)
+    finally:
+        model.ops = ops.KERNELS
+    return log.calls
+
+
+def cull_render_phases(model, params, dirs_np, ops, presets, wrappers, unculled_s) -> dict:
+    """Phases 3c-5c: the 2000x1000 view through ``Renderer.render_view`` at
+    each eval_keep of CULL_KEEPS (launches a chunk: one each of K3, K4 as
+    its weights instantiation, K12, K13, K1, K6, and two of K7), a few
+    chunks against the plain versions (phase 4's limits) with the rays
+    whose kept set differs, where the time goes; then the render chunk's
+    device ms, default and culled, in one process.  Returns the launches
+    of the view at CULL_KEEPS[0]."""
+    from egonerf_torch.render.renderer import Renderer
+
+    chunk = presets.EVAL_CHUNK
+    per_chunk = dict(K1=1, K3=1, K4=1, K4w=1, K6=1, K7=2, K12=1, K13=1)
+    dev = model.device
+    dirs = torch.as_tensor(dirs_np, device=dev)
+    n = FORM_CHUNKS + 1
+    pick = torch.arange(n * chunk, device=dev) * (dirs.shape[0] // (n * chunk))
+    rays = torch.cat([torch.zeros_like(dirs[pick]), dirs[pick]], dim=-1)
+    views, chunks = {}, {}
+    base_ms, base_l = chunk_times(model, params, rays, chunk, presets.RENDER, wrappers)
+    for keep in CULL_KEEPS:
+        kw = dict(presets.RENDER, eval_keep=keep)
+        tag = f"c (eval_keep {keep})"
+        launches, s_image = render_phases(
+            model, params, dirs_np, ops, presets, Renderer, wrappers,
+            phases=(f"3{tag}", f"4{tag}", f"5{tag}"),
+            renderer=Renderer(model, chunk=chunk, **kw), per_chunk=per_chunk)
+        e2e = rays[:3 * chunk]
+        n_set, n_score, n_rays = kept_set_diff(
+            logged_render(model, params, e2e, chunk, kw, ops, ops.KERNELS),
+            logged_render(model, params, e2e, chunk, kw, ops, ops.PLAIN))
+        print(f"phase 4{tag}: {n_set} of {n_rays} rays keep a different sample set with the "
+              f"kernels than with the plain versions; {n_score} rays' scores differ in any bit",
+              flush=True)
+        times, chunk_l = chunk_times(model, params, rays, chunk, kw, wrappers)
+        expect_launches(f"phase 3{tag} chunks", chunk_l,
+                        {k: per_chunk.get(k, 0) * FORM_CHUNKS for k in wrappers})
+        views[keep], chunks[keep] = (launches, s_image), times[len(times) // 2]
+    base = base_ms[len(base_ms) // 2]
+    print(f"phase 3c summary: s/image unculled {unculled_s:.3f} (phase 3), "
+          + ", ".join(f"eval_keep {k} {views[k][1]:.3f}" for k in CULL_KEEPS)
+          + f"; render chunk device ms (median of {FORM_CHUNKS}) unculled {base:.3f}, "
+          + ", ".join(f"eval_keep {k} {chunks[k]:.3f} ({chunks[k] / base:.1%})"
+                      for k in CULL_KEEPS), flush=True)
+    if base_l["K12"] or base_l["K13"] or base_l["K4w"]:
+        fail(f"the unculled chunks launched the cull's kernels: {base_l}")
+    return views[CULL_KEEPS[0]][0]
+
+
+def cull_train_phases(trainer, ops, wrappers, unculled_ms) -> None:
+    """Phases 6c and 7c: TRAIN_STEPS timed production steps at train_keep
+    CULL_TRAIN_KEEP with the tie-break, with Gumbel scores (tau 1) and with
+    an unculled step every CULL_FULL_EVERY (each culled step launches K1-K6b,
+    K4's weights instantiation, K12 and K13 once and K7 twice; a full step
+    the default's kernels), then one culled step against the plain versions
+    with the same draws."""
+    cfg = trainer.cfg
+    culled = {"K1", "K2", "K3", "K4", "K4w", "K5", "K6", "K6b", "K12", "K13"}
+    full = step_launches(wrappers, envmap=False)
+    medians = {}
+    try:
+        for label, tau, every in (("tie-break", 0.0, 0), ("Gumbel, tau 1", 1.0, 0),
+                                  (f"full step every {CULL_FULL_EVERY}", 0.0, CULL_FULL_EVERY)):
+            cfg.train_keep, cfg.train_cull_tau, cfg.train_keep_full_every = (
+                CULL_TRAIN_KEEP, tau, every)
+            its = range(TRAIN_WARMUP + 1, TRAIN_WARMUP + 1 + TRAIN_STEPS)
+            n_full = sum(1 for it in its if every and it % every == 0)
+            want = {k: (full[k] // TRAIN_STEPS) * n_full
+                    + (TRAIN_STEPS - n_full) * ((k in culled) + (k == "K7") * 2)
+                    for k in wrappers}
+            _, medians[label] = timed_steps(
+                trainer.train_step, f"phase 6c train_keep {CULL_TRAIN_KEEP}, {label}", cfg,
+                wrappers, want)
+    finally:
+        cfg.train_keep, cfg.train_cull_tau, cfg.train_keep_full_every = 0, 0.0, 0
+    print(f"phase 6c summary: median step ms unculled {unculled_ms:.3f} (phase 6), "
+          + ", ".join(f"{k} {v:.3f} ({v / unculled_ms:.1%})" for k, v in medians.items())
+          + " (the last a culled step: its mean is in its line)", flush=True)
+    step_vs_plain(trainer, ops, "phase 7c", cull_keep=CULL_TRAIN_KEEP)
+
+
+def cull_quality_phase(root: str, smoke_psnr: float) -> None:
+    """Phase 8c: phase 8's trained smoke model rendered at eval_keep
+    SMOKE_KEEP (of its 48 + 48 merged samples) and unculled on its test
+    views: the test PSNR of each against ground truth, and the culled
+    render's against the unculled one.  A record, with no floor."""
+    from egonerf_torch.data.datasets import dataset_class
+    from egonerf_torch.render.metrics import psnr
+    from egonerf_torch.render.renderer import Renderer
+    from egonerf_torch.train.checkpoint import latest_checkpoint
+    from egonerf_torch.train.config import parse_cli
+    from egonerf_torch.train.trainer import _load_model
+
+    base = os.path.join(root, "build", "chip_smoke_runs")
+    cfg = parse_cli(["--config", os.path.join(root, SMOKE_CONFIG), "--basedir", base])
+    test = dataset_class(cfg.dataset_name)(
+        data_dir=cfg.datadir, split="test", is_stack=True, downsample=1, near_far=cfg.near_far,
+        roi=cfg.roi, localization_method=cfg.localization_method, skip=1)
+    model, _ = _load_model(cfg, latest_checkpoint(os.path.join(base, "smoke")), test.scene_bbox,
+                           test.near_far, DEVICE)
+    params = model.params()
+    full = Renderer.from_config(model, cfg, test.white_bg)
+    culled = Renderer.from_config(model, cfg, test.white_bg, eval_keep=SMOKE_KEEP)
+    w, h = test.img_wh
+    rows = []
+    t0 = time.time()
+    for i in range(test.all_rays.shape[0]):
+        rays = test.all_rays[i].reshape(-1, 6)
+        gt = np.asarray(test.all_rgbs[i]).reshape(h, w, 3)
+        a = full.render_rays(params, rays)["rgb"].reshape(h, w, 3).cpu().numpy()
+        b = culled.render_rays(params, rays)["rgb"].reshape(h, w, 3).cpu().numpy()
+        rows.append((psnr(a, gt), psnr(b, gt), psnr(b, a)))
+    full_gt, cull_gt, cull_full = np.mean(rows, axis=0)
+    print(f"phase 8c smoke model at eval_keep {SMOKE_KEEP} of {cfg.n_coarse} + {cfg.n_fine} "
+          f"merged samples ({len(rows)} test views, {time.time() - t0:.1f} s): test PSNR "
+          f"{cull_gt:.2f} dB against ground truth (unculled {full_gt:.2f}; phase 8 "
+          f"{smoke_psnr:.2f}), {cull_full:.2f} dB against the unculled render (a record, no "
+          f"floor)", flush=True)
+    if not np.isfinite([cull_gt, full_gt]).all():
+        fail("phase 8c: non-finite PSNR")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1911,8 +2327,8 @@ def main() -> int:
     from egonerf_torch.models.egonerf import _dists
     from egonerf_torch.data.datasets import SyntheticEgoDataset
     from egonerf_torch.models.alphamask import AlphaGridMask
-    from egonerf_torch.ops import (alphamask, bias, chart, envmap, merge, mm, pdf, vm_lookup,
-                                   volrend)
+    from egonerf_torch.ops import (alphamask, bias, chart, cull, envmap, merge, mm, pdf,
+                                   vm_lookup, volrend)
     from egonerf_torch.render.renderer import Renderer
     from egonerf_torch.train.config import load_config
     from egonerf_torch.train.trainer import Trainer
@@ -1923,7 +2339,8 @@ def main() -> int:
                 "K6": volrend.composite, "K6b": volrend.composite_bwd, "K7": chart.chart_fwd,
                 "K8": envmap.envmap_fwd, "K8b": envmap.envmap_bwd, "K9": alphamask.alpha_fwd,
                 "K10": mm.mixed_mm, "K10da": mm.mixed_mm_da, "K10db": mm.mixed_mm_db,
-                "K11": bias.bias_grad}
+                "K11": bias.bias_grad, "K4w": pdf.resample_weights,
+                "K12": cull.coarse_importance, "K13": cull.select_top_k}
 
     # -- phase 1: card + build ----------------------------------------------
     card = card_line()
@@ -1936,7 +2353,7 @@ def main() -> int:
         for name, regs, spill in _build.ptxas_report(stem):
             print(f"phase 1 ptxas {stem}: {regs} registers, {spill} bytes spilled: {name}",
                   flush=True)
-            if stem in ("vm_lookup", "resample") and spill:
+            if stem in ("vm_lookup", "resample", "cull") and spill:
                 fail(f"{name} spills {spill} bytes")
 
     model = presets.production_model(device=dev)
@@ -1979,6 +2396,8 @@ def main() -> int:
         rows = render_kernel_checks(model, params, torch.as_tensor(dirs_np, device=dev), ops,
                                     presets, _dists)
     rows.update(train_kernel_checks(trainer, ops))
+    rows.update(cull_kernel_checks(model, params, torch.as_tensor(dirs_np, device=dev), ops,
+                                   presets, trainer))
     form_rows = shader_kernel_checks(trainer, ops)
     width_checks(ops)
     rows.update(envmap_kernel_checks(outdoor, ops))
@@ -1987,11 +2406,16 @@ def main() -> int:
 
     # -- phases 3-5: the render -------------------------------------------------
     with torch.no_grad():
-        render_launches = render_phases(model, params, dirs_np, ops, presets, Renderer,
-                                        wrappers)
+        render_launches, render_s = render_phases(model, params, dirs_np, ops, presets,
+                                                  Renderer, wrappers)
+        # -- phases 3c-5c: the culled view at each eval_keep ----------------------
+        cull_launches = cull_render_phases(model, params, dirs_np, ops, presets, wrappers,
+                                           render_s)
     del model, params
     # -- phases 6-7: the training step ------------------------------------------
-    train_launches = train_phases(trainer, ops, wrappers)
+    train_launches, train_ms = train_phases(trainer, ops, wrappers)
+    # -- phases 6c-7c: culled training steps --------------------------------------
+    cull_train_phases(trainer, ops, wrappers, train_ms)
     # -- phase 7b: the shader and line forms on the production trainer ---------
     forms = form_phases("7b", trainer, ops, Renderer(trainer.model, chunk=presets.EVAL_CHUNK,
                                                       **presets.RENDER),
@@ -2005,12 +2429,13 @@ def main() -> int:
 
     # -- phase 8: the smoke run through the command line, and under the forms ---
     smoke_psnr = quality_phase(root)
+    cull_quality_phase(root, smoke_psnr)
     combined_quality_phase(root, smoke_psnr, wrappers)
 
     # -- phases 9-11: the outdoor shape: render, envmap training --------------
     with torch.no_grad():
-        env_render = render_phases(outdoor.model, outdoor.params, dirs_np, ops, presets,
-                                   Renderer, wrappers, phases=(9, 9, 9))
+        env_render, _ = render_phases(outdoor.model, outdoor.params, dirs_np, ops, presets,
+                                      Renderer, wrappers, phases=(9, 9, 9))
     env_train = envmap_train_phases(outdoor, ops, wrappers)
     del outdoor
     torch.cuda.empty_cache()
@@ -2022,6 +2447,9 @@ def main() -> int:
             row["launches"] = env_render[k.split("+")[0]]
         elif k in ("K8b", "K6b+env"):
             row["launches"] = env_train[k.split("+")[0]]
+        elif k in ("K4w", "K12", "K13"):
+            # the cull's kernels: their launches in the culled view (phase 3c)
+            row["launches"] = cull_launches[k]
         else:
             row["launches"] = render_launches[k] if render_launches[k] else train_launches[k]
 
@@ -2051,7 +2479,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6",
                                                      "K6b", "K6+env", "K6b+env", "K7", "K8",
-                                                     "K8b")]
+                                                     "K8b", "K4w", "K12", "K13")]
                       + [tf_rows[k] for k in ("K1 (S=1)", "K2 (S=1)", "K3 (S=1)", "K6 gated",
                                               "K6b gated", "K9")]
                       + [form_rows[k] for k in ("K10 fwd", "K10 da", "K10 db", "K11")]}),

@@ -7,7 +7,11 @@
 // and, in resample_chart_fwd, the fine chart that follows them
 // (from_cartesian + normalize_coord, models/egonerf.py:396-406), which
 // the standalone chart kernel K7 (chart.cu) computes the same way from
-// chart.cuh.
+// chart.cuh.  resample_weights_fwd also writes the coarse weights, which
+// the empty-space cull scores the merged samples by (models/egonerf.py:
+// 393, 440-443), and runs no chart: under the cull the chart is taken of
+// the kept depths only.  The chart epilogue and the weights' store are
+// template parameters, so each instantiation carries only its own code.
 //
 // Per ray: alpha and weights of the S coarse samples from feature2density;
 // pdf over the interior weights [1:-1] (+1e-5) and its cdf with a leading 0;
@@ -19,7 +23,8 @@
 //
 // Bound on the card: bytes (3 x S floats in and 2 x (S+F) floats out per
 // ray, ~15 MB per 4096-ray chunk; the epilogue adds 16 bytes a merged
-// sample, ~17 MB), a few microseconds at 3.35 TB/s; a 4096-ray chunk is
+// sample, ~17 MB; the weights' store S floats a ray, 2 MB), a few
+// microseconds at 3.35 TB/s; a 4096-ray chunk is
 // one wave of one warp a ray, so what is left is each warp's chain of
 // dependent shared-memory steps.  Design: one warp per ray, intermediates
 // in shared memory.  The weights, the transmittance scan, the pdf total
@@ -86,7 +91,7 @@ __device__ __forceinline__ float bin_edge(const float* zc, int k) {
   return __fmul_rn(0.5f, __fadd_rn(zc[k + 1], zc[k]));
 }
 
-template <bool kChart>
+template <bool kChart, bool kWeights>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 resample_kernel(const float* __restrict__ feat, const float* __restrict__ z,
                 const float* __restrict__ dists, const float* __restrict__ u,
@@ -94,7 +99,7 @@ resample_kernel(const float* __restrict__ feat, const float* __restrict__ z,
                 float scale, int act, float* __restrict__ z_out, float* __restrict__ d_out,
                 const float* __restrict__ o, long long o_stride, const float* __restrict__ dv,
                 long long dv_stride, ChartArgs ca, const float* __restrict__ grid_g,
-                float4* __restrict__ c_out) {
+                float4* __restrict__ c_out, float* __restrict__ w_out) {
   extern __shared__ float smem[];
   const int n_grid = kChart && ca.mode == 0 ? ca.n_grid : 0;
   if constexpr (kChart) {
@@ -136,6 +141,9 @@ resample_kernel(const float* __restrict__ feat, const float* __restrict__ z,
     }
   }
   __syncwarp();
+  if constexpr (kWeights) {
+    for (int j = lane; j < S; j += 32) w_out[ray * S + j] = w[j];
+  }
 
   // pdf over w[1 .. S-2] + 1e-5, each element divided once, and its cdf,
   // cdf[0] = 0
@@ -243,12 +251,12 @@ resample_kernel(const float* __restrict__ feat, const float* __restrict__ z,
   }
 }
 
-template <bool kChart>
+template <bool kChart, bool kWeights>
 int launch(const float* feat, const float* z, const float* dists, const float* u,
            long long u_stride, float u_step, int R, int S, int F, int merge, float shift,
            float scale, int act, float* z_out, float* d_out, const float* o, long long o_stride,
            const float* dv, long long dv_stride, const ChartArgs& ca, const float* grid,
-           float* coords, void* stream) {
+           float* coords, float* weights, void* stream) {
   const int T = merge ? S + F : F;
   const int n_grid = kChart && ca.mode == 0 ? ca.n_grid : 0;
   if (kChart && ca.mode == 0 && (n_grid < 2 || n_grid > kMaxChartGrid))
@@ -259,14 +267,15 @@ int launch(const float* feat, const float* z, const float* dists, const float* u
   if (R <= 0) return (int)cudaSuccess;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        resample_kernel<kChart>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        resample_kernel<kChart, kWeights>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  resample_kernel<kChart><<<blocks, kWarpsPerBlock * 32, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+  resample_kernel<kChart, kWeights><<<blocks, kWarpsPerBlock * 32, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(
       feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale, act, z_out, d_out, o,
-      o_stride, dv, dv_stride, ca, grid, reinterpret_cast<float4*>(coords));
+      o_stride, dv, dv_stride, ca, grid, reinterpret_cast<float4*>(coords), weights);
   return (int)cudaGetLastError();
 }
 
@@ -277,9 +286,19 @@ extern "C" int resample_fwd(const float* feat, const float* z, const float* dist
                             const float* u, long long u_stride, float u_step, int R, int S,
                             int F, int merge, float shift, float scale, int act, float* z_out,
                             float* d_out, void* stream) {
-  return launch<false>(feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale, act,
-                       z_out, d_out, nullptr, 0, nullptr, 0, ChartArgs{}, nullptr, nullptr,
-                       stream);
+  return launch<false, false>(feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale,
+                              act, z_out, d_out, nullptr, 0, nullptr, 0, ChartArgs{}, nullptr,
+                              nullptr, nullptr, stream);
+}
+
+// resample_fwd, and the coarse weights (R, S) into weights.
+extern "C" int resample_weights_fwd(const float* feat, const float* z, const float* dists,
+                                    const float* u, long long u_stride, float u_step, int R,
+                                    int S, int F, int merge, float shift, float scale, int act,
+                                    float* z_out, float* d_out, float* weights, void* stream) {
+  return launch<false, true>(feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale,
+                             act, z_out, d_out, nullptr, 0, nullptr, 0, ChartArgs{}, nullptr,
+                             nullptr, weights, stream);
 }
 
 // resample_fwd, then the chart of every merged depth into coords (R * T, 4).
@@ -295,6 +314,7 @@ extern "C" int resample_chart_fwd(const float* feat, const float* z, const float
                                   void* stream) {
   const ChartArgs ca{cx, cy, cz, near_t, near_p, inv_r, inv_t, inv_p, mode, n_grid, inv_nr,
                      r0, inv_r0, ratio, inv_log_ratio};
-  return launch<true>(feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale, act,
-                      z_out, d_out, o, o_stride, d, d_stride, ca, grid, coords, stream);
+  return launch<true, false>(feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale,
+                             act, z_out, d_out, o, o_stride, d, d_stride, ca, grid, coords,
+                             nullptr, stream);
 }

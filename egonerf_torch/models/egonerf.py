@@ -15,7 +15,10 @@ numbers.  In training the fine field goes through the autograd Function
 of ``ops.vm_lookup.field_train`` (K1 forward, K2 backward) on the float32
 fused tables, and the composite through ``ops.volrend.composite_train``
 (K6, K6b).  The coarse chart of a forward is K7; the fine one runs in
-K4's epilogue (``ops.resample_chart``), or is K7 without resampling.
+K4's epilogue (``ops.resample_chart``), or is K7 without resampling and
+under the empty-space cull (``eval_keep``, ``train_keep``: K4 writes the
+coarse weights, K12 scores the merged samples, K13 keeps the K highest,
+and K7 takes the chart of the kept depths).
 With ``use_envmap`` the (2h, h, 3) ``envmap`` parameter gives each ray its
 background radiance (K8, K8b backward), blended behind the last sample.
 The kernels come from ``self.ops`` (``ops.KERNELS``).
@@ -51,7 +54,8 @@ from ..ops.mm import mixed_matmul
 from ..ops.vm_lookup import LINE_HAT as _vm_lookup_line_hat
 from ..ops.vm_lookup import (HAT, LINEAR, LINEAR_BF16_GRAD, MAT_MODE, VEC_MODE, field_train,
                              line_hat_ok, line_onehot_ok)
-from ..ops.volrend import composite_train, density_activation
+from ..ops.cull import dilate, gumbel_perturb, train_tiebreak
+from ..ops.volrend import composite_train, density_activation, raw2alpha
 from .alphamask import YinYangAlphaGridMask, bake_alpha_mask, dense_alpha
 from .envmap import envmap_radiance, init_envmap
 from .shading import _HOIST_DIRS, MLPFea
@@ -418,14 +422,29 @@ class EgoNeRF(nn.Module):
     def tv_loss_app(self, params) -> torch.Tensor:
         return sum(tv_plane(params[f"app_planes.{i}"]) * 2.0 * 1e-2 for i in range(3))
 
+    def _oracle_score(self, params, rays_o, viewdirs, z_vals, dists) -> torch.Tensor:
+        """The cull's ORACLE scorer (JAX ``models/egonerf.py:417-443``, an
+        instrument): the full-resolution weights of all S merged samples,
+        dilated as K12 dilates the coarse ones; K7's chart of every merged
+        depth, K3 on the fine density tables, raw2alpha's weights."""
+        cfg = self.cfg
+        norm = self.ops.chart(rays_o, viewdirs, z_vals, self.coordinates)
+        planes = [params[f"density_planes.{i}"] for i in range(3)]
+        lines = [params[f"density_lines.{i}"] for i in range(3)]
+        feat = self.compute_density_feature(planes, lines, norm).reshape(z_vals.shape)
+        _, w, _ = raw2alpha(feature2density(feat, cfg), dists * cfg.distance_scale)
+        return dilate(w)
+
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
     def forward(self, params, rays: torch.Tensor, key: Optional[StepKey] = None,
                 is_train=False, n_coarse=128, n_fine=128, exp_sampling=True, resampling=True,
                 use_coarse_sample=True, pretrain_envmap=False, white_bg=True,
-                ndc_ray=False, eval_keep=0, tables: Optional[LookupTables] = None,
-                jitter: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None):
+                ndc_ray=False, eval_keep=0, train_keep=0, train_cull_tau=0.0,
+                eval_keep_score="coarse", tables: Optional[LookupTables] = None,
+                jitter: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None,
+                cull_u: Optional[torch.Tensor] = None):
         """Render an (R, 6) ray batch.  Returns dict(rgb (R, 3), depth (R,),
         acc (R,), bg, env); with the envmap, env (R, 3) is each ray's
         background radiance and bg (R, 3) = its transmittance times env,
@@ -440,7 +459,18 @@ class EgoNeRF(nn.Module):
         ``params``; depth and acc are not (JAX stops depth's gradient).
         ``tables`` are :meth:`lookup_tables` of ``params`` for an eval
         render; without them the fine field runs through its autograd
-        Function.  Eval callers run under ``torch.no_grad()``."""
+        Function.  Eval callers run under ``torch.no_grad()``.
+
+        The empty-space cull (JAX ``ops/cull.py``): with resampling and
+        ``keep`` = ``train_keep`` in training, else ``eval_keep``, in
+        (0, S) for S merged samples, K4 also writes the coarse weights, K12
+        scores the merged samples by them (or, with ``eval_keep_score =
+        "oracle"`` at eval, the full-resolution weights of all S samples),
+        training with a key or ``cull_u`` (R, S) uniforms perturbs the
+        scores (``gumbel_perturb`` at ``train_cull_tau`` > 0, else
+        ``train_tiebreak``), K13 keeps the ``keep`` highest with their
+        original dists, and K7 takes the chart of the kept depths.  The kept
+        depths are constants for autograd, as in JAX."""
         if ndc_ray:
             raise NotImplementedError("NDC rays are not supported by the egocentric model")
         cfg = self.cfg
@@ -449,8 +479,6 @@ class EgoNeRF(nn.Module):
             if not cfg.use_envmap:
                 raise ValueError("pretrain_envmap needs a model with the envmap")
             return {"env": envmap_radiance(params["envmap"], viewdirs, self.ops)}
-        if eval_keep:
-            raise NotImplementedError(f"the empty-space cull {_LATER}")
         coords = self.coordinates
         n_rays, dev = rays.shape[0], rays.device
         if is_train and key is not None:
@@ -473,14 +501,34 @@ class EgoNeRF(nn.Module):
             if resampling:
                 # 3) coarse density (K3) on the detached grid -> weights,
                 # inverse CDF at u, merge, and the fine chart of the merged
-                # depths in K4's epilogue
+                # depths in K4's epilogue; under the cull (JAX
+                # models/egonerf.py:412-460) K4 writes the coarse weights
+                # instead, K12 scores, K13 keeps and K7 charts the kept
                 c_planes, c_lines = (self.coarse_tables(params) if tables is None
                                      else (tables.coarse_planes, tables.coarse_lines))
                 c_feat = self._density(c_planes, c_lines, coarse_norm)
-                z_vals, dists, norm = self.ops.resample_chart(
-                    c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample,
-                    cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act, rays_o,
-                    viewdirs, coords)
+                act = (cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act)
+                keep = int(train_keep if is_train else eval_keep)
+                n_merged = n_coarse + n_fine if use_coarse_sample else n_fine
+                if 0 < keep < n_merged:
+                    z_vals, dists, c_weight = self.ops.resample_weights(
+                        c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, *act)
+                    if not is_train and eval_keep_score == "oracle":
+                        score = self._oracle_score(params, rays_o, viewdirs, z_vals, dists)
+                    else:
+                        score = self.ops.coarse_importance(z_vals, coarse_z, c_weight)
+                    if is_train and (key is not None or cull_u is not None):
+                        if cull_u is None:
+                            cull_u = torch.rand(n_rays, n_merged, generator=key.generator,
+                                                device=dev)
+                        score = (gumbel_perturb(score, cull_u, float(train_cull_tau))
+                                 if train_cull_tau > 0 else train_tiebreak(score, cull_u))
+                    z_vals, dists = self.ops.select_top_k(z_vals, dists, score, keep)
+                    norm = self.ops.chart(rays_o, viewdirs, z_vals, coords)
+                else:
+                    z_vals, dists, norm = self.ops.resample_chart(
+                        c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, *act,
+                        rays_o, viewdirs, coords)
                 norm = norm.reshape(n_rays, z_vals.shape[1], 4)
             else:
                 z_vals, dists, norm = coarse_z, coarse_dists, coarse_norm

@@ -274,7 +274,8 @@ class TensorVMSplit(nn.Module):
         if ndc_ray:
             raise NotImplementedError(f"NDC rays {_LATER}")
         if eval_keep:
-            raise NotImplementedError(f"the empty-space cull {_LATER}")
+            raise NotImplementedError("the empty-space cull (eval_keep) on TensorVMSplit, which "
+                                      "the JAX package accepts and ignores (ROADMAP.md §3)")
         cfg = self.cfg
         rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
         if pretrain_envmap:

@@ -19,11 +19,15 @@ K10   mm.mixed_mm                 mixed_mm_plain          csrc/mixed_mm.cu
 K10   mm.mixed_mm_da              mixed_mm_da_plain       csrc/mixed_mm.cu
 K10   mm.mixed_mm_db              mixed_mm_db_plain       csrc/mixed_mm.cu
 K11   bias.bias_grad              bias_grad_plain         csrc/bias_grad.cu
+K12   cull.coarse_importance      coarse_importance_plain csrc/cull.cu
+K13   cull.select_top_k           select_top_k_plain      csrc/cull.cu
 ====  ==========================  ======================  =======================
 
 ``resample_chart`` is K4 with K7's chart of the merged depths in its
 epilogue: the EgoNeRF forward's resampling and fine chart in one launch
-(``pdf.resample`` launches K4 without it).  ``KERNELS`` is what the
+(``pdf.resample`` launches K4 without it); ``resample_weights`` is K4
+writing the coarse weights instead, which the empty-space cull (K12, K13)
+scores the merged samples by.  ``KERNELS`` is what the
 models call.  ``PLAIN`` runs the plain versions on
 any device; it is the reference the kernels are held against on the card.
 K2, K6b and K8b are the backwards of K1, K6 and K8 inside the autograd
@@ -39,11 +43,14 @@ from typing import Callable, NamedTuple
 from .alphamask import alpha_fwd, alpha_fwd_plain
 from .bias import bias_grad, bias_grad_plain
 from .chart import chart_fwd, chart_fwd_plain
+from .cull import (coarse_importance, coarse_importance_plain, select_top_k,
+                   select_top_k_plain)
 from .envmap import envmap_bwd, envmap_bwd_plain, envmap_fwd, envmap_fwd_plain
 from .merge import sorted_uniform, sorted_uniform_plain
 from .mm import (mixed_mm, mixed_mm_da, mixed_mm_da_plain, mixed_mm_db, mixed_mm_db_plain,
                  mixed_mm_plain)
-from .pdf import resample_chart, resample_chart_plain
+from .pdf import (resample_chart, resample_chart_plain, resample_weights,
+                  resample_weights_plain)
 from .vm_lookup import (density_fwd, density_fwd_plain, field_bwd, field_bwd_plain,
                         field_fwd, field_fwd_plain)
 from .volrend import composite, composite_bwd, composite_bwd_plain, composite_plain
@@ -65,12 +72,16 @@ class Ops(NamedTuple):
     mm_da: Callable
     mm_db: Callable
     bias_grad: Callable
+    resample_weights: Callable
+    coarse_importance: Callable
+    select_top_k: Callable
 
 
 KERNELS = Ops(field_fwd, field_bwd, density_fwd, resample_chart, sorted_uniform, composite,
               composite_bwd, chart_fwd, envmap_fwd, envmap_bwd, alpha_fwd, mixed_mm, mixed_mm_da,
-              mixed_mm_db, bias_grad)
+              mixed_mm_db, bias_grad, resample_weights, coarse_importance, select_top_k)
 PLAIN = Ops(field_fwd_plain, field_bwd_plain, density_fwd_plain, resample_chart_plain,
             sorted_uniform_plain, composite_plain, composite_bwd_plain, chart_fwd_plain,
             envmap_fwd_plain, envmap_bwd_plain, alpha_fwd_plain, mixed_mm_plain,
-            mixed_mm_da_plain, mixed_mm_db_plain, bias_grad_plain)
+            mixed_mm_da_plain, mixed_mm_db_plain, bias_grad_plain, resample_weights_plain,
+            coarse_importance_plain, select_top_k_plain)

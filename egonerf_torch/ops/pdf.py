@@ -5,7 +5,8 @@ weights (``raw2alpha`` on the coarse density), the pdf and cdf over the
 interior weights, the inverse-CDF draw, the merge with the coarse depths
 (``ops/merge.py``) and the ``dists`` diff of ``EgoNeRF.forward``;
 :func:`resample_chart` also writes the chart of the merged depths (K7's
-function) from the same launch.
+function) from the same launch, and :func:`resample_weights` the coarse
+weights (the empty-space cull's input) instead.
 """
 from __future__ import annotations
 
@@ -89,17 +90,27 @@ def _dists(z: torch.Tensor) -> torch.Tensor:
     return torch.cat([d, d[:, -1:]], dim=-1)
 
 
+def resample_weights_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
+                           use_coarse_sample=True, density_shift=-8.0,
+                           distance_scale=25.0, act="softplus"):
+    """Plain version of K4 with the coarse weights: see
+    :func:`resample_weights`.  raw2alpha's weights and :func:`sample_pdf`
+    with their products and sums in K4's order."""
+    sigma = density_activation(c_feat, density_shift, act)
+    alpha, _, _ = raw2alpha(sigma, coarse_dists * distance_scale)
+    weights = _warp_weights(alpha)
+    z_mid = 0.5 * (coarse_z[:, 1:] + coarse_z[:, :-1])
+    fine_z = sample_pdf(z_mid, weights[:, 1:-1], n_fine, u)
+    z_vals = merge_sorted(coarse_z, fine_z) if use_coarse_sample else fine_z
+    return z_vals, _dists(z_vals), weights.contiguous()
+
+
 def resample_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
                    use_coarse_sample=True, density_shift=-8.0,
                    distance_scale=25.0, act="softplus"):
-    """Plain version of K4: see :func:`resample`.  raw2alpha's weights and
-    :func:`sample_pdf` with their products and sums in K4's order."""
-    sigma = density_activation(c_feat, density_shift, act)
-    alpha, _, _ = raw2alpha(sigma, coarse_dists * distance_scale)
-    z_mid = 0.5 * (coarse_z[:, 1:] + coarse_z[:, :-1])
-    fine_z = sample_pdf(z_mid, _warp_weights(alpha)[:, 1:-1], n_fine, u)
-    z_vals = merge_sorted(coarse_z, fine_z) if use_coarse_sample else fine_z
-    return z_vals, _dists(z_vals)
+    """Plain version of K4: see :func:`resample`."""
+    return resample_weights_plain(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample,
+                                  density_shift, distance_scale, act)[:2]
 
 
 def resample_chart_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
@@ -115,6 +126,7 @@ def resample_chart_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
 _BASE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 4
               + [ctypes.c_float, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2)
 _ARGS = _BASE_ARGS + [ctypes.c_void_p]
+_WEIGHTS_ARGS = _BASE_ARGS + [ctypes.c_void_p] * 2
 _CHART_ARGS = _BASE_ARGS + [ctypes.c_void_p, ctypes.c_longlong] * 2 + CHART_ARGS + \
     [ctypes.c_void_p] * 2
 SMEM_BYTES = 232448  # the shared memory a block may opt into on sm_90
@@ -183,7 +195,7 @@ def resample(c_feat: torch.Tensor, coarse_z: torch.Tensor, coarse_dists: torch.T
     ops/volrend.py:11-24, models/egonerf.py:392-411).  Kernel:
     csrc/resample.cu.  CPU tensors take :func:`resample_plain`.
     ``resample.launches`` counts K4's launches, with or without the chart
-    epilogue of :func:`resample_chart`."""
+    epilogue of :func:`resample_chart`, and as :func:`resample_weights`."""
     _, n_out = _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act)
     if c_feat.device.type == "cpu":
         return resample_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
@@ -235,4 +247,34 @@ def resample_chart(c_feat: torch.Tensor, coarse_z: torch.Tensor, coarse_dists: t
     return z_vals, dists, norm
 
 
+def resample_weights(c_feat: torch.Tensor, coarse_z: torch.Tensor,
+                     coarse_dists: torch.Tensor, n_fine: int, u: Optional[torch.Tensor] = None,
+                     use_coarse_sample: bool = True, density_shift: float = -8.0,
+                     distance_scale: float = 25.0, act: str = "softplus"
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 with the coarse weights: :func:`resample`'s z_vals and dists,
+    and from the same launch the (R, S) weights alpha * exclusive
+    transmittance of the coarse samples that the pdf is drawn from, in
+    K4's order.  No chart: under the empty-space cull the chart is taken of
+    the kept depths.
+
+    Replaces the EgoNeRF forward's resampling and the coarse weights that
+    its cull scores by (egonerf_tpu/models/egonerf.py:389-411, 440-443).
+    Kernel: csrc/resample.cu (``resample_weights_fwd``).  CPU tensors take
+    :func:`resample_weights_plain`.  A launch counts in ``resample.launches``
+    (K4) and in ``resample_weights.launches``."""
+    r, n_out = _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act)
+    if c_feat.device.type == "cpu":
+        return resample_weights_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
+                                      use_coarse_sample, density_shift, distance_scale, act)
+    weights = torch.empty(r, c_feat.shape[1], dtype=torch.float32, device=c_feat.device)
+    z_vals, dists = _launch("resample_weights_fwd", _WEIGHTS_ARGS, c_feat, coarse_z,
+                            coarse_dists, n_fine, u, use_coarse_sample, density_shift,
+                            distance_scale, act, n_out, weights.data_ptr())
+    if r:
+        resample_weights.launches += 1
+    return z_vals, dists, weights
+
+
 resample.launches = 0
+resample_weights.launches = 0

@@ -161,7 +161,10 @@ class Config:
     # PyTorch queues each step's kernels without waiting for the card)
     steps_per_call: int = 48
     device_sampling: bool = True  # draw ray ids on the device
-    # the JAX package's empty-space cull (egonerf_tpu/ops/cull.py); 0 = off
+    # the empty-space cull (ops/cull.py; EgoNeRF only): keep the K highest-
+    # scored merged samples a ray at eval / in training, 0 = off; an
+    # unculled step every train_keep_full_every; Gumbel-top-K at
+    # train_cull_tau > 0, else the tie-break
     eval_keep: int = 0
     train_keep: int = 0
     train_keep_full_every: int = 0

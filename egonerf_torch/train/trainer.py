@@ -7,7 +7,9 @@ One step draws a batch of ray ids on the card (on the host, by JAX's
 uniforms, the coarse chart K7, K3 and K4 on the detached coarse grid with
 the fine chart in K4's epilogue, the fine field through K1/K2; TensorVMSplit: jittered uniform steps, K9's mask gate, K1/K2 on its
 single grid; both: the shader through torch autograd, the composite through
-K6/K6b), takes the MSE plus the L1, TV and Ortho terms at JAX's schedules,
+K6/K6b; under ``train_keep`` EgoNeRF's empty-space cull, K12 and K13, with
+a full step every ``train_keep_full_every``), takes the MSE plus the L1,
+TV and Ortho terms at JAX's schedules,
 and steps Adam.  Nothing synchronises the host per step: the MSE is read
 with ``.item()`` only every ``progress_refresh_rate`` steps.  Events fire
 after a step as in JAX: ``vis_list``, ``i_weights``, the alpha-mask bake
@@ -19,8 +21,9 @@ fresh run first fits the envmap alone (``pretrain_envmap``, JAX
 What the JAX trainer does besides, the port does not carry yet and refuses
 by name (ROADMAP.md §1): the entropy, sparsity and depth losses; EgoNeRF's
 grid upsampling and linear sampling (sentinel schedules beyond ``n_iters``
-are accepted); the empty-space cull, the theta-importance sampler, ray
-filtering, NDC rays, the device mesh and the profiler hook.
+are accepted); the theta-importance sampler, ray filtering, NDC rays, the
+device mesh and the profiler hook.  TensorVMSplit refuses the cull, which
+JAX's accepts and ignores (it renders unculled).
 """
 from __future__ import annotations
 
@@ -65,8 +68,11 @@ def check_supported(cfg: Config) -> None:
     if egonerf and early:
         # the radial axis needs JAX's r-aware positions
         refused.append(f"EgoNeRF's grid upsampling (upsamp_list entries {early} below n_iters)")
-    if cfg.train_keep or cfg.eval_keep:
-        refused.append("the empty-space cull (train_keep, eval_keep)")
+    if not egonerf and (cfg.train_keep or cfg.eval_keep):
+        # JAX's TensorVMSplit.forward swallows the options and renders
+        # unculled; the port says so instead of accepting and ignoring them
+        refused.append(f"the empty-space cull (train_keep, eval_keep) on {cfg.model_name}, "
+                       "which the JAX package accepts and ignores (ROADMAP.md §3)")
     if cfg.sampling_method != "simple":
         refused.append(f"sampling_method {cfg.sampling_method!r}")
     if cfg.filter_ray:
@@ -260,12 +266,18 @@ class Trainer:
         device scalar (reading it synchronises the host)."""
         cfg = self.cfg
         row = self.sampler.next_batch()
+        # the cull, and every train_keep_full_every-th step unculled (JAX's
+        # lax.cond, trainer.py:339-352)
+        keep = cfg.train_keep
+        if keep and cfg.train_keep_full_every and iteration % cfg.train_keep_full_every == 0:
+            keep = 0
+        cull = dict(train_keep=keep, train_cull_tau=cfg.train_cull_tau) if keep else {}
         out = self.model.forward(
             self.params, row[:, :6], key=StepKey(self.generator, cfg.seed, iteration),
             is_train=True, n_coarse=cfg.n_coarse, n_fine=cfg.n_fine,
             exp_sampling=cfg.exp_sampling,
             resampling=cfg.resampling and iteration > cfg.iter_ignore_resampling,
-            use_coarse_sample=cfg.use_coarse_sample, white_bg=self.white_bg)
+            use_coarse_sample=cfg.use_coarse_sample, white_bg=self.white_bg, **cull)
         total, mse = self.loss(out, row[:, 6:9], iteration)
         self.optimizer.zero_grad()
         total.backward()

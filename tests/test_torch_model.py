@@ -175,7 +175,9 @@ def test_load_jax_checkpoint(pair, tmp_path):
         np.testing.assert_array_equal(back[k], flat[k], err_msg=k)
 
 
-@pytest.mark.parametrize("kwargs", [dict(is_train=True, exp_sampling=False), dict(eval_keep=8),
+# the cull is ported (tests/test_torch_cull.py); with linear sampling it still raises
+@pytest.mark.parametrize("kwargs", [dict(is_train=True, exp_sampling=False),
+                                    dict(eval_keep=8, exp_sampling=False),
                                     dict(exp_sampling=False), dict(ndc_ray=True)])
 def test_unported_options_raise(pair, kwargs):
     _, _, _, tm = pair

@@ -79,7 +79,8 @@ def test_build_dir_keyed_by_sources():
     assert d == _build.build_dir()
     assert {p.stem for p in _build.sources()} == {"vm_lookup", "resample", "composite",
                                                   "sorted_uniform", "chart", "envmap",
-                                                  "alphamask", "mixed_mm", "bias_grad"}
+                                                  "alphamask", "mixed_mm", "bias_grad",
+                                                  "cull"}
 
 
 def _tables(c=12, dtype=torch.bfloat16):

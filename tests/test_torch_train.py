@@ -328,7 +328,9 @@ UNPORTED = {
     "sparsity": dict(sparsity_lambda=0.1),
     "depth": dict(use_depth=True),
     "upsample": dict(upsamp_list="[10]"),
-    "cull": dict(train_keep=8),
+    # EgoNeRF's cull is ported (tests/test_torch_cull.py); TensorVMSplit
+    # refuses it, as JAX's accepts and ignores it
+    "cull": dict(model_name="TensorVMSplit", coordinates_name="xyz", train_keep=8),
     "theta_importance": dict(sampling_method="theta_importance"),
     "filter_ray": dict(filter_ray=True),
     "mesh": dict(mesh_shape="[4]"),
@@ -350,6 +352,7 @@ PORTED = {
     "l1": dict(L1_weight_initial=1e-4),
     "ortho": dict(Ortho_weight=1e-3),
     "alpha_mask": dict(update_AlphaMask_list="[10]"),
+    "cull": dict(train_keep=8, eval_keep=8, train_keep_full_every=4, train_cull_tau=1.0),
 }
 
 
