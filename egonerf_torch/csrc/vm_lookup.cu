@@ -7,6 +7,8 @@
 //       EgoNeRF._fused_products + compute_field (models/egonerf.py:207-247)
 //   K3  sample_plane_packed + sample_line_packed (_line_fwd), composed by
 //       EgoNeRF.compute_density_feature (models/egonerf.py:249-270)
+//   K15 sample_plane_packed_nograd, sample_line_packed_nograd (:636,645):
+//       one table's bilinear or linear lookup, (N, C) features
 //   K2  the custom VJPs of K1's lookups: _plane_bwd_bf16 and _hat_bwd
 //       (ops/vm_lookup.py:482,611), and _plane_bwd / _line_bwd (:456,519)
 //       under compute_dtype="float32" or off the hat gate, and
@@ -666,6 +668,99 @@ void launch_bwd_grid(bool two, bool vec, unsigned blocks, cudaStream_t st, const
   }
 }
 
+
+// K15 (vm_sample_kernel): one table's lookup with no gradient, the
+// counterpart of sample_plane_packed_nograd / sample_line_packed_nograd on
+// the port's layout: a bf16 (S, H, W, C) plane or (S, L, C) line read at
+// (x, y) or at x, on grid sel (grid 0 without sel, as JAX's sel=None), each
+// channel written to an (N, C) float32 row.  It shares K3's corner code
+// (axis_cell, load8) and K3's sums, ((c00 + c01) + c10) + c11 for a plane
+// and w0*r0 + w1*r1 for a line, so it equals ops/vm_lookup.py's
+// sample_plane / sample_line bit for bit.  A sample takes a group of G
+// lanes, G = the power of two >= C / 8, lane g the 8-channel chunks g,
+// g + G, ...: one 16-byte load a corner and two 16-byte stores a chunk in
+// the vector instantiation (C % 8 == 0, a 16-byte aligned table), one
+// 2-byte load and one store a channel in the scalar one.  Bound on the
+// card: bytes, the (N, C) float32 output (64 MB at N = 2^20, C = 16); the
+// tables sit in L2.  Plane or line, the vector load and the selector are
+// template parameters of its own kernel: K1-K3 hold no trace of it.
+template <bool kPlane, bool kVec, bool kSel>
+__global__ void __launch_bounds__(kThreads)
+vm_sample_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                 const int64_t* __restrict__ sel, long long n,
+                 const __nv_bfloat16* __restrict__ table, int H, int W, int C, int log2_group,
+                 float* __restrict__ out) {
+  const int group = 1 << log2_group;
+  const int g = threadIdx.x & (group - 1);
+  const long long s =
+      (((long long)blockIdx.x * kThreads) >> log2_group) + (threadIdx.x >> log2_group);
+  if (s >= n) return;
+  const size_t grid = kSel ? (size_t)__ldg(sel + s) : 0;
+  size_t r00, r01, r10 = 0, r11 = 0;
+  float w00, w01, w10 = 0.0f, w11 = 0.0f;
+  if (kPlane) {
+    const Cell cx = axis_cell(__ldg(x + s), W);
+    const Cell cy = axis_cell(__ldg(y + s), H);
+    const int x1 = min(cx.i0 + 1, W - 1);
+    const int y1 = min(cy.i0 + 1, H - 1);
+    w00 = __fmul_rn(cy.w0, cx.w0);
+    w01 = __fmul_rn(cy.w0, cx.w1);
+    w10 = __fmul_rn(cy.w1, cx.w0);
+    w11 = __fmul_rn(cy.w1, cx.w1);
+    const size_t base = grid * H * W;
+    r00 = (base + (size_t)cy.i0 * W + cx.i0) * C;
+    r01 = (base + (size_t)cy.i0 * W + x1) * C;
+    r10 = (base + (size_t)y1 * W + cx.i0) * C;
+    r11 = (base + (size_t)y1 * W + x1) * C;
+  } else {
+    const Cell cz = axis_cell(__ldg(x + s), H);
+    w00 = cz.w0;
+    w01 = cz.w1;
+    r00 = (grid * H + cz.i0) * C;
+    r01 = (grid * H + min(cz.i0 + 1, H - 1)) * C;
+  }
+  float* orow = out + s * C;
+  for (int c0 = g * kChunk; c0 < C; c0 += group * kChunk) {
+    float a[kChunk], b[kChunk], c[kChunk], d[kChunk], v[kChunk];
+    load8<kVec>(table + r00, c0, C, a);
+    load8<kVec>(table + r01, c0, C, b);
+    if (kPlane) {
+      load8<kVec>(table + r10, c0, C, c);
+      load8<kVec>(table + r11, c0, C, d);
+    }
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      v[j] = kPlane ? __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(w00, a[j]), __fmul_rn(w01, b[j])),
+                                          __fmul_rn(w10, c[j])),
+                                __fmul_rn(w11, d[j]))
+                    : __fadd_rn(__fmul_rn(w00, a[j]), __fmul_rn(w01, b[j]));
+    }
+    if (kVec) {
+      float4* dst = reinterpret_cast<float4*>(orow + c0);
+      __stcs(dst, make_float4(v[0], v[1], v[2], v[3]));
+      __stcs(dst + 1, make_float4(v[4], v[5], v[6], v[7]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        if (c0 + j < C) __stcs(orow + c0 + j, v[j]);
+      }
+    }
+  }
+}
+
+template <bool kPlane, bool kVec>
+void launch_sample(bool with_sel, unsigned blocks, cudaStream_t st, const float* x,
+                   const float* y, const int64_t* sel, long long n,
+                   const __nv_bfloat16* table, int H, int W, int C, int log2_group, float* out) {
+  if (with_sel) {
+    vm_sample_kernel<kPlane, kVec, true><<<blocks, kThreads, 0, st>>>(x, y, sel, n, table, H, W,
+                                                                      C, log2_group, out);
+  } else {
+    vm_sample_kernel<kPlane, kVec, false><<<blocks, kThreads, 0, st>>>(x, y, sel, n, table, H,
+                                                                       W, C, log2_group, out);
+  }
+}
+
 }  // namespace
 
 extern "C" int vm_field_fwd(const float* coords, long long n, const void* const* planes,
@@ -714,4 +809,30 @@ extern "C" int vm_density_fwd(const float* coords, long long n, const void* cons
                               const void* const* lines, const int* dims, float* density,
                               void* stream) {
   return launch<false>(coords, n, planes, lines, dims, density, nullptr, 0, nullptr, stream);
+}
+
+// K15: dims {H, W, C, log2 of the lanes a sample takes, 1 for the vector
+// instantiation} (ops/vm_lookup.py::_sample_nograd); a line passes L as H,
+// and y is unused.  sel may be null (grid 0).
+extern "C" int vm_sample_nograd(int plane, const float* x, const float* y, const int64_t* sel,
+                                long long n, const void* table, const int* dims, float* out,
+                                void* stream) {
+  const int H = dims[0], W = dims[1], C = dims[2], log2_group = dims[3];
+  const bool vec = dims[4] != 0;
+  const long long per_block = kThreads >> log2_group;
+  const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* tab = static_cast<const __nv_bfloat16*>(table);
+  const bool with_sel = sel != nullptr;
+  if (plane && vec) {
+    launch_sample<true, true>(with_sel, blocks, st, x, y, sel, n, tab, H, W, C, log2_group, out);
+  } else if (plane) {
+    launch_sample<true, false>(with_sel, blocks, st, x, y, sel, n, tab, H, W, C, log2_group, out);
+  } else if (vec) {
+    launch_sample<false, true>(with_sel, blocks, st, x, y, sel, n, tab, H, W, C, log2_group, out);
+  } else {
+    launch_sample<false, false>(with_sel, blocks, st, x, y, sel, n, tab, H, W, C, log2_group,
+                                out);
+  }
+  return (int)cudaGetLastError();
 }

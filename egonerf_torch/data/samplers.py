@@ -2,18 +2,24 @@
 of the trainer's choice between its device and host paths).
 
 The training rays and colors live on the card as one (N, 9) buffer
-(rays | rgb).  :class:`DeviceRaySampler` draws ``batch`` ray ids uniformly
-with replacement from a device-side generator (the ``SimpleSampler``
-branch of JAX's ``make_device_id_sampler``), so nothing crosses from the
-host per step.  :class:`HostRaySampler` takes the ids of
-:class:`SimpleSampler`, JAX's host sampler (shuffled epochs, the same ids
-for the same seed), and copies them to the card each step.  The trainer
-picks it by JAX's rule (:func:`host_sampling`).
+(rays | rgb).  On the card, :class:`DeviceRaySampler` draws ``batch`` ray
+ids uniformly with replacement from the step's generator (the
+``SimpleSampler`` branch of JAX's ``make_device_id_sampler``) and
+:class:`DeviceThetaSampler` draws the image and the column uniformly and
+the row through K14 (``ops/sampler.py::theta_ids``, its
+``ThetaImportanceSampler`` branch), so nothing crosses from the host per
+step.  :class:`HostRaySampler` takes the ids of a host sampler, JAX's
+:class:`SimpleSampler` (shuffled epochs) or :class:`ThetaImportanceSampler`
+(numpy's generator: the same ids as JAX's for the same seed), and copies
+them to the card each step.  The trainer picks the host path by JAX's rule
+(:func:`host_sampling`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import ops
 
 # JAX keeps the rays on the device below this buffer size, at 32 float32
 # a ray (egonerf_tpu/train/trainer.py:531-534)
@@ -45,6 +51,54 @@ class SimpleSampler:
         return self.ids[self.curr : self.curr + self.batch]
 
 
+class ThetaImportanceSampler:
+    """Latitude-weighted pixel sampling (a copy of
+    ``egonerf_tpu.data.samplers.ThetaImportanceSampler``): equirect images
+    oversample the poles, so rows are drawn with weight lambda*cos(theta)+1
+    (reference: sampler.py:19-38).
+
+    ``img_wh_full`` is the FULL pre-roi-crop equirect size; the sampler
+    derives the cropped per-image raster with the datasets' own slice
+    arithmetic and the image count from the flat buffer length.  This is
+    a deliberate deviation: the reference computes img_len outside from
+    ``img_wh`` and re-applies the roi crop inside the sampler
+    (reference: sampler.py:20-26, train.py:202-204), which double-crops
+    on the datasets whose ``img_wh`` is already roi-cropped
+    (dataset_omniscenes.py:14-16) — a latent misindexing its published
+    configs never hit because they all use ``sampling_method = simple``."""
+
+    def __init__(self, theta_importance_lambda: float, n_rays_total: int,
+                 img_wh_full, batch: int, roi, seed: int = 0):
+        self.batch = int(batch)
+        w, h = img_wh_full
+        # exact dataset slice arithmetic (datasets.py: int(r1*h)-int(r0*h)),
+        # NOT int(h*(r1-r0)) — the two differ for some fractional rois
+        self.w = int(roi[3] * w) - int(roi[2] * w)
+        self.h = int(roi[1] * h) - int(roi[0] * h)
+        if int(n_rays_total) % (self.w * self.h):
+            raise ValueError(
+                f"ray buffer length {n_rays_total} is not a multiple of the "
+                f"per-image raster {self.w}x{self.h} — theta_importance "
+                "requires the flat (img, row, col) layout (e.g. it cannot "
+                "follow a filter_ray compaction)")
+        self.img_len = int(n_rays_total) // (self.w * self.h)
+        self.weight = self._get_weight(theta_importance_lambda, h, roi)
+        self.rng = np.random.default_rng(seed)
+
+    @staticmethod
+    def _get_weight(lam: float, h: int, roi) -> np.ndarray:
+        rows = np.arange(h)[int(h * roi[0]) : int(h * roi[1])]
+        theta = -(rows - h // 2) / h * np.pi
+        weight = np.cos(theta) * lam + 1.0
+        return weight / weight.sum()
+
+    def nextids(self) -> np.ndarray:
+        img_id = self.rng.choice(self.img_len, self.batch)
+        col = self.rng.choice(self.w, self.batch)
+        row = self.rng.choice(self.h, self.batch, p=self.weight)
+        return img_id * self.w * self.h + (col + row * self.w)
+
+
 def _resident(all_rays: np.ndarray, all_rgbs: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.concatenate([all_rays, all_rgbs], axis=1).astype(np.float32),
                            device=device)
@@ -64,16 +118,43 @@ class DeviceRaySampler:
         return self.buffer[ids]
 
 
-class HostRaySampler:
-    def __init__(self, all_rays: np.ndarray, all_rgbs: np.ndarray, batch: int, seed: int,
-                 device):
-        self.buffer = _resident(all_rays, all_rgbs, device)
-        self.sampler = SimpleSampler(self.buffer.shape[0], batch, seed=seed)
+class DeviceThetaSampler:
+    """The theta-importance draw on the card: per step the image and the
+    column uniformly (``torch.randint``) and ``u`` (``torch.rand``) from
+    ``generator``, one K14 launch for the flat ids, and the gather of the
+    resident buffer.  The cdf is ``np.cumsum(weight)`` in float64 cast to
+    float32, as JAX's (``samplers.py:88``), made once."""
+
+    def __init__(self, all_rays: np.ndarray, all_rgbs: np.ndarray,
+                 sampler: ThetaImportanceSampler, batch: int, generator: torch.Generator):
+        self.buffer = _resident(all_rays, all_rgbs, generator.device)
+        self.cdf = torch.as_tensor(np.cumsum(sampler.weight).astype(np.float32),
+                                   device=generator.device)
+        self.img_len, self.w, self.h = sampler.img_len, sampler.w, sampler.h
+        self.batch = int(batch)
+        self.generator = generator
+
+    def next_ids(self) -> torch.Tensor:
+        dev, b, g = self.buffer.device, self.batch, self.generator
+        img = torch.randint(0, self.img_len, (b,), generator=g, device=dev)
+        col = torch.randint(0, self.w, (b,), generator=g, device=dev)
+        u = torch.rand(b, generator=g, device=dev)
+        return ops.KERNELS.theta_ids(img, col, u, self.cdf, self.w, self.h)
 
     def next_batch(self) -> torch.Tensor:
-        """(batch, 9) rows of :class:`SimpleSampler`'s next ids.  On the
-        card the ids go through pinned memory, so the copy does not hold
-        the host until the card has caught up."""
+        """(batch, 9) rows, with replacement."""
+        return self.buffer[self.next_ids()]
+
+
+class HostRaySampler:
+    def __init__(self, all_rays: np.ndarray, all_rgbs: np.ndarray, sampler, device):
+        self.buffer = _resident(all_rays, all_rgbs, device)
+        self.sampler = sampler
+
+    def next_batch(self) -> torch.Tensor:
+        """(batch, 9) rows of the host sampler's next ids.  On the card the
+        ids go through pinned memory, so the copy does not hold the host
+        until the card has caught up."""
         ids = torch.from_numpy(self.sampler.nextids())
         if self.buffer.is_cuda:
             ids = ids.pin_memory().to(self.buffer.device, non_blocking=True)

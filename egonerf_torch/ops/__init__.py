@@ -1,27 +1,31 @@
 """Tensor ops of the port.  The kernels of the render and training paths,
 each beside its plain PyTorch version:
 
-====  ==========================  ======================  =======================
-id    wrapper                     plain version           CUDA source
-====  ==========================  ======================  =======================
-K1    vm_lookup.field_fwd         field_fwd_plain         csrc/vm_lookup.cu
-K2    vm_lookup.field_bwd         field_bwd_plain         csrc/vm_lookup.cu
-K3    vm_lookup.density_fwd       density_fwd_plain       csrc/vm_lookup.cu
-K4    pdf.resample_chart          resample_chart_plain    csrc/resample.cu
-K5    merge.sorted_uniform        sorted_uniform_plain    csrc/sorted_uniform.cu
-K6    volrend.composite           composite_plain         csrc/composite.cu
-K6b   volrend.composite_bwd       composite_bwd_plain     csrc/composite.cu
-K7    chart.chart_fwd             chart_fwd_plain         csrc/chart.cu
-K8    envmap.envmap_fwd           envmap_fwd_plain        csrc/envmap.cu
-K8b   envmap.envmap_bwd           envmap_bwd_plain        csrc/envmap.cu
-K9    alphamask.alpha_fwd         alpha_fwd_plain         csrc/alphamask.cu
-K10   mm.mixed_mm                 mixed_mm_plain          csrc/mixed_mm.cu
-K10   mm.mixed_mm_da              mixed_mm_da_plain       csrc/mixed_mm.cu
-K10   mm.mixed_mm_db              mixed_mm_db_plain       csrc/mixed_mm.cu
-K11   bias.bias_grad              bias_grad_plain         csrc/bias_grad.cu
-K12   cull.coarse_importance      coarse_importance_plain csrc/cull.cu
-K13   cull.select_top_k           select_top_k_plain      csrc/cull.cu
-====  ==========================  ======================  =======================
+====  =============================  =========================  =======================
+id    wrapper                        plain version              CUDA source
+====  =============================  =========================  =======================
+K1    vm_lookup.field_fwd            field_fwd_plain            csrc/vm_lookup.cu
+K2    vm_lookup.field_bwd            field_bwd_plain            csrc/vm_lookup.cu
+K3    vm_lookup.density_fwd          density_fwd_plain          csrc/vm_lookup.cu
+K4    pdf.resample_chart             resample_chart_plain       csrc/resample.cu
+K5    merge.sorted_uniform           sorted_uniform_plain       csrc/sorted_uniform.cu
+K6    volrend.composite              composite_plain            csrc/composite.cu
+K6b   volrend.composite_bwd          composite_bwd_plain        csrc/composite.cu
+K7    chart.chart_fwd                chart_fwd_plain            csrc/chart.cu
+K8    envmap.envmap_fwd              envmap_fwd_plain           csrc/envmap.cu
+K8b   envmap.envmap_bwd              envmap_bwd_plain           csrc/envmap.cu
+K9    alphamask.alpha_fwd            alpha_fwd_plain            csrc/alphamask.cu
+K10   mm.mixed_mm                    mixed_mm_plain             csrc/mixed_mm.cu
+K10   mm.mixed_mm_da                 mixed_mm_da_plain          csrc/mixed_mm.cu
+K10   mm.mixed_mm_db                 mixed_mm_db_plain          csrc/mixed_mm.cu
+K11   bias.bias_grad                 bias_grad_plain            csrc/bias_grad.cu
+K12   cull.coarse_importance         coarse_importance_plain    csrc/cull.cu
+K13   cull.select_top_k              select_top_k_plain         csrc/cull.cu
+K14   sampler.theta_ids              theta_ids_plain            csrc/theta_sampler.cu
+K15   vm_lookup.sample_plane_nograd  sample_plane_nograd_plain  csrc/vm_lookup.cu
+K15   vm_lookup.sample_line_nograd   sample_line_nograd_plain   csrc/vm_lookup.cu
+K16   grid_sample.sample_line        sample_line_plain          csrc/grid_sample.cu
+====  =============================  =========================  =======================
 
 ``resample_chart`` is K4 with K7's chart of the merged depths in its
 epilogue: the EgoNeRF forward's resampling and fine chart in one launch
@@ -36,7 +40,13 @@ Functions ``vm_lookup.field_train``, ``volrend.composite_train`` and
 ``mm_db``: its backward's two contractions, all bf16 x bf16 -> float32) runs
 inside ``mm.mixed_matmul`` and K11 (``bias_grad``) is the backward of
 ``bias.bias_add``; only the shader forms that ``EGONERF_MIXED_MM=1`` and
-``EGONERF_BIAS_DOT=1`` select take them (``models/shading.py``).
+``EGONERF_BIAS_DOT=1`` select take them (``models/shading.py``).  K14 draws
+the rows of the theta-importance sampler (``data/samplers.py``).  K15 (one
+bf16 table's lookup with no gradient) and K16 (a float32 line stack's
+linear sample) have no caller on either package's paths, so they stay out
+of ``Ops``: they are the counterparts of JAX's
+``sample_plane_packed_nograd``, ``sample_line_packed_nograd`` and
+``grid_sample.sample_line``.
 """
 from typing import Callable, NamedTuple
 
@@ -51,6 +61,7 @@ from .mm import (mixed_mm, mixed_mm_da, mixed_mm_da_plain, mixed_mm_db, mixed_mm
                  mixed_mm_plain)
 from .pdf import (resample_chart, resample_chart_plain, resample_weights,
                   resample_weights_plain)
+from .sampler import theta_ids, theta_ids_plain
 from .vm_lookup import (density_fwd, density_fwd_plain, field_bwd, field_bwd_plain,
                         field_fwd, field_fwd_plain)
 from .volrend import composite, composite_bwd, composite_bwd_plain, composite_plain
@@ -75,13 +86,15 @@ class Ops(NamedTuple):
     resample_weights: Callable
     coarse_importance: Callable
     select_top_k: Callable
+    theta_ids: Callable
 
 
 KERNELS = Ops(field_fwd, field_bwd, density_fwd, resample_chart, sorted_uniform, composite,
               composite_bwd, chart_fwd, envmap_fwd, envmap_bwd, alpha_fwd, mixed_mm, mixed_mm_da,
-              mixed_mm_db, bias_grad, resample_weights, coarse_importance, select_top_k)
+              mixed_mm_db, bias_grad, resample_weights, coarse_importance, select_top_k,
+              theta_ids)
 PLAIN = Ops(field_fwd_plain, field_bwd_plain, density_fwd_plain, resample_chart_plain,
             sorted_uniform_plain, composite_plain, composite_bwd_plain, chart_fwd_plain,
             envmap_fwd_plain, envmap_bwd_plain, alpha_fwd_plain, mixed_mm_plain,
             mixed_mm_da_plain, mixed_mm_db_plain, bias_grad_plain, resample_weights_plain,
-            coarse_importance_plain, select_top_k_plain)
+            coarse_importance_plain, select_top_k_plain, theta_ids_plain)

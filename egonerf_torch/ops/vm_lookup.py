@@ -595,3 +595,120 @@ def field_train(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     (N, n_app)."""
     return _Field.apply(coords, tuple(int(d) for d in n_density),
                         tuple(int(h) for h in line_hat), fwd, bwd, *planes, *lines)
+
+
+# ---------------------------------------------------------------------------
+# K15: one table's lookup with no gradient
+# ---------------------------------------------------------------------------
+def _grid0(sel, n: int, device) -> torch.Tensor:
+    """``sel``, or grid 0 for every sample where it is None (JAX's
+    ``sel=None``)."""
+    return torch.zeros(n, dtype=torch.int64, device=device) if sel is None else sel
+
+
+def sample_plane_nograd_plain(plane, x, y, sel=None) -> torch.Tensor:
+    """Plain version of K15's plane lookup: see :func:`sample_plane_nograd`."""
+    return sample_plane(plane, x, y, _grid0(sel, x.shape[0], x.device))
+
+
+def sample_line_nograd_plain(line, coord, sel=None) -> torch.Tensor:
+    """Plain version of K15's line lookup: see :func:`sample_line_nograd`."""
+    return sample_line(line, coord, _grid0(sel, coord.shape[0], coord.device))
+
+
+_SAMPLE_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                ctypes.c_void_p, ctypes.c_void_p]
+
+
+def check_coord_sel(coords: Sequence, sel, table: torch.Tensor) -> int:
+    """The shared argument checks of K15 and K16: a table with no empty
+    axis; each of ``coords`` an (N,) contiguous float32 tensor on its
+    device, ``sel`` None or an (N,) int64 one.  On the CPU ``sel``'s
+    values must be grids of the stack, [0, S), or IndexError; on the card
+    they are not read here (that would wait for the device), and a grid
+    outside the stack makes the kernel read outside the table: undefined
+    behaviour.  Returns N."""
+    if min(table.shape) < 1:
+        raise ValueError(f"expected a table with no empty axis, got {tuple(table.shape)}")
+    device = table.device
+    check_tensor("coord", coords[0], torch.float32, (None,), device)
+    n = coords[0].shape[0]
+    for i, c in enumerate(coords[1:], 1):
+        check_tensor(f"coord {i}", c, torch.float32, (n,), device)
+    if sel is not None:
+        check_tensor("sel", sel, torch.int64, (n,), device)
+        if device.type == "cpu" and n and not 0 <= int(sel.min()) <= int(sel.max()) < len(table):
+            raise IndexError(f"sel holds grids outside the stack's [0, {len(table)})")
+    return n
+
+
+def _sample_nograd(plane: bool, table, x, y, sel, hwc, name):
+    """Launch K15 on ``table`` (``hwc``: H, W, C; a line passes L, 1, C)."""
+    n, dev = x.shape[0], x.device
+    c = hwc[2]
+    out = torch.empty(n, c, dtype=torch.float32, device=dev)
+    if n:
+        chunks = max(1, -(-c // CHUNK))
+        group = min(32, 1 << (chunks - 1).bit_length())
+        vec = c % CHUNK == 0 and table.data_ptr() % 16 == 0
+        dims = (ctypes.c_int * 5)(*hwc, group.bit_length() - 1, int(vec))
+        fn = kernel("vm_lookup", "vm_sample_nograd", _SAMPLE_ARGS)
+        with torch.cuda.device(dev):
+            err = fn(int(plane), x.data_ptr(), y.data_ptr(), 0 if sel is None else sel.data_ptr(),
+                     n, table.data_ptr(), dims, out.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+        check_launch(name, err)
+    return out
+
+
+def sample_plane_nograd(plane: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                        sel=None) -> torch.Tensor:
+    """K15, the plane lookup: the bilinear sample of a bfloat16 (S, H, W, C)
+    stack at normalized (x, y) (x indexes W, y H; align_corners, zero
+    padding by ``_axis_cells``' clamped pair) on grid ``sel`` (grid 0
+    where None), summed ((c00 + c01) + c10) + c11 in float32.  x, y (N,)
+    float32; sel None or (N,) int64.  Returns (N, C) float32.
+
+    Replaces ``sample_plane_packed_nograd`` (egonerf_tpu/ops/vm_lookup.py:
+    636-642) on the port's unpacked table: JAX's packed table holds the same
+    bf16 values (``pack_plane``) and its corner rule is
+    ``plane_idx_weights_fac``.  Kernel: csrc/vm_lookup.cu
+    (``vm_sample_kernel``).  CPU tensors take
+    :func:`sample_plane_nograd_plain`."""
+    check_tensor("plane", plane, torch.bfloat16, (None, None, None, None))
+    check_coord_sel((x, y), sel, plane)
+    if plane.device.type == "cpu":
+        return sample_plane_nograd_plain(plane, x, y, sel)
+    _, h, w, c = plane.shape
+    out = _sample_nograd(True, plane, x, y, sel, (h, w, c), "vm_sample_nograd (plane)")
+    if x.shape[0]:
+        sample_plane_nograd.launches += 1
+    return out
+
+
+sample_plane_nograd.launches = 0
+
+
+def sample_line_nograd(line: torch.Tensor, coord: torch.Tensor, sel=None) -> torch.Tensor:
+    """K15, the line lookup: the linear sample of a bfloat16 (S, L, C) stack
+    at normalized ``coord`` on grid ``sel`` (grid 0 where None), w0 r0 +
+    w1 r1 in float32 with ``_axis_cells``' weights.  coord (N,) float32;
+    sel None or (N,) int64.  Returns (N, C) float32.
+
+    Replaces ``sample_line_packed_nograd`` (egonerf_tpu/ops/vm_lookup.py:
+    645-649) on the unpacked table (``pack_line``'s bf16 values,
+    ``line_idx_weights_fac``'s corner rule).  Kernel: csrc/vm_lookup.cu
+    (``vm_sample_kernel``).  CPU tensors take :func:`sample_line_nograd_plain`."""
+    check_tensor("line", line, torch.bfloat16, (None, None, None))
+    check_coord_sel((coord,), sel, line)
+    if line.device.type == "cpu":
+        return sample_line_nograd_plain(line, coord, sel)
+    _, l, c = line.shape
+    out = _sample_nograd(False, line, coord, coord, sel, (l, 1, c), "vm_sample_nograd (line)")
+    if coord.shape[0]:
+        sample_line_nograd.launches += 1
+    return out
+
+
+sample_line_nograd.launches = 0

@@ -1,1 +1,2 @@
-"""Measurement scripts of the port, run on a CUDA card (see each module)."""
+"""Tools of the port: measurement scripts run on a CUDA card, and the
+capture writer, run on the host (see each module)."""

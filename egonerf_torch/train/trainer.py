@@ -1,17 +1,20 @@
 """The training loop (counterpart of ``egonerf_tpu/train/trainer.py``:
 ``Trainer`` and ``render_test``), cut to what the port carries.
 
-One step draws a batch of ray ids on the card (on the host, by JAX's
-``SimpleSampler``, under ``device_sampling = False``) from the resident
-(N, 9) buffer, runs the model's forward in training mode (EgoNeRF: K5's sorted
-uniforms, the coarse chart K7, K3 and K4 on the detached coarse grid with
-the fine chart in K4's epilogue, the fine field through K1/K2; TensorVMSplit: jittered uniform steps, K9's mask gate, K1/K2 on its
-single grid; both: the shader through torch autograd, the composite through
-K6/K6b; under ``train_keep`` EgoNeRF's empty-space cull, K12 and K13, with
-a full step every ``train_keep_full_every``), takes the MSE plus the L1,
-TV and Ortho terms at JAX's schedules,
-and steps Adam.  Nothing synchronises the host per step: the MSE is read
-with ``.item()`` only every ``progress_refresh_rate`` steps.  Events fire
+One step draws a batch of ray ids from the resident (N, 9) buffer: on the
+card (uniformly, or under ``sampling_method = theta_importance`` the image
+and column uniformly and the row by the cos-latitude weights through K14),
+or on the host by JAX's ``SimpleSampler`` or ``ThetaImportanceSampler``
+under ``device_sampling = False``.  It runs the model's forward in
+training mode (EgoNeRF: K5's sorted uniforms, the coarse chart K7, K3 and
+K4 on the detached coarse grid with the fine chart in K4's epilogue, the
+fine field through K1/K2; TensorVMSplit: jittered uniform steps, K9's mask
+gate, K1/K2 on its single grid; both: the shader through torch autograd,
+the composite through K6/K6b; under ``train_keep`` EgoNeRF's empty-space
+cull, K12 and K13, with a full step every ``train_keep_full_every``), takes
+the MSE plus the L1, TV and Ortho terms at JAX's schedules, and steps
+Adam.  Nothing synchronises the host per step: the MSE is read with
+``.item()`` only every ``progress_refresh_rate`` steps.  Events fire
 after a step as in JAX: ``vis_list``, ``i_weights``, the alpha-mask bake
 (``update_AlphaMask_list``; its first switches the L1 weight) and the grid
 upsample (``upsamp_list``, TensorVMSplit), then the end.  With the envmap a
@@ -21,9 +24,9 @@ fresh run first fits the envmap alone (``pretrain_envmap``, JAX
 What the JAX trainer does besides, the port does not carry yet and refuses
 by name (ROADMAP.md §1): the entropy, sparsity and depth losses; EgoNeRF's
 grid upsampling and linear sampling (sentinel schedules beyond ``n_iters``
-are accepted); the theta-importance sampler, ray filtering, NDC rays, the
-device mesh and the profiler hook.  TensorVMSplit refuses the cull, which
-JAX's accepts and ignores (it renders unculled).
+are accepted); ray filtering, NDC rays, the device mesh and the profiler
+hook.  TensorVMSplit refuses the cull, which JAX's accepts and ignores (it
+renders unculled).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ import torch
 from .._device import resolve_device
 from ..coords import coords_from_spec, make_coordinates
 from ..data.datasets import dataset_class
-from ..data.samplers import DeviceRaySampler, HostRaySampler, host_sampling
+from ..data.samplers import (DeviceRaySampler, DeviceThetaSampler, HostRaySampler,
+                             SimpleSampler, ThetaImportanceSampler, host_sampling)
 from ..models import StepKey, build_model, model_meta, params_from_jax
 from ..models.alphamask import mask_from_volumes
 from ..render.metrics import mse2psnr
@@ -56,7 +60,11 @@ def check_supported(cfg: Config) -> None:
     that the port does not carry yet.  ``steps_per_call`` is accepted: in
     JAX it only fuses that many steps into one compiled call, and the port
     runs each step eagerly, so it changes no result.  ``device_sampling =
-    False`` selects JAX's host sampler (``data/samplers.py``)."""
+    False`` selects JAX's host samplers (``data/samplers.py``).  A
+    ``sampling_method`` other than ``simple`` and ``theta_importance``
+    raises JAX's ``ValueError``."""
+    if cfg.sampling_method not in ("simple", "theta_importance"):
+        raise ValueError(f"sampling method {cfg.sampling_method} not supported")
     refused = []
     for name in ("entropy_weight", "sparsity_lambda"):
         if getattr(cfg, name) > 0:
@@ -73,8 +81,6 @@ def check_supported(cfg: Config) -> None:
         # unculled; the port says so instead of accepting and ignoring them
         refused.append(f"the empty-space cull (train_keep, eval_keep) on {cfg.model_name}, "
                        "which the JAX package accepts and ignores (ROADMAP.md §3)")
-    if cfg.sampling_method != "simple":
-        refused.append(f"sampling_method {cfg.sampling_method!r}")
     if cfg.filter_ray:
         refused.append("filter_ray")
     if cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1:
@@ -211,16 +217,27 @@ class Trainer:
                          decay_iters)
 
     def _install_sampler(self) -> None:
-        """JAX's choice of sampler (``trainer.py:531-537``): the host's
-        ``SimpleSampler`` under ``device_sampling = False`` or a ray buffer
-        of 6 GiB or more, else ids drawn on the card."""
-        ds = self.train_dataset
-        if host_sampling(ds.all_rays.shape[0], self.cfg.device_sampling):
-            self.sampler = HostRaySampler(ds.all_rays, ds.all_rgbs, self.cfg.batch_size,
-                                          self.cfg.seed, self.device)
+        """JAX's sampler (``_install_train_data``, ``trainer.py:497-537``):
+        ``SimpleSampler``, or ``ThetaImportanceSampler`` over the full
+        pre-crop frame (``img_wh_origin`` where the dataset crops by its
+        roi) and the roi; its ids on the host under ``device_sampling =
+        False`` or a ray buffer of 6 GiB or more, else drawn on the card."""
+        cfg, ds = self.cfg, self.train_dataset
+        n_rays = ds.all_rays.shape[0]
+        if cfg.sampling_method == "simple":
+            host = SimpleSampler(n_rays, cfg.batch_size, seed=cfg.seed)
         else:
-            self.sampler = DeviceRaySampler(ds.all_rays, ds.all_rgbs, self.cfg.batch_size,
+            full_wh = getattr(ds, "img_wh_origin", ds.img_wh)
+            host = ThetaImportanceSampler(cfg.theta_importance_lambda, n_rays, full_wh,
+                                          cfg.batch_size, ds.roi, seed=cfg.seed)
+        if host_sampling(n_rays, cfg.device_sampling):
+            self.sampler = HostRaySampler(ds.all_rays, ds.all_rgbs, host, self.device)
+        elif cfg.sampling_method == "simple":
+            self.sampler = DeviceRaySampler(ds.all_rays, ds.all_rgbs, cfg.batch_size,
                                             self.generator)
+        else:
+            self.sampler = DeviceThetaSampler(ds.all_rays, ds.all_rgbs, host, cfg.batch_size,
+                                              self.generator)
 
     def set_datasets(self, train_dataset, test_dataset) -> None:
         """Swap datasets after construction (JAX ``trainer.py:548-563``):

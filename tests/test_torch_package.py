@@ -14,7 +14,8 @@ import torch
 import egonerf_torch
 from egonerf_torch import _build, _device
 from egonerf_torch.coords.yinyang import YinYangSphericalCoords
-from egonerf_torch.ops import alphamask, chart, envmap, merge, pdf, vm_lookup, volrend
+from egonerf_torch.ops import (alphamask, chart, envmap, grid_sample, merge, pdf, sampler,
+                               vm_lookup, volrend)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "egonerf_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -80,7 +81,7 @@ def test_build_dir_keyed_by_sources():
     assert {p.stem for p in _build.sources()} == {"vm_lookup", "resample", "composite",
                                                   "sorted_uniform", "chart", "envmap",
                                                   "alphamask", "mixed_mm", "bias_grad",
-                                                  "cull"}
+                                                  "cull", "theta_sampler", "grid_sample"}
 
 
 def _tables(c=12, dtype=torch.bfloat16):
@@ -157,7 +158,62 @@ def _alpha(**over):
     return alphamask.alpha_fwd(**args)
 
 
+def _theta(**over):
+    args = dict(img=torch.zeros(8, dtype=torch.int64), col=torch.zeros(8, dtype=torch.int64),
+                u=torch.rand(8), cdf=torch.linspace(0.25, 1.0, 4), w=3, h=4)
+    args.update(over)
+    return sampler.theta_ids(**args)
+
+
+def _plane_nograd(**over):
+    args = dict(plane=torch.zeros(2, 3, 4, 8, dtype=torch.bfloat16), x=torch.zeros(5),
+                y=torch.zeros(5), sel=torch.zeros(5, dtype=torch.int64))
+    args.update(over)
+    return vm_lookup.sample_plane_nograd(**args)
+
+
+def _line_nograd(**over):
+    args = dict(line=torch.zeros(2, 3, 8, dtype=torch.bfloat16), coord=torch.zeros(5), sel=None)
+    args.update(over)
+    return vm_lookup.sample_line_nograd(**args)
+
+
+def _grid_line(**over):
+    args = dict(lines=torch.zeros(1, 3, 8), coord=torch.zeros(5), sel=None)
+    args.update(over)
+    return grid_sample.sample_line(**args)
+
+
 BAD_CALLS = {
+    "theta u float64": (lambda: _theta(u=torch.rand(8, dtype=torch.float64)), TypeError),
+    "theta img int32": (lambda: _theta(img=torch.zeros(8, dtype=torch.int32)), TypeError),
+    "theta col length": (lambda: _theta(col=torch.zeros(7, dtype=torch.int64)), ValueError),
+    "theta cdf rows": (lambda: _theta(h=5), ValueError),
+    "theta w": (lambda: _theta(w=0), ValueError),
+    "theta cdf (h, 1)": (lambda: _theta(cdf=torch.ones(4, 1)), ValueError),
+    "plane_nograd float32 plane": (lambda: _plane_nograd(plane=torch.zeros(2, 3, 4, 8)),
+                                   TypeError),
+    "plane_nograd y length": (lambda: _plane_nograd(y=torch.zeros(4)), ValueError),
+    "plane_nograd sel int32": (lambda: _plane_nograd(sel=torch.zeros(5, dtype=torch.int32)),
+                               TypeError),
+    "plane_nograd empty plane": (lambda: _plane_nograd(
+        plane=torch.zeros(2, 0, 4, 8, dtype=torch.bfloat16)), ValueError),
+    "line_nograd (S, L) line": (lambda: _line_nograd(line=torch.zeros(2, 3,
+                                                                      dtype=torch.bfloat16)),
+                                ValueError),
+    "line_nograd strided coord": (lambda: _line_nograd(coord=torch.zeros(10)[::2]), ValueError),
+    "grid line bf16 lines": (lambda: _grid_line(lines=torch.zeros(1, 3, 8,
+                                                                  dtype=torch.bfloat16)),
+                             TypeError),
+    "grid line coord (N, 1)": (lambda: _grid_line(coord=torch.zeros(5, 1)), ValueError),
+    "grid line sel length": (lambda: _grid_line(sel=torch.zeros(4, dtype=torch.int64)),
+                             ValueError),
+    "plane_nograd sel past the stack": (lambda: _plane_nograd(sel=torch.tensor([0, 1, 0, 1, 2])),
+                                        IndexError),
+    "line_nograd negative sel": (lambda: _line_nograd(sel=torch.tensor([0, 1, -1, 0, 0])),
+                                 IndexError),
+    "grid line sel past the stack": (lambda: _grid_line(sel=torch.ones(5, dtype=torch.int64)),
+                                     IndexError),
     "alpha volume float32": (lambda: _alpha(volume=torch.zeros(2, 3, 4, 5)), TypeError),
     "alpha three volumes": (lambda: _alpha(volume=torch.zeros(3, 3, 4, 5, dtype=torch.uint8)),
                             ValueError),
@@ -295,6 +351,56 @@ def test_chart_and_envmap_entries_take_the_plain_versions_on_cpu(interval_th):
     grad = ops.KERNELS.envmap_bwd(d, env, g, 4)
     assert grad.shape == (8, 4, 3) and torch.equal(grad, ops.PLAIN.envmap_bwd(d, env, g, 4))
     assert [f.launches for f in counters] == before
+
+
+def test_sampler_and_lookup_entries_take_the_plain_versions_on_cpu():
+    """K14, K15 and K16 give CPU tensors their plain versions and launch
+    nothing."""
+    from egonerf_torch import ops
+
+    counters = (sampler.theta_ids, vm_lookup.sample_plane_nograd,
+                vm_lookup.sample_line_nograd, grid_sample.sample_line)
+    before = [f.launches for f in counters]
+    u = torch.tensor([0.0, 0.25, 0.3, 0.5, 0.6, 0.75, 0.9, 1.0])
+    col = torch.arange(8) % 3
+    ids = _theta(u=u, col=col)
+    assert ids.dtype == torch.int64
+    assert ids.tolist() == (torch.tensor([0, 0, 1, 1, 2, 2, 3, 3]) * 3 + col).tolist()
+    gen = torch.Generator().manual_seed(0)
+    x, sel = torch.rand(6, generator=gen) * 2 - 1, torch.tensor([0, 1, 1, 0, 1, 0])
+    plane = torch.randn(2, 3, 4, 8, generator=gen).bfloat16()
+    line = torch.randn(2, 5, 8, generator=gen)
+    assert ops.KERNELS.theta_ids is sampler.theta_ids
+    assert ops.PLAIN.theta_ids is sampler.theta_ids_plain
+    for kern, plain, args in ((vm_lookup.sample_plane_nograd, vm_lookup.sample_plane_nograd_plain,
+                               (plane, x, x.flip(0), sel)),
+                              (vm_lookup.sample_line_nograd, vm_lookup.sample_line_nograd_plain,
+                               (line.bfloat16(), x, sel)),
+                              (grid_sample.sample_line, grid_sample.sample_line_plain,
+                               (line, x, sel)),
+                              (grid_sample.sample_line, grid_sample.sample_line_plain,
+                               (line[:1].clone(), x, None))):
+        out = kern(*args)
+        assert out.shape == (6, 8) and torch.equal(out, plain(*args))
+    assert [f.launches for f in counters] == before
+
+
+def test_trainer_sampling_methods(tmp_path):
+    """The trainer accepts ``theta_importance`` beside ``simple``, refuses
+    any other sampling method with JAX's ValueError, and still refuses NDC
+    rays."""
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import check_supported
+
+    base = dict(dataset_name="synthetic", basedir=str(tmp_path), sparsity_lambda=0,
+                exp_sampling=True)
+    for name in ("simple", "theta_importance"):
+        check_supported(load_config(overrides=dict(base, sampling_method=name)))
+    with pytest.raises(ValueError, match="sampling method importance not supported"):
+        check_supported(load_config(overrides=dict(base, sampling_method="importance")))
+    with pytest.raises(NotImplementedError, match="NDC rays"):
+        check_supported(load_config(overrides=dict(base, sampling_method="theta_importance",
+                                                   ndc_ray=True)))
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

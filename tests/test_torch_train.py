@@ -331,7 +331,6 @@ UNPORTED = {
     # EgoNeRF's cull is ported (tests/test_torch_cull.py); TensorVMSplit
     # refuses it, as JAX's accepts and ignores it
     "cull": dict(model_name="TensorVMSplit", coordinates_name="xyz", train_keep=8),
-    "theta_importance": dict(sampling_method="theta_importance"),
     "filter_ray": dict(filter_ray=True),
     "mesh": dict(mesh_shape="[4]"),
     "linear_sampling": dict(exp_sampling=False),
@@ -353,6 +352,8 @@ PORTED = {
     "ortho": dict(Ortho_weight=1e-3),
     "alpha_mask": dict(update_AlphaMask_list="[10]"),
     "cull": dict(train_keep=8, eval_keep=8, train_keep_full_every=4, train_cull_tau=1.0),
+    # the theta-importance sampler (tests/test_torch_theta_sampler.py)
+    "theta_importance": dict(sampling_method="theta_importance"),
 }
 
 
