@@ -1813,8 +1813,8 @@ def shader_kernel_checks(trainer, ops) -> dict:
     basis of both charts, the hoist's two first-layer products.  Each
     against the exact sum of the same bf16 products (float64; MM_TOL of
     sum|terms| for the forward and da, K2_TOL for db and K11, which sum a
-    million rows) and against its plain version (K10's forward and db also
-    at MM_ODD_ROWS rows, db twice on the same inputs bit for bit), with its
+    million rows) and against its plain version (each layout also at
+    MM_ODD_ROWS rows, db twice on the same inputs bit for bit), with its
     time, the plain version's and the library call's (``mm_library``: the
     same function; ``dout.sum(0)``).  Returns the rows of l1's three
     layouts and of K11."""
@@ -1840,7 +1840,7 @@ def shader_kernel_checks(trainer, ops) -> dict:
     src, jax_src = "egonerf_torch/csrc/mixed_mm.cu", "egonerf_tpu/ops/mm.py:31"
     lib_label, lib_call = mm_library()
     print(f"phase 2 K10's library call (the same function): {lib_label}", flush=True)
-    rows, seen = {}, set()
+    rows, seen, da_rows = {}, set(), {}
     for layout, row_name in (("mm", "fwd"), ("mm_da", "da"), ("mm_db", "db")):
         kern, plain = getattr(ops.KERNELS, layout), getattr(ops.PLAIN, layout)
         for args in calls[layout]:
@@ -1861,11 +1861,10 @@ def shader_kernel_checks(trainer, ops) -> dict:
                     fail(f"{name} differs between two calls on the same inputs")
                 del again
             del got
-            if layout != "mm_da":  # the redesigned layouts, off the production chunk
-                for m in MM_ODD_ROWS:
-                    if m < args[0].shape[0]:
-                        odd = (args[0][:m], args[1] if layout == "mm" else args[1][:m])
-                        mm_check(f"{name} at {m} rows", layout, kern, plain, odd)
+            for m in MM_ODD_ROWS:  # off the production chunk
+                if m < args[0].shape[0]:
+                    odd = (args[0][:m], args[1] if layout != "mm_db" else args[1][:m])
+                    mm_check(f"{name} at {m} rows", layout, kern, plain, odd)
             rows_m, depth, cols = x.shape[0], x.shape[1], y.shape[1]
             n_bytes, n_ops = nbytes(*args) + 4 * rows_m * cols, 2.0 * rows_m * depth * cols
             x16, y16 = x.to(torch.bfloat16), y.to(torch.bfloat16)
@@ -1887,9 +1886,16 @@ def shader_kernel_checks(trainer, ops) -> dict:
                   f"floor {n_ops / PEAK_BF16_OPS_PER_S * 1e3:.4f} ms; held to {held}; library "
                   f"call {lib_ms:.4f} ms, {cast_ms:.4f} ms with the casts of the float32 "
                   "operands", flush=True)
+            if layout == "mm_da":
+                da_rows[f"{depth} -> {cols}"] = row
             n_in = model.shader.l1.in_features
             if {"mm": x.shape[1], "mm_da": y.shape[1], "mm_db": x.shape[0]}[layout] == n_in:
                 rows[f"K10 {row_name}"] = row  # l1's product, its da and its db
+    # da at each recorded shape (depth -> columns: l1 128 -> 150, l2 128 ->
+    # 128, l3 3 -> 128, the basis 54 -> 144; the hoist's features 128 -> 135)
+    print("phase 2 K10 da at the recorded shapes (depth -> columns): " + "; ".join(
+        f"{shape} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_ms'] / r['ms']:.0%}), "
+        f"library {r['library_ms']:.4f}" for shape, r in da_rows.items()), flush=True)
     for (dout,) in calls["bias_grad"]:
         if ("bias", dout.shape) in seen:
             continue
@@ -2049,10 +2055,11 @@ def k12_cost(z_vals, coarse_z):
 
 def k13_cost(r, s, k):
     """K13's bytes (z, dists and the score read once, the kept z and dists
-    written once) and operations (a key: its order key ~4, 32 radix steps of
-    a compare and an add, the ties and the slot ~6; a ray: 35 warp sums and
-    scans of 5 steps over 32 lanes)."""
-    return 4 * r * (3 * s + 2 * k), r * (s * (4 + 64 + 6) + 35 * 5 * 32)
+    written once) and the function's operations, whatever design computes
+    it: a sample's order key (~4) and its rank against the K-th largest
+    key with the ties before it (a compare and a count, 2), a kept
+    sample's two copies."""
+    return 4 * r * (3 * s + 2 * k), r * (6 * s + 2 * k)
 
 
 def bits_equal(name, kern, plain, args) -> float:
@@ -2898,7 +2905,8 @@ def main() -> int:
         for name, regs, spill in _build.ptxas_report(stem):
             print(f"phase 1 ptxas {stem}: {regs} registers, {spill} bytes spilled: {name}",
                   flush=True)
-            if stem in ("vm_lookup", "resample", "cull") and spill:
+            if (stem in ("vm_lookup", "resample", "cull")
+                    or (stem == "mixed_mm" and "mm_rows_kernel" in name)) and spill:
                 fail(f"{name} spills {spill} bytes")
 
     model = presets.production_model(device=dev)

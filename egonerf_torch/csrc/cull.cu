@@ -21,12 +21,14 @@
 // below K; the kept samples go out in index (depth) order with their z and
 // their original dist.  No sort: the scores map to order-preserving 32-bit
 // keys (-0 taken as +0, so float equality and key equality agree), a
-// bitwise radix select over the warp finds T, the K-th largest key (32
-// steps, each a count of the keys >= a candidate: one compare a key and a
-// warp sum), and a sample is kept when its key is above T, or equal to T
-// and fewer than K - #(key > T) equal keys precede it.  Each lane owns a
-// contiguous run of samples, so the equal keys before it and its output
-// slot are exclusive warp scans of the lanes' counts.
+// bitwise select over the warp finds T, the K-th largest key (a step a
+// bit from the top, each a compare a key and a warp sum, stopping once
+// exactly K keys are >= T), and a sample is kept when its key is above T,
+// or equal to T and fewer than K - #(key > T) equal keys precede it.
+// Sample 32 t + lane belongs to lane `lane` (t < ceil(S / 32)), so every
+// load and store of a warp is one contiguous run; the equal keys before a
+// sample and its output slot are ballot counts of the lanes below it plus
+// running counts over t.
 //
 // Bound on the card: bytes (K12 reads z (S), coarse_z and the weights (2C)
 // and writes the score (S) a ray, 4096 x 768 floats = 12.6 MB for a
@@ -34,7 +36,16 @@
 // MB at K = 192), a few microseconds at 3.35 TB/s.  Design: one warp a ray
 // (a 4096-ray chunk is one wave), nothing kept across rays; K12 stages
 // coarse_z and the dilated weights in shared memory for the searches; K13
-// keeps a lane's keys in registers (S <= 32 x kMaxRun).
+// loads a ray's scores, z and dists into registers at once (S <= 32 x
+// kMaxRows; 64 registers at 256 samples, four blocks an SM) and writes the
+// kept ones behind the selection.  Measured on the card
+// (egonerf_torch/tools/cull_ab.py --ablate, H100 80GB HBM3, 700 W): the
+// earlier K13, a lane's contiguous run of 8 samples (each load and store
+// instruction touched eight lines) and the same select without its early
+// stop, took 0.0234 ms at K = 192, its stores 6 of them and its select 3;
+// a draft with 4 passes of 8-bit digits (a warp's 256-bin histogram in
+// shared memory, a run of one digit in adjacent lanes added once) spent
+// 5.9 us selecting, more than the 32 one-bit steps.
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,22 +55,9 @@ constexpr int kWarpsPerBlock = 8;
 // K12: the coarse depths and dilated weights of each warp's ray in shared
 // memory, 2 x C floats a warp
 constexpr int kMaxCoarse = 768;
-// K13: keys a lane holds in registers
-constexpr int kMaxRun = 16;
-
-__device__ __forceinline__ int warp_sum(int v) { return __reduce_add_sync(kFullMask, v); }
-
-// sum of v over the lanes below this one
-__device__ __forceinline__ int warp_exclusive_sum(int v) {
-  const int lane = threadIdx.x & 31;
-  int incl = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int o = __shfl_up_sync(kFullMask, incl, off);
-    if (lane >= off) incl += o;
-  }
-  return incl - v;
-}
+// K13: rows of 32 samples a ray, a lane's keys, z and dists in registers
+// (instantiated for 8 rows, the production 256 samples, and for 16)
+constexpr int kMaxRows = 16;
 
 // an order-preserving key of a non-NaN float; -0 and +0 give one key
 __device__ __forceinline__ unsigned order_key(float f) {
@@ -99,6 +97,14 @@ cull_score_kernel(const float* __restrict__ z, const float* __restrict__ cz,
   }
 }
 
+// lanes below this one
+__device__ __forceinline__ unsigned lanes_below() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+template <int ROWS>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 top_k_kernel(const float* __restrict__ z, const float* __restrict__ d,
              const float* __restrict__ s, int R, int S, int K, float* __restrict__ z_out,
@@ -106,50 +112,63 @@ top_k_kernel(const float* __restrict__ z, const float* __restrict__ d,
   const int lane = threadIdx.x & 31;
   const long long ray = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (ray >= R) return;
-  const int per = (S + 31) / 32;
-  const int a = min(lane * per, S), n = min(a + per, S) - a;
-  s += ray * S + a;
-  unsigned key[kMaxRun];
+  const int rows = (S + 31) / 32;
+  const unsigned below = lanes_below();
+  s += ray * S;
+  z += ray * S;
+  d += ray * S;
+  // keys 0 past S (0 is no float's key: the scores are not NaN)
+  unsigned key[ROWS];
+  float zv[ROWS], dv[ROWS];
 #pragma unroll
-  for (int t = 0; t < kMaxRun; ++t) key[t] = t < n ? order_key(s[t]) : 0u;
+  for (int t = 0; t < ROWS; ++t) {
+    const int i = 32 * t + lane;
+    const bool in = t < rows && i < S;
+    key[t] = in ? order_key(s[i]) : 0u;
+    zv[t] = in ? z[i] : 0.0f;
+    dv[t] = in ? d[i] : 0.0f;
+  }
 
-  // T: the largest key with #(key >= T) >= K, the K-th largest key
+  // T, bit by bit from the top: the largest T with #(key >= T) >= K, the
+  // K-th largest key, each step a compare a key and a warp sum; it stops
+  // once exactly K keys are >= T (then they are the kept ones)
   unsigned T = 0u;
-  for (int bit = 31; bit >= 0; --bit) {
+  int ge = S;  // #(key >= T), the same in every lane
+  for (int bit = 31; bit >= 0 && ge != K; --bit) {
     const unsigned cand = T | (1u << bit);
     int cnt = 0;
 #pragma unroll
-    for (int t = 0; t < kMaxRun; ++t) cnt += t < n && key[t] >= cand;
-    if (warp_sum(cnt) >= K) T = cand;
+    for (int t = 0; t < ROWS; ++t) cnt += key[t] >= cand;
+    cnt = __reduce_add_sync(kFullMask, cnt);
+    if (cnt >= K) {
+      T = cand;
+      ge = cnt;
+    }
   }
-  int gt = 0, eq = 0;
+  int gt = 0;
 #pragma unroll
-  for (int t = 0; t < kMaxRun; ++t) {
-    gt += t < n && key[t] > T;
-    eq += t < n && key[t] == T;
-  }
-  // the first K - #(key > T) keys equal to T, in index order, are kept
-  const int room = K - warp_sum(gt);
-  int eq_before = warp_exclusive_sum(eq);
-  unsigned kept = 0u;
-  int n_kept = 0;
-#pragma unroll
-  for (int t = 0; t < kMaxRun; ++t) {
-    bool k = t < n && key[t] > T;
-    if (t < n && key[t] == T) k = eq_before++ < room;
-    kept |= (unsigned)k << t;
-    n_kept += k;
-  }
-  int slot = warp_exclusive_sum(n_kept);
-  z += ray * S + a;
-  d += ray * S + a;
+  for (int t = 0; t < ROWS; ++t) gt += key[t] > T;
+  const int need = K - __reduce_add_sync(kFullMask, gt);
+
+  // the first `need` keys equal to T, in index order, are kept with every
+  // key above T: K in all; their slots in index order
+  int eq_before = 0, slot = 0;
   z_out += ray * K;
   d_out += ray * K;
-  for (int t = 0; t < n; ++t) {
-    if (kept >> t & 1u) {
-      z_out[slot] = z[t];
-      d_out[slot] = d[t];
-      ++slot;
+#pragma unroll
+  for (int t = 0; t < ROWS; ++t) {
+    if (t < rows) {
+      const bool eq = key[t] == T;
+      const unsigned eqs = __ballot_sync(kFullMask, eq);
+      const bool keep = key[t] > T || (eq && eq_before + __popc(eqs & below) < need);
+      const unsigned kept = __ballot_sync(kFullMask, keep);
+      if (keep) {
+        const int o = slot + __popc(kept & below);
+        z_out[o] = zv[t];
+        d_out[o] = dv[t];
+      }
+      eq_before += __popc(eqs);
+      slot += __popc(kept);
     }
   }
 }
@@ -173,10 +192,11 @@ extern "C" int cull_score(const float* z, const float* cz, const float* cw, int 
 // z_out, d_out (R, K) from z, d, s (R, S).
 extern "C" int top_k(const float* z, const float* d, const float* s, int R, int S, int K,
                      float* z_out, float* d_out, void* stream) {
-  if (S < 2 || S > 32 * kMaxRun || K < 1 || K >= S) return (int)cudaErrorInvalidValue;
+  if (S < 2 || S > 32 * kMaxRows || K < 1 || K >= S) return (int)cudaErrorInvalidValue;
   if (R <= 0) return (int)cudaSuccess;
   const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  top_k_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      z, d, s, R, S, K, z_out, d_out);
+  auto kern = S <= 32 * 8 ? top_k_kernel<8> : top_k_kernel<kMaxRows>;
+  kern<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(z, d, s, R, S, K,
+                                                                               z_out, d_out);
   return (int)cudaGetLastError();
 }

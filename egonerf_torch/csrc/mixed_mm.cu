@@ -51,19 +51,38 @@
 // as in the earlier design); one block of 256 threads an SM at 16 x 8
 // (its barriers idle the SM; two blocks of 128 hide each other's staging).
 //
-// da (mm_rows_kernel<NT>, b^T as its (N, K) operand): the tensor cores
-// (mma.sync m16n8k16, bf16 x bf16 -> float32), fed from shared memory by
-// 32-bit loads that a padded row stride keeps free of bank conflicts; the
-// gradient is not rounded to bf16 again on its way to the loss.  A block
-// holds b^T's columns n0 .. n0 + 8 NT - 1 for the whole depth in shared
-// memory, loaded once, and walks row tiles of 128 rows (persistent); each
-// of its 8 warps owns 16 rows and NT tiles of 8 columns.  The depth goes in
-// chunks of 32: the next chunk's 16 values a thread are loaded into
-// registers (row-major, 32 consecutive floats a warp) before the tensor
-// cores take the current one.  K and N
-// are zero-padded to the chunk and to 8 (K = 128, 54, 3; N = 150, 144,
-// 135, 128, ...): tiles past N are skipped, rows past M are neither read
-// nor written.
+// da (mm_rows_kernel<S, KS>, b^T as its (N, K) operand): the tensor cores
+// (mma.sync m16n8k16, bf16 x bf16 -> float32); the gradient is not rounded
+// to bf16 again on its way to the loss.  Bound by bytes (l1: 537 MB of dout
+// read, 629 MB of da written).  A persistent block an SM walks row tiles of
+// 64 rows through a ring of S = 3 or 4 stages: a stage is a tile's rows of
+// dout as they lie (float32), copied by 16-byte cp.async pieces, either as
+// one contiguous range (K % 4 != 0; the last 1-3 floats of a tail tile by
+// plain loads: ops/mm.py::bulk_copy) or row by row into rows padded to 8 or
+// 24 words mod 32 (K % 4 == 0), where a fragment's float2 loads fall on
+// distinct banks.  Each of the 8 warps (2 along M x 4 along N) owns 32 rows
+// and up to 5 n8 tiles of a tile; it holds its tiles of b^T for the whole
+// depth (K <= 160) as mma B fragments in registers, loaded once, and takes
+// its A fragments from the stage as float2 pairs rounded to bf16 in
+// registers (cvt.rn.bf16x2, round to nearest even), zero past K.  Its sums
+// go to a staging tile (two, alternated) that holds the tile's rows of da
+// as they lie in device memory: one contiguous, 16-byte aligned range
+// (64 rows from a multiple of 64), which one thread hands to the bulk-copy
+// engine (cp.async.bulk shared -> global) in the next iteration, so the
+// stores of one tile run beside the products of the next and the loads in
+// flight.  Iteration i waits for stage i (and for the bulk copy of tile
+// i - 2 to have read its staging tile), puts stage i + S - 1 in flight,
+// hands tile i - 1 to the bulk copy and takes tile i's products: one
+// barrier a tile.  Rows past M are neither read nor written; N of any width
+// (column blocks of 160, stored row by row).  Measured against the earlier
+// design (egonerf_torch/tools/mm_ab.py --ablate, H100 80GB HBM3, 700 W):
+// its stores, float2s straight from the fragments (a 600-byte row of l1
+// puts a quad's 32 bytes across two sectors on every odd row), took 0.57
+// of its 0.77 ms at l1.  Drafts that lost on the card: b^T in shared memory
+// read by ldmatrix (every warp reads its columns again for each 32 rows:
+// that traffic kept the products from hiding under the memory time), with
+// the sums stored by the threads row by row; 16 warps of 16 rows; an
+// unrolled k loop.
 //
 // Reduce layout (db): mm_db_kernel<S, WK>.  The reduction runs over the M
 // rows, so each block sums a contiguous range of rows into a partial (K, N)
@@ -92,13 +111,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kRows = 128;      // rows layout: a block's row tile, 16 rows a warp
-constexpr int kPad = 8;         // bf16 padding of a shared row (see row_stride)
-
-// A shared row of 32q (+ 8) bf16 is 16q + 4 words: the 8 rows x 4 words of
-// one fragment load land on 32 distinct banks whether q is odd or even.
-__host__ __device__ constexpr int row_stride(int depth) { return depth + kPad; }
+constexpr int kThreads = 256;   // 8 warps (the partial sums' kernel)
 
 __device__ __forceinline__ float bf16_value(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -110,134 +123,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The m16 x k16 fragment of a row-major bf16 tile in shared memory whose
-// row r0 + g (g = lane / 4) starts at `row`, columns k0 .. k0 + 15: lane
-// (g, t) holds columns 2t, 2t + 1 and 2t + 8, 2t + 9 of rows g and g + 8.
-__device__ __forceinline__ void frag_a(uint32_t f[4], const __nv_bfloat16* row, int ld, int k0,
-                                       int t) {
-  f[0] = lds32(row + k0 + 2 * t);
-  f[1] = lds32(row + 8 * ld + k0 + 2 * t);
-  f[2] = lds32(row + k0 + 2 * t + 8);
-  f[3] = lds32(row + 8 * ld + k0 + 2 * t + 8);
-}
-
-// The k16 x n8 fragment of an operand stored n-major (column n0 + g's k
-// values contiguous from `col`): lane (g, t) holds k = 2t, 2t + 1 and
-// 2t + 8, 2t + 9 of column g.
-__device__ __forceinline__ void frag_b(uint32_t f[2], const __nv_bfloat16* col, int k0, int t) {
-  f[0] = lds32(col + k0 + 2 * t);
-  f[1] = lds32(col + k0 + 2 * t + 8);
-}
-
-// ---------------------------------------------------------------------------
-// rows layout: c (M, N) = bf16(a) (M, K) @ bf16(b) (K, N); a row-major
-// contiguous, b at element strides (sbk, sbn), c row-major contiguous.
-// grid: (persistent blocks, column blocks of 8 NT); dynamic shared memory:
-// b's block of columns (8 NT x row_stride(kpad)) and one a chunk.
-// ---------------------------------------------------------------------------
-template <int NT>
-__global__ void __launch_bounds__(kThreads, 2)
-mm_rows_kernel(const float* __restrict__ a, long long m, int k, const float* __restrict__ b,
-               long long sbk, long long sbn, int n, float* __restrict__ c) {
-  constexpr int kChunk = 32;  // a depth of 64 spilled with 16 column tiles
-  constexpr int kChunkLd = row_stride(kChunk);
-  constexpr int kPer = kRows / 8;  // values a thread stages a chunk
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int kpad = (k + kChunk - 1) / kChunk * kChunk;
-  const int ldb = row_stride(kpad);
-  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(smem);        // [8 NT][ldb]
-  __nv_bfloat16* as = bs + 8 * NT * ldb;                              // [kRows][kChunkLd]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.y * 8 * NT;
-
-  // b's columns of this block, the whole depth, once
-  for (int f = threadIdx.x; f < 8 * NT * kpad; f += kThreads) {
-    const int nn = f / kpad, kk = f - nn * kpad;
-    float v = 0.0f;
-    if (kk < k && n0 + nn < n) v = __ldg(b + kk * sbk + (long long)(n0 + nn) * sbn);
-    bs[nn * ldb + kk] = __float2bfloat16_rn(v);
-  }
-
-  const long long tiles = (m + kRows - 1) / kRows;
-  const int chunks = kpad / kChunk;
-  // a thread's values of a chunk: columns lane + 32 q, rows warp + 8 i
-  float pa[kPer];
-  auto load = [&](long long tile, int chunk) {
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int kk = chunk * kChunk + lane + 32 * (e / (kRows / 8));
-      const long long r = tile * kRows + warp + 8 * (e % (kRows / 8));
-      pa[e] = (r < m && kk < k) ? __ldg(a + r * k + kk) : 0.0f;
-    }
-  };
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-
-  long long tile = blockIdx.x;
-  int chunk = 0;
-  if (tile < tiles) load(tile, 0);
-  while (tile < tiles) {
-    __syncthreads();  // the last chunk's fragments are read (and b is staged)
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      as[(warp + 8 * (e % (kRows / 8))) * kChunkLd + lane + 32 * (e / (kRows / 8))] =
-          __float2bfloat16_rn(pa[e]);
-    }
-    __syncthreads();
-    long long next_tile = tile;
-    int next_chunk = chunk + 1;
-    if (next_chunk == chunks) {
-      next_chunk = 0;
-      next_tile += gridDim.x;
-    }
-    if (next_tile < tiles) load(next_tile, next_chunk);  // in flight during the products
-    const __nv_bfloat16* arow = as + (warp * 16 + g) * kChunkLd;
-#pragma unroll
-    for (int ks = 0; ks < kChunk; ks += 16) {
-      uint32_t fa[4];
-      frag_a(fa, arow, kChunkLd, ks, t);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        if (n0 + 8 * j < n) {  // the same for the whole warp
-          uint32_t fb[2];
-          frag_b(fb, bs + (8 * j + g) * ldb, chunk * kChunk + ks, t);
-          mma_bf16(acc[j], fa, fb);
-        }
-      }
-    }
-    if (chunk == chunks - 1) {
-      // rows g and g + 8 of the warp's 16, columns 2t, 2t + 1 of each tile
-      const long long r0 = tile * kRows + warp * 16 + g;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = n0 + 8 * j + 2 * t;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long long r = r0 + 8 * h;
-          if (r < m && col < n) {
-            float* dst = c + r * n + col;
-            if (((r * n + col) & 1) == 0 && col + 1 < n) {  // an aligned pair
-              *reinterpret_cast<float2*>(dst) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-            } else {
-              dst[0] = acc[j][2 * h];
-              if (col + 1 < n) dst[1] = acc[j][2 * h + 1];
-            }
-          }
-        }
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-      }
-    }
-    tile = next_tile;
-    chunk = next_chunk;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -498,12 +383,14 @@ __host__ __device__ constexpr int db_group_n(int wk) { return 8 * kDbNT * (16 / 
 
 __host__ __device__ constexpr int round16(int w) { return (w + 15) / 16 * 16; }
 
-// `floats` contiguous floats from src (16-byte aligned) to dst: 16-byte
-// cp.async pieces, the last floats % 4 by plain loads
+// `floats` contiguous floats from src (16-byte aligned) to dst by the
+// block's THREADS threads: 16-byte cp.async pieces, the last floats % 4 by
+// plain loads
+template <int THREADS>
 __device__ __forceinline__ void copy_range(float* dst, const float* src, int floats) {
   const int pieces = floats / 4;
-  for (int p = threadIdx.x; p < pieces; p += kDbThreads) cp_async16(dst + 4 * p, src + 4 * p);
-  for (int e = 4 * pieces + threadIdx.x; e < floats; e += kDbThreads) dst[e] = __ldg(src + e);
+  for (int p = threadIdx.x; p < pieces; p += THREADS) cp_async16(dst + 4 * p, src + 4 * p);
+  for (int e = 4 * pieces + threadIdx.x; e < floats; e += THREADS) dst[e] = __ldg(src + e);
 }
 
 // rows [0, kDbRows) of a stage's (rows, width) float32 block as bf16 into
@@ -554,8 +441,8 @@ mm_db_kernel(const float* __restrict__ a, const float* __restrict__ d, long long
     if (i < iters) {
       const long long r0 = r_begin + (long long)i * kDbRows;
       float* dst = ring + (i % S) * stage_floats;
-      copy_range(dst, a + r0 * k, rows_of(i) * k);
-      copy_range(dst + kDbRows * k, d + r0 * n, rows_of(i) * n);
+      copy_range<kDbThreads>(dst, a + r0 * k, rows_of(i) * k);
+      copy_range<kDbThreads>(dst + kDbRows * k, d + r0 * n, rows_of(i) * n);
     }
     cp_async_commit();
   };
@@ -649,6 +536,227 @@ mm_db_sum_kernel(const float* __restrict__ part, int splits, int size, float* __
   out[e] = s;
 }
 
+// ---------------------------------------------------------------------------
+// rows layout (da): c (M, N) = bf16(a) (M, K) @ bf16(b) (K, N), K <= 160; a
+// and c row-major contiguous and 16-byte aligned, b at element strides
+// (sbk, sbn).  grid: (persistent blocks, column blocks of kRowsCols);
+// dynamic shared memory (rows_smem): the ring of S stages of kRowsTile rows
+// of a (row stride rows_lda) and two staging tiles of kRowsTile rows of c
+// (the block's columns as they lie in c).  Warp w owns rows 32 (w / 4) ..
+// + 31 of a tile (two m16 tiles) and the n8 tiles tpw (w % 4) .. + tpw - 1
+// of its block's columns, tpw = ceil(tiles / 4) <= kRowsWarpTiles, whose
+// b^T fragments over KS k16 steps it holds in registers.
+// ---------------------------------------------------------------------------
+constexpr int kRowsThreads = 256;  // 8 warps: 2 along M x 4 along N
+constexpr int kRowsTile = 64;      // rows a stage, 32 a warp
+constexpr int kRowsCols = 160;     // columns a block (l1's 150, the basis's 144)
+constexpr int kRowsWarpTiles = kRowsCols / 8 / 4;  // n8 tiles a warp, at most
+constexpr int kRowsMaxDepth = 160;                 // 10 k16 steps of b^T in registers
+
+// the smallest w' >= w of 8 or 24 words mod 32 (w a multiple of 4): the
+// rows g = 0..3 of a half-warp's float2 fragment access start on distinct
+// groups of 8 banks
+__host__ __device__ constexpr int pad_8_24(int w) {
+  return w % 32 <= 8 ? w + 8 - w % 32 : (w % 32 <= 24 ? w + 24 - w % 32 : w + 40 - w % 32);
+}
+// a stage row: as it lies where K % 4 != 0 (the stage is one contiguous
+// range), else padded
+__host__ __device__ constexpr int rows_lda(int k) { return k % 4 ? k : pad_8_24(k); }
+// n8 tiles a warp for a block of `cols` columns
+__host__ __device__ constexpr int rows_tpw(int cols) { return ((cols + 7) / 8 + 3) / 4; }
+// k16 steps of b^T an instantiation holds for depth k (<= kRowsMaxDepth)
+__host__ __device__ constexpr int rows_ks(int k) {
+  return k <= 16 ? 1 : (k <= 64 ? 4 : (k <= 128 ? 8 : 10));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);  // round to nearest even; x low
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// columns col, col + 1 of a float32 row in shared memory as a bf16 pair: a
+// float2 load where the row stride is even and the step lies inside K,
+// else two loads, zero past K
+__device__ __forceinline__ uint32_t bf16_pair(const float* row, int col, int k, bool full,
+                                              bool even) {
+  float x, y;
+  if (full && even) {
+    const float2 v = *reinterpret_cast<const float2*>(row + col);
+    x = v.x, y = v.y;
+  } else {
+    x = full || col < k ? row[col] : 0.0f;
+    y = full || col + 1 < k ? row[col + 1] : 0.0f;
+  }
+  return pack_bf16(x, y);
+}
+
+// shared -> global by the bulk-copy engine (cp.async.bulk): both addresses
+// 16-byte aligned, bytes a multiple of 16; the issuing thread's groups are
+// waited for by bulk_wait_read (the source may be written again) and
+// bulk_wait (the writes are done)
+__device__ __forceinline__ void bulk_store(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// this thread's writes to shared memory, made visible to the bulk-copy engine
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int S, int KS>
+__global__ void __launch_bounds__(kRowsThreads, 1)
+mm_rows_kernel(const float* __restrict__ a, long long m, int k, const float* __restrict__ b,
+               long long sbk, long long sbn, int n, float* __restrict__ c) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n0 = blockIdx.y * kRowsCols;
+  const int cols = min(kRowsCols, n - n0);
+  const int ntiles = (cols + 7) / 8, tpw = rows_tpw(cols);
+  const int lda = rows_lda(k), ksteps = (k + 15) / 16;
+  float* ring = reinterpret_cast<float*>(smem);
+  float* stage_c = ring + S * kRowsTile * lda;  // [2][kRowsTile][cols]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int j0 = (warp & 3) * tpw;  // the warp's first n8 tile
+  const long long tiles = (m + kRowsTile - 1) / kRowsTile;
+  const int iters = (int)((tiles - 1 - blockIdx.x) / gridDim.x + 1);  // gridDim.x <= tiles
+  auto row0 = [&](int i) { return (blockIdx.x + (long long)i * gridDim.x) * kRowsTile; };
+  auto rows_of = [&](int i) { return (int)min((long long)kRowsTile, m - row0(i)); };
+  // tile i's rows of a into slot i % S (an empty group past the last)
+  auto issue = [&](int i) {
+    if (i < iters) {
+      const long long r0 = row0(i);
+      float* dst = ring + (i % S) * kRowsTile * lda;
+      if (lda == k) {
+        copy_range<kRowsThreads>(dst, a + r0 * k, rows_of(i) * k);
+      } else {
+        for (int r = warp; r < rows_of(i); r += kRowsThreads / 32) {
+          for (int p = lane; p < k / 4; p += 32) {
+            cp_async16(dst + r * lda + 4 * p, a + (r0 + r) * k + 4 * p);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // tile i's sums from its staging tile to c: with one column block the
+  // tile is one contiguous range of c, 16-byte aligned (64 rows from a
+  // multiple of 64), which one thread hands to the bulk-copy engine (the
+  // last (rows N) % 4 floats by plain stores); else row by row
+  auto store = [&](int i) {
+    const float* src = stage_c + (i & 1) * kRowsTile * cols;
+    if (gridDim.y == 1) {
+      const int floats = rows_of(i) * cols;
+      float* dst = c + row0(i) * n;
+      if (threadIdx.x == 0 && floats >= 4) bulk_store(dst, src, floats / 4 * 16);
+      for (int e = floats / 4 * 4 + threadIdx.x; e < floats; e += kRowsThreads) dst[e] = src[e];
+      return;
+    }
+    for (int r = warp; r < rows_of(i); r += kRowsThreads / 32) {
+      float* dst = c + (row0(i) + r) * n + n0;
+      for (int q = lane; q < cols; q += 32) dst[q] = src[r * cols + q];
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) issue(s);
+  // the warp's n8 tiles of b^T over the depth as mma B fragments, once:
+  // lane (g, t) holds k = 2t, 2t + 1 and 2t + 8, 2t + 9 of column g of each
+  // k16 step, zero past K and past the block's columns
+  uint32_t fb[KS][kRowsWarpTiles][2];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int j = 0; j < kRowsWarpTiles; ++j) {
+      const int col = 8 * (j0 + j) + g;
+      const bool in = j < tpw && col < cols;
+      const float* bcol = b + (long long)(n0 + col) * sbn;
+      auto at = [&](int kk) { return in && kk < k ? __ldg(bcol + kk * sbk) : 0.0f; };
+      const int k0 = 16 * ks + 2 * t;
+      fb[ks][j][0] = pack_bf16(at(k0), at(k0 + 1));
+      fb[ks][j][1] = pack_bf16(at(k0 + 8), at(k0 + 9));
+    }
+  }
+  const bool even = lda % 2 == 0;
+
+  for (int i = 0; i <= iters; ++i) {
+    cp_async_wait<S - 2>();
+    if (threadIdx.x == 0) bulk_wait_read();  // tile i - 2's staging tile is read
+    // tile i is in place for every thread; iteration i - 1 has read its
+    // slot and written its staging tile
+    __syncthreads();
+    issue(i + S - 1);  // into the slot of tile i - 1
+    if (i > 0) store(i - 1);
+    if (i == iters) {
+      if (threadIdx.x == 0) bulk_wait();
+      break;
+    }
+    float acc[2][kRowsWarpTiles][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int j = 0; j < kRowsWarpTiles; ++j) {
+        acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.0f;
+      }
+    }
+    const float* arow = ring + (i % S) * kRowsTile * lda + (32 * (warp >> 2) + g) * lda;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if (ks < ksteps) {
+        const int kc = 16 * ks;
+        const bool full = kc + 16 <= k;
+        // rows g, g + 8 of each m16 tile; columns kc + 2t, + 1 and kc + 2t + 8, + 9
+        uint32_t fa[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const float* r = arow + 16 * mi * lda;
+          fa[mi][0] = bf16_pair(r, kc + 2 * t, k, full, even);
+          fa[mi][1] = bf16_pair(r + 8 * lda, kc + 2 * t, k, full, even);
+          fa[mi][2] = bf16_pair(r, kc + 2 * t + 8, k, full, even);
+          fa[mi][3] = bf16_pair(r + 8 * lda, kc + 2 * t + 8, k, full, even);
+        }
+#pragma unroll
+        for (int j = 0; j < kRowsWarpTiles; ++j) {
+          if (j < tpw && j0 + j < ntiles) {  // the same for the whole warp
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][j], fa[mi], fb[ks][j]);
+          }
+        }
+      }
+    }
+    // rows g, g + 8 of each m16 tile, columns 2t, 2t + 1 of each n8 tile,
+    // none past the block's columns
+    float* out = stage_c + (i & 1) * kRowsTile * cols + (32 * (warp >> 2) + g) * cols;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int j = 0; j < kRowsWarpTiles; ++j) {
+        if (j < tpw && j0 + j < ntiles) {
+          const int col = 8 * (j0 + j) + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float* o = out + (16 * mi + 8 * h) * cols + col;
+            if (cols % 2 == 0 && col + 1 < cols) {
+              *reinterpret_cast<float2*>(o) = make_float2(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
+            } else {
+              if (col < cols) o[0] = acc[mi][j][2 * h];
+              if (col + 1 < cols) o[1] = acc[mi][j][2 * h + 1];
+            }
+          }
+        }
+      }
+    }
+    fence_proxy_async();
+  }
+}
+
 int sm_count(int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -656,34 +764,52 @@ int sm_count(int* sms) {
   return (int)err;
 }
 
-size_t rows_smem(int nt, int k) {
-  const int depth = 32;
-  const int kpad = (k + depth - 1) / depth * depth;
-  return sizeof(__nv_bfloat16) *
-         ((size_t)8 * nt * row_stride(kpad) + (size_t)kRows * row_stride(depth));
+// the rows layout's shared memory for depth k, n columns (the widest
+// column block) and `stages` stages
+size_t rows_smem(int k, int n, int stages) {
+  return sizeof(float) * ((size_t)stages * kRowsTile * rows_lda(k) +
+                          (size_t)2 * kRowsTile * min(kRowsCols, n));
 }
 
-template <int NT>
+// a persistent grid: one block an SM (its shared memory) for each column
+// block, at most one a row tile
+template <int S, int KS>
 int launch_rows(const float* a, long long m, int k, const float* b, long long sbk, long long sbn,
                 int n, float* c, cudaStream_t st) {
-  const size_t smem = rows_smem(NT, k);
-  cudaError_t err = cudaFuncSetAttribute(mm_rows_kernel<NT>,
+  const size_t smem = rows_smem(k, n, S);
+  cudaError_t err = cudaFuncSetAttribute(mm_rows_kernel<S, KS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int per_sm = 0, sms = 0;
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mm_rows_kernel<NT>, kThreads,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mm_rows_kernel<S, KS>,
+                                                        kRowsThreads, smem);
   }
   if (err == cudaSuccess) err = (cudaError_t)sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const unsigned col_blocks = (unsigned)((n + 8 * NT - 1) / (8 * NT));
-  const long long tiles = (m + kRows - 1) / kRows;
+  const unsigned col_blocks = (unsigned)((n + kRowsCols - 1) / kRowsCols);
+  const long long tiles = (m + kRowsTile - 1) / kRowsTile;
   const long long room = (long long)per_sm * sms / col_blocks;
   const unsigned persistent = (unsigned)max(1LL, min(tiles, room));
-  mm_rows_kernel<NT><<<dim3(persistent, col_blocks), kThreads, smem, st>>>(a, m, k, b, sbk, sbn,
-                                                                          n, c);
+  mm_rows_kernel<S, KS><<<dim3(persistent, col_blocks), kRowsThreads, smem, st>>>(
+      a, m, k, b, sbk, sbn, n, c);
   return (int)cudaGetLastError();
+}
+
+// b^T's k16 steps in registers: the instantiation for depth k
+template <int S>
+int launch_rows_depth(const float* a, long long m, int k, const float* b, long long sbk,
+                      long long sbn, int n, float* c, cudaStream_t st) {
+  switch (rows_ks(k)) {
+    case 1:
+      return launch_rows<S, 1>(a, m, k, b, sbk, sbn, n, c, st);
+    case 4:
+      return launch_rows<S, 4>(a, m, k, b, sbk, sbn, n, c, st);
+    case 8:
+      return launch_rows<S, 8>(a, m, k, b, sbk, sbn, n, c, st);
+    default:
+      return launch_rows<S, 10>(a, m, k, b, sbk, sbn, n, c, st);
+  }
 }
 
 
@@ -750,10 +876,6 @@ int launch_wide(const float* a, long long m, int k, const float* b, long long sb
   return (int)cudaGetLastError();
 }
 
-// da's columns a block holds: 160 (all of l1's 150, x_fea's 135, the
-// basis's 144) or 128, more columns in further column blocks
-int rows_tiles(int n) { return n > 128 && n <= 160 ? 20 : 16; }
-
 // the reduce layout's shared memory: the ring of `stages` stages and two
 // bf16 tiles
 size_t db_smem(int k, int n, int stages) {
@@ -794,14 +916,20 @@ int launch_db_stages(int stages, const float* a, const float* d, long long m, in
 
 }  // namespace
 
+// a and c 16-byte aligned, 0 < k <= 160, stages 3 or 4 (ops/mm.py::da_stages), m > 0
 extern "C" int mixed_mm_rows(const float* a, long long m, int k, const float* b, long long sbk,
-                             long long sbn, int n, float* c, void* stream) {
+                             long long sbn, int n, int stages, float* c, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows_tiles(n)) {
-    case 20:
-      return launch_rows<20>(a, m, k, b, sbk, sbn, n, c, st);
+  if (m <= 0 || k <= 0 || k > kRowsMaxDepth || n <= 0 || ((uintptr_t)a | (uintptr_t)c) % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (stages) {
+    case 3:
+      return launch_rows_depth<3>(a, m, k, b, sbk, sbn, n, c, st);
+    case 4:
+      return launch_rows_depth<4>(a, m, k, b, sbk, sbn, n, c, st);
     default:
-      return launch_rows<16>(a, m, k, b, sbk, sbn, n, c, st);
+      return (int)cudaErrorInvalidValue;
   }
 }
 

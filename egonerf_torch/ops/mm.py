@@ -45,6 +45,10 @@ _WIDE_TILES = {"wide64": (64, 64), "wide128": (128, 128)}
 # 2 along K of 5 x 2 m16n8 tiles each, or 16 along K of 1 x 2 for N <= 16)
 DB_ROWS, DB_MAX_STAGES = 32, 4
 DB_GROUPS = {"wide": (160, 128), "narrow": (256, 16)}
+# the rows layout (da): rows a stage (a row tile), the columns a block
+# holds (further column blocks past them), the most stages of its ring and
+# the deepest product (b^T's k16 steps held in registers)
+DA_TILE, DA_COLS, DA_MAX_STAGES, DA_MAX_DEPTH = 64, 160, 4, 160
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -95,14 +99,54 @@ def fwd_smem_bytes(k: int, layout: str) -> int:
     return 4 * (-(-k // 4) * 4 * cols + _FWD_DEPTH * (rows + 4))
 
 
-def rows_smem_bytes(k: int, n: int) -> int:
-    """Shared memory of one block of the rows layout (da) for depth ``k``
-    and ``n`` output columns: b^T's block of 8 NT columns (NT = 20 for
-    129 to 160 columns, else 16) over the depth padded to 32 (+ 8), and a
-    128 x 40 chunk of a, bf16."""
-    nt = 20 if 128 < n <= 160 else 16
-    kpad = -(-k // 32) * 32
-    return 2 * (8 * nt * (kpad + 8) + 128 * 40)
+def _pad_8_24(w: int) -> int:
+    """The smallest w' >= w of 8 or 24 words mod 32 (w a multiple of 4):
+    csrc/mixed_mm.cu pad_8_24, a row stride on which the four rows of a
+    half-warp's float2 fragment access fall on distinct banks."""
+    r = w % 32
+    return w + (8 - r if r <= 8 else 24 - r if r <= 24 else 40 - r)
+
+
+def da_lda(k: int) -> int:
+    """A stage row of the rows layout (da) for depth ``k``, float32: as it
+    lies where k % 4 != 0 (the stage is one contiguous range), else padded
+    by :func:`_pad_8_24` (copied row by row)."""
+    return k if k % 4 else _pad_8_24(k)
+
+
+def da_ks(k: int) -> int:
+    """k16 steps of b^T a warp of the rows layout holds in registers for
+    depth ``k`` (the kernel's instantiations: 1, 4, 8, 10)."""
+    if not 0 < k <= DA_MAX_DEPTH:
+        raise ValueError(f"the rows layout takes depths 1 to {DA_MAX_DEPTH}, got {k}")
+    return next(ks for ks in (1, 4, 8, 10) if 16 * ks >= k)
+
+
+def da_smem_bytes(k: int, n: int, stages: int) -> int:
+    """Shared memory of one block of the rows layout for depth ``k``, ``n``
+    output columns (the widest column block, DA_COLS at most) and
+    ``stages`` stages, float32: the ring of DA_TILE-row stages and two
+    staging tiles of the block's columns as they lie in the output."""
+    return 4 * (stages * DA_TILE * da_lda(k) + 2 * DA_TILE * min(DA_COLS, n))
+
+
+def da_stages(k: int, n: int) -> int:
+    """The rows layout's ring depth: DA_MAX_STAGES stages where they fit,
+    else three (the kernel's instantiations; three fit every depth up to
+    DA_MAX_DEPTH); depths past DA_MAX_DEPTH are refused."""
+    da_ks(k)
+    return DA_MAX_STAGES if da_smem_bytes(k, n, DA_MAX_STAGES) <= _SMEM_LIMIT else 3
+
+
+def da_tile_range(m: int, width: int, tile: int) -> tuple:
+    """(byte offset, bytes in 16-byte pieces, floats moved plainly) of row
+    tile ``tile``'s rows of ``width`` floats in an (m, width) row-major
+    operand of the rows layout, one contiguous range (:func:`bulk_copy`):
+    dout's rows copied into a stage (row by row in width / 4 pieces where
+    width % 4 == 0, the same bytes), and da's rows handed to the bulk copy
+    (one column block, width <= DA_COLS; wider outputs go row by row)."""
+    r0 = tile * DA_TILE
+    return (4 * r0 * width, *bulk_copy(min(DA_TILE, m - r0), width))
 
 
 def _ldm_stride(width: int) -> int:
@@ -174,11 +218,12 @@ def _check_operand(name, t, shape, device=None):
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
 
 
-# the rows layout's C signature; the forward's adds its layout's index
+# the rows layout's C signature (with its stage count); the forward's has
+# a layout index in its place
 _ROWS_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p]
-_FWD_ARGS = _ROWS_ARGS[:7] + [ctypes.c_int] + _ROWS_ARGS[7:]
+_FWD_ARGS = _ROWS_ARGS
 _DB_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p]
@@ -186,19 +231,23 @@ _DB_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, c
 
 def _rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The rows layout on the tensor cores: bf16(a) (M, K) @ bf16(b) (K, N),
-    b at its strides."""
+    b at its strides (an ``a`` that does not start on a 16-byte boundary is
+    copied first: the kernel's stages are 16-byte copies)."""
     m, k = a.shape
     n = b.shape[1]
-    if rows_smem_bytes(k, n) > _SMEM_LIMIT:
-        raise ValueError(f"depth {k} too large for the rows layout's shared memory")
     c = torch.empty(m, n, dtype=torch.float32, device=a.device)
-    if m and n:
-        fn = kernel("mixed_mm", "mixed_mm_rows", _ROWS_ARGS)
-        dev = a.device
-        with torch.cuda.device(dev):
-            err = fn(a.data_ptr(), m, k, b.data_ptr(), b.stride(0), b.stride(1), n, c.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
-        check_launch("mixed_mm_rows", err)
+    if not (m and n):
+        return c
+    if k == 0:
+        return c.zero_()
+    stages = da_stages(k, n)
+    a = a if a.data_ptr() % 16 == 0 else a.clone()
+    fn = kernel("mixed_mm", "mixed_mm_rows", _ROWS_ARGS)
+    dev = a.device
+    with torch.cuda.device(dev):
+        err = fn(a.data_ptr(), m, k, b.data_ptr(), b.stride(0), b.stride(1), n, stages,
+                 c.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("mixed_mm_rows", err)
     return c
 
 
@@ -241,11 +290,12 @@ def mixed_mm_da(dout: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K10, the input's gradient: ``bf16(dout) @ bf16(b)^T`` with float32
     accumulation.
 
-    dout (M, N) float32, contiguous; b (K, N) as for :func:`mixed_mm`.
-    Returns (M, K) float32.  Replaces ``_bwd``'s ``da`` (egonerf_tpu/ops/
-    mm.py:41-47).  Kernel: csrc/mixed_mm.cu (the tensor cores' rows layout,
-    with b^T as its (N, K) operand).  CPU tensors take
-    :func:`mixed_mm_da_plain`."""
+    dout (M, N) float32, contiguous, N <= DA_MAX_DEPTH (160); b (K, N) as
+    for :func:`mixed_mm`.  Returns (M, K) float32.  Replaces ``_bwd``'s
+    ``da`` (egonerf_tpu/ops/mm.py:41-47).  Kernel: csrc/mixed_mm.cu (the
+    tensor cores' rows layout, with b^T as its (N, K) operand, held in
+    registers; a ring of 64-row stages of dout, :func:`da_stages`).  CPU
+    tensors take :func:`mixed_mm_da_plain`."""
     check_tensor("dout", dout, torch.float32, (None, None))
     _check_operand("b", b, (None, dout.shape[1]), dout.device)
     if dout.device.type == "cpu":

@@ -1,27 +1,33 @@
-"""K10's forward and weight gradient (db) of this checkout against another
-revision's, on one CUDA card, at every shape that ``chip_smoke.py``'s
-phase 2 records under MIXED_MM (random operands from a seed).
+"""K10's forward, weight gradient (db) and input gradient (da) of this
+checkout against another revision's, on one CUDA card, at every shape that
+``chip_smoke.py``'s phase 2 records under MIXED_MM (random operands from a
+seed).
 
     python -m egonerf_torch.tools.mm_ab --other DIR [--ablate]
 
 run from the repository root.  DIR holds the other revision's
-``mixed_mm.cu`` (its ``egonerf_torch/csrc`` from ``git archive``), whose
-``mixed_mm_fwd`` takes the earlier argument list (no layout index) and
-whose ``mixed_mm_db`` takes rows_per_block without a stage count.
+``mixed_mm.cu`` (its ``egonerf_torch/csrc`` from ``git archive``), whose C
+entry points take the argument lists of ``OTHER_FWD_ARGS``,
+``OTHER_DB_ARGS`` and ``OTHER_ROWS_ARGS`` (the forward with its layout
+index, db with its stage count and warp layout, da's ``mixed_mm_rows``
+with b^T at element strides).
 
 First this checkout's forward (and the other's) is held to its plain
-version bit for bit and its db to the exact product (float64) within
-``chip_smoke.K2_TOL`` of sum|terms|, equal to itself over two calls; a
-miss is printed and makes the exit code 1 after the timings.  Then each
-shape's forward and db are timed by ``chip_smoke.time_ms`` in turns
-(other, this, this, other) on the same inputs, beside the byte bound,
-the float32 fma floor at the SM clock that ``nvidia-smi`` reads under
-load, and the PyTorch call that computes the same function
-(``chip_smoke.mm_library``; with and without the casts of the float32
-operands).  ``--ablate`` first times the other db as it is, with
-one tile group in place of its two (l1, the hoist) and with its mma
-removed (the staging alone): text edits of the other source (the outputs
-are wrong).  Prints one line a measurement and the card's name and power
+version bit for bit, its db to the exact product (float64) within
+``chip_smoke.K2_TOL`` of sum|terms|, equal to itself over two calls, and
+its da (and the other's) to the exact product within ``chip_smoke.MM_TOL``
+of sum|terms|, also at ``chip_smoke.MM_ODD_ROWS`` rows; a miss is printed
+and makes the exit code 1 after the timings.  Then each shape's forward,
+db and da are timed by ``chip_smoke.time_ms`` in turns (other, this,
+this, other) on the same inputs, beside the byte bound, the float32 fma
+floor at the SM clock that ``nvidia-smi`` reads under load, and the
+PyTorch call that computes the same function (``chip_smoke.mm_library``;
+with and without the casts of the float32 operands).  ``--ablate`` first
+times the other da at l1 as it is, with its mma instructions compiled out
+(loads, rounding and stores only), with its final stores compiled out,
+and with its loads of dout replaced by a constant: text edits of the
+other source (the outputs are wrong); the tool stops where an edit does
+not apply.  Prints one line a measurement and the card's name and power
 limit.
 """
 from __future__ import annotations
@@ -39,34 +45,39 @@ from .resample_ab import _build_all, _edit, _fn, _turns
 
 OUT = _build.BUILD_ROOT.parent / "mm_ab"
 # (name, M, K, N, b as a weight's transpose): chip_smoke phase 2's K10
-# shapes at the production chunk (4096 rays x 256 samples)
+# shapes at the production chunk (4096 rays x 256 samples); every one but
+# the hoist's ray term (whose input carries no gradient) has a da
 SHAPES = (("l1", 1 << 20, 150, 128, True), ("l2", 1 << 20, 128, 128, True),
           ("l3", 1 << 20, 128, 3, True), ("basis", 1 << 20, 144, 54, False),
           ("hoist", 1 << 20, 135, 128, True), ("ray term", 4096, 15, 128, True))
+NO_DA = ("ray term",)
 SEED = 0
-OTHER_FWD_ARGS = mm._ROWS_ARGS
-OTHER_DB_ARGS = mm._DB_ARGS[:6] + mm._DB_ARGS[8:]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+OTHER_ROWS_ARGS = [_P, _L, _I, _P, _L, _L, _I, _P, _P]
+OTHER_FWD_ARGS = OTHER_ROWS_ARGS[:7] + [_I] + OTHER_ROWS_ARGS[7:]
+OTHER_DB_ARGS = [_P, _P, _L, _I, _I, _L, _I, _I, _P, _P, _P]
+DA_ABLATIONS = ("da as it is", "da no mma", "da no stores", "da constant loads")
 
 
 def _ablations(other: Path) -> dict:
-    """{name: (source, flags)}: the other db as it is, with one tile group
-    (a warp's tiles up to 20), and without its mma."""
+    """{name: (source, flags)}: the other da (mm_rows_kernel) as it is,
+    without its mma instructions, without its final stores, and with its
+    loads of dout replaced by a constant."""
     src = (other / "mixed_mm.cu").read_text()
-    src = _edit(src, "  const int groups = (tiles + 127) / 128;\n",
-                "#ifdef ONE_GROUP\n  const int groups = 1;\n#else\n"
-                "  const int groups = (tiles + 127) / 128;\n#endif\n")
-    src = _edit(src, "  } else {\n    launch_db<16>(", "  } else if (per_warp > 16) {\n"
-                "    launch_db<20>(grid, smem, st, a, d, m, k, n, rows_per_block, per_warp, part);\n"
-                "  } else {\n    launch_db<16>(")
-    fb = "          ldmatrix_x2_trans(fb, ds + (ks + mrow + 8 * (mat & 1)) * ld_d + 8 * ni);\n"
-    src = _edit(src, fb + "          mma_bf16(acc[j], fa, fb);\n",
-                fb + "#ifndef NO_MMA\n          mma_bf16(acc[j], fa, fb);\n#endif\n")
+    src = _edit(src, "          mma_bf16(acc[j], fa, fb);\n",
+                "#ifndef NO_MMA\n          mma_bf16(acc[j], fa, fb);\n#endif\n")
+    src = _edit(src, "          const long long r = r0 + 8 * h;\n          if (r < m && col < n) {\n",
+                "          const long long r = r0 + 8 * h;\n#ifdef NO_STORE\n"
+                "          if (r < 0 && col < n) {\n#else\n"
+                "          if (r < m && col < n) {\n#endif\n")
+    src = _edit(src, "      pa[e] = (r < m && kk < k) ? __ldg(a + r * k + kk) : 0.0f;\n",
+                "#ifdef CONST_LOAD\n      pa[e] = (r < m && kk < k) ? 1.0f : 0.0f;\n#else\n"
+                "      pa[e] = (r < m && kk < k) ? __ldg(a + r * k + kk) : 0.0f;\n#endif\n")
     d = OUT / "ablate"
     d.mkdir(parents=True, exist_ok=True)
     (d / "mixed_mm.cu").write_text(src)
-    return {"db as it is": (d / "mixed_mm.cu", []),
-            "db one group": (d / "mixed_mm.cu", ["-DONE_GROUP"]),
-            "db no mma": (d / "mixed_mm.cu", ["-DNO_MMA"])}
+    return dict(zip(DA_ABLATIONS, ((d / "mixed_mm.cu", flags) for flags in
+                                   ([], ["-DNO_MMA"], ["-DNO_STORE"], ["-DCONST_LOAD"]))))
 
 
 def _stream():
@@ -77,10 +88,11 @@ def _other_fwd(f, a, b):
     m, k = a.shape
     n = b.shape[1]
     c = torch.empty(m, n, device=a.device)
+    layout = mm.FWD_LAYOUTS.index(mm.fwd_layout(k, n))
 
     def run():
-        err = f(a.data_ptr(), m, k, b.data_ptr(), b.stride(0), b.stride(1), n, c.data_ptr(),
-                _stream())
+        err = f(a.data_ptr(), m, k, b.data_ptr(), b.stride(0), b.stride(1), n, layout,
+                c.data_ptr(), _stream())
         if err:
             raise RuntimeError(f"mixed_mm_fwd: cudaError {err}")
         return c
@@ -88,20 +100,37 @@ def _other_fwd(f, a, b):
 
 
 def _other_db(f, a, d):
-    """The other revision's db with its own row ranges (two blocks an SM)."""
+    """The other revision's db with this checkout's row ranges and stages."""
     m, k = a.shape
     n = d.shape[1]
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    per_block = max(32, -(-m // (2 * sms)))
-    part = torch.empty(-(-m // per_block), k, n, device=a.device)
+    per_block, splits = mm.db_row_ranges(m, sms, mm.db_groups(k, n))
+    part = torch.empty(splits, k, n, device=a.device)
     out = torch.empty(k, n, device=a.device)
+    stages, narrow = mm.db_stages(k, n), int(mm.db_layout(n) == "narrow")
 
     def run():
-        err = f(a.data_ptr(), d.data_ptr(), m, k, n, per_block, part.data_ptr(), out.data_ptr(),
-                _stream())
+        err = f(a.data_ptr(), d.data_ptr(), m, k, n, per_block, stages, narrow, part.data_ptr(),
+                out.data_ptr(), _stream())
         if err:
             raise RuntimeError(f"mixed_mm_db: cudaError {err}")
         return out
+    return run
+
+
+def _other_da(f, d, b):
+    """The other revision's da: its rows layout on (dout, b^T)."""
+    m, n = d.shape
+    bt = b.t()
+    k = bt.shape[1]
+    c = torch.empty(m, k, device=d.device)
+
+    def run():
+        err = f(d.data_ptr(), m, n, bt.data_ptr(), bt.stride(0), bt.stride(1), k, c.data_ptr(),
+                _stream())
+        if err:
+            raise RuntimeError(f"mixed_mm_rows: cudaError {err}")
+        return c
     return run
 
 
@@ -127,18 +156,24 @@ def sm_clock_under_load(run, calls: int = 400) -> str:
     return out
 
 
-def check(cs, label, a, b, d, other_fwd) -> bool:
+def share_of_terms(got, x, y) -> float:
+    """max over elements of |got - x16 @ y16| / (|x16| @ |y16|), the bf16
+    operands' exact product in float64."""
+    x64, y64 = x.to(torch.bfloat16).double(), y.to(torch.bfloat16).double()
+    return float(((got.double() - x64 @ y64).abs() / (x64.abs() @ y64.abs() + 1e-30)).max())
+
+
+def check(cs, label, a, b, d, other_fwd, other_da) -> bool:
     """This checkout's forward against its plain version (bit for bit; the
-    other revision's too) and db against the exact product (K2_TOL of
-    sum|terms|, equal over two calls).  Prints what differs; returns
-    whether everything held."""
+    other revision's too), db against the exact product (K2_TOL of
+    sum|terms|, equal over two calls) and da (this and the other's, also at
+    MM_ODD_ROWS rows) against the exact product (MM_TOL of sum|terms|).
+    Prints what differs; returns whether everything held."""
     with torch.no_grad():
         got, ref, old = mm.mixed_mm(a, b), mm.mixed_mm_plain(a, b), other_fwd()
         diff = got != ref
         db1, db2 = mm.mixed_mm_db(a, d), mm.mixed_mm_db(a, d)
-        a16, d16 = a.to(torch.bfloat16).double(), d.to(torch.bfloat16).double()
-        share = float(((db1.double() - a16.t() @ d16).abs()
-                       / (a16.abs().t() @ d16.abs() + 1e-30)).max())
+        db_share = share_of_terms(db1, a.t(), d)
     torch.cuda.synchronize()
     same = not bool(diff.any())
     where = ""
@@ -148,10 +183,23 @@ def check(cs, label, a, b, d, other_fwd) -> bool:
                  f" rows {int(rows.min())}..{int(rows.max())}, columns {int(cols.min())}.."
                  f"{int(cols.max())}; the other forward equal to the plain version: "
                  f"{torch.equal(old, ref)})")
-    ok = same and share <= cs.K2_TOL and torch.equal(db1, db2)
-    print(f"{label}: forward equal to its plain version bit for bit: {same}{where}; db per "
-          f"element {share:.3e} of sum|terms| (<= {cs.K2_TOL:.0e}), equal over two calls: "
-          f"{torch.equal(db1, db2)} -> {'ok' if ok else 'MISS'}", flush=True)
+    del got, ref, old, diff
+    ok = same and db_share <= cs.K2_TOL and torch.equal(db1, db2)
+    line = (f"{label}: forward equal to its plain version bit for bit: {same}{where}; db per "
+            f"element {db_share:.3e} of sum|terms| (<= {cs.K2_TOL:.0e}), equal over two calls: "
+            f"{torch.equal(db1, db2)}")
+    if other_da is not None:
+        with torch.no_grad():
+            shares = {"this": share_of_terms(mm.mixed_mm_da(d, b), d, b.t()),
+                      "other": share_of_terms(other_da(), d, b.t())}
+            for m in cs.MM_ODD_ROWS:
+                shares[f"this at {m} rows"] = share_of_terms(mm.mixed_mm_da(d[:m], b), d[:m],
+                                                             b.t())
+        torch.cuda.synchronize()
+        ok = ok and max(shares.values()) <= cs.MM_TOL
+        line += "; da per element of sum|terms| (<= {:.0e}): ".format(cs.MM_TOL) + ", ".join(
+            f"{n} {v:.3e}" for n, v in shares.items())
+    print(f"{line} -> {'ok' if ok else 'MISS'}", flush=True)
     return ok
 
 
@@ -160,7 +208,7 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True, type=Path,
                     help="the other revision's egonerf_torch/csrc")
     ap.add_argument("--ablate", action="store_true",
-                    help="also time ablated builds of the other db")
+                    help="also time ablated builds of the other da at l1")
     args = ap.parse_args(argv)
     import chip_smoke as cs
 
@@ -177,17 +225,20 @@ def main(argv=None) -> int:
     libs = _build_all(jobs, OUT)
     other_fwd = _fn(libs["other"], "mixed_mm_fwd", OTHER_FWD_ARGS)
     other_db = _fn(libs["other"], "mixed_mm_db", OTHER_DB_ARGS)
+    other_rows = _fn(libs["other"], "mixed_mm_rows", OTHER_ROWS_ARGS)
     lib_label, lib_call = cs.mm_library()
     print(f"library call: {lib_label}", flush=True)
     ok = True
 
     for label, m, k, n, transposed in SHAPES:
         a, b, d = _inputs(m, k, n, transposed, dev)
-        ok = check(cs, label, a, b, d, _other_fwd(other_fwd, a, b)) and ok
-        if args.ablate and label in ("l1", "hoist"):
-            _turns(cs, f"ablation db {label}", {
-                name: _other_db(_fn(libs[name], "mixed_mm_db", OTHER_DB_ARGS), a, d)
-                for name in ("db as it is", "db one group", "db no mma")})
+        has_da = label not in NO_DA
+        ok = check(cs, label, a, b, d, _other_fwd(other_fwd, a, b),
+                   _other_da(other_rows, d, b) if has_da else None) and ok
+        if args.ablate and label == "l1":
+            _turns(cs, f"ablation da {label}", {
+                name: _other_da(_fn(libs[name], "mixed_mm_rows", OTHER_ROWS_ARGS), d, b)
+                for name in DA_ABLATIONS})
         a16, bt16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
         at16, d16 = a16.t(), d.to(torch.bfloat16)
         fwd = _turns(cs, f"fwd {label} ({m}x{k} @ {k}x{n})", {
@@ -211,6 +262,18 @@ def main(argv=None) -> int:
               f"clocks.sm, clocks.max.sm: {clock}); library fwd {lib['fwd']:.4f} "
               f"({lib['fwd with casts']:.4f} with the casts), db {lib['db']:.4f} "
               f"({lib['db with casts']:.4f} with the casts)", flush=True)
+        if has_da:
+            da = _turns(cs, f"da {label} ({m}x{n} @ {n}x{k})", {
+                "other": _other_da(other_rows, d, b), "this": lambda: mm.mixed_mm_da(d, b)})
+            bt = b.t()
+            lib_da = cs.time_ms(lambda: lib_call(d16, bt16.t()))
+            lib_da_casts = cs.time_ms(lambda: lib_call(d.to(torch.bfloat16),
+                                                       bt.to(torch.bfloat16)))
+            print(f"{label}: da this {da['this']:.4f} ms (other {da['other']:.4f}, "
+                  f"{da['other'] / da['this']:.2f}x); byte bound {byte_ms:.4f} ms, this at "
+                  f"{byte_ms / da['this']:.1%} of it; library da {lib_da:.4f} "
+                  f"({lib_da_casts:.4f} with the casts), this {lib_da / da['this']:.2f}x its "
+                  "rate", flush=True)
         del a, b, d, a16, bt16, at16, d16
         torch.cuda.empty_cache()
     print(f"card: {cs.card_line()}", flush=True)

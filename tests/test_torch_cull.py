@@ -183,45 +183,109 @@ def _order_key(f):
 
 
 def _kernel_rule_top_k(score, k):
-    """K13's selection as csrc/cull.cu takes it, one ray at a time: T the
-    K-th largest key by a bitwise radix select, then the keys above T and
-    the first K - #(key > T) equal to T in index order."""
-    keep = np.zeros(score.shape, bool)
-    for i, row in enumerate(score):
-        key = _order_key(row)
-        t = np.uint32(0)
+    """K13's selection as csrc/cull.cu takes it, one ray (one warp) at a
+    time, sample 32 t + lane in lane `lane`, key 0 past S: T, the K-th
+    largest key, bit by bit from the top (one-bit digits: a candidate
+    stays when #(key >= candidate) >= K, a warp sum of the lanes' counts),
+    stopping once exactly K keys are >= T; then the keys above T and the
+    first need = K - #(key > T) keys equal to T, ranked in index order by
+    the equal keys of the rows before and of the lower lanes (a ballot),
+    each kept sample's slot the kept samples before it counted the same
+    way.  Returns (kept mask, slots: -1 where not kept, bit steps a ray)."""
+    n, s = score.shape
+    rows = -(-s // 32)
+    keep = np.zeros((n, 32 * rows), bool)
+    slots = np.full((n, 32 * rows), -1)
+    steps = np.zeros(n, int)
+    for r in range(n):
+        key = np.zeros(32 * rows, np.uint32)
+        key[:s] = _order_key(score[r])
+        t_key, ge = 0, s
         for bit in range(31, -1, -1):
-            cand = t | np.uint32(1 << bit)
-            if (key >= cand).sum() >= k:
-                t = cand
-        room = k - (key > t).sum()
-        eq = np.flatnonzero(key == t)[:room]
-        keep[i] = key > t
-        keep[i, eq] = True
-    return keep
+            if ge == k:
+                break
+            cand = t_key | 1 << bit
+            cnt = int((key >= cand).sum())
+            if cnt >= k:
+                t_key, ge = cand, cnt
+            steps[r] += 1
+        need = k - int((key > t_key).sum())
+        # an early stop leaves T below every kept key or at some of them
+        assert 0 <= need <= int((key == t_key).sum())
+        eq_before = slot = 0
+        for t in range(rows):
+            kk = key[32 * t:32 * t + 32]
+            eq = kk == t_key
+            kept = (kk > t_key) | (eq & (eq_before + np.cumsum(eq) - eq < need))
+            keep[r, 32 * t:32 * t + 32] = kept
+            slots[r, 32 * t:32 * t + 32] = np.where(kept, slot + np.cumsum(kept) - kept, -1)
+            eq_before += int(eq.sum())
+            slot += int(kept.sum())
+    return keep[:, :s], slots[:, :s], steps
+
+
+def _rank(score):
+    """rank_i = #(s_j > s_i) + #(s_j == s_i, j < i), as lax.top_k orders."""
+    idx = np.arange(score.shape[1])
+    return ((score[:, None, :] > score[:, :, None])
+            | ((score[:, None, :] == score[:, :, None])
+               & (idx[None, None, :] < idx[None, :, None]))).sum(-1)
+
+
+def _signed_case(s=48, seed=5):
+    rng = np.random.default_rng(seed)
+    score = (rng.integers(-2, 3, (32, s)) * 0.5).astype(np.float32)
+    score[rng.uniform(size=score.shape) < 0.2] = -0.0
+    z = np.sort(rng.uniform(0.1, 9.0, score.shape).astype(np.float32), -1)
+    return z, score
+
+
+def _check_kernel_rule(z, score, k):
+    keep, slots, _ = _kernel_rule_top_k(score, k)
+    np.testing.assert_array_equal(keep, _rank(score) < k)
+    for row_keep, row_slots in zip(keep, slots):  # slots 0..K-1 in index order
+        np.testing.assert_array_equal(row_slots[row_keep], np.arange(k))
+    gz, _ = cull.select_top_k_plain(_t(z), _t(z), _t(score), k)
+    np.testing.assert_array_equal(gz.numpy(), z[keep].reshape(-1, k))
 
 
 @pytest.mark.parametrize("k", [1, 17, 47])
 @pytest.mark.parametrize("name", TOP_K_CASES + ["signed with -0"])
 def test_kernel_selection_rule_equals_plain(name, k):
-    """The rule K13 implements (order keys, radix select, the ties' room)
-    keeps the samples of rank < K, rank = #(s_j > s_i) + #(s_j == s_i,
-    j < i): the plain version's set, also on signed scores with -0 and +0
-    (equal as floats, one key)."""
+    """The rule K13 implements (order keys, the bitwise select of T with its
+    early stop, the ties' room, ballot-order ranks and slots) keeps the
+    samples of rank < K, rank = #(s_j > s_i) + #(s_j == s_i, j < i), in
+    index order: the plain version's set, also on signed scores with -0
+    and +0 (equal as floats, one key)."""
     if name == "signed with -0":
-        rng = np.random.default_rng(5)
-        score = (rng.integers(-2, 3, (32, 48)) * 0.5).astype(np.float32)
-        score[rng.uniform(size=score.shape) < 0.2] = -0.0
-        z = np.sort(rng.uniform(0.1, 9.0, score.shape).astype(np.float32), -1)
+        z, score = _signed_case()
     else:
         z, _, score = _top_k_case(name)
-    keep = _kernel_rule_top_k(score, k)
-    rank = ((score[:, None, :] > score[:, :, None])
-            | ((score[:, None, :] == score[:, :, None])
-               & (np.arange(48)[None, None, :] < np.arange(48)[None, :, None]))).sum(-1)
-    np.testing.assert_array_equal(keep, rank < k)
-    gz, _ = cull.select_top_k_plain(_t(z), _t(z), _t(score), k)
-    np.testing.assert_array_equal(gz.numpy(), z[keep].reshape(-1, k))
+    _check_kernel_rule(z, score, k)
+
+
+def test_kernel_rule_stops_early_only_where_the_kth_key_is_apart():
+    """The bitwise select stops before its 32nd step once exactly K keys
+    are >= T: on distinct scores (random) every ray does; where the K-th
+    and (K+1)-th scores tie (all zero) none can, and T is the tied key."""
+    _, _, score = _top_k_case("random", n=8, s=256)
+    assert (_kernel_rule_top_k(score, 192)[2] < 32).all()
+    _, _, zeros = _top_k_case("all zero", n=8, s=256)
+    keep, _, steps = _kernel_rule_top_k(zeros, 192)
+    assert (steps == 32).all() and (keep.sum(1) == 192).all() and keep[:, :192].all()
+
+
+@pytest.mark.parametrize("s,k", [(256, 192), (256, 128), (256, 255), (296, 150), (512, 384)])
+@pytest.mark.parametrize("name", ["random", "equal runs and zeros", "signed with -0"])
+def test_kernel_selection_rule_at_production_widths(name, s, k):
+    """The same at the production chunk's 256 merged samples (8 full rows of
+    32 lanes), a partial last row (296) and the most a ray takes (512),
+    with the recorded keeps."""
+    if name == "signed with -0":
+        z, score = _signed_case(s)
+    else:
+        z, _, score = _top_k_case(name, n=8, s=s)
+    _check_kernel_rule(z[:8], score[:8], k)
 
 
 def test_train_tiebreak_matches_jax():

@@ -1,11 +1,13 @@
-"""The launch geometry of K10's forward and weight gradient (db), on the
-CPU: the wrapper's pure-Python functions that ``ops/mm.py`` hands to
-``csrc/mixed_mm.cu`` (db's row ranges and ring depth, the bulk-copy rule
-with its tail, the forward's narrow or wide instantiation, the shared
-memory of each) at the shapes that the production chunk gives K10 under
-``EGONERF_MIXED_MM=1``: l1 150 -> 128, l2 128 -> 128, l3 128 -> 3, the
-basis of both charts 144 -> 54, the hoist's features 135 -> 128 and its
-ray term 15 -> 128."""
+"""The launch geometry of K10's forward, weight gradient (db) and input
+gradient (da), on the CPU: the wrapper's pure-Python functions that
+``ops/mm.py`` hands to ``csrc/mixed_mm.cu`` (db's row ranges and ring
+depth, the bulk-copy rule with its tail, the forward's narrow or wide
+instantiation, da's ring depth, depth instantiation, stage rows and
+row-tile ranges, the shared memory of each) at the shapes that the production chunk gives
+K10 under ``EGONERF_MIXED_MM=1``: l1 150 -> 128, l2 128 -> 128, l3 128 ->
+3, the basis of both charts 144 -> 54, the hoist's features 135 -> 128 and
+its ray term 15 -> 128.  da of a product (K, N) is dout (M, N) @ b^T: depth
+N, K output columns."""
 import pytest
 
 from egonerf_torch.ops import mm
@@ -141,3 +143,79 @@ def test_forward_deep_products_take_64_columns_a_block():
     assert mm.fwd_layout(420, 128) == "wide128"
     assert mm.fwd_layout(424, 128) == "wide64"
     assert mm.fwd_smem_bytes(424, "wide64") <= 227 * 1024
+
+
+# da of every recorded product holds 4 stages: the staging tiles hold the
+# block's columns as they lie in da (l1: 64 x 150 floats) and b^T sits in
+# registers
+DA_ROWS = [1 << 20, 1_048_575, 1_048_577, 17, 1]
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_da_shared_memory_and_stages(name):
+    """The most stages (up to DA_MAX_STAGES) whose block fits 227 KB (l1: 4
+    stages of 64 x 136 floats and two staging tiles of 64 x 150 floats)."""
+    k, n = SHAPES[name]
+    stages = mm.da_stages(n, k)
+    assert stages == mm.DA_MAX_STAGES
+    assert mm.da_smem_bytes(n, k, stages) <= 227 * 1024
+    if name == "l1":
+        assert mm.da_smem_bytes(n, k, stages) == 4 * (4 * 64 * 136 + 2 * 64 * 150)
+
+
+def test_da_takes_depths_up_to_160_and_refuses_deeper():
+    """Every depth from 1 to 160 fits the ring's three stages at 160
+    columns (and wider N: further column blocks of 160), with b^T's k16
+    steps in one of the kernel's instantiations (1, 4, 8, 10); a deeper
+    product is refused (b^T's fragments would not fit a warp's registers)."""
+    for depth in range(1, mm.DA_MAX_DEPTH + 1):
+        for n in (160, 480):
+            stages = mm.da_stages(depth, n)
+            assert stages in (3, mm.DA_MAX_STAGES)
+            assert mm.da_smem_bytes(depth, n, stages) <= 227 * 1024
+        ks = mm.da_ks(depth)
+        assert 16 * ks >= depth and ks in (1, 4, 8, 10)
+        assert all(16 * smaller < depth for smaller in (1, 4, 8, 10) if smaller < ks)
+    assert mm.da_stages(160, 160) == 3
+    assert [mm.da_ks(SHAPES[s][1]) for s in ("l1", "l3", "basis")] == [8, 1, 4]
+    for depth in (0, 161, 300):
+        with pytest.raises(ValueError, match="depths 1 to 160"):
+            mm.da_stages(depth, 150)
+
+
+@pytest.mark.parametrize("w", sorted({n for _, n in SHAPES.values()} | {4, 8, 24, 32, 160}))
+def test_da_stage_rows_spread_a_half_warp_over_the_banks(w):
+    """A padded stage row (depth a multiple of 4) keeps 16-byte pieces
+    aligned and puts the rows g = 0..3 of a half-warp's float2 fragment
+    access on four distinct groups of 8 banks; a depth off the multiple of
+    4 keeps its rows as they lie (one contiguous range)."""
+    ld = mm.da_lda(w)
+    if w % 4:
+        assert ld == w
+    else:
+        assert ld % 4 == 0 and ld >= w
+        assert len({g * ld % 32 // 8 for g in range(4)}) == 4
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+@pytest.mark.parametrize("m", DA_ROWS)
+def test_da_row_and_output_ranges(m, name):
+    """Walking da's row tiles: each tile's dout rows and its rows of da are
+    each one range starting on a 16-byte boundary, copied in 16-byte pieces
+    (dout by cp.async, da by the bulk copy), the last (rows x width) mod 4
+    floats of a tail tile plainly; every row once."""
+    k, n = SHAPES[name]
+    depth, cols = n, k
+    tiles = -(-m // mm.DA_TILE)
+    moved = {depth: 0, cols: 0} if depth != cols else {depth: 0}
+    for tile in range(tiles):
+        rows = min(mm.DA_TILE, m - tile * mm.DA_TILE)
+        for width in moved:
+            off, bulk, plain = mm.da_tile_range(m, width, tile)
+            assert off == 4 * tile * mm.DA_TILE * width and off % 16 == 0
+            assert bulk % 16 == 0 and 0 <= plain < 4 and bulk + 4 * plain == 4 * rows * width
+            assert plain == rows * width % 4
+            moved[width] += bulk // 4 + plain
+    assert all(total == m * width for width, total in moved.items())
+    if depth % 4 == 0:  # rows copied one by one: each starts on 16 bytes
+        assert 4 * depth % 16 == 0
