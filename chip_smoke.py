@@ -5,8 +5,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. the card's name and power limit, the build of every kernel in
    ``egonerf_torch/csrc`` from the checkout, and each kernel's registers
-   and spills from ptxas (a spill in the VM-grid lookups, K4 or the cull's
-   K12 and K13 fails);
+   and spills from ptxas (a spill in the VM-grid lookups, K4, K4c or the
+   cull's K12 and K13 fails);
 2. each kernel of the render path (K1, K3, K4 with its fine-chart epilogue,
    K6, K7) against its plain PyTorch version on the card, on the inputs one
    4096-ray chunk of the production model gives it (K4 also on K5's sorted
@@ -99,16 +99,21 @@ phase it is compared with:
 The JAX package's opt-in empty-space cull (``eval_keep``, ``train_keep``)
 likewise:
 
-2. (also) K4's weights instantiation against the plain weights
-   (``_warp_weights``), and K12 (the cull score) and K13 (the top-K
-   compaction) against their plain versions bit for bit, on one production
+2. (also) K4c, the cull's coarse pass (K4 with the cull score in its
+   epilogue), against its plain version: z and dists within K4's limit and
+   equal bit for bit to K4's weights instantiation's, the score bit for bit
+   with K12's plain version on the plain weights; K4's weights
+   instantiation against the plain weights (``_warp_weights``), and K12
+   (the standalone cull score) and K13 (the top-K compaction, on K4c's
+   scores) against their plain versions bit for bit, on one production
    chunk at K = 192 and 128, at the smoke config's 48 + 48 samples, on hard
    rays (all-zero weights, one spike, repeated coarse depths, long runs of
-   equal scores, perturbed scores, K = 1 and S - 1) and on a recorded
-   culled production training step; times and bounds;
-3c-5c. the 2000x1000 view at eval_keep 192 and 128 (one each of K3, K4 as
-    its weights instantiation, K12, K13, K1, K6 and two of K7 a chunk; K12
-    and K13 never without the cull), its s/image and render chunk beside
+   equal scores, perturbed scores, K = 1 and S - 1; K4c also on K4's hard
+   rays, K5's uniforms and without the merge) and on a recorded culled
+   production training step; times and bounds;
+3c-5c. the 2000x1000 view at eval_keep 192 and 128 (one each of K3, K4c,
+    K13, K1, K6 and two of K7 a chunk, no K4, K4w or K12; K4c and K13
+    never without the cull), its s/image and render chunk beside
     the unculled ones, a few chunks against the plain versions (phase 4's
     limits) with the rays whose kept set differs, and where the time goes;
 6c. 20 production steps each at train_keep 128: the tie-break, Gumbel
@@ -223,7 +228,8 @@ WIDTHS = (("smoke fine", 24, 8), ("smoke coarse", 8, 4), ("scalar", 20, 4),
           ("K2 scalar", 18, 6))
 # device-side names of the kernels in csrc/
 PORT_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
-                "sorted_uniform_kernel", "composite_kernel", "composite_bwd_kernel",
+                "resample_score_kernel", "sorted_uniform_kernel", "composite_kernel",
+                "composite_bwd_kernel",
                 "chart_kernel", "envmap_kernel", "envmap_bwd_kernel", "alphamask_kernel",
                 "mm_fwd_kernel", "mm_fwd_narrow_kernel", "mm_rows_kernel", "mm_db_kernel",
                 "mm_db_sum_kernel",
@@ -2109,16 +2115,59 @@ def k4_weights_compare(name, ops, args, far) -> float:
     return max(z_err, w_abs)
 
 
+def k4c_compare(name, ops, args, far) -> float:
+    """K4c against its plain version on ``args``: z_vals and dists within
+    1e-5 x far as K4's, and equal bit for bit to those of K4's weights
+    instantiation on the same inputs (the two launches K4c replaces); the
+    score bit for bit with K12's plain version on the kernel's depths and
+    the plain weights.  Returns the max abs error."""
+    from egonerf_torch.ops.cull import coarse_importance_plain
+
+    got = ops.KERNELS.resample_score(*args)
+    ref = ops.PLAIN.resample_weights(*args)
+    pair = ops.KERNELS.resample_weights(*args)
+    torch.cuda.synchronize()
+    if (any(o.shape != ref[0].shape or not torch.isfinite(o).all() for o in got)
+            or ref[1].shape != ref[0].shape):
+        fail(f"{name}: shapes {[tuple(o.shape) for o in got]} (plain {tuple(ref[0].shape)}) or "
+             f"non-finite")
+    ref_s = coarse_importance_plain(got[0], args[1], ref[2])
+    z_err = max_err(got[:2], ref[:2])[0]
+    same = all(torch.equal(a, b) for a, b in zip(got[:2], pair[:2]))
+    s_bits = int((got[2].view(torch.int32) != ref_s.view(torch.int32)).sum())
+    s_err = max_err(got[2:], (ref_s,))[0]
+    ok = z_err <= REL_TOL * far and same and s_bits == 0
+    print(f"phase 2 {name}: depths max abs err {z_err:.3e} (<= {REL_TOL * far:.1e}), equal to "
+          f"K4's weights instantiation's bit for bit: {same}; scores: {s_bits} of "
+          f"{got[2].numel():,} differ from K12's plain version's bits on the plain weights (0 "
+          f"allowed), {int((got[2] == 0).sum()):,} zero -> {'ok' if ok else 'MISS'}",
+          flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return max(z_err, s_err)
+
+
+def k4c_cost(c_feat, n_f, n_out):
+    """K4c's bytes (K4's, and the score written once) and operations (K4's,
+    and a select and a max or two an output)."""
+    n_bytes, n_ops = k4_cost(c_feat, n_f, n_out)
+    return n_bytes + 4 * c_feat.shape[0] * n_out, n_ops + 3 * c_feat.shape[0] * n_out
+
+
 def cull_chain_checks(label, ops, args, far, keeps) -> tuple:
-    """K4's weights, K12 on its output, K13 on K12's scores at each of
-    ``keeps`` and at 1 and S - 1, each against its plain version on the
-    kernel's own inputs.  Returns (z_vals, dists, weights, score)."""
+    """K4's weights and K12 on its output (the standalone ops), K4c, and
+    K13 on K4c's scores at each of ``keeps`` and at 1 and S - 1, each
+    against its plain version on the kernel's own inputs.  Returns
+    (z_vals, dists, weights, score)."""
+    from egonerf_torch.ops import cull
+
     k4_weights_compare(f"K4 weights ({label})", ops, args, far)
     z_vals, dists, weights = ops.KERNELS.resample_weights(*args)
     coarse_z = args[1]
-    bits_equal(f"K12 coarse_importance ({label})", ops.KERNELS.coarse_importance,
-               ops.PLAIN.coarse_importance, (z_vals, coarse_z, weights))
-    score = ops.KERNELS.coarse_importance(z_vals, coarse_z, weights)
+    bits_equal(f"K12 coarse_importance ({label})", cull.coarse_importance,
+               cull.coarse_importance_plain, (z_vals, coarse_z, weights))
+    k4c_compare(f"K4c resample_score ({label})", ops, args, far)
+    z_vals, dists, score = ops.KERNELS.resample_score(*args)
     s = z_vals.shape[1]
     for k in sorted({*keeps, 1, s - 1}, reverse=True):
         bits_equal(f"K13 select_top_k ({label}, K={k})", ops.KERNELS.select_top_k,
@@ -2128,12 +2177,14 @@ def cull_chain_checks(label, ops, args, far, keeps) -> tuple:
 
 @torch.no_grad()
 def cull_kernel_checks(model, params, dirs, ops, presets, trainer) -> dict:
-    """Phase 2, the empty-space cull: K4's weights instantiation, K12 and
-    K13 on one production chunk (eval), at the smoke config's 48 + 48
-    samples, on hard rays (all-zero weights, one spike, repeated coarse
-    depths, long runs of equal scores, perturbed scores) and on a recorded
-    culled production training step, each against its plain version: K12
-    and K13 bit for bit; the rows with their times and bounds."""
+    """Phase 2, the empty-space cull: K4c, the standalone K4 weights
+    instantiation and K12, and K13 on one production chunk (eval), at the
+    smoke config's 48 + 48 samples, on hard rays (all-zero weights, one
+    spike, repeated coarse depths, long runs of equal scores, perturbed
+    scores; K4c also on K4's hard rays, K5's uniforms and without the
+    merge) and on a recorded culled production training step, each against
+    its plain version: K4c's score, K12 and K13 bit for bit; the rows with
+    their times and bounds."""
     from egonerf_torch.models.egonerf import _dists
     from egonerf_torch.ops import cull
 
@@ -2176,9 +2227,9 @@ def cull_kernel_checks(model, params, dirs, ops, presets, trainer) -> dict:
     spike[torch.arange(h, device=dev),
           torch.randint(0, n_c, (h,), generator=gen, device=dev)] = 0.5
     for label, w in (("all-zero weights", zero), ("one spike", spike)):
-        bits_equal(f"K12 coarse_importance ({label})", ops.KERNELS.coarse_importance,
-                   ops.PLAIN.coarse_importance, (zh, ch, w))
-        sh = ops.KERNELS.coarse_importance(zh, ch, w)
+        bits_equal(f"K12 coarse_importance ({label})", cull.coarse_importance,
+                   cull.coarse_importance_plain, (zh, ch, w))
+        sh = cull.coarse_importance(zh, ch, w)
         for k in (*CULL_KEEPS, 1, s - 1):
             bits_equal(f"K13 select_top_k ({label}, K={k})", ops.KERNELS.select_top_k,
                        ops.PLAIN.select_top_k, (zh, dists[:h].contiguous(), sh, k))
@@ -2198,11 +2249,25 @@ def cull_kernel_checks(model, params, dirs, ops, presets, trainer) -> dict:
     print(f"phase 2 cull hard rays: {h} rays; repeated coarse depths give "
           f"{int((z_rep[:, 1:] == z_rep[:, :-1]).sum()):,} empty intervals, "
           f"{int((s_rep == 0).sum()):,} zero scores", flush=True)
+    # K4c on K4's hard rays (zero density, one spike, repeated coarse
+    # depths, u near 1 and on the cdf's edges, u reversed: the full-rank
+    # walk), on K5's sorted uniforms and without the merge
+    u = ops.KERNELS.sorted_uniform(chunk, n_f, SEED, 0, dev)
+    for label, f_h, z_h, d_h, u_h in k4_hard_inputs(c_feat, coarse_z, n_f, act, u):
+        k4c_compare(f"K4c resample_score ({label})", ops, (f_h, z_h, d_h, n_f, u_h, True, *act),
+                    far)
+    for label, u_in, merge in (("sorted uniforms", u, True), ("no merge", None, False)):
+        k4c_compare(f"K4c resample_score ({label})", ops,
+                    (c_feat, coarse_z, coarse_dists, n_f, u_in, merge, *act), far)
+    # other widths: 160 + 96 (the instantiation for more than 128 samples a
+    # lane set), 34 + 31 (pdf runs unlike the weights' runs, scalar rows)
+    for n_cw, n_fw in ((160, 96), (34, 31)):
+        k4c_compare(f"K4c resample_score ({n_cw} + {n_fw})", ops,
+                    (*coarse(n_cw), n_fw, None, True, *act), far)
 
     # a recorded culled production training step (tie-break, keep 128)
     model_t, cfg_t = trainer.model, trainer.cfg
-    logs = {k: Recorder(getattr(ops.KERNELS, k))
-            for k in ("resample_weights", "coarse_importance", "select_top_k")}
+    logs = {k: Recorder(getattr(ops.KERNELS, k)) for k in ("resample_score", "select_top_k")}
     model_t.ops = ops.KERNELS._replace(**logs)
     cfg_t.train_keep = CULL_TRAIN_KEEP
     try:
@@ -2212,10 +2277,12 @@ def cull_kernel_checks(model, params, dirs, ops, presets, trainer) -> dict:
         model_t.ops = ops.KERNELS
         cfg_t.train_keep = 0
     torch.cuda.synchronize()
-    t_args = logs["resample_weights"].args
+    t_args = logs["resample_score"].args
+    k4c_compare("K4c resample_score (training step)", ops, t_args, model_t.near_far[1])
     k4_weights_compare("K4 weights (training step)", ops, t_args, model_t.near_far[1])
-    bits_equal("K12 coarse_importance (training step)", ops.KERNELS.coarse_importance,
-               ops.PLAIN.coarse_importance, logs["coarse_importance"].args)
+    tw = ops.KERNELS.resample_weights(*t_args)
+    bits_equal("K12 coarse_importance (training step)", cull.coarse_importance,
+               cull.coarse_importance_plain, (tw[0], t_args[1], tw[2]))
     tz, td, ts, _ = logs["select_top_k"].args
     for k in sorted({CULL_TRAIN_KEEP, *CULL_KEEPS}, reverse=True):
         bits_equal(f"K13 select_top_k (training step, tie-break, K={k})",
@@ -2223,21 +2290,30 @@ def cull_kernel_checks(model, params, dirs, ops, presets, trainer) -> dict:
     print(f"phase 2 cull training inputs: {tz.shape[0]} rays x {tz.shape[1]} merged samples "
           f"(K5's uniforms, jittered coarse depths), tie-break scores", flush=True)
 
-    # the rows: one production chunk's inputs at keep CULL_KEEPS[0]
+    # the rows: one production chunk's inputs at keep CULL_KEEPS[0]; K4w and
+    # K12 are the standalone ops (the oracle scorer takes K4w's depths)
+    table = {"K4c": kernel_row(
+        "K4c resample_score", "egonerf_torch/csrc/resample.cu", "egonerf_tpu/ops/cull.py:30",
+        k4c_compare("K4c resample_score (row)", ops, args, far),
+        time_ms(lambda: ops.KERNELS.resample_score(*args)),
+        time_ms(lambda: ops.PLAIN.resample_score(*args), reps=5), *k4c_cost(c_feat, n_f, s))}
     n_bytes, n_ops = k4_cost(c_feat, n_f, s)
-    table = {"K4w": kernel_row(
+    table["K4w"] = kernel_row(
         "K4 weights", "egonerf_torch/csrc/resample.cu", "egonerf_tpu/models/egonerf.py:393",
         k4_weights_compare("K4 weights (row)", ops, args, far),
         time_ms(lambda: ops.KERNELS.resample_weights(*args)),
         time_ms(lambda: ops.PLAIN.resample_weights(*args), reps=5), n_bytes + 4 * r * n_c,
-        n_ops)}
+        n_ops)
     k12 = (z_vals, coarse_z, weights)
     table["K12"] = kernel_row(
         "K12 coarse_importance", "egonerf_torch/csrc/cull.cu", "egonerf_tpu/ops/cull.py:30",
-        bits_equal("K12 coarse_importance (row)", ops.KERNELS.coarse_importance,
-                   ops.PLAIN.coarse_importance, k12),
-        time_ms(lambda: ops.KERNELS.coarse_importance(*k12)),
-        time_ms(lambda: ops.PLAIN.coarse_importance(*k12), reps=5), *k12_cost(z_vals, coarse_z))
+        bits_equal("K12 coarse_importance (row)", cull.coarse_importance,
+                   cull.coarse_importance_plain, k12),
+        time_ms(lambda: cull.coarse_importance(*k12)),
+        time_ms(lambda: cull.coarse_importance_plain(*k12), reps=5), *k12_cost(z_vals, coarse_z))
+    print(f"phase 2 K4c: one launch {table['K4c']['ms']:.4f} ms; the two it replaces, K4w "
+          f"{table['K4w']['ms']:.4f} + K12 {table['K12']['ms']:.4f} = "
+          f"{table['K4w']['ms'] + table['K12']['ms']:.4f} ms", flush=True)
     for k in CULL_KEEPS:
         k13 = (z_vals, dists, score, k)
         row = kernel_row(
@@ -2282,8 +2358,8 @@ def logged_render(model, params, rays, chunk, render_kw, ops, o) -> list:
 
 def cull_render_phases(model, params, dirs_np, ops, presets, wrappers, unculled_s) -> dict:
     """Phases 3c-5c: the 2000x1000 view through ``Renderer.render_view`` at
-    each eval_keep of CULL_KEEPS (launches a chunk: one each of K3, K4 as
-    its weights instantiation, K12, K13, K1, K6, and two of K7), a few
+    each eval_keep of CULL_KEEPS (launches a chunk: one each of K3, K4c,
+    K13, K1, K6, and two of K7; no K4, K4w or K12), a few
     chunks against the plain versions (phase 4's limits) with the rays
     whose kept set differs, where the time goes; then the render chunk's
     device ms, default and culled, in one process.  Returns the launches
@@ -2291,7 +2367,7 @@ def cull_render_phases(model, params, dirs_np, ops, presets, wrappers, unculled_
     from egonerf_torch.render.renderer import Renderer
 
     chunk = presets.EVAL_CHUNK
-    per_chunk = dict(K1=1, K3=1, K4=1, K4w=1, K6=1, K7=2, K12=1, K13=1)
+    per_chunk = dict(K1=1, K3=1, K4c=1, K6=1, K7=2, K13=1)
     dev = model.device
     dirs = torch.as_tensor(dirs_np, device=dev)
     n = FORM_CHUNKS + 1
@@ -2323,7 +2399,7 @@ def cull_render_phases(model, params, dirs_np, ops, presets, wrappers, unculled_
           + f"; render chunk device ms (median of {FORM_CHUNKS}) unculled {base:.3f}, "
           + ", ".join(f"eval_keep {k} {chunks[k]:.3f} ({chunks[k] / base:.1%})"
                       for k in CULL_KEEPS), flush=True)
-    if base_l["K12"] or base_l["K13"] or base_l["K4w"]:
+    if base_l["K12"] or base_l["K13"] or base_l["K4w"] or base_l["K4c"]:
         fail(f"the unculled chunks launched the cull's kernels: {base_l}")
     return views[CULL_KEEPS[0]][0]
 
@@ -2331,12 +2407,12 @@ def cull_render_phases(model, params, dirs_np, ops, presets, wrappers, unculled_
 def cull_train_phases(trainer, ops, wrappers, unculled_ms) -> None:
     """Phases 6c and 7c: TRAIN_STEPS timed production steps at train_keep
     CULL_TRAIN_KEEP with the tie-break, with Gumbel scores (tau 1) and with
-    an unculled step every CULL_FULL_EVERY (each culled step launches K1-K6b,
-    K4's weights instantiation, K12 and K13 once and K7 twice; a full step
-    the default's kernels), then one culled step against the plain versions
-    with the same draws."""
+    an unculled step every CULL_FULL_EVERY (each culled step launches K1-K3,
+    K4c, K5, K6, K6b and K13 once and K7 twice, no K4, K4w or K12; a full
+    step the default's kernels), then one culled step against the plain
+    versions with the same draws."""
     cfg = trainer.cfg
-    culled = {"K1", "K2", "K3", "K4", "K4w", "K5", "K6", "K6b", "K12", "K13"}
+    culled = {"K1", "K2", "K3", "K4c", "K5", "K6", "K6b", "K13"}
     full = step_launches(wrappers, envmap=False)
     medians = {}
     try:
@@ -2890,7 +2966,8 @@ def main() -> int:
                 "K8": envmap.envmap_fwd, "K8b": envmap.envmap_bwd, "K9": alphamask.alpha_fwd,
                 "K10": mm.mixed_mm, "K10da": mm.mixed_mm_da, "K10db": mm.mixed_mm_db,
                 "K11": bias.bias_grad, "K4w": pdf.resample_weights,
-                "K12": cull.coarse_importance, "K13": cull.select_top_k,
+                "K12": cull.coarse_importance, "K4c": pdf.resample_score,
+                "K13": cull.select_top_k,
                 "K14": sampler.theta_ids, "K15 plane": vm_lookup.sample_plane_nograd,
                 "K15 line": vm_lookup.sample_line_nograd, "K16": grid_sample.sample_line}
 
@@ -3002,8 +3079,9 @@ def main() -> int:
             row["launches"] = env_render[k.split("+")[0]]
         elif k in ("K8b", "K6b+env"):
             row["launches"] = env_train[k.split("+")[0]]
-        elif k in ("K4w", "K12", "K13"):
-            # the cull's kernels: their launches in the culled view (phase 3c)
+        elif k in ("K4c", "K4w", "K12", "K13"):
+            # the cull's kernels: their launches in the culled view (phase 3c;
+            # 0 for K4w and K12, which the cull path no longer launches)
             row["launches"] = cull_launches[k]
         else:
             row["launches"] = render_launches[k] if render_launches[k] else train_launches[k]
@@ -3042,7 +3120,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6",
                                                      "K6b", "K6+env", "K6b+env", "K7", "K8",
-                                                     "K8b", "K4w", "K12", "K13")]
+                                                     "K8b", "K4w", "K12", "K4c", "K13")]
                       + [tf_rows[k] for k in ("K1 (S=1)", "K2 (S=1)", "K3 (S=1)", "K6 gated",
                                               "K6b gated", "K9")]
                       + [form_rows[k] for k in ("K10 fwd", "K10 da", "K10 db", "K11")]

@@ -1,5 +1,7 @@
 // K12: the empty-space cull's score of every merged sample; K13: the top-K
-// compaction of the merged samples by that score.
+// compaction of the merged samples by that score.  The cull's path takes
+// the score from K4c (csrc/resample.cu: K12's function in K4's epilogue,
+// from the same merge); K12 stays a standalone op.
 //
 // Replaces egonerf_tpu/ops/cull.py coarse_importance (:30-54), an (N, S, C)
 // broadcast-compare reduction, and select_top_k (:103-125), lax.top_k with

@@ -7,11 +7,15 @@
 // and, in resample_chart_fwd, the fine chart that follows them
 // (from_cartesian + normalize_coord, models/egonerf.py:396-406), which
 // the standalone chart kernel K7 (chart.cu) computes the same way from
-// chart.cuh.  resample_weights_fwd also writes the coarse weights, which
-// the empty-space cull scores the merged samples by (models/egonerf.py:
-// 393, 440-443), and runs no chart: under the cull the chart is taken of
-// the kept depths only.  The chart epilogue and the weights' store are
-// template parameters, so each instantiation carries only its own code.
+// chart.cuh.  resample_weights_fwd also writes the coarse weights (the
+// cull's oracle scorer takes its depths) and runs no chart: under the cull
+// the chart is taken of the kept depths only.  The chart epilogue and the
+// weights' store are template parameters, so each instantiation carries
+// only its own code.  resample_score_fwd (K4c, its own kernel below) is the
+// empty-space cull's coarse pass: K4's weights, draws, merge and dists,
+// with the cull score of every merged sample (egonerf_tpu/ops/cull.py
+// coarse_importance, :30-54, called at models/egonerf.py:445) in its
+// epilogue in place of K12's second launch.
 //
 // Per ray: alpha and weights of the S coarse samples from feature2density;
 // pdf over the interior weights [1:-1] (+1e-5) and its cdf with a leading 0;
@@ -279,6 +283,454 @@ int launch(const float* feat, const float* z, const float* dists, const float* u
   return (int)cudaGetLastError();
 }
 
+
+// -- K4c: the cull's coarse pass, K4's weights, draws, merge and dists with
+// K12's score in the epilogue -----------------------------------------------
+//
+// The same arithmetic in the same order as resample_kernel (so z and dists
+// equal K4's bit for bit, and the weights K4's), and the score of merged
+// sample z: the coarse weights dilated by one interval, max(w_c, w_{c+1},
+// w_{c-1}) with the edges repeated, at c = #(coarse_z <= z) - 1, 0 below
+// coarse_z[0] (K12's function, csrc/cull.cu), with no search of its own: a
+// draw lies at or above its bin's lower edge, itself at or above
+// zc[below], so its c starts at below (and moves up past coarse depths
+// within an ulp of it, or repeated); a coarse depth's c is the last index
+// of the coarse depths equal to it (an interval [z, z) is empty).  Only
+// the full-rank walk searches.
+//
+// Bound on the card: bytes (feat, z, dists read once, 3 x S floats a ray;
+// z, dists and the score written once, 3 x T floats: 18.9 MB a 4096-ray
+// production chunk, 5.6 us at 3.35 TB/s).  Measured before the design
+// (tools/cull_ab.py --ablate, H100 80GB HBM3, 700 W): resample_kernel's
+// weights instantiation spent its 15.2 us on the launch (2.6), the draws'
+// searches (2.5), the merge (2.7) and instruction chains over its lane
+// runs in shared memory; padding those runs against bank conflicts made it
+// slower; K12 spent 3.2 of its 8.0 us on its search.  So the design cuts
+// instructions and the chains between them.  One warp a ray, as K4; a
+// lane's runs of coarse samples, pdf terms and draws (at most PS and PF a
+// lane) live in registers, loaded and stored as float4s where the runs
+// are multiples of 4; the weights, their dilation and the pdf and cdf are
+// computed there, neighbours across lanes by shuffles; each draw's
+// searchsorted is a search by halving steps of compile-time length over
+// the cdf padded with +inf, the lane's draws side by side.  No merge walk:
+// every depth goes to its place in the union at once, a draw j at j + c +
+// 1, a coarse depth i at i + the draws of the intervals below i (the last
+// draw of each interval marks that count; a max scan over the coarse runs
+// fills the intervals without draws); the outputs, staged in shared memory,
+// go out as whole rows of float4s.  The weights never leave the kernel.
+// Measured: 0.0112 ms on the production chunk against 0.0232 for K4's
+// weights instantiation and K12 (tools/cull_ab.py, H100 80GB HBM3, 700 W).
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// the highest power of two <= n (n >= 1)
+__host__ __device__ inline int top_step(int n) {
+#ifdef __CUDA_ARCH__
+  return 1 << (31 - __clz(n));
+#else
+  int t = 1;
+  while (2 * t <= n) t *= 2;
+  return t;
+#endif
+}
+
+// a warp's shared memory in K4c, each array 16-byte aligned: coarse z, the
+// dilated weights, the cdf (placed so that cdf + 1 is aligned: the pdf runs
+// start at cdf[1]; padded with +inf to 2 top_step(S - 1) - 1 entries, the
+// most a search by halving steps reaches), the fine z, and the merged z
+// and scores (the merged z also the scratch of the weights where the pdf
+// runs are not the weights' runs), and the count of fine depths below each
+// coarse one (ints)
+struct ScoreLayout {
+  int wd, cdf, zf, zo, so, nb, floats;
+  __host__ __device__ ScoreLayout(int s, int f, int t)
+      : wd(round4(s)), cdf(2 * round4(s) + 3), zf(2 * round4(s) + round4(2 * top_step(s - 1) + 2)),
+        zo(zf + round4(f)), so(zo + round4(s > t ? s : t)), nb(so + round4(t)),
+        floats(nb + round4(s)) {}
+};
+
+// the first n <= N floats at src into v (the rest 0); vec: src 16-byte
+// aligned, so whole float4s load at once
+template <int N>
+__device__ __forceinline__ void load_run(const float* src, int n, bool vec, float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    if (vec && i + 3 < n) {
+      const float4 q = *reinterpret_cast<const float4*>(src + i);
+      v[i] = q.x;
+      v[i + 1] = q.y;
+      v[i + 2] = q.z;
+      v[i + 3] = q.w;
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[i + r] = i + r < n ? src[i + r] : 0.0f;
+    }
+  }
+}
+
+// the first n <= N of v to dst; vec: dst 16-byte aligned
+template <int N>
+__device__ __forceinline__ void store_run(float* dst, const float (&v)[N], int n, bool vec) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    if (vec && i + 3 < n) {
+      *reinterpret_cast<float4*>(dst + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (i + r < n) dst[i + r] = v[i + r];
+    }
+  }
+}
+
+// the last of the first n (>= 1) entries of v
+template <int N>
+__device__ __forceinline__ float last_of(const float (&v)[N], int n) {
+  float x = v[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i)
+    if (i == n - 1) x = v[i];
+  return x;
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+// K12's score of depth v: the dilated weight of the coarse interval
+// holding it, c = #(zc <= v) - 1, found by one search; 0 below zc[0]
+__device__ __forceinline__ float searched_score(const float* zc, const float* wd, int S,
+                                                float v) {
+  const int c = upper_bound(zc, 0, S, v);
+  return c > 0 ? wd[c - 1] : 0.0f;
+}
+
+// PS, PF: the most coarse samples and draws a lane holds in registers,
+// ceil(S / 32) <= PS and ceil(F / 32) <= PF
+template <int PS, int PF>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+resample_score_kernel(const float* __restrict__ feat, const float* __restrict__ z,
+                      const float* __restrict__ dists, const float* __restrict__ u,
+                      long long u_stride, float u_step, int R, int S, int F, int merge,
+                      float shift, float scale, int act, float* __restrict__ z_out,
+                      float* __restrict__ d_out, float* __restrict__ s_out) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long ray = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  const int T = merge ? S + F : F;
+  const ScoreLayout L(S, F, T);
+  float* zc = reinterpret_cast<float*>(smem4) + warp * L.floats;
+  float* wd = zc + L.wd;
+  float* cdf = zc + L.cdf;
+  float* zf = zc + L.zf;
+  float* zo = zc + L.zo;
+  float* so = zc + L.so;
+  int* nb = reinterpret_cast<int*>(zc + L.nb);
+  if (ray >= R) return;
+
+  // this lane's run of coarse samples, [a, a + n): feat, dists and z in
+  // registers, whole float4s where the runs are multiples of 4
+  const int per = (S + 31) >> 5;
+  const int a = min(lane * per, S), n = min(per, S - a);
+  const bool vec_s = (per & 3) == 0 && (S & 3) == 0;
+  const bool vec_in = vec_s && aligned16(feat) && aligned16(z) && aligned16(dists);
+  float cz[PS], w[PS];
+  {
+    float cf[PS], cd[PS];
+    load_run(feat + ray * S + a, n, vec_in, cf);
+    load_run(dists + ray * S + a, n, vec_in, cd);
+    load_run(z + ray * S + a, n, vec_in, cz);
+    store_run(zc + a, cz, n, vec_s);
+
+    // weights = alpha * exclusive transmittance, in K4's order
+    float prod = 1.0f;
+#pragma unroll
+    for (int i = 0; i < PS; ++i) {
+      w[i] = 0.0f;
+      if (i < n) {
+        const float al = alpha_of(cf[i], cd[i], shift, scale, act);
+        w[i] = al;
+        prod = __fmul_rn(prod, trans_factor(al));
+      }
+    }
+    float total;
+    float t = warp_exclusive_prod(prod, &total);
+#pragma unroll
+    for (int i = 0; i < PS; ++i) {
+      if (i < n) {
+        const float al = w[i];
+        w[i] = __fmul_rn(al, t);
+        t = __fmul_rn(t, trans_factor(al));
+      }
+    }
+  }
+
+  // K12's dilation, max(w_c, w_{c+1}, w_{c-1}) with the edges repeated,
+  // the neighbours across runs from the lanes beside this one
+  const float w_prev = __shfl_up_sync(kFullMask, last_of(w, n), 1);
+  const float w_next = __shfl_down_sync(kFullMask, w[0], 1);
+  float wdv[PS];
+#pragma unroll
+  for (int i = 0; i < PS; ++i) {
+    const float left = i > 0 ? w[i > 0 ? i - 1 : 0] : (a > 0 ? w_prev : w[0]);
+    const float right = i + 1 < n ? w[i + 1 < PS ? i + 1 : i] : (a + n < S ? w_next : w[i]);
+    wdv[i] = fmaxf(w[i], fmaxf(right, left));
+  }
+  store_run(wd + a, wdv, n, vec_s);
+
+  // pdf over w[1 .. S-2] + 1e-5 in its own runs [am, am + nm), each element
+  // divided once, and its cdf, cdf[0] = 0: K4's order.  Where the runs
+  // match the weights' (S not 32k + 1 or 32k + 2) the terms are this
+  // lane's weights and the next lane's first
+  const int M = S - 2, per_m = (M + 31) >> 5;
+  const int am = min(lane * per_m, M), nm = min(per_m, M - am);
+  {
+    float x[PS];
+    if (per_m == per) {
+#pragma unroll
+      for (int i = 0; i < PS; ++i)
+        x[i] = __fadd_rn(i + 1 < per ? w[i + 1 < PS ? i + 1 : i] : w_next, 1e-5f);
+    } else {
+      store_run(zo + a, w, n, false);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < PS; ++i) x[i] = i < nm ? __fadd_rn(zo[am + 1 + i], 1e-5f) : 0.0f;
+    }
+    float part = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PS; ++i)
+      if (i < nm) part += x[i];
+    const float sum = warp_sum(part);
+    float local = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PS; ++i) {
+      if (i < nm) {
+        x[i] = __fdiv_rn(x[i], sum);
+        local = __fadd_rn(local, x[i]);
+      }
+    }
+    float c = warp_exclusive_sum(local);
+#pragma unroll
+    for (int i = 0; i < PS; ++i) {
+      if (i < nm) {
+        c = __fadd_rn(c, x[i]);
+        x[i] = c;
+      }
+    }
+    store_run(cdf + am + 1, x, nm, (per_m & 3) == 0);
+    if (lane == 0) cdf[0] = 0.0f;
+    for (int k = S - 1 + lane; k < 2 * top_step(S - 1) - 1; k += 32)
+      cdf[k] = __int_as_float(0x7f800000);
+  }
+  __syncwarp();
+
+  // this lane's run of draws [k0, k0 + nf): pos = #(cdf <= u), K4's
+  // searchsorted(cdf, u, right) (the cdf never decreases; its +inf padding
+  // is above every u), by halving steps taken for the whole run at once,
+  // then K4's bracket arithmetic
+  const int B = S - 1;
+  const int per_f = (F + 31) >> 5;
+  const int k0 = min(lane * per_f, F), nf = min(per_f, F - k0);
+  float fz[PF];
+  int ci[PF];
+  {
+    float uk[PF];
+    int pos[PF];
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      const int k = k0 + i;
+      uk[i] = i >= nf       ? 0.0f
+              : u != nullptr ? u[ray * u_stride + k]
+              : k < F - 1    ? __fmul_rn((float)k, u_step)
+              : F > 1        ? 1.0f
+                             : 0.0f;
+      pos[i] = 0;
+    }
+    // steps of compile-time length (immediate offsets), those above the
+    // highest power of two <= B skipped
+    constexpr int kTopLog = PS <= 4 ? 6 : 8;  // B < 32 PS
+    const int top = top_step(B);
+#pragma unroll
+    for (int e = kTopLog; e >= 0; --e) {
+      if ((1 << e) > top) continue;
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        const int t = pos[i] + (1 << e);
+        if (cdf[t - 1] <= uk[i]) pos[i] = t;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PF; ++i) pos[i] = min(pos[i], B);  // u = +inf passes the padding
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      const int below = max(pos[i] - 1, 0);
+      const int above = pos[i] < B ? pos[i] : below;
+      const float c_lo = cdf[below], c_hi = cdf[above];
+      const float z_lo = zc[below], z_next = zc[below + 1];
+      const float b_lo = __fmul_rn(0.5f, __fadd_rn(z_next, z_lo)), b_hi = bin_edge(zc, above);
+      float denom = __fsub_rn(c_hi, c_lo);
+      if (denom < 1e-5f) denom = 1.0f;
+      const float t = __fdiv_rn(__fsub_rn(uk[i], c_lo), denom);
+      const float v = __fadd_rn(b_lo, __fmul_rn(t, __fsub_rn(b_hi, b_lo)));
+      fz[i] = v;
+      // its coarse interval, c = #(zc <= z) - 1 (K12's): z >= its bin's
+      // lower edge >= zc[below], so c starts at below and moves up past
+      // coarse depths within an ulp of z or repeated; any other draw takes
+      // a search
+      int c = below;
+      if (!(z_lo <= v)) {
+        c = upper_bound(zc, 0, S, v) - 1;
+      } else if (z_next <= v) {
+        ++c;
+        while (c + 1 < S && zc[c + 1] <= v) ++c;
+      }
+      ci[i] = c;
+    }
+  }
+  store_run(zf + k0, fz, nf, (per_f & 3) == 0);
+  bool ordered = true;
+  {
+    const float f_prev = __shfl_up_sync(kFullMask, last_of(fz, nf), 1);
+#pragma unroll
+    for (int i = 0; i < PF; ++i)
+      if (i < nf && k0 + i > 0) ordered &= (i > 0 ? fz[i > 0 ? i - 1 : 0] : f_prev) <= fz[i];
+  }
+  __syncwarp();
+
+  // every output to its place in shared memory, with its score
+  if (!merge) {
+    // the draws are the outputs
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      if (i < nf) {
+        zo[k0 + i] = fz[i];
+        so[k0 + i] = ci[i] >= 0 ? wd[ci[i]] : 0.0f;
+      }
+    }
+  } else if (__all_sync(kFullMask, ordered)) {
+    // each depth to its place in the union, coarse before fine on ties: a
+    // fine zf[j] has j fine and c + 1 coarse depths before it; a coarse
+    // zc[i], i coarse ones and the fine ones of the intervals below i.  The
+    // last fine depth j of each interval c marks nb[c + 1] = j + 1; a max
+    // scan over the coarse runs fills the intervals without draws.  A
+    // coarse depth's interval is the last of the coarse depths equal to it
+    // (an interval [z, z) is empty)
+    if ((S & 3) == 0) {
+      for (int k = 4 * lane; k < S; k += 128)
+        *reinterpret_cast<int4*>(nb + k) = make_int4(0, 0, 0, 0);
+    } else {
+      for (int k = lane; k < S; k += 32) nb[k] = 0;
+    }
+    const int ci_next = __shfl_down_sync(kFullMask, ci[0], 1);
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      if (i < nf) {
+        const int c = ci[i];
+        const int p = k0 + i + c + 1;
+        zo[p] = fz[i];
+        so[p] = c >= 0 ? wd[c] : 0.0f;
+        const int c_after = i + 1 < nf ? ci[i + 1 < PF ? i + 1 : i] : ci_next;
+        if ((k0 + i + 1 == F || c_after != c) && c + 1 < S) nb[c + 1] = k0 + i + 1;
+      }
+    }
+    __syncwarp();
+    int cnt[PS];
+    int m = 0;
+#pragma unroll
+    for (int i = 0; i < PS; ++i) {
+      cnt[i] = i < n ? nb[a + i] : 0;
+      m = max(m, cnt[i]);
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(kFullMask, m, off);
+      if (lane >= off) m = max(m, o);
+    }
+    int before = __shfl_up_sync(kFullMask, m, 1);
+    if (lane == 0) before = 0;
+    const float z_after = __shfl_down_sync(kFullMask, cz[0], 1);
+#pragma unroll
+    for (int i = 0; i < PS; ++i) {
+      if (i < n) {
+        before = max(before, cnt[i]);
+        const float v = cz[i];
+        const float after = i + 1 < n ? cz[i + 1 < PS ? i + 1 : i] : z_after;
+        float sc = wdv[i];
+        if (a + i + 1 < S && after <= v) {
+          int c = a + i + 1;
+          while (c + 1 < S && zc[c + 1] <= v) ++c;
+          sc = wd[c];
+        }
+        zo[a + i + before] = v;
+        so[a + i + before] = sc;
+      }
+    }
+  } else {
+    // the full-rank walk, as K4; each element scored by a search
+    for (int i = lane; i < S; i += 32) {
+      const float v = zc[i];
+      int n_less = 0;
+      for (int k = 0; k < F; ++k) n_less += zf[k] < v;
+      zo[i + n_less] = v;
+      so[i + n_less] = searched_score(zc, wd, S, v);
+    }
+    for (int j = lane; j < F; j += 32) {
+      const float v = zf[j];
+      int rank = 0;
+      for (int k = 0; k < S; ++k) rank += zc[k] <= v;
+      for (int k = 0; k < F; ++k) rank += zf[k] < v || (zf[k] == v && k < j);
+      zo[rank] = v;
+      so[rank] = searched_score(zc, wd, S, v);
+    }
+  }
+  __syncwarp();
+
+  // z, dists (the gap to the next output, the last one repeated) and score
+  // out as whole rows, float4s where T is a multiple of 4
+  const long long row = ray * T;
+  if ((T & 3) == 0 && aligned16(z_out) && aligned16(d_out) && aligned16(s_out)) {
+    for (int p = 4 * lane; p < T; p += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(zo + p);
+      const float4 sc = *reinterpret_cast<const float4*>(so + p);
+      const float4 d = make_float4(__fsub_rn(v.y, v.x), __fsub_rn(v.z, v.y),
+                                   __fsub_rn(v.w, v.z),
+                                   p + 4 < T ? __fsub_rn(zo[p + 4], v.w) : __fsub_rn(v.w, v.z));
+      *reinterpret_cast<float4*>(z_out + row + p) = v;
+      *reinterpret_cast<float4*>(d_out + row + p) = d;
+      *reinterpret_cast<float4*>(s_out + row + p) = sc;
+    }
+  } else {
+    for (int p = lane; p < T; p += 32) {
+      const float v = zo[p];
+      z_out[row + p] = v;
+      d_out[row + p] = p < T - 1 ? __fsub_rn(zo[p + 1], v) : __fsub_rn(v, zo[p - 1]);
+      s_out[row + p] = so[p];
+    }
+  }
+}
+
+template <int PS, int PF>
+int launch_score(const float* feat, const float* z, const float* dists, const float* u,
+                 long long u_stride, float u_step, int R, int S, int F, int merge, float shift,
+                 float scale, int act, float* z_out, float* d_out, float* score, void* stream) {
+  const int T = merge ? S + F : F;
+  const size_t smem = sizeof(float) * kWarpsPerBlock * ScoreLayout(S, F, T).floats;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        resample_score_kernel<PS, PF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  resample_score_kernel<PS, PF><<<blocks, kWarpsPerBlock * 32, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale, act, z_out, d_out,
+      score);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // u null: eval's linspace(0, 1, F), from u_step = float32(1 / (F - 1)).
@@ -317,4 +769,20 @@ extern "C" int resample_chart_fwd(const float* feat, const float* z, const float
   return launch<true, false>(feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale,
                              act, z_out, d_out, o, o_stride, d, d_stride, ca, grid, coords,
                              nullptr, stream);
+}
+
+// K4c: resample_fwd's z_vals and dists, and the cull score (R, T) of every
+// merged depth, K12's function on K4's coarse weights, from one launch;
+// up to 512 samples (S and T) a ray.
+extern "C" int resample_score_fwd(const float* feat, const float* z, const float* dists,
+                                  const float* u, long long u_stride, float u_step, int R,
+                                  int S, int F, int merge, float shift, float scale, int act,
+                                  float* z_out, float* d_out, float* score, void* stream) {
+  const int T = merge ? S + F : F;
+  const int most = S > T ? S : T;
+  if (S < 3 || F < 1 || T < 2 || most > 32 * 16) return (int)cudaErrorInvalidValue;
+  if (R <= 0) return (int)cudaSuccess;
+  return (S <= 32 * 4 && F <= 32 * 4 ? launch_score<4, 4> : launch_score<16, 16>)(
+      feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale, act, z_out, d_out,
+      score, stream);
 }

@@ -463,9 +463,11 @@ class EgoNeRF(nn.Module):
 
         The empty-space cull (JAX ``ops/cull.py``): with resampling and
         ``keep`` = ``train_keep`` in training, else ``eval_keep``, in
-        (0, S) for S merged samples, K4 also writes the coarse weights, K12
-        scores the merged samples by them (or, with ``eval_keep_score =
-        "oracle"`` at eval, the full-resolution weights of all S samples),
+        (0, S) for S merged samples, K4c scores the merged samples by the
+        coarse weights in K4's epilogue (K12's function; with
+        ``eval_keep_score = "oracle"`` at eval, the depths of K4's weights
+        instantiation scored by the full-resolution weights of all S
+        samples),
         training with a key or ``cull_u`` (R, S) uniforms perturbs the
         scores (``gumbel_perturb`` at ``train_cull_tau`` > 0, else
         ``train_tiebreak``), K13 keeps the ``keep`` highest with their
@@ -502,8 +504,8 @@ class EgoNeRF(nn.Module):
                 # 3) coarse density (K3) on the detached grid -> weights,
                 # inverse CDF at u, merge, and the fine chart of the merged
                 # depths in K4's epilogue; under the cull (JAX
-                # models/egonerf.py:412-460) K4 writes the coarse weights
-                # instead, K12 scores, K13 keeps and K7 charts the kept
+                # models/egonerf.py:412-460) K4c scores the merged samples
+                # in that epilogue instead, K13 keeps and K7 charts the kept
                 c_planes, c_lines = (self.coarse_tables(params) if tables is None
                                      else (tables.coarse_planes, tables.coarse_lines))
                 c_feat = self._density(c_planes, c_lines, coarse_norm)
@@ -511,12 +513,13 @@ class EgoNeRF(nn.Module):
                 keep = int(train_keep if is_train else eval_keep)
                 n_merged = n_coarse + n_fine if use_coarse_sample else n_fine
                 if 0 < keep < n_merged:
-                    z_vals, dists, c_weight = self.ops.resample_weights(
-                        c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, *act)
+                    resampled = (c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample,
+                                 *act)
                     if not is_train and eval_keep_score == "oracle":
+                        z_vals, dists, _ = self.ops.resample_weights(*resampled)
                         score = self._oracle_score(params, rays_o, viewdirs, z_vals, dists)
                     else:
-                        score = self.ops.coarse_importance(z_vals, coarse_z, c_weight)
+                        z_vals, dists, score = self.ops.resample_score(*resampled)
                     if is_train and (key is not None or cull_u is not None):
                         if cull_u is None:
                             cull_u = torch.rand(n_rays, n_merged, generator=key.generator,

@@ -8,6 +8,7 @@ K1    vm_lookup.field_fwd            field_fwd_plain            csrc/vm_lookup.c
 K2    vm_lookup.field_bwd            field_bwd_plain            csrc/vm_lookup.cu
 K3    vm_lookup.density_fwd          density_fwd_plain          csrc/vm_lookup.cu
 K4    pdf.resample_chart             resample_chart_plain       csrc/resample.cu
+K4c   pdf.resample_score             resample_score_plain       csrc/resample.cu
 K5    merge.sorted_uniform           sorted_uniform_plain       csrc/sorted_uniform.cu
 K6    volrend.composite              composite_plain            csrc/composite.cu
 K6b   volrend.composite_bwd          composite_bwd_plain        csrc/composite.cu
@@ -29,11 +30,15 @@ K16   grid_sample.sample_line        sample_line_plain          csrc/grid_sample
 
 ``resample_chart`` is K4 with K7's chart of the merged depths in its
 epilogue: the EgoNeRF forward's resampling and fine chart in one launch
-(``pdf.resample`` launches K4 without it); ``resample_weights`` is K4
-writing the coarse weights instead, which the empty-space cull (K12, K13)
-scores the merged samples by.  ``KERNELS`` is what the
-models call.  ``PLAIN`` runs the plain versions on
-any device; it is the reference the kernels are held against on the card.
+(``pdf.resample`` launches K4 without it).  ``resample_score`` (K4c) is
+the empty-space cull's coarse pass: K4 with K12's score of every merged
+sample in its epilogue, the coarse weights kept in the kernel; K13 keeps
+the highest.  ``resample_weights`` is K4 writing the coarse weights
+instead (the cull's oracle scorer takes its depths); K12 itself
+(``cull.coarse_importance``) has no caller on the model's paths, so it
+stays out of ``Ops``.  ``KERNELS`` is what the models call.  ``PLAIN``
+runs the plain versions on any device; it is the reference the kernels
+are held against on the card.
 K2, K6b and K8b are the backwards of K1, K6 and K8 inside the autograd
 Functions ``vm_lookup.field_train``, ``volrend.composite_train`` and
 ``envmap.envmap_train``.  K10 (``mm``: the forward ``a @ b``; ``mm_da`` and
@@ -53,14 +58,13 @@ from typing import Callable, NamedTuple
 from .alphamask import alpha_fwd, alpha_fwd_plain
 from .bias import bias_grad, bias_grad_plain
 from .chart import chart_fwd, chart_fwd_plain
-from .cull import (coarse_importance, coarse_importance_plain, select_top_k,
-                   select_top_k_plain)
+from .cull import select_top_k, select_top_k_plain
 from .envmap import envmap_bwd, envmap_bwd_plain, envmap_fwd, envmap_fwd_plain
 from .merge import sorted_uniform, sorted_uniform_plain
 from .mm import (mixed_mm, mixed_mm_da, mixed_mm_da_plain, mixed_mm_db, mixed_mm_db_plain,
                  mixed_mm_plain)
-from .pdf import (resample_chart, resample_chart_plain, resample_weights,
-                  resample_weights_plain)
+from .pdf import (resample_chart, resample_chart_plain, resample_score, resample_score_plain,
+                  resample_weights, resample_weights_plain)
 from .sampler import theta_ids, theta_ids_plain
 from .vm_lookup import (density_fwd, density_fwd_plain, field_bwd, field_bwd_plain,
                         field_fwd, field_fwd_plain)
@@ -84,17 +88,17 @@ class Ops(NamedTuple):
     mm_db: Callable
     bias_grad: Callable
     resample_weights: Callable
-    coarse_importance: Callable
+    resample_score: Callable
     select_top_k: Callable
     theta_ids: Callable
 
 
 KERNELS = Ops(field_fwd, field_bwd, density_fwd, resample_chart, sorted_uniform, composite,
               composite_bwd, chart_fwd, envmap_fwd, envmap_bwd, alpha_fwd, mixed_mm, mixed_mm_da,
-              mixed_mm_db, bias_grad, resample_weights, coarse_importance, select_top_k,
+              mixed_mm_db, bias_grad, resample_weights, resample_score, select_top_k,
               theta_ids)
 PLAIN = Ops(field_fwd_plain, field_bwd_plain, density_fwd_plain, resample_chart_plain,
             sorted_uniform_plain, composite_plain, composite_bwd_plain, chart_fwd_plain,
             envmap_fwd_plain, envmap_bwd_plain, alpha_fwd_plain, mixed_mm_plain,
             mixed_mm_da_plain, mixed_mm_db_plain, bias_grad_plain, resample_weights_plain,
-            coarse_importance_plain, select_top_k_plain, theta_ids_plain)
+            resample_score_plain, select_top_k_plain, theta_ids_plain)

@@ -1,11 +1,12 @@
 """The empty-space cull of the merged samples (counterpart of
 ``egonerf_tpu/ops/cull.py``): the coarse pass scores every merged sample
-(K12, :func:`coarse_importance`), training may perturb the scores
-(:func:`train_tiebreak`, :func:`gumbel_perturb`), and the K highest of
-each ray reach the fine field (K13, :func:`select_top_k`).  JAX shaped
-both kernels for the TPU as gather-free ops (a broadcast-compare
-reduction, a one-hot matmul); here each is one warp a ray
-(``csrc/cull.cu``).
+(K12, :func:`coarse_importance`; the forward takes the same score from
+K4c, ``pdf.resample_score``, which computes it in K4's epilogue), training
+may perturb the scores (:func:`train_tiebreak`, :func:`gumbel_perturb`),
+and the K highest of each ray reach the fine field (K13,
+:func:`select_top_k`).  JAX shaped both kernels for the TPU as
+gather-free ops (a broadcast-compare reduction, a one-hot matmul); here
+each is one warp a ray (``csrc/cull.cu``).
 
 The perturbations take their uniforms ``u`` explicitly, as
 ``jax.random.uniform`` would draw them (the forward draws them from the

@@ -5,8 +5,10 @@ weights (``raw2alpha`` on the coarse density), the pdf and cdf over the
 interior weights, the inverse-CDF draw, the merge with the coarse depths
 (``ops/merge.py``) and the ``dists`` diff of ``EgoNeRF.forward``;
 :func:`resample_chart` also writes the chart of the merged depths (K7's
-function) from the same launch, and :func:`resample_weights` the coarse
-weights (the empty-space cull's input) instead.
+function) from the same launch, :func:`resample_weights` the coarse
+weights instead, and :func:`resample_score` (K4c, the empty-space cull's
+coarse pass) each merged sample's cull score, K12's function on those
+weights.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from .._build import check_launch, kernel
 from .._device import check_tensor
 from ..coords.yinyang import YinYangSphericalCoords
 from .chart import CHART_ARGS, _recip, chart_args, chart_fwd_plain, check_rays
+from .cull import coarse_importance_plain
 from .merge import merge_sorted
 from .volrend import (ACTIVATIONS, _chunk_fold, _lane_chunks, _warp_exclusive_scan,
                       _warp_weights, density_activation, raw2alpha)
@@ -105,6 +108,18 @@ def resample_weights_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
     return z_vals, _dists(z_vals), weights.contiguous()
 
 
+def resample_score_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
+                         use_coarse_sample=True, density_shift=-8.0, distance_scale=25.0,
+                         act="softplus"):
+    """Plain version of K4c: see :func:`resample_score`.
+    :func:`resample_weights_plain`, then K12's plain version on its merged
+    depths and weights."""
+    z_vals, dists, weights = resample_weights_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
+                                                    use_coarse_sample, density_shift,
+                                                    distance_scale, act)
+    return z_vals, dists, coarse_importance_plain(z_vals, coarse_z, weights)
+
+
 def resample_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
                    use_coarse_sample=True, density_shift=-8.0,
                    distance_scale=25.0, act="softplus"):
@@ -130,6 +145,9 @@ _WEIGHTS_ARGS = _BASE_ARGS + [ctypes.c_void_p] * 2
 _CHART_ARGS = _BASE_ARGS + [ctypes.c_void_p, ctypes.c_longlong] * 2 + CHART_ARGS + \
     [ctypes.c_void_p] * 2
 SMEM_BYTES = 232448  # the shared memory a block may opt into on sm_90
+# K4c keeps a lane's runs of ceil(S / 32) coarse samples and ceil(F / 32)
+# draws in registers, 16 at most: S and T up to K13's limit
+MAX_SCORE_SAMPLES = 512
 
 
 def _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act, n_grid=0):
@@ -152,9 +170,10 @@ def _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act, n_
 
 
 def _launch(name, argtypes, c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample,
-            density_shift, distance_scale, act, n_out, *chart):
+            density_shift, distance_scale, act, n_out, *chart, counters=None):
     """K4's launch on the card: z_vals and dists, (R, n_out) each, and the
-    chart arguments ``chart`` passed through after them."""
+    arguments ``chart`` passed through after them; a launch counts in each
+    of ``counters`` (default: K4's ``resample``)."""
     r, s = c_feat.shape
     dev = c_feat.device
     z_vals = torch.empty(r, n_out, dtype=torch.float32, device=dev)
@@ -170,7 +189,8 @@ def _launch(name, argtypes, c_feat, coarse_z, coarse_dists, n_fine, u, use_coars
                      float(distance_scale), ACTIVATIONS.index(act), z_vals.data_ptr(),
                      dists.data_ptr(), *chart, torch.cuda.current_stream(dev).cuda_stream)
         check_launch(name, err)
-        resample.launches += 1
+        for fn in counters or (resample,):
+            fn.launches += 1
     return z_vals, dists
 
 
@@ -256,10 +276,11 @@ def resample_weights(c_feat: torch.Tensor, coarse_z: torch.Tensor,
     and from the same launch the (R, S) weights alpha * exclusive
     transmittance of the coarse samples that the pdf is drawn from, in
     K4's order.  No chart: under the empty-space cull the chart is taken of
-    the kept depths.
+    the kept depths.  The cull's oracle scorer takes its depths; the
+    coarse scorer takes :func:`resample_score`, which keeps the weights.
 
-    Replaces the EgoNeRF forward's resampling and the coarse weights that
-    its cull scores by (egonerf_tpu/models/egonerf.py:389-411, 440-443).
+    Replaces the EgoNeRF forward's resampling and its coarse weights
+    (egonerf_tpu/models/egonerf.py:389-411).
     Kernel: csrc/resample.cu (``resample_weights_fwd``).  CPU tensors take
     :func:`resample_weights_plain`.  A launch counts in ``resample.launches``
     (K4) and in ``resample_weights.launches``."""
@@ -270,11 +291,46 @@ def resample_weights(c_feat: torch.Tensor, coarse_z: torch.Tensor,
     weights = torch.empty(r, c_feat.shape[1], dtype=torch.float32, device=c_feat.device)
     z_vals, dists = _launch("resample_weights_fwd", _WEIGHTS_ARGS, c_feat, coarse_z,
                             coarse_dists, n_fine, u, use_coarse_sample, density_shift,
-                            distance_scale, act, n_out, weights.data_ptr())
-    if r:
-        resample_weights.launches += 1
+                            distance_scale, act, n_out, weights.data_ptr(),
+                            counters=(resample, resample_weights))
     return z_vals, dists, weights
+
+
+def resample_score(c_feat: torch.Tensor, coarse_z: torch.Tensor,
+                   coarse_dists: torch.Tensor, n_fine: int, u: Optional[torch.Tensor] = None,
+                   use_coarse_sample: bool = True, density_shift: float = -8.0,
+                   distance_scale: float = 25.0, act: str = "softplus"
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4c, the empty-space cull's coarse pass: :func:`resample`'s z_vals
+    and dists, and from the same launch each merged sample's score (R, T):
+    K12's function (:func:`~egonerf_torch.ops.cull.coarse_importance`) on
+    the coarse weights of :func:`resample_weights`, which never leave the
+    kernel.  The z_vals and dists are K4's bit for bit, the
+    score K12's plain version's on them.
+
+    The arguments are :func:`resample`'s, with up to ``MAX_SCORE_SAMPLES``
+    coarse and merged samples a ray (K13 takes no more).
+
+    Replaces the EgoNeRF forward's resampling, its coarse weights and their
+    ``coarse_importance`` (egonerf_tpu/models/egonerf.py:389-411, 445;
+    egonerf_tpu/ops/cull.py:30-54).  Kernel: csrc/resample.cu
+    (``resample_score_fwd``).  CPU tensors take :func:`resample_score_plain`.
+    ``resample_score.launches`` counts its launches (K4's counter does not)."""
+    r, n_out = _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act)
+    if max(c_feat.shape[1], n_out) > MAX_SCORE_SAMPLES:
+        raise ValueError(f"resample_score takes up to {MAX_SCORE_SAMPLES} coarse and merged "
+                         f"samples a ray, got {c_feat.shape[1]} and {n_out}")
+    if c_feat.device.type == "cpu":
+        return resample_score_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
+                                    use_coarse_sample, density_shift, distance_scale, act)
+    score = torch.empty(r, n_out, dtype=torch.float32, device=c_feat.device)
+    z_vals, dists = _launch("resample_score_fwd", _WEIGHTS_ARGS, c_feat, coarse_z,
+                            coarse_dists, n_fine, u, use_coarse_sample, density_shift,
+                            distance_scale, act, n_out, score.data_ptr(),
+                            counters=(resample_score,))
+    return z_vals, dists, score
 
 
 resample.launches = 0
 resample_weights.launches = 0
+resample_score.launches = 0

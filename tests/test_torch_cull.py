@@ -1,7 +1,9 @@
-"""The empty-space cull of the port (``ops/cull.py``, K12 and K13, and K4's
-weights instantiation) against the JAX package, on the CPU, at the
-``tests/test_cull.py`` model (N_voxel 32^3, featureC 32): the scores and
-the compaction bit for bit, the perturbations on JAX's own uniforms, the
+"""The empty-space cull of the port (``ops/cull.py``, K12 and K13, K4's
+weights instantiation and the fused coarse pass K4c, ``pdf.resample_score``)
+against the JAX package, on the CPU, at the ``tests/test_cull.py`` model
+(N_voxel 32^3, featureC 32): the scores and the compaction bit for bit,
+the coarse pass against JAX's raw2alpha -> sample_pdf -> merge ->
+coarse_importance chain, the perturbations on JAX's own uniforms, the
 culled forward, step and trainer, the oracle scorer, and the selection
 rules the kernels implement."""
 import jax
@@ -13,7 +15,10 @@ import torch
 from egonerf_tpu.coords.yinyang import YinYangSphericalCoords as JaxYinYang
 from egonerf_tpu.models.egonerf import EgoNeRF as JaxEgoNeRF
 from egonerf_tpu.models.egonerf import FieldConfig as JaxFieldConfig
+from egonerf_tpu.models.egonerf import feature2density as jax_feature2density
 from egonerf_tpu.ops import cull as jcull
+from egonerf_tpu.ops import merge as jmerge
+from egonerf_tpu.ops import pdf as jpdf
 from egonerf_tpu.ops import volrend as jvol
 from egonerf_tpu.ops.merge import sorted_uniform as jax_sorted_uniform
 from egonerf_tpu.render.renderer import Renderer as JaxRenderer
@@ -338,25 +343,33 @@ def test_resample_weights_match_jax_raw2alpha():
     assert torch.equal(z, pz) and torch.equal(d, pd) and w.is_contiguous()
 
 
-@pytest.mark.parametrize("op", ["resample_weights", "coarse_importance", "select_top_k"])
+def _launch_counts():
+    return (ops.pdf.resample.launches, pdf.resample_weights.launches,
+            pdf.resample_score.launches, cull.coarse_importance.launches,
+            cull.select_top_k.launches)
+
+
+@pytest.mark.parametrize("op", ["resample_weights", "coarse_importance", "select_top_k",
+                                "resample_score"])
 def test_cpu_wrappers_take_the_plain_versions(op):
     """On CPU tensors the wrappers return their plain versions' results and
     launch nothing."""
     feat, cz, cd, f = _k4_inputs(1)
     z, d, w = pdf.resample_weights_plain(feat, cz, cd, f)
     score = cull.coarse_importance_plain(z, cz, w)
-    args = {"resample_weights": (feat, cz, cd, f),
-            "coarse_importance": (z, cz, w),
-            "select_top_k": (z, d, score, 20)}[op]
-    before = (ops.pdf.resample.launches, pdf.resample_weights.launches,
-              cull.coarse_importance.launches, cull.select_top_k.launches)
-    got, want = getattr(ops.KERNELS, op)(*args), getattr(ops.PLAIN, op)(*args)
+    wrapper, plain, args = {
+        "resample_weights": (pdf.resample_weights, pdf.resample_weights_plain, (feat, cz, cd, f)),
+        "coarse_importance": (cull.coarse_importance, cull.coarse_importance_plain, (z, cz, w)),
+        "select_top_k": (cull.select_top_k, cull.select_top_k_plain, (z, d, score, 20)),
+        "resample_score": (pdf.resample_score, pdf.resample_score_plain, (feat, cz, cd, f)),
+    }[op]
+    before = _launch_counts()
+    got, want = wrapper(*args), plain(*args)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
-    assert before == (ops.pdf.resample.launches, pdf.resample_weights.launches,
-                      cull.coarse_importance.launches, cull.select_top_k.launches)
+    assert before == _launch_counts()
 
 
 def test_wrappers_check_their_arguments():
@@ -370,6 +383,146 @@ def test_wrappers_check_their_arguments():
         cull.coarse_importance(z, torch.zeros(4, 3), torch.zeros(4, 2))
     with pytest.raises(ValueError, match="contiguous"):
         cull.coarse_importance(z, torch.zeros(3, 4).T, torch.zeros(4, 3))
+    feat, cz, cd, _ = _k4_inputs(2, r=2, s=400)
+    with pytest.raises(ValueError, match="up to 512"):
+        pdf.resample_score(feat, cz, cd, 200)
+
+
+# ----------------------------------------------------------------------
+# K4c, the fused coarse pass: its plain version against JAX's chain, and
+# the rule its kernel takes each merged sample's interval by
+# ----------------------------------------------------------------------
+COARSE_PASS_CASES = ["linspace", "sorted draws", "repeated coarse depths", "ray from depth 0",
+                     "draws out of order", "no coarse samples merged", "45 rays"]
+
+
+def _coarse_pass_case(name, seed=4, s=16, f=16):
+    """(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, JAX
+    key, JAX sorted_draws) for each case: sorted coarse depths; the JAX
+    draws' uniforms given to the port as ``u`` (None: eval's linspace).
+    Repeated coarse depths take sorted draws below 1: their empty
+    intervals put half the bins at the pdf's floor, and eval's u = 1 at
+    the cdf's end would take the denom guard on one side only."""
+    r = 45 if name == "45 rays" else 24
+    rng = np.random.default_rng(seed)
+    # the exponential sampler's spacing from NEAR_FAR, each ray jittered
+    ratio = 1.0 + (np.pi / 2.0) / s
+    steps = (NEAR_FAR[1] - NEAR_FAR[0]) * (ratio - 1.0) / (ratio ** s - 1.0) * ratio ** np.arange(s)
+    jitter = rng.uniform(0.0, 1.0, (r, s))
+    cz = (NEAR_FAR[0] + np.cumsum(steps * jitter, -1) + np.concatenate(
+        [[0.0], np.cumsum(steps * (1 - jitter[0]))[:-1]])).astype(np.float32)
+    cz = np.sort(cz, -1)
+    if name == "repeated coarse depths":
+        cz = np.repeat(cz[:, ::2], 2, axis=1)[:, :s]
+    if name == "ray from depth 0":
+        cz[:, 0] = 0.0
+    # moderate densities, as test_torch_resample: every interior bin keeps a
+    # mass well above the pdf's 1e-5 floor, so no draw sits at the
+    # reference's denom-guard jump, where another cumsum order moves it a bin
+    feat = rng.normal(4.0, 0.5, (r, s)).astype(np.float32)
+    key, sorted_draws, u = None, True, None
+    if name in ("sorted draws", "repeated coarse depths", "draws out of order"):
+        key = jax.random.PRNGKey(seed)
+        sorted_draws = name == "sorted draws"
+        u = _t(jmerge.sorted_uniform(key, (r, f)) if sorted_draws
+               else jax.random.uniform(key, (r, f), dtype=jnp.float32))
+    return (_t(feat), _t(cz), _dists(_t(cz)), f, u, name != "no coarse samples merged", key,
+            sorted_draws)
+
+
+def _jax_coarse_pass(feat, cz, cd, f, key, sorted_draws, use_coarse_sample):
+    """The JAX forward's culled coarse pass (egonerf_tpu/models/egonerf.py:
+    390-411, 445): raw2alpha's weights, sample_pdf, the merge (a sort of
+    the union where the draws are not sorted), the dists, coarse_importance."""
+    sigma = jax_feature2density(jnp.asarray(feat.numpy()), JaxFieldConfig())
+    _, cw, _ = jvol.raw2alpha(sigma, jnp.asarray(cd.numpy()) * 25.0)
+    zj = jnp.asarray(cz.numpy())
+    fine = jpdf.sample_pdf(0.5 * (zj[:, 1:] + zj[:, :-1]), cw[:, 1:-1], f, key=key,
+                           sorted_draws=sorted_draws)
+    if not use_coarse_sample:
+        z_vals = fine if sorted_draws else jnp.sort(fine, axis=-1)
+    elif sorted_draws:
+        z_vals = jmerge.merge_sorted(zj, fine)
+    else:
+        z_vals = jnp.sort(jnp.concatenate([zj, fine], axis=-1), axis=-1)
+    dists = jnp.diff(z_vals, axis=-1)
+    dists = jnp.concatenate([dists, dists[..., -1:]], axis=-1)
+    score = jcull.coarse_importance(z_vals, zj, cw)
+    return np.asarray(z_vals), np.asarray(dists), np.asarray(score), np.asarray(cw)
+
+
+@pytest.mark.parametrize("name", COARSE_PASS_CASES)
+def test_resample_score_plain_matches_jax_chain(name):
+    """K4c's plain version (the ``Ops`` entry on CPU tensors) against JAX's
+    chain.  Depths and dists: the cdf's cumsum in another association moves
+    a draw by its ulps over the bin's mass (abs 1e-4, the culled forward's
+    depth tolerance above); scores: the weights' association (rel 1e-5 of
+    the largest, as test_resample_weights_match_jax_raw2alpha), each sample
+    in the same coarse interval on both sides."""
+    feat, cz, cd, f, u, merge, key, sorted_draws = _coarse_pass_case(name)
+    want_z, want_d, want_s, cw = _jax_coarse_pass(feat, cz, cd, f, key, sorted_draws, merge)
+    got_z, got_d, got_s = ops.KERNELS.resample_score(feat, cz, cd, f, u, merge)
+    assert got_z.shape == got_d.shape == got_s.shape == want_z.shape
+    np.testing.assert_allclose(got_z.numpy(), want_z, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got_d.numpy(), want_d, rtol=0, atol=1e-4)
+    cz_np = cz.numpy()
+    interval = lambda z: np.stack([np.searchsorted(c, zz, side="right")  # noqa: E731
+                                   for c, zz in zip(cz_np, z)])
+    np.testing.assert_array_equal(interval(got_z.numpy()), interval(want_z))
+    np.testing.assert_allclose(got_s.numpy(), want_s, rtol=0,
+                               atol=1e-5 * float(np.abs(cw).max()))
+    if name == "ray from depth 0":  # depth 0 lies in the first interval, not below it
+        assert (got_z[:, 0] == 0).all()
+        np.testing.assert_allclose(got_s.numpy()[:, 0], cull.dilate(_t(cw)).numpy()[:, 0],
+                                   rtol=0, atol=1e-5 * float(np.abs(cw).max()))
+
+
+def _kernel_rule_scores(zc, zf, wd):
+    """K4c's interval rule, one ray, as csrc/resample.cu's merge path takes
+    it: the union in merged order (coarse before fine on ties); a fine depth
+    output with i coarse depths before it has c = i - 1 (score 0 at i = 0),
+    a coarse depth zc[i] the last index of the coarse depths equal to it."""
+    i = j = 0
+    z, score = [], []
+    while i < len(zc) or j < len(zf):
+        if j >= len(zf) or (i < len(zc) and zc[i] <= zf[j]):
+            c = i
+            while c + 1 < len(zc) and zc[c + 1] <= zc[i]:
+                c += 1
+            z.append(zc[i])
+            score.append(wd[c])
+            i += 1
+        else:
+            z.append(zf[j])
+            score.append(wd[i - 1] if i > 0 else np.float32(0))
+            j += 1
+    return np.float32(z), np.float32(score)
+
+
+@pytest.mark.parametrize("name", ["random", "repeated coarse depths", "fine on coarse depths",
+                                  "fine outside the coarse range"])
+def test_kernel_interval_rule_equals_search(name):
+    """The merge path's counts give K12's interval c = #(coarse_z <= z) - 1
+    for every merged sample: the kernel's rule equals the plain score (a
+    search, bit for bit) on sorted depths with repeats, ties and depths
+    below and above the coarse ones."""
+    rng = np.random.default_rng(8)
+    for _ in range(16):
+        zc = np.sort(rng.uniform(1.0, 4.0, 24).astype(np.float32))
+        zf = np.sort(rng.uniform(1.0, 4.0, 20).astype(np.float32))
+        if name == "repeated coarse depths":
+            zc = np.sort(np.repeat(zc[::3], 3)[:24])
+        if name == "fine on coarse depths":
+            zc = np.sort(np.repeat(zc[::2], 2)[:24])
+            zf = np.sort(np.concatenate([zc[rng.integers(0, 24, 12)], zf[:8]]))
+        if name == "fine outside the coarse range":
+            zf = np.sort(np.concatenate([zf[:14], np.float32([0.1, 0.5, 0.9, 4.5, 5.0, 9.0])]))
+        w = (rng.integers(0, 4, 24) * 0.125).astype(np.float32)
+        wd = cull.dilate(_t(w)).numpy()
+        z, score = _kernel_rule_scores(zc, zf, wd)
+        np.testing.assert_array_equal(z, np.sort(np.concatenate([zc, zf])))
+        want = cull.coarse_importance_plain(_t(z)[None], _t(zc)[None], _t(w)[None])[0].numpy()
+        np.testing.assert_array_equal(score, want)
 
 
 # ----------------------------------------------------------------------
@@ -415,6 +568,36 @@ def test_keep_of_s_or_more_is_the_unculled_forward(pair, keep):
         e = tm.forward(tm.params(), rays, **RENDER, is_train=True, eval_keep=8, **draws)
     for k in ("rgb", "depth", "acc"):
         assert torch.equal(a[k], b[k]) and torch.equal(c[k], d[k]) and torch.equal(c[k], e[k])
+
+
+def _pair_score(*args):
+    """The culled forward's coarse pass as two ops, K4's weights and then
+    K12 on its depths (what K4c replaces)."""
+    z_vals, dists, weights = pdf.resample_weights(*args)
+    return z_vals, dists, cull.coarse_importance(z_vals, args[1], weights)
+
+
+@pytest.mark.parametrize("mode", ["eval_keep", "train_keep"])
+def test_forward_through_resample_score_equals_the_pair(pair, mode):
+    """EgoNeRF.forward under the cull gives the same output through K4c's
+    op as through K4's weights followed by K12, bit for bit, at eval and in
+    a training step with the cull's uniforms."""
+    _, _, tm = pair
+    rays = torch.from_numpy(_rays(40, seed=10))
+    gen = torch.Generator().manual_seed(2)
+    kw = (dict(eval_keep=12) if mode == "eval_keep" else
+          dict(is_train=True, train_keep=12, jitter=torch.rand(40, 16, generator=gen),
+               u=ops.sorted_uniform(40, 16, 0, 0, "cpu"), cull_u=torch.rand(40, S, generator=gen)))
+    outs = []
+    for o in (ops.KERNELS, ops.KERNELS._replace(resample_score=_pair_score)):
+        tm.ops = o
+        try:
+            with torch.no_grad():
+                outs.append(tm.forward(tm.params(), rays, **RENDER, **kw))
+        finally:
+            tm.ops = ops.KERNELS
+    for k in ("rgb", "depth", "acc"):
+        assert torch.equal(outs[0][k], outs[1][k])
 
 
 def test_culled_forward_kernels_and_plain_agree_on_cpu(pair):
