@@ -16,9 +16,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    on the same depths bit for bit), each kernel of the training step (K2,
    K4, K5, K6b) on the inputs of one production training step, K1, K3 and
    K2 at the smoke config's widths and at one the kernels' scalar
-   instantiation takes, and the envmap's (K8, K8b, K6 and K6b with the
-   background) on the inputs of one production step of the outdoor shape,
-   with times from CUDA events (K1, K2 and K3 also with a cold L2); K1's
+   instantiation takes, and the envmap's (K6e, K6 with K8's lookup inside:
+   its env bit for bit with K8's and its other outputs with K8 + K6's, also
+   on rays at the seam and the poles; K8, K8b, K6 with a given env and K6b
+   with the background) on the inputs of one production step of the
+   outdoor shape, K6b at 1, 33, 96, 256 and 1536 samples a ray in its three
+   instantiations, with times from CUDA events (K1, K2 and K3 also with a cold L2); K1's
    training instantiation's relu mask against the states of its lane-order
    sums; K2's layout (``bwd_layout``), and K2 (two grids and S=1) also on
    two hard inputs: every sample at one point, and the samples shuffled;
@@ -46,10 +49,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 9. the outdoor shape (``presets.outdoor_overrides``: the fields of
    ``configs/egonerf/omniblender/bistro_square.txt``, an envmap of
    2000x1000x3) on the procedural scene with its background at infinity:
-   one 2000x1000 view, a few chunks against the plain versions, and where
-   the time goes;
-10. 20 envmap pretrain steps and 20 production envmap training steps,
-    with launches per step and where the time goes;
+   one 2000x1000 view (K6e once a chunk, no K8), a few chunks against the
+   plain versions, and where the time goes;
+10. 20 envmap pretrain steps (K8 and K8b once each) and 20 production
+    envmap training steps (K6e, K6b and K8b, no K8), with launches per step
+    and where the time goes;
 11. one envmap training step with the kernels and with the plain
     versions: the loss and every gradient, the envmap's included;
 12. ``python -m egonerf_torch --config .../bistro_square.txt`` on the
@@ -197,6 +201,16 @@ K5_TOL = 1e-6
 K7_TOL = 1e-5
 # K8 vs plain: the same corners and weights; sigmoids in (0, 1), float32 ulps
 K8_TOL = 1e-6
+# K6e's hard directions (tests/test_torch_envmap.py::_env_dirs): the seam
+# (atan2 = +-pi: v = 1 and 0), the poles (u = 1 and 0, atan2(0, 0) = 0), and
+# directions at z = 0
+ENV_HARD_DIRS = ((-1.0, 0.0, 0.3), (-1.0, -0.0, -0.4), (-2.0, 0.0, 0.0), (-1.0, 1e-30, 0.2),
+                 (0.0, 0.0, 1.0), (0.0, 0.0, -1.0), (0.0, 0.0, 5.0), (3.0, 4.0, 0.0),
+                 (-4.0, 3.0, 0.0), (1.0, 0.0, 0.0), (0.0, -1.0, 0.0))
+# K6b's sample counts in phase 2: one sample, chunks of 2 and 3 that cross
+# the shared arrays' 32-word rows, the production 256, and the wrapper's
+# largest, a one-warp block
+K6B_SWEEP_S = (1, 33, 96, 256, 1536)
 # K9 vs plain: the same eight products of 0/1 cells, added in the same order
 K9_TOL = 1e-6
 # one training step, kernels vs plain: the loss to rel 1e-5; each gradient
@@ -1013,18 +1027,85 @@ def train_kernel_checks(trainer, ops) -> dict:
     return table
 
 
+def k6b_case(r, s, env, gated, seed, dev):
+    """K6b's arguments on ``r`` seeded rays of ``s`` samples: densities
+    from empty to opaque, colours past [0, 1] (so the clip's three slopes
+    all occur), the envmap's radiance and the gates where asked."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+    feat = (rand(r, s) * 16.0 - 4.0) * (rand(r, 1) * 2.0)
+    dists = rand(r, s) * (2.0 / s)
+    rgb = rand(r, s, 3) * 1.4 - 0.2
+    g = rand(r, 3) * 2.0 - 1.0
+    e = rand(r, 3) if env else None
+    valid = (rand(r, s) < 0.7) if gated else None
+    return (feat, dists, rgb, g, -8.0, 25.0, "softplus", e, valid, 1e-4 if gated else None)
+
+
+def k6b_sweep(ops) -> None:
+    """Phase 2, K6b on seeded rays of each of K6B_SWEEP_S samples in its
+    three instantiations (EgoNeRF, envmap, gated) against the plain
+    version, rel REL_TOL of max|plain|: its layout (warps a block, shared
+    bytes), which the kernel's entry chooses and reports, changes with S."""
+    from egonerf_torch.ops import volrend
+
+    for s in K6B_SWEEP_S:
+        r = 1024 if s > 256 else 4096
+        for label, env, gated in (("EgoNeRF", False, False), ("env", True, False),
+                                  ("gated", False, True)):
+            warps, smem = volrend.bwd_geometry(s, gated)
+            args = k6b_case(r, s, env, gated, SEED + s, DEVICE)
+            with torch.no_grad():
+                out, ref = ops.KERNELS.composite_bwd(*args), ops.PLAIN.composite_bwd(*args)
+            torch.cuda.synchronize()
+            if not all(torch.isfinite(o).all() for o in out):
+                fail(f"K6b {label} at S = {s}: non-finite output")
+            abs_err, rel_err = max_err(out, ref)
+            check_close(f"K6b composite_bwd {label} at {r} x {s} ({warps} warps a block, "
+                        f"{smem} shared bytes)", f"rel <= {REL_TOL:.0e} of max|plain|",
+                        rel_err <= REL_TOL, abs_err, rel_err)
+
+
+def bits_differ(got, want) -> int:
+    return sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+               for g, w in zip(got, want))
+
+
+def k6e_against_pair(label, ops, c_args) -> None:
+    """K6e on ``c_args`` against the pair it replaces, K8 then K6 with K8's
+    env: env and every other output (rgb, depth, acc, bg, bg_map) bit for
+    bit."""
+    emission, dirs = c_args[11], c_args[12]
+    got = ops.KERNELS.composite(*c_args)
+    env = ops.KERNELS.envmap(emission, dirs)
+    pair = ops.KERNELS.composite(*c_args[:8], env)
+    torch.cuda.synchronize()
+    d_env, d_rest = bits_differ(got[5:], [env]), bits_differ(got[:5], pair)
+    print(f"phase 2 K6e ({label}, {dirs.shape[0]} rays): env differs from K8's on {d_env} of "
+          f"{env.numel()} values, rgb, depth, acc, bg and bg_map from K8 + K6's on {d_rest} of "
+          f"{sum(o.numel() for o in pair)} (bit for bit) -> "
+          f"{'ok' if d_env == d_rest == 0 else 'MISS'}", flush=True)
+    if d_env or d_rest:
+        fail(f"K6e ({label}) differs from K8 + K6 with the background")
+
+
 @torch.no_grad()
 def envmap_kernel_checks(trainer, ops) -> dict:
-    """Phase 2, the envmap: K8, K8b, and K6 and K6b with the background, on
-    the inputs one production step of the outdoor shape gives them
-    (recorded from its forward and backward; the weights do not move)."""
+    """Phase 2, the envmap: K6e (K6 with K8's lookup inside), K8, K8b, K6
+    with a given env and K6b with the background, on the inputs one
+    production step of the outdoor shape gives them (recorded from its
+    forward and backward; the weights do not move).  K6e's env must be K8's
+    bit for bit and its other outputs those of K8 followed by K6 with that
+    env, on the step's rays and on the seam and the poles (ENV_HARD_DIRS)."""
     import torch.nn.functional as F
     from egonerf_torch.models import StepKey
     from egonerf_torch.ops import envmap
 
     model, params, cfg = trainer.model, trainer.params, trainer.cfg
     rec = {k: Recorder(getattr(ops.KERNELS, k))
-           for k in ("envmap", "envmap_bwd", "composite", "composite_bwd")}
+           for k in ("envmap_bwd", "composite", "composite_bwd")}
     model.ops = ops.KERNELS._replace(**rec)
     try:
         with torch.enable_grad():
@@ -1038,12 +1119,14 @@ def envmap_kernel_checks(trainer, ops) -> dict:
             p.grad = None
     torch.cuda.synchronize()
     table = {}
+    c_args = rec["composite"].args
+    feat, dists, z_vals, rgb, ray_dz = c_args[:5]
+    emission, dirs = c_args[11], c_args[12]
+    h, r = emission.shape[1], dirs.shape[0]
 
     # K8: the same corners and weights, sigmoids within K8_TOL
-    emission, dirs = rec["envmap"].args
-    h, r = emission.shape[1], dirs.shape[0]
-    abs_err, rel_err = max_err([ops.KERNELS.envmap(*rec["envmap"].args)],
-                               [ops.PLAIN.envmap(*rec["envmap"].args)])
+    abs_err, rel_err = max_err([ops.KERNELS.envmap(emission, dirs)],
+                               [ops.PLAIN.envmap(emission, dirs)])
     check_close("K8 envmap_fwd", f"abs <= {K8_TOL:.0e}", abs_err <= K8_TOL, abs_err, rel_err)
     corners = envmap.envmap_corners(dirs, h)
     texels = int(torch.cat([i[w > 0] for i, w in corners]).unique().numel())
@@ -1053,10 +1136,10 @@ def envmap_kernel_checks(trainer, ops) -> dict:
     image = emission.permute(2, 0, 1)[None].contiguous()
     lib_ms = time_ms(lambda: F.grid_sample(image, grid, mode="bilinear", padding_mode="zeros",
                                            align_corners=True))
+    k8_ms = time_ms(lambda: ops.KERNELS.envmap(emission, dirs))
     table["K8"] = kernel_row(
         "K8 envmap_fwd", "egonerf_torch/csrc/envmap.cu", "egonerf_tpu/ops/grid_sample.py:59",
-        abs_err, time_ms(lambda: ops.KERNELS.envmap(*rec["envmap"].args)),
-        time_ms(lambda: ops.PLAIN.envmap(*rec["envmap"].args), reps=5),
+        abs_err, k8_ms, time_ms(lambda: ops.PLAIN.envmap(emission, dirs), reps=5),
         # the directions, the texels this batch touches, the radiance out
         r * 12 + texels * 12 + r * 12,
         # per ray: the norm and the canonical map with atan2 (~40), two
@@ -1084,18 +1167,41 @@ def envmap_kernel_checks(trainer, ops) -> dict:
         # directions, radiance and its cotangent in; the whole table out
         3 * r * 12 + 2 * h * h * 12, r * 110, library_ms=lib_ms)
 
-    # K6 and K6b with the background: rel REL_TOL of max|plain|
-    c_args = rec["composite"].args
-    feat, dists, z_vals, rgb, ray_dz = c_args[:5]
+    # K6e: env K8's and the rest K8 + K6's bit for bit, on the step's rays
+    # and on rays looking at the seam and the poles; rel REL_TOL of max|plain|
+    k6e_against_pair("outdoor step", ops, c_args)
+    hard = torch.tensor(ENV_HARD_DIRS, dtype=torch.float32, device=dirs.device)
+    n = hard.shape[0]
+    k6e_against_pair("seam and poles", ops, tuple(x[:n].contiguous() for x in c_args[:5])
+                     + c_args[5:12] + (hard,))
     abs_err, rel_err = max_err(ops.KERNELS.composite(*c_args), ops.PLAIN.composite(*c_args))
+    check_close("K6e composite +envmap", f"rel <= {REL_TOL:.0e} of max|plain|",
+                rel_err <= REL_TOL, abs_err, rel_err)
+    env = ops.KERNELS.envmap(emission, dirs)
+    pair_args = c_args[:8] + (env,)
+    table["K6e"] = kernel_row(
+        "K6e composite +envmap", "egonerf_torch/csrc/composite.cu",
+        "egonerf_tpu/models/egonerf.py:481", abs_err,
+        time_ms(lambda: ops.KERNELS.composite(*c_args)),
+        time_ms(lambda: ops.PLAIN.composite(*c_args), reps=5),
+        # K6 env's bytes, with the directions and the texels in and env out
+        nbytes(feat, dists, z_vals, rgb, ray_dz) + r * 9 * 4 + r * 12 + texels * 12 + r * 12,
+        feat.numel() * 20 + r * 134)
+    k6_ms = time_ms(lambda: ops.KERNELS.composite(*pair_args))
+    print(f"phase 2 K6e: one launch {table['K6e']['ms']:.4f} ms; the pair it replaces, K8 "
+          f"{k8_ms:.4f} + K6 with env {k6_ms:.4f} = {k8_ms + k6_ms:.4f} ms", flush=True)
+
+    # K6 with a given env (the pair's second half; TensorVMSplit's envmap
+    # form) and K6b with the background: rel REL_TOL of max|plain|
+    abs_err, rel_err = max_err(ops.KERNELS.composite(*pair_args),
+                               ops.PLAIN.composite(*pair_args))
     check_close("K6 composite +env", f"rel <= {REL_TOL:.0e} of max|plain|", rel_err <= REL_TOL,
                 abs_err, rel_err)
     table["K6+env"] = kernel_row(
         "K6 composite +env", "egonerf_torch/csrc/composite.cu",
-        "egonerf_tpu/models/egonerf.py:481", abs_err,
-        time_ms(lambda: ops.KERNELS.composite(*c_args)),
-        time_ms(lambda: ops.PLAIN.composite(*c_args), reps=5),
-        nbytes(feat, dists, z_vals, rgb, ray_dz, c_args[8]) + r * 9 * 4, feat.numel() * 20)
+        "egonerf_tpu/models/egonerf.py:481", abs_err, k6_ms,
+        time_ms(lambda: ops.PLAIN.composite(*pair_args), reps=5),
+        nbytes(feat, dists, z_vals, rgb, ray_dz, env) + r * 9 * 4, feat.numel() * 20)
     bw_args = rec["composite_bwd"].args
     abs_err, rel_err = max_err(ops.KERNELS.composite_bwd(*bw_args),
                                ops.PLAIN.composite_bwd(*bw_args))
@@ -1116,7 +1222,8 @@ def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
     """Phases 3-5 (9 for the envmap model, 14-15 for TensoRF) under no_grad:
     one view of ``hw`` through ``renderer`` (EgoNeRF's production render by
     default), whose chunks must launch each kernel ``per_chunk`` times
-    (EgoNeRF's K1, K3, K4, K6, K7 once, K8 with the envmap); a few
+    (EgoNeRF's K1, K3, K4, K6, K7 once; with the envmap K6 is K6e and K8
+    is not launched); a few
     chunks against the plain versions; the profile.  Returns the launches
     of the view and its seconds."""
     p_view, p_e2e, p_prof = phases
@@ -1126,7 +1233,7 @@ def render_phases(model, params, dirs_np, ops, presets, Renderer, wrappers,
     chunk = presets.EVAL_CHUNK
     if renderer is None:
         renderer = Renderer(model, chunk=chunk, **presets.RENDER)
-        per_chunk = dict(K1=1, K3=1, K4=1, K6=1, K7=1, **({"K8": 1} if env else {}))
+        per_chunk = dict(K1=1, K3=1, K4=1, K7=1, **{"K6e" if env else "K6": 1})
     chunk = renderer.chunk
     renderer.set_directions(dirs_np)
     c2w = np.eye(4, dtype=np.float32)[:3]
@@ -1235,10 +1342,11 @@ def timed_steps(step, label: str, cfg, wrappers, want: dict, warmup: int = TRAIN
 def step_launches(wrappers, envmap: bool) -> dict:
     """The launches of ``TRAIN_STEPS`` EgoNeRF training steps in the default
     form: each kernel of K1-K7 once a step (K7 the coarse chart, the fine
-    one in K4's epilogue), K8/K8b with the envmap, never K9 (EgoNeRF's
+    one in K4's epilogue; with the envmap K6 is K6e, and K8b gives the
+    table its gradient, no K8), never K9 (EgoNeRF's
     forward reads no mask), nor K10 and K11 (the opt-in shader forms)."""
-    per_step = {"K1", "K2", "K3", "K4", "K5", "K6", "K6b", "K7"} | (
-        {"K8", "K8b"} if envmap else set())
+    per_step = {"K1", "K2", "K3", "K4", "K5", "K6b", "K7"} | (
+        {"K6e", "K8b"} if envmap else {"K6"})
     return {k: TRAIN_STEPS if k in per_step else 0 for k in wrappers}
 
 
@@ -1320,12 +1428,13 @@ def train_phases(trainer, ops, wrappers) -> tuple:
     return launches, median
 
 
-def envmap_train_phases(trainer, ops, wrappers) -> dict:
-    """Phases 10 and 11: envmap pretrain steps and production envmap
-    training steps, and one step against the plain versions; returns the
-    launches of the timed training steps."""
+def envmap_train_phases(trainer, ops, wrappers) -> tuple:
+    """Phases 10 and 11: envmap pretrain steps (K8 and K8b once each) and
+    production envmap training steps, and one step against the plain
+    versions; returns the launches of the timed pretrain steps and of the
+    timed training steps."""
     cfg = trainer.cfg
-    timed_steps(lambda it: trainer.pretrain_step(), "phase 10 envmap pretrain step "
+    pretrain, _ = timed_steps(lambda it: trainer.pretrain_step(), "phase 10 envmap pretrain step "
                 f"({tuple(trainer.params['envmap'].shape)} table)", cfg, wrappers,
                 {k: (TRAIN_STEPS if k in ("K8", "K8b") else 0) for k in wrappers}, warmup=3)
 
@@ -1346,7 +1455,7 @@ def envmap_train_phases(trainer, ops, wrappers) -> dict:
             it += 1
     k2_share("phase 10", profile(steps, PROFILE_STEPS, "phase 10", "step", top=16), median)
     step_vs_plain(trainer, ops, "phase 11")
-    return launches
+    return pretrain, launches
 
 
 def quality_phase(root: str) -> float:
@@ -1517,7 +1626,9 @@ def tensorf_kernel_checks(trainer, ops) -> dict:
         d_args, nbytes(dc, *dp, *dl) + dc.shape[0] * 4,
         dc.shape[0] * sum(p.shape[-1] for p in dp) * 11, cold=True)
 
-    feat, dists, z, rgb, dz, *_, valid, thres = rec["composite"].args
+    c_args = rec["composite"].args
+    feat, dists, z, rgb, dz = c_args[:5]
+    valid, thres = c_args[9], c_args[10]
     kept = volrend._warp_transmittance(volrend._alpha(
         feat, dists, cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act, valid))[0] > thres
     print(f"phase 2 TensoRF gates: {float(valid.float().mean()):.1%} of the samples in the box "
@@ -2962,7 +3073,9 @@ def main() -> int:
     dev = torch.device(DEVICE)
     wrappers = {"K1": vm_lookup.field_fwd, "K2": vm_lookup.field_bwd,
                 "K3": vm_lookup.density_fwd, "K4": pdf.resample, "K5": merge.sorted_uniform,
-                "K6": volrend.composite, "K6b": volrend.composite_bwd, "K7": chart.chart_fwd,
+                "K6": volrend.composite, "K6e": volrend.composite.envmap_form,
+                "K6+env": volrend.composite.env_form, "K6b": volrend.composite_bwd,
+                "K7": chart.chart_fwd,
                 "K8": envmap.envmap_fwd, "K8b": envmap.envmap_bwd, "K9": alphamask.alpha_fwd,
                 "K10": mm.mixed_mm, "K10da": mm.mixed_mm_da, "K10db": mm.mixed_mm_db,
                 "K11": bias.bias_grad, "K4w": pdf.resample_weights,
@@ -3031,6 +3144,7 @@ def main() -> int:
     form_rows = shader_kernel_checks(trainer, ops)
     width_checks(ops)
     rows.update(envmap_kernel_checks(outdoor, ops))
+    k6b_sweep(ops)
     tf_rows = tensorf_kernel_checks(tf, ops)
     k2_stage_checks(root, presets, ops)
     capture_rows = theta_kernel_checks(ops)
@@ -3068,15 +3182,22 @@ def main() -> int:
     with torch.no_grad():
         env_render, _ = render_phases(outdoor.model, outdoor.params, dirs_np, ops, presets,
                                       Renderer, wrappers, phases=(9, 9, 9))
-    env_train = envmap_train_phases(outdoor, ops, wrappers)
+    env_pretrain, env_train = envmap_train_phases(outdoor, ops, wrappers)
     del outdoor
     torch.cuda.empty_cache()
     # the render path's kernels report their launches per image, the
     # training kernels theirs over the timed steps; the envmap rows those of
-    # the outdoor shape
+    # the outdoor shape: K6e its view's, K8 the pretrain steps' (the outdoor
+    # view and steps launch none), K6 with a given env its count over the
+    # view, the pretrain and the training steps (none: only TensorVMSplit's
+    # envmap form takes it)
     for k, row in rows.items():
-        if k in ("K8", "K6+env"):
-            row["launches"] = env_render[k.split("+")[0]]
+        if k == "K6e":
+            row["launches"] = env_render["K6e"]
+        elif k == "K8":
+            row["launches"] = env_pretrain["K8"]
+        elif k == "K6+env":
+            row["launches"] = env_render[k] + env_pretrain[k] + env_train[k]
         elif k in ("K8b", "K6b+env"):
             row["launches"] = env_train[k.split("+")[0]]
         elif k in ("K4c", "K4w", "K12", "K13"):
@@ -3119,8 +3240,8 @@ def main() -> int:
     # K15 and K16 have no caller on any path: their launches stay 0
 
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6",
-                                                     "K6b", "K6+env", "K6b+env", "K7", "K8",
-                                                     "K8b", "K4w", "K12", "K4c", "K13")]
+                                                     "K6b", "K6e", "K6+env", "K6b+env", "K7",
+                                                     "K8", "K8b", "K4w", "K12", "K4c", "K13")]
                       + [tf_rows[k] for k in ("K1 (S=1)", "K2 (S=1)", "K3 (S=1)", "K6 gated",
                                               "K6b gated", "K9")]
                       + [form_rows[k] for k in ("K10 fwd", "K10 da", "K10 db", "K11")]

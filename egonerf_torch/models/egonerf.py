@@ -20,7 +20,9 @@ under the empty-space cull (``eval_keep``, ``train_keep``: K4 writes the
 coarse weights, K12 scores the merged samples, K13 keeps the K highest,
 and K7 takes the chart of the kept depths).
 With ``use_envmap`` the (2h, h, 3) ``envmap`` parameter gives each ray its
-background radiance (K8, K8b backward), blended behind the last sample.
+background radiance, looked up inside the composite (K6e; K8b gives the
+table its gradient) and blended behind the last sample; the pretrain
+phase looks it up alone (K8).
 The kernels come from ``self.ops`` (``ops.KERNELS``).
 
 The regularizers (L1, TV, Ortho) and the alpha-mask bake are here as in
@@ -448,8 +450,10 @@ class EgoNeRF(nn.Module):
         """Render an (R, 6) ray batch.  Returns dict(rgb (R, 3), depth (R,),
         acc (R,), bg, env); with the envmap, env (R, 3) is each ray's
         background radiance and bg (R, 3) = its transmittance times env,
-        else both are None.  ``pretrain_envmap`` returns dict(env) alone,
-        the envmap's radiance (its pretrain phase).  ``white_bg`` is
+        else both are None; both come out of the composite (K6e) and take
+        no gradient (the table's flows through rgb).  ``pretrain_envmap``
+        returns dict(env) alone, the envmap's radiance (its pretrain phase,
+        K8 with K8b behind it), differentiable in the table.  ``white_bg`` is
         accepted and unused, as in JAX.
 
         Training (``is_train`` with a ``key``) jitters the coarse depths and
@@ -543,13 +547,15 @@ class EgoNeRF(nn.Module):
         rgb = self.shader.apply_params(params, "shader.", dirs, app_feat, self.ops,
                                        self.mixed_mm)
 
-        # 5) the envmap's radiance (K8, K8b backward), then the composite with
-        # the background as a last sample of alpha 1 (K6, K6b backward)
-        env = (envmap_radiance(params["envmap"], viewdirs, self.ops) if cfg.use_envmap
-               else None)
+        # 5) the composite (K6, K6b backward); with the envmap, K6e looks up
+        # each ray's radiance and blends it as a last sample of alpha 1, and
+        # the table's gradient is K8b of K6b's d env
+        envmap = params["envmap"] if cfg.use_envmap else None
         outs = composite_train(
             feat, dists, z_vals, rgb, rays[:, -1].contiguous(), cfg.density_shift,
             cfg.distance_scale, cfg.fea2dense_act, self.ops.composite, self.ops.composite_bwd,
-            env=env)
+            envmap=envmap, viewdirs=viewdirs if cfg.use_envmap else None,
+            env_bwd=self.ops.envmap_bwd)
         return {"rgb": outs[0], "depth": outs[1], "acc": outs[2],
-                "bg": outs[4] if env is not None else None, "env": env}
+                "bg": outs[4] if envmap is not None else None,
+                "env": outs[5] if envmap is not None else None}

@@ -11,6 +11,7 @@ K4    pdf.resample_chart             resample_chart_plain       csrc/resample.cu
 K4c   pdf.resample_score             resample_score_plain       csrc/resample.cu
 K5    merge.sorted_uniform           sorted_uniform_plain       csrc/sorted_uniform.cu
 K6    volrend.composite              composite_plain            csrc/composite.cu
+K6e   volrend.composite(envmap=)     composite_plain(envmap=)   csrc/composite.cu
 K6b   volrend.composite_bwd          composite_bwd_plain        csrc/composite.cu
 K7    chart.chart_fwd                chart_fwd_plain            csrc/chart.cu
 K8    envmap.envmap_fwd              envmap_fwd_plain           csrc/envmap.cu
@@ -39,8 +40,13 @@ instead (the cull's oracle scorer takes its depths); K12 itself
 stays out of ``Ops``.  ``KERNELS`` is what the models call.  ``PLAIN``
 runs the plain versions on any device; it is the reference the kernels
 are held against on the card.
+K6e is K6 with K8's envmap lookup inside (the envmap form of
+``composite``: the table and the view directions in place of the
+radiance); the EgoNeRF forward takes it, and the envmap's pretrain phase
+and TensorVMSplit's envmap take K8 itself.
 K2, K6b and K8b are the backwards of K1, K6 and K8 inside the autograd
-Functions ``vm_lookup.field_train``, ``volrend.composite_train`` and
+Functions ``vm_lookup.field_train``, ``volrend.composite_train`` (which
+also gives K6e's table its gradient through K8b) and
 ``envmap.envmap_train``.  K10 (``mm``: the forward ``a @ b``; ``mm_da`` and
 ``mm_db``: its backward's two contractions, all bf16 x bf16 -> float32) runs
 inside ``mm.mixed_matmul`` and K11 (``bias_grad``) is the backward of

@@ -2,19 +2,23 @@
 backward K6b (counterpart of ``egonerf_tpu/ops/volrend.py`` and the
 composites of ``egonerf_tpu/models/egonerf.py:466-493`` and
 ``models/tensorf.py:226-258``), with the envmap's background blend where
-the caller gives its radiance, and TensoRF's two sample gates where the
-caller gives them: ``valid`` (sigma 0 outside the box and the alpha mask)
-and ``rgb_thres`` (rgb 0 where the weight is not above it)."""
+the caller gives its radiance or, K6e, the envmap's table and the view
+directions (K8's lookup inside the composite), and TensoRF's two sample
+gates where the caller gives them: ``valid`` (sigma 0 outside the box and
+the alpha mask) and ``rgb_thres`` (rgb 0 where the weight is not above
+it)."""
 from __future__ import annotations
 
 import ctypes
 import math
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
 
 from .._build import check_launch, kernel
-from .._device import check_tensor
+from .._device import check_rows, check_tensor
+from .envmap import INV_2PI, envmap_bwd, envmap_fwd_plain
 
 ACTIVATIONS = ("softplus", "relu")
 
@@ -115,9 +119,15 @@ def _gate(weight: torch.Tensor, rgb: torch.Tensor, rgb_thres: Optional[float]):
 
 
 def composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift=-8.0,
-                    distance_scale=25.0, act="softplus", env=None, valid=None, rgb_thres=None):
-    """Plain version of K6: see :func:`composite`.  The transmittance is
-    taken in K6's order, so the rgb gate decides as K6 does."""
+                    distance_scale=25.0, act="softplus", env=None, valid=None, rgb_thres=None,
+                    envmap=None, viewdirs=None):
+    """Plain version of K6 and K6e: see :func:`composite`.  The
+    transmittance is taken in K6's order, so the rgb gate decides as K6
+    does; K6e's radiance is K8's plain version."""
+    if envmap is not None:
+        env = envmap_fwd_plain(envmap, viewdirs)
+        return composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale,
+                               act, env, valid, rgb_thres) + (env,)
     weight, bg_weight = _warp_transmittance(
         _alpha(feat, dists, density_shift, distance_scale, act, valid))
     rgb = _gate(weight, rgb, rgb_thres)
@@ -130,8 +140,9 @@ def composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift=-8.0,
     return (x + bg_map).clamp(0.0, 1.0), depth, acc, bg_weight, bg_map
 
 
-_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_float, ctypes.c_int, ctypes.c_float] + \
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float] + \
     [ctypes.c_void_p] * 6
 
 
@@ -151,7 +162,8 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
               rgb: torch.Tensor, ray_dz: torch.Tensor, density_shift: float = -8.0,
               distance_scale: float = 25.0, act: str = "softplus",
               env: Optional[torch.Tensor] = None, valid: Optional[torch.Tensor] = None,
-              rgb_thres: Optional[float] = None) -> Tuple[torch.Tensor, ...]:
+              rgb_thres: Optional[float] = None, envmap: Optional[torch.Tensor] = None,
+              viewdirs: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """K6: per ray, sigma = feature2density(feat), 0 where ``valid`` is
     False; alpha = 1 -
     exp(-sigma * dists * distance_scale); the exclusive transmittance;
@@ -165,16 +177,25 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
     is above it (TensoRF's ``ray_march_weight_thres``); acc and depth keep
     every weight.
 
+    K6e: with the envmap's ``envmap`` table (2h, h, 3) and ``viewdirs``
+    (R, 3; any row stride, the (R, 6) rays' columns 3:6) in place of
+    ``env``, the kernel computes env as K8 does (:func:`envmap.envmap_fwd`,
+    the same bits) and blends it as above; no gates with it.
+
     feat, dists, z_vals (R, S), rgb (R, S, 3), ray_dz (R,), env (R, 3) or
     None, all float32; valid (R, S) bool or None.  Returns rgb_map (R, 3),
-    depth (R,), acc (R,), bg_weight (R, 1), and bg_map (R, 3) with ``env``.
+    depth (R,), acc (R,), bg_weight (R, 1), and bg_map (R, 3) with ``env``;
+    with ``envmap`` also env (R, 3) after bg_map.
 
     Replaces ``raw2alpha`` + ``feature2density`` + the composite of
     ``EgoNeRF.forward`` with its envmap blend and of ``TensorBase.forward``
     with its gates (egonerf_tpu/ops/volrend.py:11-24,
     models/egonerf.py:99-104,466-493, models/tensorf.py:226-258), forward
-    only.  Kernel:
-    csrc/composite.cu.  CPU tensors take :func:`composite_plain`."""
+    only; K6e also ``envmap_radiance`` (egonerf_tpu/models/envmap.py:39-43).
+    Kernel: csrc/composite.cu (+ csrc/envmap.cuh).  A launch counts in
+    ``composite.launches``, with ``env`` in ``composite.env_form.launches``
+    and with ``envmap`` in ``composite.envmap_form.launches`` instead.  CPU
+    tensors take :func:`composite_plain`."""
     check_tensor("feat", feat, torch.float32, (None, None))
     r, s = feat.shape
     for name, t, shape in (("dists", dists, (r, s)), ("z_vals", z_vals, (r, s)),
@@ -182,6 +203,16 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
         check_tensor(name, t, torch.float32, shape, feat.device)
     if env is not None:
         check_tensor("env", env, torch.float32, (r, 3), feat.device)
+    h = 0
+    if envmap is not None:
+        if env is not None or valid is not None or rgb_thres is not None:
+            raise ValueError("composite: the envmap form takes no env and no gates")
+        check_tensor("envmap", envmap, torch.float32, (None, None, 3), feat.device)
+        h = envmap.shape[1]
+        if h < 2 or envmap.shape[0] != 2 * h:
+            raise ValueError(f"envmap: expected shape (2h, h, 3) with h >= 2, got "
+                             f"{tuple(envmap.shape)}")
+        check_rows("viewdirs", viewdirs, r, 3, feat.device)
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown density activation {act!r}")
     if s < 1 or s > 3072:  # the kernel keeps 4 warps x S alphas in 48 KB
@@ -189,28 +220,39 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
     thres = _check_gates(valid, rgb_thres, r, s, feat.device)
     if feat.device.type == "cpu":
         return composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift,
-                               distance_scale, act, env, valid, rgb_thres)
+                               distance_scale, act, env, valid, rgb_thres, envmap, viewdirs)
     dev = feat.device
     rgb_map = torch.empty(r, 3, dtype=torch.float32, device=dev)
     depth = torch.empty(r, dtype=torch.float32, device=dev)
     acc = torch.empty(r, dtype=torch.float32, device=dev)
     bg = torch.empty(r, 1, dtype=torch.float32, device=dev)
-    bg_map = None if env is None else torch.empty(r, 3, dtype=torch.float32, device=dev)
+    blend = env is not None or envmap is not None
+    bg_map = torch.empty(r, 3, dtype=torch.float32, device=dev) if blend else None
+    env_out = None if envmap is None else torch.empty(r, 3, dtype=torch.float32, device=dev)
     if r:
         fn = kernel("composite", "composite_fwd", _ARGS)
         with torch.cuda.device(dev):
             err = fn(feat.data_ptr(), dists.data_ptr(), z_vals.data_ptr(),
-                     rgb.data_ptr(), ray_dz.data_ptr(), _ptr(env), _ptr(valid), r, s,
-                     float(density_shift), float(distance_scale), ACTIVATIONS.index(act),
-                     thres, rgb_map.data_ptr(), depth.data_ptr(), acc.data_ptr(),
-                     bg.data_ptr(), _ptr(bg_map), torch.cuda.current_stream(dev).cuda_stream)
+                     rgb.data_ptr(), ray_dz.data_ptr(), _ptr(env), _ptr(valid), _ptr(viewdirs),
+                     0 if viewdirs is None else viewdirs.stride(0), _ptr(envmap), h, INV_2PI,
+                     _ptr(env_out), r, s, float(density_shift), float(distance_scale),
+                     ACTIVATIONS.index(act), thres, rgb_map.data_ptr(), depth.data_ptr(),
+                     acc.data_ptr(), bg.data_ptr(), _ptr(bg_map),
+                     torch.cuda.current_stream(dev).cuda_stream)
         check_launch("composite_fwd", err)
-        composite.launches += 1
+        (composite if not blend else composite.envmap_form if envmap is not None
+         else composite.env_form).launches += 1
     outs = (rgb_map, depth, acc, bg)
+    if envmap is not None:
+        return outs + (bg_map, env_out)
     return outs if env is None else outs + (bg_map,)
 
 
+# K6's launches, and those of its two background forms apart: K6 with a
+# given env and K6e
 composite.launches = 0
+composite.env_form = SimpleNamespace(launches=0)
+composite.envmap_form = SimpleNamespace(launches=0)
 
 
 def clip_grad(x: torch.Tensor) -> torch.Tensor:
@@ -251,6 +293,21 @@ _BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                      ctypes.c_float, ctypes.c_int, ctypes.c_float] + \
     [ctypes.c_void_p] * 4
 
+_GEOMETRY_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def bwd_geometry(s: int, gated: bool = False, device=None) -> Tuple[int, int]:
+    """K6b's launch geometry on a CUDA ``device`` (the current one by
+    default) for rays of ``s`` samples, as :func:`composite_bwd`'s entry
+    chooses it (``gated``: its gated instantiation): (warps a block, the
+    block's dynamic shared bytes)."""
+    warps, smem = ctypes.c_int(), ctypes.c_int()
+    fn = kernel("composite", "composite_bwd_geometry", _GEOMETRY_ARGS)
+    with torch.cuda.device(device):
+        err = fn(s, int(gated), ctypes.addressof(warps), ctypes.addressof(smem))
+    check_launch("composite_bwd_geometry", err)
+    return warps.value, smem.value
+
 
 def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
                   d_rgb_map: torch.Tensor, density_shift: float = -8.0,
@@ -288,7 +345,7 @@ def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
         check_tensor("env", env, torch.float32, (r, 3), feat.device)
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown density activation {act!r}")
-    if s < 1 or s > 1536:  # the kernel keeps 4 warps x 2S floats in 48 KB
+    if s < 1 or s > 1536:  # a ray's staged rows within the 48 KB of a one-warp block
         raise ValueError(f"composite_bwd takes 1..1536 samples per ray, got {s}")
     thres = _check_gates(valid, rgb_thres, r, s, feat.device)
     if feat.device.type == "cpu":
@@ -315,32 +372,41 @@ composite_bwd.launches = 0
 
 class _Composite(torch.autograd.Function):
     """K6 forward, K6b backward (``fwd`` and ``bwd`` are an ``Ops`` pair,
-    so the plain versions run through the same Function)."""
+    so the plain versions run through the same Function).  In the envmap
+    form (K6e) the table takes its gradient from K6b's d env through
+    ``env_bwd`` (K8b), given K6e's env."""
 
     @staticmethod
-    def forward(ctx, feat, dists, z_vals, rgb, ray_dz, env, valid, density_shift,
-                distance_scale, act, rgb_thres, fwd, bwd):
+    def forward(ctx, feat, dists, z_vals, rgb, ray_dz, env, valid, envmap, viewdirs,
+                density_shift, distance_scale, act, rgb_thres, fwd, bwd, env_bwd):
         outs = fwd(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act, env,
-                   valid, rgb_thres)
-        ctx.save_for_backward(feat, dists, rgb, env, valid)
-        ctx.args = (density_shift, distance_scale, act, rgb_thres, bwd)
+                   valid, rgb_thres, envmap, viewdirs)
+        if envmap is not None:
+            env = outs[5]
+        ctx.save_for_backward(feat, dists, rgb, env, valid, viewdirs)
+        ctx.args = (density_shift, distance_scale, act, rgb_thres, bwd, env_bwd,
+                    None if envmap is None else envmap.shape[1])
         ctx.mark_non_differentiable(*outs[1:])
         return outs
 
     @staticmethod
     def backward(ctx, d_rgb_map, *_):
-        feat, dists, rgb, env, valid = ctx.saved_tensors
-        shift, scale, act, rgb_thres, bwd = ctx.args
+        feat, dists, rgb, env, valid, viewdirs = ctx.saved_tensors
+        shift, scale, act, rgb_thres, bwd, env_bwd, h = ctx.args
         grads = bwd(feat, dists, rgb, d_rgb_map.contiguous(), shift, scale, act, env, valid,
                     rgb_thres)
         d_env = grads[2] if env is not None else None
-        return (grads[0], None, None, grads[1], None, d_env) + (None,) * 7
+        d_table = None
+        if h is not None:
+            d_table, d_env = env_bwd(viewdirs, env, d_env, h), None
+        return (grads[0], None, None, grads[1], None, d_env, None, d_table) + (None,) * 8
 
 
 def composite_train(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act,
-                    fwd=composite, bwd=composite_bwd, env=None, valid=None, rgb_thres=None):
+                    fwd=composite, bwd=composite_bwd, env=None, valid=None, rgb_thres=None,
+                    envmap=None, viewdirs=None, env_bwd=envmap_bwd):
     """:func:`composite` with a gradient: rgb_map is differentiable in feat
-    and rgb (and ``env``) through ``bwd`` (K6b); depth, acc, bg and bg_map
-    are not."""
-    return _Composite.apply(feat, dists, z_vals, rgb, ray_dz, env, valid, density_shift,
-                            distance_scale, act, rgb_thres, fwd, bwd)
+    and rgb (and ``env``, or the ``envmap`` table through ``env_bwd``, K8b)
+    through ``bwd`` (K6b); depth, acc, bg, bg_map and K6e's env are not."""
+    return _Composite.apply(feat, dists, z_vals, rgb, ray_dz, env, valid, envmap, viewdirs,
+                            density_shift, distance_scale, act, rgb_thres, fwd, bwd, env_bwd)
