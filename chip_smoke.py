@@ -14,7 +14,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    on hard rays: zero density, one spike, repeated coarse depths, u near 1
    and on the cdf's edges, u reversed; its epilogue's coords equal to K7's
    on the same depths bit for bit), each kernel of the training step (K2,
-   K4, K5, K6b) on the inputs of one production training step, K1, K3 and
+   K4, K5, K6b) on the inputs of one production training step (K4's and
+   K4c's training instantiations, which draw K5's uniforms in their
+   prologue, bit for bit with K5 followed by the op at 128 and 1, 33, 48,
+   97, 255 draws a ray, without the merge and on K4's hard rays), K1, K3 and
    K2 at the smoke config's widths and at one the kernels' scalar
    instantiation takes, and the envmap's (K6e, K6 with K8's lookup inside:
    its env bit for bit with K8's and its other outputs with K8 + K6's, also
@@ -37,7 +40,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. production training steps through ``Trainer.train_step`` (batch 4096,
    128 + 128 samples, N_voxel 27e6, MSE, Adam) on the synthetic scene:
    step ms, train rays/s, peak memory, every kernel launched once per
-   step (K7 for the coarse chart, the fine one in K4), and where the time
+   step (K7 for the coarse chart, the fine one in K4; K4 in its training
+   instantiation, which draws K5's uniforms, so no K5), and where the time
    goes from torch.profiler (K2's share of the step too, as in phases 10
    and 16);
 7. one production training step with the kernels and with the plain
@@ -136,6 +140,9 @@ theta-importance sampler) likewise:
    full and cropped to roi [0.05, 0.95, 0, 1], on hard uniforms (0, every
    cdf value and its float32 neighbours, above the cdf's end), on a cdf
    with ties ending below 1 and at h = 1, timed beside ``torch.searchsorted``;
+   K14f, the sampler drawing, picking and gathering a batch in one launch,
+   ids and rows bit for bit with its plain version (both rasters at two
+   batch counters, 2^20 draws, ties, h = 1, a cdf read unstaged);
    K15 (one bf16 table's plane or line lookup, no gradient) and K16 (a
    float32 line stack's linear sample), which no path calls, at the fine
    grid's shapes over 1,048,576 points (each also at S = 1) within REL_TOL
@@ -145,7 +152,7 @@ theta-importance sampler) likewise:
     capture from the port's writer, its COLMAP and OpenVSLAM poses against
     the render's (1e-5), its rays and pixels against ``trace_rays`` (1e-5,
     1.5/255), and the recipe through the command line with
-    ``theta_importance`` (K14 once a step): test PSNR above 8.5 dB (below
+    ``theta_importance`` (K14f once a step, no K14): test PSNR above 8.5 dB (below
     every seed's in either package); then the recipe trained 600 steps,
     its PSNR 3 dB above a constant colour's (the train frames' mean), which
     is what a field trained on shuffled pixels reaches;
@@ -153,9 +160,10 @@ theta-importance sampler) likewise:
     1920x960 capture of 8 frames (6 train, 2 test); the PNG codec on one of
     its frames written again with Average, with Paeth and by PIL (pixels
     equal, timed beside PIL); through the command line
-    with ``theta_importance`` (K14 once a step), then steps timed under theta
-    and under ``simple`` in this process, one test view (s/image, peak
-    memory, PSNR as a record) and K14's distribution over 2^24 draws (every
+    with ``theta_importance`` (K14f once a step), then steps timed and
+    profiled under theta and under ``simple`` in this process, one test view
+    (s/image, peak memory, PSNR as a record) and K14f's distribution over
+    2^24 draws (every
     row, image and column within 6 binomial deviations);
 21. ``configs/egonerf/omniblender/archiviz-flat.txt`` on a 2000x1000
     OmniBlender-layout scene of 6 frames written here: 20 steps through the
@@ -193,6 +201,10 @@ K2_TOL = 1e-4
 # K5: the same Philox bits and float64 logs; only the float32 cumsum order
 # differs, on values in (0, 1)
 K5_TOL = 1e-6
+# the draws a ray at which K4's and K4c's training instantiations are held
+# to K5 then the op, beside the production 128: n + 1 off the 4- and
+# 32-grids, one draw, and more than a lane's 4 in K4c
+DRAW_SWEEP = (48, 1, 33, 97, 255)
 # K7 vs plain, on the normalized coords in [-1, 1]: the kernel repeats the
 # plain version's float32 steps one by one, but its acos and atan2 come
 # from the CUDA math library nvcc links and torch's from the one torch was
@@ -248,7 +260,8 @@ PORT_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
                 "mm_fwd_kernel", "mm_fwd_narrow_kernel", "mm_rows_kernel", "mm_db_kernel",
                 "mm_db_sum_kernel",
                 "bias_grad_part_kernel", "bias_grad_sum_kernel", "cull_score_kernel",
-                "top_k_kernel", "theta_ids_kernel", "vm_sample_kernel", "line_sample_kernel")
+                "top_k_kernel", "theta_ids_kernel", "theta_batch_kernel", "vm_sample_kernel",
+                "line_sample_kernel")
 TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 5, 20, 3
 SMOKE_ITERS = 300
 DEVICE = "cuda"
@@ -408,10 +421,11 @@ def max_err(outs, refs):
 
 
 def profile(run, n: int, label: str, unit: str, top: int = 12) -> dict:
-    """Device time by kernel over ``run()`` (``n`` units of work), and the
+    """Device time by kernel over ``run()`` (``n`` units of work), the
     share of the wall time the device was busy (under the profiler's
-    overhead).  Returns {kernel name: device ms a unit} ({} when the
-    profiler saw no device time)."""
+    overhead), and the device operations (kernels, copies, sets) a unit.
+    Returns {kernel name: device ms a unit} ({} when the profiler saw no
+    device time)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -432,7 +446,8 @@ def profile(run, n: int, label: str, unit: str, top: int = 12) -> dict:
         return {}
     print(f"{label} profile over {n} {unit}s: device busy {busy_ms:.3f} ms of "
           f"{wall_ms:.3f} ms wall ({busy_ms / wall_ms:.1%}), {busy_ms / n:.3f} "
-          f"ms/{unit} on the device", flush=True)
+          f"ms/{unit} on the device, {sum(c for *_, c in rows) / n:.1f} device operations "
+          f"a {unit}", flush=True)
     for name, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"{label}   {ms / n:9.4f} ms/{unit} {ms / busy_ms:6.1%} "
               f"x{count // n:<3d} {name[:90]}", flush=True)
@@ -467,10 +482,10 @@ class Recorder:
     """A kernel wrapper that keeps the arguments of its last call."""
 
     def __init__(self, fn):
-        self.fn, self.args = fn, None
+        self.fn, self.args, self.kwargs = fn, None, {}
 
     def __call__(self, *args, **kwargs):
-        self.args = args
+        self.args, self.kwargs = args, kwargs
         return self.fn(*args, **kwargs)
 
 
@@ -957,9 +972,96 @@ def render_kernel_checks(model, params, dirs, ops, presets, dists_of) -> dict:
     return table
 
 
+def drawn_u(ops, args, draw) -> tuple:
+    """K4's or K4c's arguments ``args`` (u None) with K5's uniforms for the
+    ``draw`` key (seed, step) as u: the launches that the training
+    instantiation's prologue replaces."""
+    u = ops.KERNELS.sorted_uniform(args[0].shape[0], args[3], *draw, args[0].device)
+    return (*args[:4], u, *args[5:])
+
+
+def draw_equal(name, ops, op, args, draw, rays=()) -> None:
+    """``op`` (K4's ``resample_chart`` with ``rays``, or K4c's
+    ``resample_score``) with the ``draw`` key on ``args`` (u None) against
+    K5 followed by ``op`` on its uniforms: every output (z_vals, dists, and
+    the coords or the scores) bit for bit."""
+    got = op(*args, *rays, draw=draw)
+    want = op(*drawn_u(ops, args, draw), *rays)
+    torch.cuda.synchronize()
+    diff = bits_differ(got, want)
+    print(f"phase 2 {name}: {diff} of {sum(w.numel() for w in want):,} outputs differ from K5 "
+          f"then the same op on its uniforms (bit for bit) -> {'ok' if diff == 0 else 'MISS'}",
+          flush=True)
+    if diff:
+        fail(f"{name}: the draw in the prologue differs from K5's")
+
+
+def draw_checks(ops, args, rays, draw, far) -> dict:
+    """Phase 2, K5's draw in the prologue of K4's and K4c's training
+    instantiations, on a recorded production training step (``args``: K4's
+    arguments with u None; ``rays``: the chart's; ``draw``: the step's key):
+    each bit for bit with K5 followed by the same op on K5's uniforms, at the
+    step's 128 + 128 and at DRAW_SWEEP draws a ray (n + 1 off the 4- and
+    32-grids), on K4's hard rays and without the merge; the fused launch
+    against its plain version (the key's plain draws, K4's limit) and timed
+    beside the pair it replaces.  Returns the rows "K4+draw", "K4c+draw"."""
+    c_feat, coarse_z, coarse_dists, n_f = args[:4]
+    act = args[6:9]
+    r, n_c = c_feat.shape
+    chart_op, score_op = ops.KERNELS.resample_chart, ops.KERNELS.resample_score
+    for f in (n_f, *DRAW_SWEEP):
+        a = (c_feat, coarse_z, coarse_dists, f, None, True, *act)
+        draw_equal(f"K4 + draw ({r} x {n_c} + {f})", ops, chart_op, a, draw, rays)
+        draw_equal(f"K4c + draw ({r} x {n_c} + {f})", ops, score_op, a, draw)
+    a = (c_feat, coarse_z, coarse_dists, n_f, None, False, *act)
+    draw_equal("K4 + draw (no merge)", ops, chart_op, a, draw, rays)
+    draw_equal("K4c + draw (no merge)", ops, score_op, a, draw)
+    u = drawn_u(ops, args, draw)[4]
+    for label, f_h, z_h, d_h, u_h in k4_hard_inputs(c_feat, coarse_z, n_f, act, u):
+        if u_h is not None:  # the hard uniforms are not draws
+            continue
+        a = (f_h, z_h, d_h, n_f, None, True, *act)
+        r_h = f_h.shape[0]
+        draw_equal(f"K4 + draw ({label})", ops, chart_op, a, draw,
+                   (rays[0][:r_h], rays[1][:r_h], rays[2]))
+        draw_equal(f"K4c + draw ({label})", ops, score_op, a, draw)
+
+    table = {}
+    n_out = n_c + n_f
+    n_grid = rays[2].ref_grid.shape[0]
+    # a draw: a quarter of a Philox block (10 rounds, ~8 integer operations
+    # each), its float64 log (~20), the running sum and the division
+    draw_ops = r * (n_f + 1) * 45
+    for key, name, op, extra, cost in (
+            ("K4+draw", "K4 + draw (training)", chart_op, rays,
+             k4_cost(c_feat, n_f, n_out, n_grid=n_grid)),
+            ("K4c+draw", "K4c + draw (training)", score_op, (), k4c_cost(c_feat, n_f, n_out))):
+        plain = ops.PLAIN.resample_chart if op is chart_op else ops.PLAIN.resample_score
+        got, ref = op(*args, *extra, draw=draw), plain(*args, *extra, draw=draw)
+        torch.cuda.synchronize()
+        abs_err = max_err(got[:2], ref[:2])[0]
+        check_close(f"{name} against its plain version (z_vals, dists)",
+                    f"abs <= {REL_TOL * far:.1e}, 1e-5 x far: K5's float32 sums in another "
+                    f"order", abs_err <= REL_TOL * far, abs_err, abs_err / far)
+        with_u = drawn_u(ops, args, draw)
+        pair = time_ms(lambda: op(*drawn_u(ops, args, draw), *extra))
+        k5 = time_ms(lambda: ops.KERNELS.sorted_uniform(r, n_f, *draw, c_feat.device))
+        alone = time_ms(lambda: op(*with_u, *extra))
+        table[key] = kernel_row(
+            name, "egonerf_torch/csrc/resample.cu", "egonerf_tpu/ops/merge.py:25", abs_err,
+            time_ms(lambda: op(*args, *extra, draw=draw)),
+            time_ms(lambda: plain(*args, *extra, draw=draw), reps=5), cost[0],
+            cost[1] + draw_ops)
+        print(f"phase 2 {name}: one launch {table[key]['ms']:.4f} ms; the pair it replaces, K5 "
+              f"then the op on K5's uniforms, {pair:.4f} ms back to back (K5 {k5:.4f} + the op "
+              f"{alone:.4f} = {k5 + alone:.4f})", flush=True)
+    return table
+
+
 def train_kernel_checks(trainer, ops) -> dict:
     """Phase 2, training step: K2, K4, K5, K6b on the inputs one production
-    training step gives them (recorded from a real step)."""
+    training step gives them (recorded from a real step), and K4's and
+    K4c's training instantiations with K5's draw in their prologue."""
     model = trainer.model
     cfg = model.cfg
     rec_k1 = Recorder(ops.KERNELS.field)
@@ -971,8 +1073,12 @@ def train_kernel_checks(trainer, ops) -> dict:
     trainer.train_step(0)
     model.ops = ops.KERNELS
     torch.cuda.synchronize()
-    table = {}
-    k4_checks("training step", ops, rec_r.args[:9], model.near_far[1], rec_r.args[9:12])
+    # the step drew its u in K4's prologue: K4 checked on K5's uniforms for
+    # the step's key, and the draw itself by draw_checks
+    draw = rec_r.kwargs["draw"]
+    k4_checks("training step", ops, drawn_u(ops, rec_r.args[:9], draw), model.near_far[1],
+              rec_r.args[9:12])
+    table = draw_checks(ops, rec_r.args[:9], rec_r.args[9:12], draw, model.near_far[1])
 
     coords, line_hat = rec_f.args[0], rec_f.args[7]
     n = coords.shape[0]
@@ -1342,10 +1448,11 @@ def timed_steps(step, label: str, cfg, wrappers, want: dict, warmup: int = TRAIN
 def step_launches(wrappers, envmap: bool) -> dict:
     """The launches of ``TRAIN_STEPS`` EgoNeRF training steps in the default
     form: each kernel of K1-K7 once a step (K7 the coarse chart, the fine
-    one in K4's epilogue; with the envmap K6 is K6e, and K8b gives the
-    table its gradient, no K8), never K9 (EgoNeRF's
+    one in K4's epilogue; K4 its training instantiation, which draws K5's
+    uniforms in its prologue, so no K5; with the envmap K6 is K6e, and K8b
+    gives the table its gradient, no K8), never K9 (EgoNeRF's
     forward reads no mask), nor K10 and K11 (the opt-in shader forms)."""
-    per_step = {"K1", "K2", "K3", "K4", "K5", "K6b", "K7"} | (
+    per_step = {"K1", "K2", "K3", "K4", "K4+draw", "K6b", "K7"} | (
         {"K6e", "K8b"} if envmap else {"K6"})
     return {k: TRAIN_STEPS if k in per_step else 0 for k in wrappers}
 
@@ -2388,7 +2495,12 @@ def cull_kernel_checks(model, params, dirs, ops, presets, trainer) -> dict:
         model_t.ops = ops.KERNELS
         cfg_t.train_keep = 0
     torch.cuda.synchronize()
-    t_args = logs["resample_score"].args
+    # the step drew its u in K4c's prologue: the checks on K5's uniforms for
+    # its key, and the draw itself bit for bit
+    t_draw = logs["resample_score"].kwargs["draw"]
+    draw_equal("K4c + draw (culled training step)", ops, ops.KERNELS.resample_score,
+               logs["resample_score"].args, t_draw)
+    t_args = drawn_u(ops, logs["resample_score"].args, t_draw)
     k4c_compare("K4c resample_score (training step)", ops, t_args, model_t.near_far[1])
     k4_weights_compare("K4 weights (training step)", ops, t_args, model_t.near_far[1])
     tw = ops.KERNELS.resample_weights(*t_args)
@@ -2515,17 +2627,18 @@ def cull_render_phases(model, params, dirs_np, ops, presets, wrappers, unculled_
     return views[CULL_KEEPS[0]][0]
 
 
-def cull_train_phases(trainer, ops, wrappers, unculled_ms) -> None:
+def cull_train_phases(trainer, ops, wrappers, unculled_ms) -> dict:
     """Phases 6c and 7c: TRAIN_STEPS timed production steps at train_keep
     CULL_TRAIN_KEEP with the tie-break, with Gumbel scores (tau 1) and with
     an unculled step every CULL_FULL_EVERY (each culled step launches K1-K3,
-    K4c, K5, K6, K6b and K13 once and K7 twice, no K4, K4w or K12; a full
-    step the default's kernels), then one culled step against the plain
-    versions with the same draws."""
+    K4c in its training instantiation (K5's draws in its prologue), K6, K6b
+    and K13 once and K7 twice, no K4, K4w, K5 or K12; a full step the
+    default's kernels), then one culled step against the plain versions
+    with the same draws.  Returns the launches of the tie-break's steps."""
     cfg = trainer.cfg
-    culled = {"K1", "K2", "K3", "K4c", "K5", "K6", "K6b", "K13"}
+    culled = {"K1", "K2", "K3", "K4c", "K4c+draw", "K6", "K6b", "K13"}
     full = step_launches(wrappers, envmap=False)
-    medians = {}
+    medians, launches = {}, {}
     try:
         for label, tau, every in (("tie-break", 0.0, 0), ("Gumbel, tau 1", 1.0, 0),
                                   (f"full step every {CULL_FULL_EVERY}", 0.0, CULL_FULL_EVERY)):
@@ -2536,7 +2649,7 @@ def cull_train_phases(trainer, ops, wrappers, unculled_ms) -> None:
             want = {k: (full[k] // TRAIN_STEPS) * n_full
                     + (TRAIN_STEPS - n_full) * ((k in culled) + (k == "K7") * 2)
                     for k in wrappers}
-            _, medians[label] = timed_steps(
+            launches[label], medians[label] = timed_steps(
                 trainer.train_step, f"phase 6c train_keep {CULL_TRAIN_KEEP}, {label}", cfg,
                 wrappers, want)
     finally:
@@ -2545,6 +2658,7 @@ def cull_train_phases(trainer, ops, wrappers, unculled_ms) -> None:
           + ", ".join(f"{k} {v:.3f} ({v / unculled_ms:.1%})" for k, v in medians.items())
           + " (the last a culled step: its mean is in its line)", flush=True)
     step_vs_plain(trainer, ops, "phase 7c", cull_keep=CULL_TRAIN_KEEP)
+    return launches["tie-break"]
 
 
 def cull_quality_phase(root: str, smoke_psnr: float) -> None:
@@ -2598,6 +2712,32 @@ def ids_equal(name, ops, args) -> None:
           f"(0 allowed) -> {'ok' if diff == 0 else 'MISS'}", flush=True)
     if diff:
         fail(f"{name} disagrees with its plain version")
+
+
+def theta_launches(wrappers, steps: int) -> str:
+    """The theta sampler's launches over ``steps`` theta steps: K14f once a
+    step and no K14 (the row pick alone); fails otherwise."""
+    k14f, k14 = wrappers["K14f"].launches, wrappers["K14"].launches
+    if k14f != steps or k14:
+        fail(f"{k14f} K14f and {k14} K14 launches over {steps} theta steps (expect {steps} "
+             f"and 0)")
+    return f"K14f launched {k14f} times (expect {steps}), K14 {k14} (expect 0)"
+
+
+def batch_equal(name, ops, args) -> torch.Tensor:
+    """K14f against its plain version on ``args``: every id and every row
+    value bit for bit.  Returns the ids."""
+    got, ref = ops.KERNELS.theta_batch(*args), ops.PLAIN.theta_batch(*args)
+    torch.cuda.synchronize()
+    same = all(g.shape == r.shape for g, r in zip(got, ref))
+    d_ids = int((got[0] != ref[0]).sum()) if same else -1
+    d_rows = bits_differ(got[1:], ref[1:]) if same else -1
+    print(f"phase 2 {name}: {d_ids} of {ref[0].numel():,} ids and {d_rows} of "
+          f"{ref[1].numel():,} row values differ from the plain version's (0 allowed) -> "
+          f"{'ok' if d_ids == d_rows == 0 else 'MISS'}", flush=True)
+    if d_ids or d_rows:
+        fail(f"{name} disagrees with its plain version")
+    return got[0]
 
 
 def hard_uniforms(cdf: torch.Tensor) -> torch.Tensor:
@@ -2661,10 +2801,52 @@ def theta_kernel_checks(ops) -> dict:
     # multiply-adds
     n_ops = u.shape[0] * (2 * int(np.ceil(np.log2(h))) + 6)
     lib_ms = time_ms(lambda: torch.searchsorted(cdf, u, side="left"))
-    return {"K14": kernel_row(
+    table = {"K14": kernel_row(
         "K14", "egonerf_torch/csrc/theta_sampler.cu", "egonerf_tpu/data/samplers.py:98", 0.0,
         time_ms(lambda: ops.KERNELS.theta_ids(*args)),
         time_ms(lambda: ops.PLAIN.theta_ids(*args), reps=5), n_bytes, n_ops, library_ms=lib_ms)}
+    table["K14f"] = theta_batch_checks(ops, gen)
+    return table
+
+
+def theta_batch_checks(ops, gen) -> dict:
+    """Phase 2, K14f (the theta sampler drawing, picking and gathering a
+    batch in one launch) bit for bit against its plain version: a
+    production batch (4,096 draws) of each Ricoh raster's buffer at two
+    consecutive batch counters, which must differ, 2^20 draws (the grid
+    strides), K14's cdf with ties ending below 1, h = 1, and a cdf too long
+    to stage.  Returns its row, on the roi-cropped raster."""
+    dev = torch.device(DEVICE)
+    for roi in THETA_ROIS:
+        sam = theta_raster(roi)
+        cdf = torch.as_tensor(np.cumsum(sam.weight).astype(np.float32), device=dev)
+        buffer = torch.rand(sam.img_len * sam.w * sam.h, 9, generator=gen, device=dev)
+        ids = [batch_equal(f"K14f {sam.w}x{sam.h} raster, roi {list(roi)}, batch {t}", ops,
+                           (buffer, cdf, sam.w, sam.h, THETA_DRAWS, SEED, t)) for t in (1, 2)]
+        same = int((ids[0] == ids[1]).sum())
+        print(f"phase 2 K14f batches 1 and 2: {same} of {THETA_DRAWS} ids equal", flush=True)
+        if same > THETA_DRAWS // 100:
+            fail("K14f's consecutive batches repeat their draws")
+    batch_equal(f"K14f {sam.w}x{sam.h} raster, {1 << 20:,} draws", ops,
+                (buffer, cdf, sam.w, sam.h, 1 << 20, SEED, 3))
+    ties = torch.tensor([0.1, 0.1, 0.1, 0.5, 0.5, 0.9999], device=dev)
+    long_cdf = torch.as_tensor(np.cumsum(np.full(20000, 1 / 20000)).astype(np.float32),
+                               device=dev)
+    for label, c, w in (("ties and a cdf ending below 1", ties, 1),
+                        ("h = 1", torch.ones(1, device=dev), 5),
+                        (f"h = {long_cdf.shape[0]:,} (the cdf read, not staged)", long_cdf, 1)):
+        small = torch.rand(4 * c.shape[0] * w, 9, generator=gen, device=dev)
+        batch_equal(f"K14f {label}", ops, (small, c, w, c.shape[0], 1 << 16, SEED, 4))
+    args = (buffer, cdf, sam.w, sam.h, THETA_DRAWS, SEED, 5)
+    # a draw: the id read and the row read and written; the cdf once
+    n_bytes = THETA_DRAWS * (8 + 2 * 36) + 4 * sam.h
+    # a draw: 10 Philox rounds (~8 integer operations each), the mapping,
+    # ceil(log2 h) probes of a compare and a select, the id's multiply-adds
+    n_ops = THETA_DRAWS * (80 + 6 + 2 * int(np.ceil(np.log2(sam.h))) + 6)
+    return kernel_row(
+        "K14f theta_batch", "egonerf_torch/csrc/theta_sampler.cu",
+        "egonerf_tpu/data/samplers.py:87", 0.0, time_ms(lambda: ops.KERNELS.theta_batch(*args)),
+        time_ms(lambda: ops.PLAIN.theta_batch(*args), reps=5), n_bytes, n_ops)
 
 
 def nograd_kernel_checks(ops) -> dict:
@@ -2771,7 +2953,7 @@ def egocentric_e2e_phase(root: str, wrappers) -> None:
     the port's writer, loaded under COLMAP and OpenVSLAM poses (the render
     poses to 1e-5; the roi-cropped rays to 1e-5 and pixels to 1.5/255 of
     ``trace_rays``), then the recipe trained through the command line with
-    ``theta_importance`` (K14 once a step): test PSNR above
+    ``theta_importance`` (K14f once a step, no K14): test PSNR above
     EGO_E2E_FLOOR_DB.  Then the recipe trained EGO_LONG_ITERS steps in this
     process: its untrained field's PSNR (a record) and the constant colour's
     (the train frames' mean), and its trained PSNR EGO_LONG_MARGIN_DB above
@@ -2831,15 +3013,12 @@ def egocentric_e2e_phase(root: str, wrappers) -> None:
     t0 = time.time()
     cli_main(argv_of(vis_list=f"[{iters}]", N_vis=-1))
     torch.cuda.synchronize()
-    k14 = wrappers["K14"].launches
     psnr = float(np.loadtxt(os.path.join(base, expname, "imgs_vis",
                                          f"{iters - 1:06d}_mean.txt"))[0])
     print(f"phase 19 JAX's egocentric recipe through the command line ({iters} iterations, "
           f"theta_importance, {time.time() - t0:.1f} s with its evaluation): test PSNR "
           f"{psnr:.2f} dB (JAX's test asserts {EGO_E2E['jax_psnr']:.1f} dB at its seed), floor "
-          f"{EGO_E2E_FLOOR_DB:.2f} dB; K14 launched {k14} times (expect {iters})", flush=True)
-    if k14 != iters:
-        fail(f"K14 launched {k14} times over {iters} theta steps")
+          f"{EGO_E2E_FLOOR_DB:.2f} dB; {theta_launches(wrappers, iters)}", flush=True)
     if not psnr > EGO_E2E_FLOOR_DB:
         fail(f"the egocentric recipe reached {psnr:.2f} dB, not above {EGO_E2E_FLOOR_DB:.2f}")
 
@@ -2854,15 +3033,12 @@ def egocentric_e2e_phase(root: str, wrappers) -> None:
     t0 = time.time()
     trainer.train()
     torch.cuda.synchronize()
-    k14 = wrappers["K14"].launches
     trained = float(np.mean(trainer._evaluate(None)))
     floor = const + EGO_LONG_MARGIN_DB
     print(f"phase 19 the recipe trained {EGO_LONG_ITERS} iterations ({time.time() - t0:.1f} s): "
           f"test PSNR {trained:.2f} dB, floor {floor:.2f} dB = the train frames' mean colour's "
           f"{const:.2f} dB + {EGO_LONG_MARGIN_DB}; untrained field {untrained:.2f} dB (a "
-          f"record); K14 launched {k14} times (expect {EGO_LONG_ITERS})", flush=True)
-    if k14 != EGO_LONG_ITERS:
-        fail(f"K14 launched {k14} times over {EGO_LONG_ITERS} theta steps")
+          f"record); {theta_launches(wrappers, EGO_LONG_ITERS)}", flush=True)
     if not trained > floor:
         fail(f"the recipe trained {EGO_LONG_ITERS} steps reached {trained:.2f} dB, not above "
              f"the constant colour's {const:.2f} + {EGO_LONG_MARGIN_DB} dB")
@@ -2896,17 +3072,17 @@ def view_phase(label: str, trainer) -> None:
 
 
 def theta_distribution(trainer, wrappers) -> None:
-    """K14's distribution on the card: THETA_DIST_DRAWS draws of the
-    trainer's sampler in one launch; every row's count within THETA_SIGMA
-    binomial deviations of draws * weight[row], every image's and column's
-    of the uniform count."""
+    """K14f's distribution on the card: THETA_DIST_DRAWS draws of the
+    trainer's sampler in one launch (a batch counter no step takes); every
+    row's count within THETA_SIGMA binomial deviations of draws *
+    weight[row], every image's and column's of the uniform count, and the
+    rows those of the ids."""
     s = trainer.sampler
     n = THETA_DIST_DRAWS
-    gen = torch.Generator(device=s.buffer.device).manual_seed(SEED + 29)
-    img = torch.randint(0, s.img_len, (n,), generator=gen, device=gen.device)
-    col = torch.randint(0, s.w, (n,), generator=gen, device=gen.device)
-    u = torch.rand(n, generator=gen, device=gen.device)
-    ids = wrappers["K14"](img, col, u, s.cdf, s.w, s.h)
+    ids, rows = wrappers["K14f"](s.buffer, s.cdf, s.w, s.h, n, s.seed, 2 ** 31)
+    if not torch.equal(rows, s.buffer[ids]):
+        fail("K14f's rows are not the buffer's rows at its ids")
+    del rows
     weight = np.diff(np.concatenate([[0.0], s.cdf.double().cpu().numpy()]))
     weight[-1] += 1.0 - float(s.cdf[-1])  # u above the cast cdf's end takes the last row
     worst = {}
@@ -2915,14 +3091,14 @@ def theta_distribution(trainer, wrappers) -> None:
                          ("column", ids % s.w, np.full(s.w, 1.0 / s.w))):
         count = torch.bincount(idx, minlength=p.shape[0]).double().cpu().numpy()
         if count.shape[0] != p.shape[0]:
-            fail(f"K14 drew a {what} outside the raster")
+            fail(f"K14f drew a {what} outside the raster")
         z = np.abs(count - n * p) / np.sqrt(n * p * (1 - p))
         worst[what] = float(z.max())
-    print(f"phase 20 K14 distribution over {n:,} draws ({s.h} rows, {s.img_len} images, {s.w} "
+    print(f"phase 20 K14f distribution over {n:,} draws ({s.h} rows, {s.img_len} images, {s.w} "
           f"columns): worst deviation {worst['row']:.2f} sigma (rows), {worst['image']:.2f} "
           f"(images), {worst['column']:.2f} (columns); limit {THETA_SIGMA}", flush=True)
     if max(worst.values()) > THETA_SIGMA:
-        fail(f"K14's draws stray from their distribution: {worst}")
+        fail(f"K14f's draws stray from their distribution: {worst}")
 
 
 def png_decode_phase(frame_path: str) -> None:
@@ -2965,9 +3141,9 @@ def ricoh_phase(root: str, wrappers) -> int:
     """Phase 20: ``configs/egonerf/ricoh/garden.txt`` as shipped on a
     synthesised 1920x960 capture (RICOH_FRAMES frames, the only cut) through
     the command line with ``theta_importance``; then, in this process and
-    resumed from its checkpoint, TRAIN_STEPS timed steps under theta (K14
-    once a step) and under ``simple`` (no K14), one test view, and K14's
-    distribution.  Returns K14's launches over the timed theta steps."""
+    resumed from its checkpoint, TRAIN_STEPS timed steps under theta (K14f
+    once a step, no K14) and under ``simple`` (neither), one test view, and
+    K14f's distribution.  Returns K14f's launches over the timed theta steps."""
     import dataclasses
 
     from egonerf_torch.__main__ import main as cli_main
@@ -2991,16 +3167,13 @@ def ricoh_phase(root: str, wrappers) -> int:
     t0 = time.time()
     cli_main(argv)
     torch.cuda.synchronize()
-    k14 = wrappers["K14"].launches
     cfg = parse_cli(argv)
     logdir = os.path.join(base, cfg.expname)
     psnr = float(np.loadtxt(os.path.join(logdir, "imgs_vis", f"{RICOH_ITERS - 1:06d}_mean.txt"))[0])
     print(f"phase 20 {RICOH_CONFIG} through the command line (theta_importance, {RICOH_ITERS} "
           f"iterations, envmap {cfg.envmap_res_H}, {time.time() - t0:.1f} s with loading and "
-          f"its evaluation): test PSNR {psnr:.2f} dB (a record); K14 launched {k14} times "
-          f"(expect {RICOH_ITERS})", flush=True)
-    if k14 != RICOH_ITERS:
-        fail(f"K14 launched {k14} times over {RICOH_ITERS} theta steps")
+          f"its evaluation): test PSNR {psnr:.2f} dB (a record); "
+          f"{theta_launches(wrappers, RICOH_ITERS)}", flush=True)
 
     trainer = Trainer(cfg)
     print(f"phase 20 trainer: {trainer.train_dataset.all_rays.shape[0]:,} training rays "
@@ -3008,16 +3181,22 @@ def ricoh_phase(root: str, wrappers) -> int:
           f"{trainer.model.grid_size}, resumed at step {trainer.start_step}", flush=True)
     want = step_launches(wrappers, envmap=True)
     theta_l, theta_ms = timed_steps(trainer.train_step, "phase 20 training step, theta_importance",
-                                    cfg, wrappers, dict(want, K14=TRAIN_STEPS))
+                                    cfg, wrappers, dict(want, K14f=TRAIN_STEPS))
+
+    def steps():
+        for it in range(10 ** 4, 10 ** 4 + PROFILE_STEPS):
+            trainer.train_step(it)
+    profile(steps, PROFILE_STEPS, "phase 20 theta", "step")
     theta_distribution(trainer, wrappers)
     trainer.cfg = dataclasses.replace(cfg, sampling_method="simple")
     trainer._install_sampler()
     _, simple_ms = timed_steps(trainer.train_step, "phase 20 training step, simple", cfg,
                                wrappers, want)
+    profile(steps, PROFILE_STEPS, "phase 20 simple", "step")
     print(f"phase 20 step: theta_importance {theta_ms:.3f} ms, simple {simple_ms:.3f} ms "
           f"({theta_ms - simple_ms:+.3f})", flush=True)
     view_phase("phase 20", trainer)
-    return theta_l["K14"]
+    return theta_l["K14f"]
 
 
 def omniblender_phase(root: str, wrappers) -> None:
@@ -3072,7 +3251,8 @@ def main() -> int:
 
     dev = torch.device(DEVICE)
     wrappers = {"K1": vm_lookup.field_fwd, "K2": vm_lookup.field_bwd,
-                "K3": vm_lookup.density_fwd, "K4": pdf.resample, "K5": merge.sorted_uniform,
+                "K3": vm_lookup.density_fwd, "K4": pdf.resample,
+                "K4+draw": pdf.resample_chart.draw_form, "K5": merge.sorted_uniform,
                 "K6": volrend.composite, "K6e": volrend.composite.envmap_form,
                 "K6+env": volrend.composite.env_form, "K6b": volrend.composite_bwd,
                 "K7": chart.chart_fwd,
@@ -3080,8 +3260,9 @@ def main() -> int:
                 "K10": mm.mixed_mm, "K10da": mm.mixed_mm_da, "K10db": mm.mixed_mm_db,
                 "K11": bias.bias_grad, "K4w": pdf.resample_weights,
                 "K12": cull.coarse_importance, "K4c": pdf.resample_score,
-                "K13": cull.select_top_k,
-                "K14": sampler.theta_ids, "K15 plane": vm_lookup.sample_plane_nograd,
+                "K4c+draw": pdf.resample_score.draw_form, "K13": cull.select_top_k,
+                "K14": sampler.theta_ids, "K14f": sampler.theta_batch,
+                "K15 plane": vm_lookup.sample_plane_nograd,
                 "K15 line": vm_lookup.sample_line_nograd, "K16": grid_sample.sample_line}
 
     # -- phase 1: card + build ----------------------------------------------
@@ -3161,7 +3342,7 @@ def main() -> int:
     # -- phases 6-7: the training step ------------------------------------------
     train_launches, train_ms = train_phases(trainer, ops, wrappers)
     # -- phases 6c-7c: culled training steps --------------------------------------
-    cull_train_phases(trainer, ops, wrappers, train_ms)
+    cull_step_launches = cull_train_phases(trainer, ops, wrappers, train_ms)
     # -- phase 7b: the shader and line forms on the production trainer ---------
     forms = form_phases("7b", trainer, ops, Renderer(trainer.model, chunk=presets.EVAL_CHUNK,
                                                       **presets.RENDER),
@@ -3204,6 +3385,10 @@ def main() -> int:
             # the cull's kernels: their launches in the culled view (phase 3c;
             # 0 for K4w and K12, which the cull path no longer launches)
             row["launches"] = cull_launches[k]
+        elif k == "K4c+draw":
+            # K4c's training instantiation: its launches in the culled steps
+            # (phase 6c, the tie-break)
+            row["launches"] = cull_step_launches[k]
         else:
             row["launches"] = render_launches[k] if render_launches[k] else train_launches[k]
 
@@ -3234,18 +3419,19 @@ def main() -> int:
     # -- phases 19-21: the captured-data path ------------------------------------
     egocentric_e2e_phase(root, wrappers)
     torch.cuda.empty_cache()
-    capture_rows["K14"]["launches"] = ricoh_phase(root, wrappers)
+    capture_rows["K14f"]["launches"] = ricoh_phase(root, wrappers)
     torch.cuda.empty_cache()
     omniblender_phase(root, wrappers)
     # K15 and K16 have no caller on any path: their launches stay 0
 
-    print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6",
-                                                     "K6b", "K6e", "K6+env", "K6b+env", "K7",
-                                                     "K8", "K8b", "K4w", "K12", "K4c", "K13")]
+    print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K4+draw", "K5",
+                                                     "K6", "K6b", "K6e", "K6+env", "K6b+env",
+                                                     "K7", "K8", "K8b", "K4w", "K12", "K4c",
+                                                     "K4c+draw", "K13")]
                       + [tf_rows[k] for k in ("K1 (S=1)", "K2 (S=1)", "K3 (S=1)", "K6 gated",
                                               "K6b gated", "K9")]
                       + [form_rows[k] for k in ("K10 fwd", "K10 da", "K10 db", "K11")]
-                      + [capture_rows[k] for k in ("K14", "K15 plane", "K15 plane (S=1)",
+                      + [capture_rows[k] for k in ("K14", "K14f", "K15 plane", "K15 plane (S=1)",
                                                    "K15 line", "K15 line (S=1)", "K16",
                                                    "K16 (S=1)")]}),
           flush=True)

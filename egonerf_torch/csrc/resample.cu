@@ -15,7 +15,15 @@
 // empty-space cull's coarse pass: K4's weights, draws, merge and dists,
 // with the cull score of every merged sample (egonerf_tpu/ops/cull.py
 // coarse_importance, :30-54, called at models/egonerf.py:445) in its
-// epilogue in place of K12's second launch.
+// epilogue in place of K12's second launch.  resample_chart_draw_fwd and
+// resample_score_draw_fwd are the training instantiations (template
+// parameter kDraw): u is not read but drawn, K5's sorted uniforms for
+// (seed, step) (egonerf_tpu/ops/merge.py sorted_uniform, :25-36), by each
+// warp into its shared memory before the coarse weights (csrc/philox.cuh,
+// the code K5 runs, so the draws are K5's bit for bit), which removes K5's
+// launch and its (R, F) round trip through device memory.  Measured: K4
+// with the draw 0.0317 ms against K5 + K4's 0.0359, K4c 0.0165 against
+// 0.0197 (tools/draw_ab.py, H100 80GB HBM3, 700 W).
 //
 // Per ray: alpha and weights of the S coarse samples from feature2density;
 // pdf over the interior weights [1:-1] (+1e-5) and its cdf with a leading 0;
@@ -67,7 +75,7 @@
 #include <cuda_runtime.h>
 
 #include "chart.cuh"
-#include "warp_scan.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -77,8 +85,16 @@ constexpr int kWarpsPerBlock = 4;
 // shared memory a block may opt into on sm_90
 constexpr size_t kMaxSmem = 232448;
 
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
 __host__ __device__ inline int floats_per_warp(int s, int f, int t) {
   return s + (s - 1) + s + f + t;  // weights, pdf / cdf, coarse z, fine z, merged z
+}
+
+// the training instantiation's shared memory a warp: K5's draws (f + 1
+// floats) first, then floats_per_warp, each warp's row 16-byte aligned
+__host__ __device__ inline int draw_floats_per_warp(int s, int f, int t) {
+  return round4(f + 1) + round4(floats_per_warp(s, f, t));
 }
 
 // first index in [lo, hi) whose value exceeds v, or hi (searchsorted right)
@@ -95,16 +111,20 @@ __device__ __forceinline__ float bin_edge(const float* zc, int k) {
   return __fmul_rn(0.5f, __fadd_rn(zc[k + 1], zc[k]));
 }
 
-template <bool kChart, bool kWeights>
+// kDraw: u is not read but drawn, K5's draws of (ray, key (key0, key1)) from
+// csrc/philox.cuh into the warp's shared memory before the coarse weights
+template <bool kChart, bool kWeights, bool kDraw>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 resample_kernel(const float* __restrict__ feat, const float* __restrict__ z,
                 const float* __restrict__ dists, const float* __restrict__ u,
-                long long u_stride, float u_step, int R, int S, int F, int merge, float shift,
-                float scale, int act, float* __restrict__ z_out, float* __restrict__ d_out,
-                const float* __restrict__ o, long long o_stride, const float* __restrict__ dv,
-                long long dv_stride, ChartArgs ca, const float* __restrict__ grid_g,
-                float4* __restrict__ c_out, float* __restrict__ w_out) {
-  extern __shared__ float smem[];
+                long long u_stride, float u_step, uint32_t key0, uint32_t key1, int R, int S,
+                int F, int merge, float shift, float scale, int act, float* __restrict__ z_out,
+                float* __restrict__ d_out, const float* __restrict__ o, long long o_stride,
+                const float* __restrict__ dv, long long dv_stride, ChartArgs ca,
+                const float* __restrict__ grid_g, float4* __restrict__ c_out,
+                float* __restrict__ w_out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int n_grid = kChart && ca.mode == 0 ? ca.n_grid : 0;
   if constexpr (kChart) {
     chart_stage_grid(ca, grid_g, smem);
@@ -114,12 +134,14 @@ resample_kernel(const float* __restrict__ feat, const float* __restrict__ z,
   const int warp = threadIdx.x >> 5;
   const long long ray = (long long)blockIdx.x * kWarpsPerBlock + warp;
   const int T = merge ? S + F : F;
-  float* w = smem + n_grid + warp * floats_per_warp(S, F, T);
+  float* ud = smem + (kDraw ? round4(n_grid) + warp * draw_floats_per_warp(S, F, T) : 0);
+  float* w = kDraw ? ud + round4(F + 1) : smem + n_grid + warp * floats_per_warp(S, F, T);
   float* cdf = w + S;       // S - 1: the pdf, then its cdf
   float* zc = cdf + S - 1;  // S
   float* zf = zc + S;       // F
   float* zo = zf + F;       // T
   if (ray >= R) return;
+  if constexpr (kDraw) warp_sorted_draw(ud, F, ray, key0, key1, ud);
   feat += ray * S;
   z += ray * S;
   dists += ray * S;
@@ -181,10 +203,11 @@ resample_kernel(const float* __restrict__ feat, const float* __restrict__ z,
   {
     int pos = 0;
     for (int k = k0; k < k1; ++k) {
-      const float uk = u != nullptr ? u[ray * u_stride + k]
-                       : k < F - 1  ? __fmul_rn((float)k, u_step)
-                       : F > 1      ? 1.0f
-                                    : 0.0f;
+      const float uk = kDraw          ? ud[k]
+                       : u != nullptr ? u[ray * u_stride + k]
+                       : k < F - 1    ? __fmul_rn((float)k, u_step)
+                       : F > 1        ? 1.0f
+                                      : 0.0f;
       if (k == k0) {
         pos = upper_bound(cdf, 0, B, uk);
       } else if (pos > 0 && cdf[pos - 1] > uk) {
@@ -255,31 +278,33 @@ resample_kernel(const float* __restrict__ feat, const float* __restrict__ z,
   }
 }
 
-template <bool kChart, bool kWeights>
+template <bool kChart, bool kWeights, bool kDraw = false>
 int launch(const float* feat, const float* z, const float* dists, const float* u,
            long long u_stride, float u_step, int R, int S, int F, int merge, float shift,
            float scale, int act, float* z_out, float* d_out, const float* o, long long o_stride,
            const float* dv, long long dv_stride, const ChartArgs& ca, const float* grid,
-           float* coords, float* weights, void* stream) {
+           float* coords, float* weights, void* stream, uint32_t k0 = 0, uint32_t k1 = 0) {
   const int T = merge ? S + F : F;
   const int n_grid = kChart && ca.mode == 0 ? ca.n_grid : 0;
   if (kChart && ca.mode == 0 && (n_grid < 2 || n_grid > kMaxChartGrid))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
-      sizeof(float) * (n_grid + (size_t)kWarpsPerBlock * floats_per_warp(S, F, T));
+      sizeof(float) * (kDraw ? round4(n_grid) + (size_t)kWarpsPerBlock *
+                                                   draw_floats_per_warp(S, F, T)
+                             : n_grid + (size_t)kWarpsPerBlock * floats_per_warp(S, F, T));
   if (S < 3 || F < 1 || T < 2 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (R <= 0) return (int)cudaSuccess;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        resample_kernel<kChart, kWeights>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        resample_kernel<kChart, kWeights, kDraw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  resample_kernel<kChart, kWeights><<<blocks, kWarpsPerBlock * 32, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale, act, z_out, d_out, o,
-      o_stride, dv, dv_stride, ca, grid, reinterpret_cast<float4*>(coords), weights);
+  resample_kernel<kChart, kWeights, kDraw><<<blocks, kWarpsPerBlock * 32, smem,
+                                             static_cast<cudaStream_t>(stream)>>>(
+      feat, z, dists, u, u_stride, u_step, k0, k1, R, S, F, merge, shift, scale, act, z_out,
+      d_out, o, o_stride, dv, dv_stride, ca, grid, reinterpret_cast<float4*>(coords), weights);
   return (int)cudaGetLastError();
 }
 
@@ -321,8 +346,6 @@ int launch(const float* feat, const float* z, const float* dists, const float* u
 // Measured: 0.0112 ms on the production chunk against 0.0232 for K4's
 // weights instantiation and K12 (tools/cull_ab.py, H100 80GB HBM3, 700 W).
 
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
-
 // the highest power of two <= n (n >= 1)
 __host__ __device__ inline int top_step(int n) {
 #ifdef __CUDA_ARCH__
@@ -339,14 +362,14 @@ __host__ __device__ inline int top_step(int n) {
 // start at cdf[1]; padded with +inf to 2 top_step(S - 1) - 1 entries, the
 // most a search by halving steps reaches), the fine z, and the merged z
 // and scores (the merged z also the scratch of the weights where the pdf
-// runs are not the weights' runs), and the count of fine depths below each
-// coarse one (ints)
+// runs are not the weights' runs), the count of fine depths below each
+// coarse one (ints), and in the training instantiation K5's draws (f + 1)
 struct ScoreLayout {
-  int wd, cdf, zf, zo, so, nb, floats;
-  __host__ __device__ ScoreLayout(int s, int f, int t)
+  int wd, cdf, zf, zo, so, nb, ud, floats;
+  __host__ __device__ ScoreLayout(int s, int f, int t, bool draw = false)
       : wd(round4(s)), cdf(2 * round4(s) + 3), zf(2 * round4(s) + round4(2 * top_step(s - 1) + 2)),
         zo(zf + round4(f)), so(zo + round4(s > t ? s : t)), nb(so + round4(t)),
-        floats(nb + round4(s)) {}
+        ud(nb + round4(s)), floats(ud + (draw ? round4(f + 1) : 0)) {}
 };
 
 // the first n <= N floats at src into v (the rest 0); vec: src 16-byte
@@ -406,20 +429,22 @@ __device__ __forceinline__ float searched_score(const float* zc, const float* wd
 }
 
 // PS, PF: the most coarse samples and draws a lane holds in registers,
-// ceil(S / 32) <= PS and ceil(F / 32) <= PF
-template <int PS, int PF>
+// ceil(S / 32) <= PS and ceil(F / 32) <= PF; kDraw: u drawn as in K4's
+// training instantiation
+template <int PS, int PF, bool kDraw>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 resample_score_kernel(const float* __restrict__ feat, const float* __restrict__ z,
                       const float* __restrict__ dists, const float* __restrict__ u,
-                      long long u_stride, float u_step, int R, int S, int F, int merge,
-                      float shift, float scale, int act, float* __restrict__ z_out,
-                      float* __restrict__ d_out, float* __restrict__ s_out) {
+                      long long u_stride, float u_step, uint32_t key0, uint32_t key1, int R,
+                      int S, int F, int merge, float shift, float scale, int act,
+                      float* __restrict__ z_out, float* __restrict__ d_out,
+                      float* __restrict__ s_out) {
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long ray = (long long)blockIdx.x * kWarpsPerBlock + warp;
   const int T = merge ? S + F : F;
-  const ScoreLayout L(S, F, T);
+  const ScoreLayout L(S, F, T, kDraw);
   float* zc = reinterpret_cast<float*>(smem4) + warp * L.floats;
   float* wd = zc + L.wd;
   float* cdf = zc + L.cdf;
@@ -427,7 +452,9 @@ resample_score_kernel(const float* __restrict__ feat, const float* __restrict__ 
   float* zo = zc + L.zo;
   float* so = zc + L.so;
   int* nb = reinterpret_cast<int*>(zc + L.nb);
+  float* ud = zc + L.ud;
   if (ray >= R) return;
+  if constexpr (kDraw) warp_sorted_draw(ud, F, ray, key0, key1, ud);
 
   // this lane's run of coarse samples, [a, a + n): feat, dists and z in
   // registers, whole float4s where the runs are multiples of 4
@@ -541,6 +568,7 @@ resample_score_kernel(const float* __restrict__ feat, const float* __restrict__ 
     for (int i = 0; i < PF; ++i) {
       const int k = k0 + i;
       uk[i] = i >= nf       ? 0.0f
+              : kDraw        ? ud[k]
               : u != nullptr ? u[ray * u_stride + k]
               : k < F - 1    ? __fmul_rn((float)k, u_step)
               : F > 1        ? 1.0f
@@ -711,24 +739,40 @@ resample_score_kernel(const float* __restrict__ feat, const float* __restrict__ 
   }
 }
 
-template <int PS, int PF>
+template <int PS, int PF, bool kDraw>
 int launch_score(const float* feat, const float* z, const float* dists, const float* u,
-                 long long u_stride, float u_step, int R, int S, int F, int merge, float shift,
-                 float scale, int act, float* z_out, float* d_out, float* score, void* stream) {
+                 long long u_stride, float u_step, uint32_t k0, uint32_t k1, int R, int S, int F,
+                 int merge, float shift, float scale, int act, float* z_out, float* d_out,
+                 float* score, void* stream) {
   const int T = merge ? S + F : F;
-  const size_t smem = sizeof(float) * kWarpsPerBlock * ScoreLayout(S, F, T).floats;
+  const size_t smem = sizeof(float) * kWarpsPerBlock * ScoreLayout(S, F, T, kDraw).floats;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        resample_score_kernel<PS, PF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        resample_score_kernel<PS, PF, kDraw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  resample_score_kernel<PS, PF><<<blocks, kWarpsPerBlock * 32, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale, act, z_out, d_out,
-      score);
+  resample_score_kernel<PS, PF, kDraw><<<blocks, kWarpsPerBlock * 32, smem,
+                                         static_cast<cudaStream_t>(stream)>>>(
+      feat, z, dists, u, u_stride, u_step, k0, k1, R, S, F, merge, shift, scale, act, z_out,
+      d_out, score);
   return (int)cudaGetLastError();
+}
+
+template <bool kDraw>
+int score_entry(const float* feat, const float* z, const float* dists, const float* u,
+                long long u_stride, float u_step, uint32_t k0, uint32_t k1, int R, int S, int F,
+                int merge, float shift, float scale, int act, float* z_out, float* d_out,
+                float* score, void* stream) {
+  const int T = merge ? S + F : F;
+  const int most = S > T ? S : T;
+  if (S < 3 || F < 1 || T < 2 || most > 32 * 16) return (int)cudaErrorInvalidValue;
+  if (R <= 0) return (int)cudaSuccess;
+  return (S <= 32 * 4 && F <= 32 * 4 ? launch_score<4, 4, kDraw> : launch_score<16, 16, kDraw>)(
+      feat, z, dists, u, u_stride, u_step, k0, k1, R, S, F, merge, shift, scale, act, z_out,
+      d_out, score, stream);
 }
 
 }  // namespace
@@ -778,11 +822,34 @@ extern "C" int resample_score_fwd(const float* feat, const float* z, const float
                                   const float* u, long long u_stride, float u_step, int R,
                                   int S, int F, int merge, float shift, float scale, int act,
                                   float* z_out, float* d_out, float* score, void* stream) {
-  const int T = merge ? S + F : F;
-  const int most = S > T ? S : T;
-  if (S < 3 || F < 1 || T < 2 || most > 32 * 16) return (int)cudaErrorInvalidValue;
-  if (R <= 0) return (int)cudaSuccess;
-  return (S <= 32 * 4 && F <= 32 * 4 ? launch_score<4, 4> : launch_score<16, 16>)(
-      feat, z, dists, u, u_stride, u_step, R, S, F, merge, shift, scale, act, z_out, d_out,
-      score, stream);
+  return score_entry<false>(feat, z, dists, u, u_stride, u_step, 0, 0, R, S, F, merge, shift,
+                            scale, act, z_out, d_out, score, stream);
+}
+
+// The training instantiations: resample_chart_fwd and resample_score_fwd
+// with u drawn in the kernel, K5's sorted draws under key (k0, k1) = (seed,
+// step) (csrc/philox.cuh), bit for bit what sorted_uniform_fwd writes.
+extern "C" int resample_chart_draw_fwd(const float* feat, const float* z, const float* dists,
+                                       unsigned int k0, unsigned int k1, int R, int S, int F,
+                                       int merge, float shift, float scale, int act,
+                                       float* z_out, float* d_out, const float* o,
+                                       long long o_stride, const float* d, long long d_stride,
+                                       float cx, float cy, float cz, float near_t, float near_p,
+                                       float inv_r, float inv_t, float inv_p, int mode,
+                                       const float* grid, int n_grid, float inv_nr, float r0,
+                                       float inv_r0, float ratio, float inv_log_ratio,
+                                       float* coords, void* stream) {
+  const ChartArgs ca{cx, cy, cz, near_t, near_p, inv_r, inv_t, inv_p, mode, n_grid, inv_nr,
+                     r0, inv_r0, ratio, inv_log_ratio};
+  return launch<true, false, true>(feat, z, dists, nullptr, 0, 0.0f, R, S, F, merge, shift,
+                                   scale, act, z_out, d_out, o, o_stride, d, d_stride, ca, grid,
+                                   coords, nullptr, stream, k0, k1);
+}
+
+extern "C" int resample_score_draw_fwd(const float* feat, const float* z, const float* dists,
+                                       unsigned int k0, unsigned int k1, int R, int S, int F,
+                                       int merge, float shift, float scale, int act,
+                                       float* z_out, float* d_out, float* score, void* stream) {
+  return score_entry<true>(feat, z, dists, nullptr, 0, 0.0f, k0, k1, R, S, F, merge, shift,
+                           scale, act, z_out, d_out, score, stream);
 }

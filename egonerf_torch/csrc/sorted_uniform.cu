@@ -7,88 +7,52 @@
 //
 // The TPU drew its bits from jax.random; here Philox4x32-10 (Salmon et al.,
 // SC'11) runs in the kernel, keyed by (seed, step) with the counter
-// (j / 4, ray, 0, kStream), and word j % 4 of the output block is the
+// (j / 4, ray, 0, kSortedStream), and word j % 4 of the output block is the
 // 32-bit draw of index j.  e_j = -log((bits + 0.5) * 2^-32) in float64,
 // rounded to float32, so the plain version (ops/merge.py, int64 torch
 // arithmetic) draws the same e bit for bit and differs from the kernel
 // only in the order of the float32 cumulative sum.
 //
-// Bound on the card: operations are negligible (10 Philox rounds per
-// draw); the (R, n) float32 output is the only device-memory traffic, so
-// bytes.  Design: one warp per ray; the draws go to shared memory
-// lane-strided, each lane sums a contiguous chunk, a warp scan gives the
-// chunk offsets, and the quotients are written lane-strided (coalesced).
+// Bound on the card: the (R, n) float32 output is the only device-memory
+// traffic (2.1 MB at 4096 x 128, 0.6 us) and a draw's operations (a
+// quarter of a Philox block, its float64 log, the sum and the division,
+// ~140) take 1.1 us, so operations, both far under the launch.  Design: one warp per ray, the draw of csrc/philox.cuh
+// (warp_sorted_draw: one Philox block gives four draws, a lane computes
+// whole blocks; each lane sums a contiguous chunk, a warp scan gives the
+// chunk offsets), the quotients written lane-strided (coalesced).  The
+// training paths run the same draw as a prologue of K4 and K4c
+// (resample.cu), so the training step launches no K5; this launch serves
+// callers that pass u.  Measured before the design (tools/draw_ab.py
+// --ablate, H100 80GB HBM3, 700 W): of the lane-strided version's 8.2 us,
+// 2.4 were the launch, 2.0 Philox (a whole block computed for each draw),
+// 1.5 the float64 logs and 0.8 the scan; this one takes 7.2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "warp_scan.cuh"
+#include "philox.cuh"
 
 namespace {
 
 using namespace egonerf;
 
 constexpr int kWarpsPerBlock = 4;
-constexpr uint32_t kStream = 0x4B35u;  // counter word 3: this generator's stream
-
-struct U4 {
-  uint32_t x, y, z, w;
-};
-
-__device__ __forceinline__ U4 philox4x32_10(U4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = U4{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c;
-}
-
-__device__ __forceinline__ float exp_draw(long long ray, int j, uint32_t k0, uint32_t k1) {
-  const U4 o = philox4x32_10(U4{(uint32_t)(j >> 2), (uint32_t)ray,
-                                (uint32_t)((unsigned long long)ray >> 32), kStream},
-                             k0, k1);
-  const int w = j & 3;
-  const uint32_t bits = w == 0 ? o.x : (w == 1 ? o.y : (w == 2 ? o.z : o.w));
-  const double u = ((double)bits + 0.5) * 2.3283064365386963e-10;  // 2^-32
-  return (float)(-log(u));
-}
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 sorted_uniform_kernel(long long R, int n, uint32_t k0, uint32_t k1, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
+  extern __shared__ float4 smem4[];
   const int warp = threadIdx.x >> 5;
   const long long ray = (long long)blockIdx.x * kWarpsPerBlock + warp;
   if (ray >= R) return;
-  const int m = n + 1;
-  float* c = smem + warp * m;
-  for (int j = lane; j < m; j += 32) c[j] = exp_draw(ray, j, k0, k1);
-  __syncwarp();
-  const int per = (m + 31) / 32;
-  const int a = min(lane * per, m), b = min(a + per, m);
-  float local = 0.0f;
-  for (int j = a; j < b; ++j) local = __fadd_rn(local, c[j]);
-  float run = warp_exclusive_sum(local);
-  for (int j = a; j < b; ++j) {
-    run = __fadd_rn(run, c[j]);
-    c[j] = run;
-  }
-  __syncwarp();
-  const float total = c[m - 1];
-  out += ray * n;
-  for (int j = lane; j < n; j += 32) out[j] = __fdiv_rn(c[j], total);
+  // each warp's row 16-byte aligned: the draws store float4s
+  float* row = reinterpret_cast<float*>(smem4) + warp * ((n + 4) & ~3);
+  warp_sorted_draw(row, n, ray, k0, k1, out + ray * n);
 }
 
 }  // namespace
 
 extern "C" int sorted_uniform_fwd(long long R, int n, unsigned int k0, unsigned int k1,
                                   float* out, void* stream) {
-  const size_t smem = sizeof(float) * kWarpsPerBlock * (n + 1);
+  const size_t smem = sizeof(float) * kWarpsPerBlock * ((n + 4) & ~3);
   if (n < 1 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const long long blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
   sorted_uniform_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, smem,

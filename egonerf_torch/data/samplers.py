@@ -5,8 +5,8 @@ The training rays and colors live on the card as one (N, 9) buffer
 (rays | rgb).  On the card, :class:`DeviceRaySampler` draws ``batch`` ray
 ids uniformly with replacement from the step's generator (the
 ``SimpleSampler`` branch of JAX's ``make_device_id_sampler``) and
-:class:`DeviceThetaSampler` draws the image and the column uniformly and
-the row through K14 (``ops/sampler.py::theta_ids``, its
+:class:`DeviceThetaSampler` draws, picks and gathers a theta-importance
+batch in one launch of K14f (``ops/sampler.py::theta_batch``, its
 ``ThetaImportanceSampler`` branch), so nothing crosses from the host per
 step.  :class:`HostRaySampler` takes the ids of a host sampler, JAX's
 :class:`SimpleSampler` (shuffled epochs) or :class:`ThetaImportanceSampler`
@@ -119,31 +119,34 @@ class DeviceRaySampler:
 
 
 class DeviceThetaSampler:
-    """The theta-importance draw on the card: per step the image and the
-    column uniformly (``torch.randint``) and ``u`` (``torch.rand``) from
-    ``generator``, one K14 launch for the flat ids, and the gather of the
-    resident buffer.  The cdf is ``np.cumsum(weight)`` in float64 cast to
-    float32, as JAX's (``samplers.py:88``), made once."""
+    """The theta-importance draw on the card: per batch one K14f launch
+    draws the image and the column uniformly and ``u`` from Philox4x32-10
+    under key (``seed``, t), picks the row by the cdf and gathers the
+    resident buffer's rows; t counts this sampler's batches (1, 2, ...),
+    so every caller of :meth:`next_batch` (training and envmap pretrain
+    steps) advances it.  The cdf is ``np.cumsum(weight)`` in float64 cast
+    to float32, as JAX's (``samplers.py:88``), made once."""
 
     def __init__(self, all_rays: np.ndarray, all_rgbs: np.ndarray,
-                 sampler: ThetaImportanceSampler, batch: int, generator: torch.Generator):
-        self.buffer = _resident(all_rays, all_rgbs, generator.device)
+                 sampler: ThetaImportanceSampler, batch: int, device, seed: int = 0):
+        self.buffer = _resident(all_rays, all_rgbs, device)
         self.cdf = torch.as_tensor(np.cumsum(sampler.weight).astype(np.float32),
-                                   device=generator.device)
+                                   device=self.buffer.device)
         self.img_len, self.w, self.h = sampler.img_len, sampler.w, sampler.h
         self.batch = int(batch)
-        self.generator = generator
+        self.seed = int(seed)
+        self.t = 0
 
-    def next_ids(self) -> torch.Tensor:
-        dev, b, g = self.buffer.device, self.batch, self.generator
-        img = torch.randint(0, self.img_len, (b,), generator=g, device=dev)
-        col = torch.randint(0, self.w, (b,), generator=g, device=dev)
-        u = torch.rand(b, generator=g, device=dev)
-        return ops.KERNELS.theta_ids(img, col, u, self.cdf, self.w, self.h)
+    def draw(self, t: int):
+        """(ids (batch,) int64, rows (batch, 9)) of batch ``t``; the counter
+        does not move."""
+        return ops.KERNELS.theta_batch(self.buffer, self.cdf, self.w, self.h, self.batch,
+                                       self.seed, t)
 
     def next_batch(self) -> torch.Tensor:
-        """(batch, 9) rows, with replacement."""
-        return self.buffer[self.next_ids()]
+        """(batch, 9) rows of the next batch, with replacement."""
+        self.t += 1
+        return self.draw(self.t)[1]
 
 
 class HostRaySampler:

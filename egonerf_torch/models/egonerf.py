@@ -16,9 +16,10 @@ of ``ops.vm_lookup.field_train`` (K1 forward, K2 backward) on the float32
 fused tables, and the composite through ``ops.volrend.composite_train``
 (K6, K6b).  The coarse chart of a forward is K7; the fine one runs in
 K4's epilogue (``ops.resample_chart``), or is K7 without resampling and
-under the empty-space cull (``eval_keep``, ``train_keep``: K4 writes the
-coarse weights, K12 scores the merged samples, K13 keeps the K highest,
-and K7 takes the chart of the kept depths).
+under the empty-space cull (``eval_keep``, ``train_keep``: K4c scores the
+merged samples in its epilogue, K13 keeps the K highest, and K7 takes the
+chart of the kept depths).  In training K4 and K4c draw K5's sorted
+uniforms in their prologue, so no K5 is launched.
 With ``use_envmap`` the (2h, h, 3) ``envmap`` parameter gives each ray its
 background radiance, looked up inside the composite (K6e; K8b gives the
 table its gradient) and blended behind the last sample; the pretrain
@@ -161,7 +162,8 @@ def _dists(z: torch.Tensor) -> torch.Tensor:
 class StepKey(NamedTuple):
     """The random draws of one training step (the JAX ``key``): the
     device-side generator of the coarse jitter, and the (seed, step) key of
-    K5's counter-based generator."""
+    K5's counter-based generator, whose sorted uniforms K4 and K4c draw in
+    their prologue."""
     generator: torch.Generator
     seed: int
     step: int
@@ -457,8 +459,9 @@ class EgoNeRF(nn.Module):
         accepted and unused, as in JAX.
 
         Training (``is_train`` with a ``key``) jitters the coarse depths and
-        draws K4's ``u`` from K5; ``jitter`` (R, n_coarse) and ``u``
-        (R, n_fine, sorted) give those draws explicitly instead.  Without
+        K4 (or K4c) draws its ``u``, K5's sorted uniforms for (seed, step),
+        in its prologue; ``jitter`` (R, n_coarse) and ``u`` (R, n_fine,
+        sorted) give those draws explicitly instead.  Without
         draws the depths are the eval ones.  rgb is differentiable in
         ``params``; depth and acc are not (JAX stops depth's gradient).
         ``tables`` are :meth:`lookup_tables` of ``params`` for an eval
@@ -487,11 +490,14 @@ class EgoNeRF(nn.Module):
             return {"env": envmap_radiance(params["envmap"], viewdirs, self.ops)}
         coords = self.coordinates
         n_rays, dev = rays.shape[0], rays.device
+        # the draw key goes only to a resampling op that draws (a given u,
+        # or eval's linspace, takes none)
+        draw = {}
         if is_train and key is not None:
             if jitter is None:
                 jitter = torch.rand(n_rays, n_coarse, generator=key.generator, device=dev)
             if u is None and resampling:
-                u = self.ops.sorted_uniform(n_rays, n_fine, key.seed, key.step, dev)
+                draw = {"draw": (key.seed, key.step)}
 
         with torch.no_grad():
             # 1) coarse depths
@@ -523,7 +529,7 @@ class EgoNeRF(nn.Module):
                         z_vals, dists, _ = self.ops.resample_weights(*resampled)
                         score = self._oracle_score(params, rays_o, viewdirs, z_vals, dists)
                     else:
-                        z_vals, dists, score = self.ops.resample_score(*resampled)
+                        z_vals, dists, score = self.ops.resample_score(*resampled, **draw)
                     if is_train and (key is not None or cull_u is not None):
                         if cull_u is None:
                             cull_u = torch.rand(n_rays, n_merged, generator=key.generator,
@@ -535,7 +541,7 @@ class EgoNeRF(nn.Module):
                 else:
                     z_vals, dists, norm = self.ops.resample_chart(
                         c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, *act,
-                        rays_o, viewdirs, coords)
+                        rays_o, viewdirs, coords, **draw)
                 norm = norm.reshape(n_rays, z_vals.shape[1], 4)
             else:
                 z_vals, dists, norm = coarse_z, coarse_dists, coarse_norm

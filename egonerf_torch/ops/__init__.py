@@ -24,6 +24,7 @@ K11   bias.bias_grad                 bias_grad_plain            csrc/bias_grad.c
 K12   cull.coarse_importance         coarse_importance_plain    csrc/cull.cu
 K13   cull.select_top_k              select_top_k_plain         csrc/cull.cu
 K14   sampler.theta_ids              theta_ids_plain            csrc/theta_sampler.cu
+K14f  sampler.theta_batch            theta_batch_plain          csrc/theta_sampler.cu
 K15   vm_lookup.sample_plane_nograd  sample_plane_nograd_plain  csrc/vm_lookup.cu
 K15   vm_lookup.sample_line_nograd   sample_line_nograd_plain   csrc/vm_lookup.cu
 K16   grid_sample.sample_line        sample_line_plain          csrc/grid_sample.cu
@@ -31,7 +32,10 @@ K16   grid_sample.sample_line        sample_line_plain          csrc/grid_sample
 
 ``resample_chart`` is K4 with K7's chart of the merged depths in its
 epilogue: the EgoNeRF forward's resampling and fine chart in one launch
-(``pdf.resample`` launches K4 without it).  ``resample_score`` (K4c) is
+(``pdf.resample`` launches K4 without it); given a ``draw`` key (seed,
+step) in place of ``u``, its training instantiation draws K5's sorted
+uniforms in its prologue, as does K4c's, so a training step launches no
+K5 (``sorted_uniform`` stays for callers that pass ``u``).  ``resample_score`` (K4c) is
 the empty-space cull's coarse pass: K4 with K12's score of every merged
 sample in its epilogue, the coarse weights kept in the kernel; K13 keeps
 the highest.  ``resample_weights`` is K4 writing the coarse weights
@@ -51,8 +55,9 @@ also gives K6e's table its gradient through K8b) and
 ``mm_db``: its backward's two contractions, all bf16 x bf16 -> float32) runs
 inside ``mm.mixed_matmul`` and K11 (``bias_grad``) is the backward of
 ``bias.bias_add``; only the shader forms that ``EGONERF_MIXED_MM=1`` and
-``EGONERF_BIAS_DOT=1`` select take them (``models/shading.py``).  K14 draws
-the rows of the theta-importance sampler (``data/samplers.py``).  K15 (one
+``EGONERF_BIAS_DOT=1`` select take them (``models/shading.py``).  K14f
+draws, picks and gathers a theta-importance batch (``data/samplers.py``);
+K14 is the row pick alone on given draws, JAX's function.  K15 (one
 bf16 table's lookup with no gradient) and K16 (a float32 line stack's
 linear sample) have no caller on either package's paths, so they stay out
 of ``Ops``: they are the counterparts of JAX's
@@ -71,7 +76,7 @@ from .mm import (mixed_mm, mixed_mm_da, mixed_mm_da_plain, mixed_mm_db, mixed_mm
                  mixed_mm_plain)
 from .pdf import (resample_chart, resample_chart_plain, resample_score, resample_score_plain,
                   resample_weights, resample_weights_plain)
-from .sampler import theta_ids, theta_ids_plain
+from .sampler import theta_batch, theta_batch_plain, theta_ids, theta_ids_plain
 from .vm_lookup import (density_fwd, density_fwd_plain, field_bwd, field_bwd_plain,
                         field_fwd, field_fwd_plain)
 from .volrend import composite, composite_bwd, composite_bwd_plain, composite_plain
@@ -97,14 +102,15 @@ class Ops(NamedTuple):
     resample_score: Callable
     select_top_k: Callable
     theta_ids: Callable
+    theta_batch: Callable
 
 
 KERNELS = Ops(field_fwd, field_bwd, density_fwd, resample_chart, sorted_uniform, composite,
               composite_bwd, chart_fwd, envmap_fwd, envmap_bwd, alpha_fwd, mixed_mm, mixed_mm_da,
               mixed_mm_db, bias_grad, resample_weights, resample_score, select_top_k,
-              theta_ids)
+              theta_ids, theta_batch)
 PLAIN = Ops(field_fwd_plain, field_bwd_plain, density_fwd_plain, resample_chart_plain,
             sorted_uniform_plain, composite_plain, composite_bwd_plain, chart_fwd_plain,
             envmap_fwd_plain, envmap_bwd_plain, alpha_fwd_plain, mixed_mm_plain,
             mixed_mm_da_plain, mixed_mm_db_plain, bias_grad_plain, resample_weights_plain,
-            resample_score_plain, select_top_k_plain, theta_ids_plain)
+            resample_score_plain, select_top_k_plain, theta_ids_plain, theta_batch_plain)

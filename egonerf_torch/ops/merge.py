@@ -9,7 +9,10 @@ plain version here.  The kernel path merges inside K4 (``ops/pdf.py``).
 n + 1 Exp(1) draws, their cumulative sum c, and c[:-1] / c[-1].  JAX draws
 the exponentials with ``jax.random``; the port draws them from
 Philox4x32-10 keyed by (seed, step), in the kernel and, for the plain
-version, in int64 torch arithmetic, so both draw the same bits.
+version, in int64 torch arithmetic (``ops/philox.py``), so both draw the
+same bits.  The training step launches no K5: the training instantiations
+of K4 and K4c run the same draw as their prologue (``ops/pdf.py``'s
+``draw`` key).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch
 
 from .._build import check_launch, kernel
 from .._device import resolve_device
+from .philox import MASK as _MASK
+from .philox import SORTED_STREAM, philox4x32_10
 
 
 def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -33,34 +38,6 @@ def sorted_uniform_from_exp(e: torch.Tensor) -> torch.Tensor:
     return c[..., :-1] / c[..., -1:]
 
 
-# Philox4x32-10 (Salmon et al., SC'11), as csrc/sorted_uniform.cu runs it
-_M0, _M1 = 0xD2511F53, 0xCD9E8D57
-_W0, _W1 = 0x9E3779B9, 0xBB67AE85
-_MASK = 0xFFFFFFFF
-_STREAM = 0x4B35  # counter word 3
-
-
-def _mulhilo(m: int, x: torch.Tensor):
-    """(hi, lo) 32-bit words of m * x for a 32-bit constant m and int64 x
-    holding 32-bit values, without leaving int64: m splits into 16-bit
-    halves so that every partial product stays below 2**49."""
-    p_lo = x * (m & 0xFFFF)
-    p_hi = x * (m >> 16)
-    mid = p_lo + ((p_hi & 0xFFFF) << 16)
-    return (p_hi >> 16) + (mid >> 32), mid & _MASK
-
-
-def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
-    """Four int64 tensors of 32-bit counter words -> the four output words."""
-    for _ in range(10):
-        hi0, lo0 = _mulhilo(_M0, c0)
-        hi1, lo1 = _mulhilo(_M1, c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0 = (k0 + _W0) & _MASK
-        k1 = (k1 + _W1) & _MASK
-    return c0, c1, c2, c3
-
-
 def exp_draws(n_rays: int, m: int, seed: int, step: int, device) -> torch.Tensor:
     """(n_rays, m) float32 Exp(1) draws of K5's generator: draw j of ray r
     is word j % 4 of Philox4x32-10 at counter (j // 4, r, r >> 32, stream)
@@ -71,7 +48,7 @@ def exp_draws(n_rays: int, m: int, seed: int, step: int, device) -> torch.Tensor
     c0 = torch.arange(g, dtype=torch.int64, device=device)[None, :].expand(n_rays, g)
     c1 = (ray & _MASK).expand(n_rays, g)
     c2 = (ray >> 32).expand(n_rays, g)
-    c3 = torch.full_like(c0, _STREAM)
+    c3 = torch.full_like(c0, SORTED_STREAM)
     words = torch.stack(philox4x32_10(c0, c1, c2, c3, seed & _MASK, step & _MASK), dim=-1)
     bits = words.reshape(n_rays, 4 * g)[:, :m]
     u = (bits.to(torch.float64) + 0.5) * 2.0 ** -32

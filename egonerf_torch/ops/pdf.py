@@ -9,10 +9,18 @@ function) from the same launch, :func:`resample_weights` the coarse
 weights instead, and :func:`resample_score` (K4c, the empty-space cull's
 coarse pass) each merged sample's cull score, K12's function on those
 weights.
+
+``u`` comes from one of three sources: given, drawn from a ``draw`` key
+``(seed, step)``, or neither (eval's linspace).  With the key, the
+training instantiations of K4 and K4c draw K5's sorted uniforms
+(``ops/merge.py::sorted_uniform``) in a prologue, bit for bit what K5
+writes, so the training step launches no K5; the plain versions take
+:func:`~egonerf_torch.ops.merge.sorted_uniform_plain` for the key.
 """
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import numpy as np
@@ -23,7 +31,8 @@ from .._device import check_tensor
 from ..coords.yinyang import YinYangSphericalCoords
 from .chart import CHART_ARGS, _recip, chart_args, chart_fwd_plain, check_rays
 from .cull import coarse_importance_plain
-from .merge import merge_sorted
+from .merge import merge_sorted, sorted_uniform_plain
+from .philox import MASK
 from .volrend import (ACTIVATIONS, _chunk_fold, _lane_chunks, _warp_exclusive_scan,
                       _warp_weights, density_activation, raw2alpha)
 
@@ -93,6 +102,16 @@ def _dists(z: torch.Tensor) -> torch.Tensor:
     return torch.cat([d, d[:, -1:]], dim=-1)
 
 
+def _drawn_u(c_feat, n_fine, u, draw):
+    """The plain versions' u: ``u`` as given, K5's plain draws for the
+    ``draw`` key (seed, step), or None (eval's linspace); both raises."""
+    if draw is None:
+        return u
+    if u is not None:
+        raise ValueError("resample: pass u or a draw key, not both")
+    return sorted_uniform_plain(c_feat.shape[0], n_fine, draw[0], draw[1], c_feat.device)
+
+
 def resample_weights_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
                            use_coarse_sample=True, density_shift=-8.0,
                            distance_scale=25.0, act="softplus"):
@@ -110,10 +129,11 @@ def resample_weights_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
 
 def resample_score_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
                          use_coarse_sample=True, density_shift=-8.0, distance_scale=25.0,
-                         act="softplus"):
+                         act="softplus", draw=None):
     """Plain version of K4c: see :func:`resample_score`.
     :func:`resample_weights_plain`, then K12's plain version on its merged
     depths and weights."""
+    u = _drawn_u(c_feat, n_fine, u, draw)
     z_vals, dists, weights = resample_weights_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
                                                     use_coarse_sample, density_shift,
                                                     distance_scale, act)
@@ -130,9 +150,10 @@ def resample_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
 
 def resample_chart_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
                          use_coarse_sample=True, density_shift=-8.0, distance_scale=25.0,
-                         act="softplus", rays_o=None, viewdirs=None, coords=None):
+                         act="softplus", rays_o=None, viewdirs=None, coords=None, draw=None):
     """Plain version of K4 with its chart epilogue: :func:`resample_plain`,
     then :func:`~egonerf_torch.ops.chart.chart_fwd_plain` of the depths."""
+    u = _drawn_u(c_feat, n_fine, u, draw)
     z_vals, dists = resample_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
                                    use_coarse_sample, density_shift, distance_scale, act)
     return z_vals, dists, chart_fwd_plain(rays_o, viewdirs, z_vals, coords)
@@ -144,15 +165,30 @@ _ARGS = _BASE_ARGS + [ctypes.c_void_p]
 _WEIGHTS_ARGS = _BASE_ARGS + [ctypes.c_void_p] * 2
 _CHART_ARGS = _BASE_ARGS + [ctypes.c_void_p, ctypes.c_longlong] * 2 + CHART_ARGS + \
     [ctypes.c_void_p] * 2
+
+
+def _draw_args(argtypes: list) -> list:
+    """The argument types of an entry's training instantiation
+    (``*_draw_fwd``): the key's two words in place of u, its stride and
+    eval's step."""
+    return argtypes[:3] + [ctypes.c_uint, ctypes.c_uint] + argtypes[6:]
+
+
 SMEM_BYTES = 232448  # the shared memory a block may opt into on sm_90
 # K4c keeps a lane's runs of ceil(S / 32) coarse samples and ceil(F / 32)
 # draws in registers, 16 at most: S and T up to K13's limit
 MAX_SCORE_SAMPLES = 512
 
 
-def _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act, n_grid=0):
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act, n_grid=0,
+           draw=None):
     """The arguments' shapes, and the shapes the kernel takes: 4 warps x
-    (3S - 1 + F + T) floats and the radial grid in a block's shared memory.
+    (3S - 1 + F + T) floats and the radial grid in a block's shared memory,
+    and with a ``draw`` key each warp's F + 1 draws (rows 16-byte aligned).
     Returns (R, T)."""
     check_tensor("c_feat", c_feat, torch.float32, (None, None))
     r, s = c_feat.shape
@@ -160,32 +196,44 @@ def _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act, n_
     check_tensor("coarse_dists", coarse_dists, torch.float32, (r, s), c_feat.device)
     if u is not None:
         check_tensor("u", u, torch.float32, (r, n_fine), c_feat.device)
+        if draw is not None:
+            raise ValueError("resample: pass u or a draw key, not both")
+    if draw is not None and (len(draw) != 2 or not all(isinstance(k, int) for k in draw)):
+        raise TypeError(f"resample: a draw key is two ints (seed, step), got {draw!r}")
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown density activation {act!r}")
     n_out = s + n_fine if use_coarse_sample else n_fine
-    smem = 4 * (n_grid + 4 * (3 * s - 1 + n_fine + n_out))
+    per_warp = 3 * s - 1 + n_fine + n_out
+    smem = 4 * (n_grid + 4 * per_warp if draw is None else
+                _round4(n_grid) + 4 * (_round4(n_fine + 1) + _round4(per_warp)))
     if s < 3 or n_fine < 1 or n_out < 2 or smem > SMEM_BYTES:
         raise ValueError(f"resample cannot take {s} coarse and {n_fine} fine samples")
     return r, n_out
 
 
 def _launch(name, argtypes, c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample,
-            density_shift, distance_scale, act, n_out, *chart, counters=None):
+            density_shift, distance_scale, act, n_out, *chart, counters=None, draw=None):
     """K4's launch on the card: z_vals and dists, (R, n_out) each, and the
-    arguments ``chart`` passed through after them; a launch counts in each
-    of ``counters`` (default: K4's ``resample``)."""
+    arguments ``chart`` passed through after them; with a ``draw`` key the
+    entry's training instantiation (``name`` with ``_draw_fwd``), which
+    draws u.  A launch counts in each of ``counters`` (default: K4's
+    ``resample``)."""
     r, s = c_feat.shape
     dev = c_feat.device
     z_vals = torch.empty(r, n_out, dtype=torch.float32, device=dev)
     dists = torch.empty(r, n_out, dtype=torch.float32, device=dev)
     if r:
-        # eval's u = linspace01(n_fine) is formed in the kernel from its step
-        u_step = _recip(n_fine - 1) if n_fine > 1 else 0.0
+        if draw is None:
+            # eval's u = linspace01(n_fine) is formed in the kernel from its step
+            src = (None if u is None else u.data_ptr(), n_fine,
+                   _recip(n_fine - 1) if n_fine > 1 else 0.0)
+        else:
+            name, argtypes = name.replace("_fwd", "_draw_fwd"), _draw_args(argtypes)
+            src = (draw[0] & MASK, draw[1] & MASK)
         fn = kernel("resample", name, argtypes)
         with torch.cuda.device(dev):
             err = fn(c_feat.data_ptr(), coarse_z.data_ptr(), coarse_dists.data_ptr(),
-                     None if u is None else u.data_ptr(), n_fine, u_step, r, s, n_fine,
-                     int(bool(use_coarse_sample)), float(density_shift),
+                     *src, r, s, n_fine, int(bool(use_coarse_sample)), float(density_shift),
                      float(distance_scale), ACTIVATIONS.index(act), z_vals.data_ptr(),
                      dists.data_ptr(), *chart, torch.cuda.current_stream(dev).cuda_stream)
         check_launch(name, err)
@@ -230,7 +278,8 @@ def resample_chart(c_feat: torch.Tensor, coarse_z: torch.Tensor, coarse_dists: t
                    distance_scale: float = 25.0, act: str = "softplus",
                    rays_o: Optional[torch.Tensor] = None,
                    viewdirs: Optional[torch.Tensor] = None,
-                   coords: Optional[YinYangSphericalCoords] = None
+                   coords: Optional[YinYangSphericalCoords] = None,
+                   draw: Optional[Tuple[int, int]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 with the chart epilogue: :func:`resample`, and from the same
     launch the normalized [r, theta, phi, flag] coords of ``rays_o +
@@ -240,30 +289,37 @@ def resample_chart(c_feat: torch.Tensor, coarse_z: torch.Tensor, coarse_dists: t
     csrc/chart.cuh).
 
     rays_o, viewdirs (R, 3) float32 with unit column stride (any row
-    stride).  Returns z_vals, dists (R, T) and coords (R * T, 4), rows
-    ray-major.
+    stride).  ``draw``, a key (seed, step) of Python ints in place of
+    ``u``: the training instantiation draws K5's sorted uniforms for it in
+    its prologue (``sorted_uniform(R, n_fine, seed, step)``, the same bits)
+    and counts in ``resample_chart.draw_form.launches`` too.  Returns
+    z_vals, dists (R, T) and coords (R * T, 4), rows ray-major.
 
     Replaces the EgoNeRF forward's resampling and the fine chart after it
-    (egonerf_tpu/models/egonerf.py:389-406).  Kernel: csrc/resample.cu.
-    CPU tensors take :func:`resample_chart_plain`."""
+    (egonerf_tpu/models/egonerf.py:389-406), and in training K5
+    (egonerf_tpu/ops/merge.py:25-36).  Kernel: csrc/resample.cu
+    (``resample_chart_fwd``; ``resample_chart_draw_fwd`` with a key).  CPU
+    tensors take :func:`resample_chart_plain`."""
     if not isinstance(coords, YinYangSphericalCoords):
         raise TypeError("chart takes the yin-yang chart")
     grid = coords.ref_grid if coords.exp_r and coords.interval_th else ()
     r, n_out = _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act,
-                      len(grid))
+                      len(grid), draw)
     dev = c_feat.device
     if check_rays(rays_o, viewdirs) != (r, dev):
         raise ValueError("rays_o, viewdirs: expected one ray per row of c_feat, on its device")
     if dev.type == "cpu":
         return resample_chart_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
                                     use_coarse_sample, density_shift, distance_scale, act,
-                                    rays_o, viewdirs, coords)
+                                    rays_o, viewdirs, coords, draw)
     norm = torch.empty(r * n_out, 4, dtype=torch.float32, device=dev)
     chart = chart_args(coords, None, dev)
     z_vals, dists = _launch("resample_chart_fwd", _CHART_ARGS, c_feat, coarse_z, coarse_dists,
                             n_fine, u, use_coarse_sample, density_shift, distance_scale, act,
                             n_out, rays_o.data_ptr(), rays_o.stride(0), viewdirs.data_ptr(),
-                            viewdirs.stride(0), *chart, norm.data_ptr())
+                            viewdirs.stride(0), *chart, norm.data_ptr(), draw=draw,
+                            counters=(resample,) if draw is None else
+                            (resample, resample_chart.draw_form))
     return z_vals, dists, norm
 
 
@@ -299,7 +355,8 @@ def resample_weights(c_feat: torch.Tensor, coarse_z: torch.Tensor,
 def resample_score(c_feat: torch.Tensor, coarse_z: torch.Tensor,
                    coarse_dists: torch.Tensor, n_fine: int, u: Optional[torch.Tensor] = None,
                    use_coarse_sample: bool = True, density_shift: float = -8.0,
-                   distance_scale: float = 25.0, act: str = "softplus"
+                   distance_scale: float = 25.0, act: str = "softplus",
+                   draw: Optional[Tuple[int, int]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4c, the empty-space cull's coarse pass: :func:`resample`'s z_vals
     and dists, and from the same launch each merged sample's score (R, T):
@@ -309,28 +366,36 @@ def resample_score(c_feat: torch.Tensor, coarse_z: torch.Tensor,
     score K12's plain version's on them.
 
     The arguments are :func:`resample`'s, with up to ``MAX_SCORE_SAMPLES``
-    coarse and merged samples a ray (K13 takes no more).
+    coarse and merged samples a ray (K13 takes no more), and ``draw`` as in
+    :func:`resample_chart` (its launches also in
+    ``resample_score.draw_form.launches``).
 
     Replaces the EgoNeRF forward's resampling, its coarse weights and their
     ``coarse_importance`` (egonerf_tpu/models/egonerf.py:389-411, 445;
-    egonerf_tpu/ops/cull.py:30-54).  Kernel: csrc/resample.cu
-    (``resample_score_fwd``).  CPU tensors take :func:`resample_score_plain`.
+    egonerf_tpu/ops/cull.py:30-54), and in training K5.  Kernel:
+    csrc/resample.cu (``resample_score_fwd``; ``resample_score_draw_fwd``
+    with a key).  CPU tensors take :func:`resample_score_plain`.
     ``resample_score.launches`` counts its launches (K4's counter does not)."""
-    r, n_out = _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act)
+    r, n_out = _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act,
+                      draw=draw)
     if max(c_feat.shape[1], n_out) > MAX_SCORE_SAMPLES:
         raise ValueError(f"resample_score takes up to {MAX_SCORE_SAMPLES} coarse and merged "
                          f"samples a ray, got {c_feat.shape[1]} and {n_out}")
     if c_feat.device.type == "cpu":
         return resample_score_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
-                                    use_coarse_sample, density_shift, distance_scale, act)
+                                    use_coarse_sample, density_shift, distance_scale, act, draw)
     score = torch.empty(r, n_out, dtype=torch.float32, device=c_feat.device)
     z_vals, dists = _launch("resample_score_fwd", _WEIGHTS_ARGS, c_feat, coarse_z,
                             coarse_dists, n_fine, u, use_coarse_sample, density_shift,
-                            distance_scale, act, n_out, score.data_ptr(),
-                            counters=(resample_score,))
+                            distance_scale, act, n_out, score.data_ptr(), draw=draw,
+                            counters=(resample_score,) if draw is None else
+                            (resample_score, resample_score.draw_form))
     return z_vals, dists, score
 
 
 resample.launches = 0
 resample_weights.launches = 0
 resample_score.launches = 0
+# the training instantiations' launches (also counted in K4's and K4c's)
+resample_chart.draw_form = SimpleNamespace(launches=0)
+resample_score.draw_form = SimpleNamespace(launches=0)

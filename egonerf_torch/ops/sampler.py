@@ -8,6 +8,13 @@ first one whose cumulative cos-latitude weight reaches ``u``
 a non-decreasing cdf), clamped to the last row where the float32 cdf ends
 below ``u``; the flat id is ``img * (w * h) + row * w + col`` into the
 (img, row, col) layout of the resident ray buffer.
+
+:func:`theta_batch` (K14f) is the training path's sampler: one launch
+draws a batch's image, column and uniform from Philox4x32-10
+(``ops/philox.py``) under key (seed, batch counter), picks the row as K14
+does and gathers the ids' rows of the resident buffer.  Its stream is the
+port's own: JAX's ``jax.random`` bits cannot be matched, the law is the
+same (the image and the column uniform, the row by the cdf).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch
 
 from .._build import check_launch, kernel
 from .._device import check_tensor
+from .philox import MASK, THETA_STREAM, philox4x32_10
 
 
 def theta_ids_plain(img, col, u, cdf, w: int, h: int) -> torch.Tensor:
@@ -67,3 +75,74 @@ def theta_ids(img: torch.Tensor, col: torch.Tensor, u: torch.Tensor, cdf: torch.
 
 
 theta_ids.launches = 0
+
+
+def theta_words(n: int, seed: int, t: int, device="cpu"):
+    """The Philox words of draws 0 .. n-1 of batch ``t``: block i at
+    counter (i, i >> 32, 0, THETA_STREAM) under key (seed, t), each taken
+    mod 2**32; four int64 (n,) tensors of 32-bit values."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return philox4x32_10(i & MASK, i >> 32, torch.zeros_like(i),
+                         torch.full_like(i, THETA_STREAM), seed & MASK, t & MASK)
+
+
+def theta_batch_plain(buffer, cdf, w: int, h: int, n: int, seed: int, t: int):
+    """Plain version of K14f: see :func:`theta_batch`."""
+    img_len = buffer.shape[0] // (w * h)
+    x, y, z, _ = theta_words(n, seed, t, buffer.device)
+    img = (x * img_len) >> 32
+    col = (y * w) >> 32
+    u = (z >> 8).to(torch.float32) * 2.0 ** -24
+    ids = theta_ids_plain(img, col, u, cdf, w, h)
+    return ids, buffer[ids]
+
+
+_BATCH_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+               ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p]
+
+
+def theta_batch(buffer: torch.Tensor, cdf: torch.Tensor, w: int, h: int, n: int, seed: int,
+                t: int):
+    """K14f: ``n`` theta-importance draws of batch ``t`` in one launch:
+    (ids (n,) int64, rows (n, 9) float32 = ``buffer[ids]``).
+
+    Draw i takes the Philox4x32-10 block at counter (i, i >> 32, 0,
+    THETA_STREAM) under key (seed, t) (:func:`theta_words`) and maps its
+    words x, y, z to img = (x * img_len) >> 32, col = (y * w) >> 32 and
+    u = (z >> 8) * 2**-24; the row and the id are :func:`theta_ids`'s.
+    buffer (img_len * h * w, 9) float32, contiguous, in the flat (img, row,
+    col) layout; cdf (h,) float32, non-decreasing; ``seed``, ``t`` Python
+    ints, so nothing crosses from the host per batch.
+
+    Replaces the theta branch of ``make_device_id_sampler`` with its draws
+    and the trainer's gather (egonerf_tpu/data/samplers.py:87-102).
+    Kernel: csrc/theta_sampler.cu (``theta_batch_kernel``).  CPU tensors
+    take :func:`theta_batch_plain`."""
+    check_tensor("buffer", buffer, torch.float32, (None, 9))
+    dev = buffer.device
+    check_tensor("cdf", cdf, torch.float32, (None,), dev)
+    w, h, n = int(w), int(h), int(n)
+    if w < 1 or h < 1 or cdf.shape[0] != h or buffer.shape[0] % (w * h) or n < 0:
+        raise ValueError(f"theta_batch: expected w, h >= 1, a cdf of h rows, a buffer of whole "
+                         f"w x h images and n >= 0, got w={w}, h={h}, cdf of {cdf.shape[0]}, "
+                         f"buffer of {buffer.shape[0]}, n={n}")
+    img_len = buffer.shape[0] // (w * h)
+    if img_len < 1 or img_len >= 2 ** 31 or w >= 2 ** 31:
+        raise ValueError(f"theta_batch: {img_len} images of width {w}; the draws map 32-bit "
+                         f"words to [0, 2**31)")
+    if dev.type == "cpu":
+        return theta_batch_plain(buffer, cdf, w, h, n, seed, t)
+    ids = torch.empty(n, dtype=torch.int64, device=dev)
+    rows = torch.empty(n, 9, dtype=torch.float32, device=dev)
+    if n:
+        fn = kernel("theta_sampler", "theta_batch", _BATCH_ARGS)
+        with torch.cuda.device(dev):
+            err = fn(buffer.data_ptr(), cdf.data_ptr(), h, w, img_len, n, seed & MASK, t & MASK,
+                     ids.data_ptr(), rows.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        check_launch("theta_batch", err)
+        theta_batch.launches += 1
+    return ids, rows
+
+
+theta_batch.launches = 0

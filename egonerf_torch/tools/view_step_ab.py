@@ -9,15 +9,27 @@ built.  Measured, with seeded random weights as ``chip_smoke`` makes them:
 three 2000x1000 views (s/image by the host clock around a synchronised
 ``Renderer.render_view``, after a warm one) and 20 training steps (CUDA
 events, after 5 warm ones; median, min, max) at the indoor production
-shape, the same at the outdoor shape on the procedural scene with its
-background at infinity, and three 1000x500 views and 20 steps of the
-TensoRF ``tensorf_bench`` shape with a 128^3 mask of half occupancy.
+shape, then its steps culled at train_keep 128 with the tie-break
+(``chip_smoke``'s phase 6c) and under ``theta_importance`` with the
+device sampler (the procedural scene's flat layout), the same views and
+steps at the outdoor shape on the procedural scene with its background at
+infinity, and three 1000x500 views and 20 steps of the TensoRF
+``tensorf_bench`` shape with a 128^3 mask of half occupancy.  Each step
+kind is also profiled over 5 steps: its device operations (kernels,
+copies, sets) and busy ms a step, the device ms a step of the torch ops in
+the sampler's range (the draws and the gather; a kernel launched through
+``ctypes`` is attributed to no range), and the ms a launch of the
+resampling, draw and theta kernels.
 Every line starts with ``AB <label>``; the last names the card and its
 power limit.
 """
 import os
 import sys
 import time
+
+# the resampling, draw and theta sampler kernels, by their device names
+DRAW_KERNELS = ("resample_kernel", "resample_score_kernel", "sorted_uniform_kernel",
+                "theta_ids_kernel", "theta_batch_kernel")
 
 
 def main() -> int:
@@ -70,6 +82,38 @@ def main() -> int:
         ms = sorted(a.elapsed_time(b) for a, b in ev)
         print(f"AB {tag} {label} step ms: median {ms[n // 2]:.4f} min {ms[0]:.4f} max "
               f"{ms[-1]:.4f}", flush=True)
+        profiled(label, trainer)
+
+    def profiled(label, trainer, n=5):
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        s = trainer.sampler
+        draw = s.next_batch
+
+        def ranged():
+            with record_function("sampler"):
+                return draw()
+        s.next_batch = ranged
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for k in range(n):
+                    trainer.train_step(10 ** 4 + k)
+                torch.cuda.synchronize()
+        finally:
+            del s.next_batch
+        cuda = torch.autograd.DeviceType.CUDA
+        rows = [e for e in prof.key_averages() if e.device_type == cuda
+                and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False)]
+        ranges = [e for e in prof.events() if e.name == "sampler"
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        sampler_us = sum(e.device_time_total for e in ranges)
+        kernels = "; ".join(
+            f"{e.key[:48]} {e.self_device_time_total / 1e3 / e.count:.4f} ms x{e.count / n:g}"
+            for e in rows if any(k in e.key for k in DRAW_KERNELS))
+        print(f"AB {tag} {label} profile: {sum(e.count for e in rows) / n:.1f} device "
+              f"operations a step, busy {sum(e.self_device_time_total for e in rows) / 1e3 / n:.3f}"
+              f" ms a step, the sampler's torch ops {sampler_us / 1e3 / n:.4f} ms a step; "
+              f"{kernels}", flush=True)
 
     def trainer_of(overrides, name):
         return Trainer(load_config(overrides=overrides(
@@ -81,7 +125,15 @@ def main() -> int:
     params = model.init_params(torch.Generator(device=dev).manual_seed(cs.SEED))
     views("indoor", Renderer(model, chunk=presets.EVAL_CHUNK, **presets.RENDER), params, dirs)
     del model, params
-    steps("indoor", trainer_of(presets.production_overrides, "indoor"))
+    indoor = trainer_of(presets.production_overrides, "indoor")
+    steps("indoor", indoor)
+    indoor.cfg.train_keep = cs.CULL_TRAIN_KEEP
+    steps(f"culled (train_keep {cs.CULL_TRAIN_KEEP}, tie-break)", indoor)
+    del indoor
+    torch.cuda.empty_cache()
+    steps("theta", trainer_of(lambda **kw: presets.production_overrides(
+        sampling_method="theta_importance", theta_importance_lambda=cs.THETA_LAMBDA, **kw),
+        "theta"))
     torch.cuda.empty_cache()
 
     out = trainer_of(presets.outdoor_overrides, "outdoor")

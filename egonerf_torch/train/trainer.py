@@ -3,15 +3,17 @@
 
 One step draws a batch of ray ids from the resident (N, 9) buffer: on the
 card (uniformly, or under ``sampling_method = theta_importance`` the image
-and column uniformly and the row by the cos-latitude weights through K14),
-or on the host by JAX's ``SimpleSampler`` or ``ThetaImportanceSampler``
-under ``device_sampling = False``.  It runs the model's forward in
-training mode (EgoNeRF: K5's sorted uniforms, the coarse chart K7, K3 and
-K4 on the detached coarse grid with the fine chart in K4's epilogue, the
+and column uniformly and the row by the cos-latitude weights, drawn, picked
+and gathered by K14f in one launch), or on the host by JAX's
+``SimpleSampler`` or ``ThetaImportanceSampler`` under ``device_sampling =
+False``.  It runs the model's forward in training mode (EgoNeRF: the
+coarse chart K7, K3 and K4 on the detached coarse grid with K5's sorted
+uniforms drawn in K4's prologue and the fine chart in its epilogue, the
 fine field through K1/K2; TensorVMSplit: jittered uniform steps, K9's mask
 gate, K1/K2 on its single grid; both: the shader through torch autograd,
 the composite through K6/K6b; under ``train_keep`` EgoNeRF's empty-space
-cull, K12 and K13, with a full step every ``train_keep_full_every``), takes
+cull, K4c (K4 with the cull score, drawing as K4) and K13, with a full
+step every ``train_keep_full_every``), takes
 the MSE plus the L1, TV and Ortho terms at JAX's schedules, and steps
 Adam.  Nothing synchronises the host per step: the MSE is read with
 ``.item()`` only every ``progress_refresh_rate`` steps.  Events fire
@@ -237,7 +239,7 @@ class Trainer:
                                             self.generator)
         else:
             self.sampler = DeviceThetaSampler(ds.all_rays, ds.all_rgbs, host, cfg.batch_size,
-                                              self.generator)
+                                              self.device, seed=cfg.seed)
 
     def set_datasets(self, train_dataset, test_dataset) -> None:
         """Swap datasets after construction (JAX ``trainer.py:548-563``):

@@ -144,21 +144,22 @@ def test_wrapper_on_cpu_takes_the_plain_version():
 
 def test_samplers_gather_the_rows_of_their_ids():
     """The device sampler's batch is the buffer's rows at its ids, each in
-    the flat (img, row, col) layout; the host sampler's rows are those of
-    ``nextids``."""
+    the flat (img, row, col) layout, and its first batch is batch t = 1;
+    the host sampler's rows are those of ``nextids``."""
     host, _ = _pair((24, 12), [0.0, 0.75, 0.0, 1.0], n_img=2, batch=64, seed=3)
     n = host.img_len * host.w * host.h
     rays = np.arange(n * 6, dtype=np.float32).reshape(n, 6)
     rgbs = np.arange(n * 3, dtype=np.float32).reshape(n, 3)
-    gen = torch.Generator().manual_seed(0)
-    dev = DeviceThetaSampler(rays, rgbs, host, 64, gen)
+    dev = DeviceThetaSampler(rays, rgbs, host, 64, "cpu", seed=0)
     assert dev.cdf.dtype == torch.float32
     np.testing.assert_array_equal(dev.cdf.numpy(), np.cumsum(host.weight).astype(np.float32))
-    ids = dev.next_ids()
+    ids, rows = dev.draw(1)
     assert ids.dtype == torch.int64 and ids.shape == (64,)
     assert int(ids.min()) >= 0 and int(ids.max()) < n
+    assert torch.equal(rows, dev.buffer[ids])
     batch = dev.next_batch()
     assert batch.shape == (64, 9) and float(batch[:, 0].remainder(6).abs().max()) == 0.0
+    assert torch.equal(batch, rows)
     twin, _ = _pair((24, 12), [0.0, 0.75, 0.0, 1.0], n_img=2, batch=64, seed=3)
     hs = HostRaySampler(rays, rgbs, host, "cpu")
     want = twin.nextids()
