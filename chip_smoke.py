@@ -49,7 +49,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 8. the smoke run of ``configs/smoke/synthetic.txt`` (300 iterations)
    through the command line ``python -m egonerf_torch``, its test PSNR
    against the JAX package's 14.92 dB, and ``--evaluation 1`` from the
-   checkpoint it wrote;
+   checkpoint it wrote (the files JAX writes, ``mean.json`` with every
+   metric but LPIPS);
+8v. the same smoke run with EgoNeRF's grid upsampling (N_voxel 27,000 ->
+   64,000 at steps 100 and 200) and with its linear ray sampling, each test
+   PSNR against the JAX package's for the same arguments on the CPU
+   (``tests/smoke_variants_jax.py``) less the seed band;
 9. the outdoor shape (``presets.outdoor_overrides``: the fields of
    ``configs/egonerf/omniblender/bistro_square.txt``, an envmap of
    2000x1000x3) on the procedural scene with its background at infinity:
@@ -61,7 +66,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 11. one envmap training step with the kernels and with the plain
     versions: the loss and every gradient, the envmap's included;
 12. ``python -m egonerf_torch --config .../bistro_square.txt`` on the
-    procedural scene (pretrain, a few steps, ``--evaluation 1``);
+    procedural scene (pretrain, a few steps, ``--evaluation 1``; its
+    ``envmap.png``, ``_bg`` PNGs and the pretrain's
+    ``pretrained_envmap.png``);
 13. the JAX package's envmap quality recipe (``tools/envmap_e2e.py``:
     500 pretrain + 3000 steps, N_voxel 8e6, 12 + 2 views at 800x400)
     through ``Trainer`` and ``set_datasets``: its test PSNR against the
@@ -169,6 +176,27 @@ theta-importance sampler) likewise:
     OmniBlender-layout scene of 6 frames written here: 20 steps through the
     command line (``simple``), then timed steps and one test view.
 
+The evaluation outputs, EgoNeRF's linear sampling and its grid upsampling:
+
+22. phase 21's trainer through ``evaluation()`` (2 views at 2000x1000):
+    s/image with PSNR alone and no images, with every metric and the
+    images in turn, and overlapped with the next view's render (in turns),
+    the host ms of a view's SSIM map, PSNRs and PNGs, ``mean.json``, the
+    files against JAX's list; ``evaluation_path`` over 3 frames of the
+    LLFF loader's spiral around the scene's poses; the LPIPS graph (alex,
+    vgg, weights from SEED) on a 2000x1000 pair on the card, timed, against
+    the same graph on the host (rel 1e-4);
+23. the production EgoNeRF with ``exp_sampling`` off (the chart's linear
+    radius: K7's mode 2, K4's mode-2 epilogue): K7 and K4 against their
+    plain versions on a chunk and a recorded step, one 2000x1000 view with
+    a few chunks against the plain versions, timed and profiled steps, one
+    step against the plain versions;
+24. the production EgoNeRF from N_voxel 8e6 upsampled to 27e6 after step
+    10 by ``Trainer.upsample`` (24l: the same with the linear radius): the
+    params against the host's resampling, the fine line modes before and
+    after, K1-K4 and K7 on a recorded step of the new grid against their
+    plain versions, timed steps after the event.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
 result and exits 2.
@@ -268,6 +296,15 @@ DEVICE = "cuda"
 # the JAX package's smoke result and its seed band (NOTES.md:77, :139)
 JAX_SMOKE_PSNR, SEED_BAND_DB = 14.92, 2.45
 SMOKE_CONFIG = "configs/smoke/synthetic.txt"
+# the smoke recipe's variants (phase 8v): EgoNeRF's grid upsampling (N_voxel
+# 27,000 -> 64,000 in two steps, at steps 100 and 200) and its linear ray
+# sampling, each beside the JAX package's test PSNR for the same
+# arguments on the CPU (tests/smoke_variants_jax.py)
+SMOKE_VARIANTS = {"upsample": ["--N_voxel_init", "27000", "--upsamp_list", "[100,200]"],
+                  "linear": ["--exp_sampling", "0"]}
+# JAX_PLATFORMS=cpu python tests/smoke_variants_jax.py (the JAX package on the
+# CPU, 300 iterations each)
+JAX_SMOKE_VARIANT_PSNR = {"upsample": 16.25, "linear": 15.12}
 # the outdoor config driven through the command line (phase 12)
 OUTDOOR_CLI_ITERS = 20
 # the JAX package's envmap quality recipe (egonerf_tpu/tools/envmap_e2e.py)
@@ -351,6 +388,21 @@ RICOH_CONFIG = "configs/egonerf/ricoh/garden.txt"
 RICOH_FRAMES, RICOH_TEST, RICOH_ITERS = 8, 2, 300
 OMNI_CONFIG = "configs/egonerf/omniblender/archiviz-flat.txt"
 OMNI_FRAMES, OMNI_TEST, OMNI_ITERS = 6, 2, 20
+# phase 22: evaluation() of phase 21's scene in three forms, in the order
+# EVAL_ORDER (the two forms with the metrics twice each, in turns), the
+# trajectory's frames, and the LPIPS graph against the host's
+EVAL_RUNS = (("PSNR alone, no images", dict(compute_extra_metrics=False, save_images=False,
+                                            overlap=False)),
+             ("every metric and the images, in turn", dict(overlap=False)),
+             ("every metric and the images, overlapped", dict(overlap=True)))
+EVAL_ORDER = (0, 1, 2, 2, 1)
+PATH_FRAMES = 3
+LPIPS_TOL = 1e-4
+# phase 24: the production EgoNeRF upsampled from N_voxel 8e6 to the
+# production grid after step 10; the host's resampling of the same grid in
+# float32 (the same lerps of the same rows)
+UPSAMPLE_FROM, UPSAMPLE_AT = 8_000_000, 10
+UPSAMPLE_TOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -1483,7 +1535,8 @@ def step_vs_plain(trainer, ops, label: str, cull_keep: int = 0) -> None:
             for p in params.values():
                 p.grad = None
             out = model.forward(params, row[:, :6], is_train=True, n_coarse=cfg.n_coarse,
-                                n_fine=cfg.n_fine, jitter=jitter, u=u, **cull)
+                                n_fine=cfg.n_fine, exp_sampling=cfg.exp_sampling,
+                                jitter=jitter, u=u, **cull)
             loss = torch.mean((out["rgb"] - row[:, 6:9]) ** 2)
             loss.backward()
             return loss.item(), {k: p.grad.detach().clone() for k, p in params.items()}
@@ -1606,6 +1659,15 @@ def quality_phase(root: str) -> float:
     if abs(reloaded - test_psnr) > 1e-3:
         fail(f"reloaded checkpoint renders {reloaded:.4f} dB, training ended at "
              f"{test_psnr:.4f} dB")
+    # its outputs: JAX's files, every metric but LPIPS (no weights file)
+    eval_dir = os.path.join(logdir, "evaluation")
+    with open(os.path.join(eval_dir, "mean.json")) as f:
+        summary = json.load(f)
+    want = eval_files(summary["n_images"], False)
+    print(f"phase 8 --evaluation 1 wrote {files_under(eval_dir)}; mean.json "
+          f"{json.dumps(summary)}", flush=True)
+    if files_under(eval_dir) != want or summary["ssim"] is None:
+        fail(f"phase 8 --evaluation 1 wrote {files_under(eval_dir)}, JAX writes {want}")
     return test_psnr
 
 
@@ -1632,6 +1694,16 @@ def outdoor_cli_phase(root: str, presets) -> None:
           f"{time.time() - t0:.1f} s, test PSNR {psnr:.2f} dB", flush=True)
     if not np.isfinite(psnr):
         fail("the outdoor config's evaluation gave a non-finite PSNR")
+    # the envmap's images: envmap.png and the _bg PNGs of --evaluation 1, the
+    # pretrain's pretrained_envmap.png
+    eval_dir = os.path.dirname(mean)
+    with open(os.path.join(eval_dir, "mean.json")) as f:
+        n_images = json.load(f)["n_images"]
+    pretrained = os.path.join(base, "EgoNeRF", "imgs_vis", "pretrained_envmap.png")
+    print(f"phase 12 --evaluation 1 wrote {files_under(eval_dir)}; pretrained_envmap.png "
+          f"{'written' if os.path.exists(pretrained) else 'MISSING'}", flush=True)
+    if files_under(eval_dir) != eval_files(n_images, True) or not os.path.exists(pretrained):
+        fail("phase 12: the envmap's images are not the files JAX writes")
 
 
 def envmap_quality_phase(root: str, presets) -> None:
@@ -3230,6 +3302,426 @@ def omniblender_phase(root: str, wrappers) -> None:
     timed_steps(trainer.train_step, "phase 21 training step", cfg, wrappers,
                 step_launches(wrappers, envmap=False))
     view_phase("phase 21", trainer)
+    evaluation_phase(base, trainer)
+
+
+# -- the evaluation outputs, linear sampling and grid upsampling --------------
+def files_under(root: str) -> list:
+    """Sorted paths of the files (and, with a trailing /, the folders) under
+    ``root``, relative to it."""
+    out = []
+    for d, dirs, files in os.walk(root):
+        rel = os.path.relpath(d, root)
+        out += [os.path.normpath(os.path.join(rel, f)) for f in files]
+        out += [os.path.normpath(os.path.join(rel, x)) + "/" for x in dirs]
+    return sorted(out)
+
+
+def eval_files(n_views: int, env: bool, prefix: str = "") -> list:
+    """The files the JAX package's ``evaluation`` writes for ``n_views``
+    views with its metrics and images on (``renderer.py:200-348``)."""
+    names = [f"{prefix}mean.json", f"{prefix}mean.txt", "rgbd/"]
+    for i in range(n_views):
+        names += [f"{prefix}{i:03d}.png", f"rgbd/{prefix}{i:03d}.png"]
+        if env:
+            names.append(f"{prefix}{i:03d}_bg.png")
+    if env and n_views:
+        names.append(f"{prefix}envmap.png")
+    return sorted(names)
+
+
+def host_work_ms(trainer, out_dir: str) -> None:
+    """The host work of one view of phase 22's evaluation, each part timed
+    alone on view 0's arrays: the SSIM map (both means), PSNR and WS-PSNR,
+    the rgb PNG and the rgbd PNG (the depth colour map included)."""
+    from egonerf_torch.data.png import write_png
+    from egonerf_torch.render.metrics import psnr, ssim_and_ws_ssim, ws_psnr
+    from egonerf_torch.render.viz import to_uint8, visualize_depth
+
+    test = trainer.test_dataset
+    w, h = test.img_wh
+    t0 = time.time()
+    with torch.no_grad():
+        out = trainer.renderer.render_view(trainer.params, test.poses[0])
+    rgb = out["rgb"].reshape(h, w, 3).cpu().numpy()
+    depth = out["depth"].reshape(h, w).cpu().numpy()
+    render_ms = (time.time() - t0) * 1e3
+    gt = np.asarray(test.all_rgbs[0]).reshape(h, w, 3)
+    os.makedirs(out_dir, exist_ok=True)
+    parts = {
+        "SSIM map (SSIM and WS-SSIM)": lambda: ssim_and_ws_ssim(rgb, gt, 1.0),
+        "PSNR and WS-PSNR": lambda: (psnr(rgb, gt), ws_psnr(rgb, gt)),
+        "rgb PNG": lambda: write_png(os.path.join(out_dir, "rgb.png"), to_uint8(rgb)),
+        "rgbd PNG": lambda: write_png(os.path.join(out_dir, "rgbd.png"), np.concatenate(
+            [to_uint8(rgb), visualize_depth(depth, test.near_far)[0]], axis=1)),
+    }
+    ms = {}
+    for name, fn in parts.items():
+        t0 = time.time()
+        fn()
+        ms[name] = (time.time() - t0) * 1e3
+    print(f"phase 22 host work a view ({w}x{h}): " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in ms.items()) + f"; {sum(ms.values()):.1f} ms in all, "
+        f"beside {render_ms:.1f} ms to render and copy the view", flush=True)
+
+
+def lpips_phase(trainer) -> None:
+    """Phase 22: the LPIPS graph (alex and vgg) on the card with weights drawn
+    from SEED, on a 2000x1000 pair (test frame 0 and its render), timed, and
+    the same graph on the host: rel LPIPS_TOL (float32 convolutions summed
+    in other orders; TF32 off on the card)."""
+    from egonerf_torch._device import full_f32_matmul
+    from egonerf_torch.render import lpips
+
+    full_f32_matmul()
+    test = trainer.test_dataset
+    w, h = test.img_wh
+    gt = torch.as_tensor(np.asarray(test.all_rgbs[0], np.float32).reshape(h, w, 3))
+    with torch.no_grad():
+        im = trainer.renderer.render_view(trainer.params, test.poses[0])["rgb"].reshape(h, w, 3)
+        for net in ("alex", "vgg"):
+            arrays = lpips.random_arrays(net, SEED)
+            card = lpips.params_from_arrays(arrays, net, DEVICE)
+            host = lpips.params_from_arrays(arrays, net, "cpu")
+            a, b = gt.to(DEVICE), im.contiguous()
+            got = float(lpips.lpips_pair(card, a, b, net))
+            ms = time_ms(lambda: lpips.lpips_pair(card, a, b, net), reps=3)
+            t0 = time.time()
+            want = float(lpips.lpips_pair(host, gt, im.cpu(), net))
+            host_s = time.time() - t0
+            rel = abs(got - want) / abs(want)
+            print(f"phase 22 LPIPS {net} graph on a {w}x{h} pair, seeded weights: {got:.6f} on "
+                  f"the card in {ms:.2f} ms, {want:.6f} on the host in {host_s:.2f} s, rel "
+                  f"{rel:.2e} (<= {LPIPS_TOL:.0e}) -> {'ok' if rel <= LPIPS_TOL else 'MISS'}",
+                  flush=True)
+            if not (np.isfinite(got) and rel <= LPIPS_TOL):
+                fail(f"the LPIPS {net} graph on the card disagrees with the host's")
+
+
+def evaluation_phase(base: str, trainer) -> None:
+    """Phase 22: phase 21's trainer (2000x1000, 2 test views) through
+    ``evaluation()``: s/image with PSNR alone and no images, with every
+    metric and the images in turn, and overlapped with the next view's
+    render (EVAL_ORDER), the host work of a view, ``mean.json`` and the
+    files (JAX's list); then ``evaluation_path`` over PATH_FRAMES frames of
+    the scene's trajectory and the LPIPS graph."""
+    from egonerf_torch.data.ray_utils import get_spiral
+    from egonerf_torch.render.renderer import evaluation, evaluation_path
+
+    test, model = trainer.test_dataset, trainer.model
+    n_views = test.all_rays.shape[0]
+    per_image = {label: [] for label, _ in EVAL_RUNS}
+    for turn, k in enumerate(EVAL_ORDER):
+        label, kw = EVAL_RUNS[k]
+        out_dir = os.path.join(base, f"evaluation_{turn}")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        psnrs = evaluation(test, model, trainer.params, trainer.renderer, save_path=out_dir, **kw)
+        torch.cuda.synchronize()
+        per_image[label].append((time.time() - t0) / n_views)
+        if len(psnrs) != n_views or not np.all(np.isfinite(psnrs)):
+            fail(f"phase 22 {label}: PSNRs {psnrs}")
+        want = (eval_files(n_views, False) if kw.get("save_images", True)
+                else ["mean.json", "mean.txt", "rgbd/"])
+        if files_under(out_dir) != want:
+            fail(f"phase 22 {label}: wrote {files_under(out_dir)}, JAX writes {want}")
+        with open(os.path.join(out_dir, "mean.json")) as f:
+            summary = json.load(f)
+    for label, times in per_image.items():
+        print(f"phase 22 evaluation, {label}: " + ", ".join(f"{t:.3f}" for t in times)
+              + f" s/image over {n_views} views of {test.img_wh[0]}x{test.img_wh[1]}",
+              flush=True)
+    turns, overlapped = per_image[EVAL_RUNS[1][0]], per_image[EVAL_RUNS[2][0]]
+    spread = max(max(turns) - min(turns), max(overlapped) - min(overlapped))
+    gain = min(turns) - max(overlapped)
+    print(f"phase 22 overlap: metrics and images in turn {min(turns):.3f}-{max(turns):.3f}, "
+          f"overlapped {min(overlapped):.3f}-{max(overlapped):.3f} s/image; the overlap gains "
+          f"{gain:.3f} s/image at least, the spread within a form {spread:.3f}", flush=True)
+    print(f"phase 22 mean.json: {json.dumps(summary)}", flush=True)
+    for k in ("psnr", "ssim", "ws_ssim", "ws_psnr"):
+        if summary[k] is None or not np.isfinite(summary[k]):
+            fail(f"phase 22 mean.json: {k} is {summary[k]}")
+    print(f"phase 22 files: {files_under(os.path.join(base, 'evaluation_1'))} (JAX's list)",
+          flush=True)
+    host_work_ms(trainer, os.path.join(base, "host_work"))
+
+    # the trajectory: PATH_FRAMES frames of the spiral the LLFF loader builds,
+    # around this scene's training poses
+    c2ws = get_spiral(np.asarray(trainer.train_dataset.poses)[:, :3, :4],
+                      np.asarray([test.near_far]), n_views=PATH_FRAMES)
+    path_dir = os.path.join(base, "imgs_path_all")
+    t0 = time.time()
+    frames = evaluation_path(test, model, trainer.params, c2ws, trainer.renderer,
+                             save_path=path_dir)
+    path_s = (time.time() - t0) / PATH_FRAMES
+    want = sorted(["rgbd/"] + [f"{i:03d}.png" for i in range(PATH_FRAMES)]
+                  + [f"rgbd/{i:03d}.png" for i in range(PATH_FRAMES)])
+    got = files_under(path_dir)
+    print(f"phase 22 render_path: {PATH_FRAMES} frames in {path_s:.3f} s/frame, files {got}",
+          flush=True)
+    if got != want or len(frames) != PATH_FRAMES or any(
+            f.shape != (test.img_wh[1], test.img_wh[0], 3) for f in frames):
+        fail(f"phase 22 render_path wrote {got}, expected {want}")
+    lpips_phase(trainer)
+
+
+def upsample_reference(trainer, reso) -> dict:
+    """The grid's planes and lines resampled onto ``reso`` on the host (the
+    chart's ``up_sampling_VM`` on CPU tensors, in the grid before the event):
+    what the event must give on the card."""
+    from egonerf_torch.ops.vm_lookup import MAT_MODE, VEC_MODE
+
+    up = trainer.coords.up_sampling_VM
+    want = {}
+    for kind in ("density", "app"):
+        for i in range(3):
+            m0, m1 = MAT_MODE[i]
+            plane = trainer.params[f"{kind}_planes.{i}"].detach().cpu()
+            line = trainer.params[f"{kind}_lines.{i}"].detach().cpu()
+            want[f"{kind}_planes.{i}"] = up(plane, reso, ids=[m1, m0])
+            want[f"{kind}_lines.{i}"] = up(line, reso, ids=[VEC_MODE[i]])
+    return want
+
+
+def step_kernels_on_grid(label: str, trainer, ops) -> None:
+    """K1, K2, K3, K4 (with its fine chart) and K7 on the inputs of one
+    recorded training step of ``trainer``, each against its plain version
+    at phase 2's limits."""
+    model = trainer.model
+    recs = {k: Recorder(getattr(ops.KERNELS, k))
+            for k in ("field", "field_bwd", "density", "resample_chart", "chart")}
+    model.ops = ops.KERNELS._replace(**recs)
+    try:
+        trainer.train_step(10 ** 5)
+    finally:
+        model.ops = ops.KERNELS
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        args = recs["field"].args
+        abs_err, rel = max_err(ops.KERNELS.field(*args)[:2], ops.PLAIN.field(*args)[:2])
+        check_close(f"K1 field_fwd ({label})", f"rel <= {REL_TOL:.0e} of max|plain|",
+                    rel <= REL_TOL, abs_err, rel)
+        check_relu_mask(f"K1 relu mask ({label})", args, ops)
+        k2_compare(f"K2 field_bwd ({label})", recs["field_bwd"].args, ops)
+        args = recs["density"].args
+        abs_err, rel = max_err([ops.KERNELS.density(*args)], [ops.PLAIN.density(*args)])
+        check_close(f"K3 density_fwd ({label})", f"rel <= {REL_TOL:.0e} of max|plain|",
+                    rel <= REL_TOL, abs_err, rel)
+        rec = recs["resample_chart"]
+        k4_checks(label, ops, drawn_u(ops, rec.args[:9], rec.kwargs["draw"]),
+                  model.near_far[1], rec.args[9:12])
+        check_chart(f"K7 chart (coarse, {label})", ops, recs["chart"].args)
+
+
+def upsample_phase(root, presets, ops, wrappers, exp: bool) -> None:
+    """Phase 24 (24l with ``exp_sampling`` off, the linear radius): the
+    production EgoNeRF from N_voxel UPSAMPLE_FROM, upsampled to the
+    production grid after step UPSAMPLE_AT by ``Trainer.upsample``: the new
+    params against the host's resampling, the line modes before and after,
+    K1-K4 and K7 on the new grid against their plain versions, and timed
+    steps after the event."""
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import Trainer
+
+    label = "24" if exp else "24l"
+    cfg = load_config(overrides=presets.production_overrides(
+        basedir=os.path.join(root, "build", "chip_smoke_runs"), expname=f"upsample_{label}",
+        n_iters=10 ** 9, N_vis=0, progress_refresh_rate=10 ** 9, N_voxel_init=UPSAMPLE_FROM,
+        upsamp_list=f"[{UPSAMPLE_AT}]", exp_sampling=exp))
+    trainer = Trainer(cfg, device=DEVICE)
+    model = trainer.model
+    if trainer.upsamp_list != [UPSAMPLE_AT] or trainer.n_voxel_list != [presets.N_VOXEL]:
+        fail(f"phase {label}: upsample schedule {trainer.upsamp_list}, {trainer.n_voxel_list}")
+    for it in range(UPSAMPLE_AT + 1):
+        trainer.train_step(it)
+    reso = trainer.coords.N_to_reso(trainer.n_voxel_list[0])
+    want = upsample_reference(trainer, reso)
+    n_step = cfg.batch_size * (cfg.n_coarse + cfg.n_fine)
+    n_chunk = presets.EVAL_CHUNK * (cfg.n_coarse + cfg.n_fine)
+
+    def modes():
+        lines = model.fused_tables(trainer.params)[1]
+        return model._line_hat(lines, n_step), model._line_hat(lines, n_chunk)
+
+    before = (list(model.grid_size), model.step_size, modes())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.upsample(UPSAMPLE_AT)
+    torch.cuda.synchronize()
+    event_ms = (time.time() - t0) * 1e3
+    err = 0.0
+    for k, w in want.items():
+        got = trainer.params[k].detach()
+        if tuple(got.shape) != tuple(w.shape):
+            fail(f"phase {label}: {k} {tuple(got.shape)} after the event, {tuple(w.shape)} "
+                 f"by the host's resampling")
+        err = max(err, float((got.cpu() - w).abs().max()))
+    print(f"phase {label} upsample ({'exponential radius, interval_th' if exp else 'linear '}"
+          f"{'' if exp else 'radius'}) after step {UPSAMPLE_AT}: grid {before[0]} -> "
+          f"{model.grid_size}, step size {before[1]:.6f} -> {model.step_size:.6f}, the event "
+          f"{event_ms:.1f} ms; params against the host's resampling max abs {err:.2e} (<= "
+          f"{UPSAMPLE_TOL:.0e}); fine line modes (step {n_step:,} samples, chunk {n_chunk:,}) "
+          f"{before[2]} -> {modes()} (0 linear, 1 hat)", flush=True)
+    if err > UPSAMPLE_TOL or model.grid_size != list(reso) or trainer.coords.resolution != reso:
+        fail(f"phase {label}: the upsampled grid disagrees with the host's resampling")
+    if exp and trainer.coords.ref_grid.shape[0] != reso[0] + 1:
+        fail(f"phase {label}: the radial lookup grid was not re-made")
+    step_kernels_on_grid(f"phase {label}, upsampled grid", trainer, ops)
+    timed_steps(trainer.train_step, f"phase {label} training step after the upsample, grid "
+                f"{model.grid_size}", cfg, wrappers, step_launches(wrappers, envmap=False))
+
+
+def linear_kernel_checks(trainer, ops, dirs, chunk: int) -> dict:
+    """Phase 23: K7 in its linear radial mode (2) on a chunk's coarse depths
+    and K4 with the mode-2 fine chart in its epilogue, each against its
+    plain version on one production chunk (rows with times and bounds) and
+    on one recorded training step."""
+    from egonerf_torch.models.egonerf import _dists
+    from egonerf_torch.ops import chart
+
+    model, cfg = trainer.model, trainer.model.cfg
+    coords, dev = model.coordinates, dirs.device
+    mode = chart.chart_args(coords, 2, dev)[8]
+    if mode != 2:
+        fail(f"phase 23: the chart's radial mode is {mode}, not 2 (linear)")
+    n_c, n_f = trainer.cfg.n_coarse, trainer.cfg.n_fine
+    pick = torch.arange(chunk, device=dev) * (dirs.shape[0] // chunk)
+    viewdirs = dirs[pick]
+    rays = torch.cat([torch.zeros_like(viewdirs), viewdirs], dim=-1)
+    params = trainer.params
+    with torch.no_grad():
+        tables = model.lookup_tables(params)
+        coarse_z = model.sample_depths_linear(rays[:, :3], rays[:, 3:6], n_c)
+        c_args = (rays[:, :3], rays[:, 3:6], coarse_z, coords, 2)
+        err7 = check_chart("K7 chart (coarse, linear r)", ops, c_args)
+        c_norm = ops.PLAIN.chart(*c_args)
+        c_feat = ops.PLAIN.density(c_norm, tables.coarse_planes,
+                                   tables.coarse_lines).reshape(chunk, n_c)
+        act = (cfg.density_shift, cfg.distance_scale, cfg.fea2dense_act)
+        args = (c_feat, coarse_z, _dists(coarse_z), n_f, None, True, *act)
+        fine_rays = (rays[:, :3], rays[:, 3:6], coords)
+        err4 = k4_compare("K4 resample + chart (linear r, eval chunk)", ops, args,
+                          model.near_far[1], fine_rays)
+        # the same directions from origins 16-24 outside the box, so each ray
+        # enters the box at its own depth (t_min differs per ray; some clip
+        # to far)
+        away = torch.rand(chunk, 1, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED)) * 8 + 16
+        out_rays = torch.cat([-viewdirs * away, viewdirs], dim=-1)
+        z_out = model.sample_depths_linear(out_rays[:, :3], out_rays[:, 3:6], n_c)
+        o_args = (out_rays[:, :3], out_rays[:, 3:6], z_out, coords, 2)
+        err7 = max(err7, check_chart("K7 chart (coarse, linear r, rays from outside the box)",
+                                     ops, o_args))
+        o_feat = ops.PLAIN.density(ops.PLAIN.chart(*o_args), tables.coarse_planes,
+                                   tables.coarse_lines).reshape(chunk, n_c)
+        err4 = max(err4, k4_compare(
+            "K4 resample + chart (linear r, rays from outside the box)", ops,
+            (o_feat, z_out, _dists(z_out), n_f, None, True, *act), model.near_far[1],
+            (out_rays[:, :3], out_rays[:, 3:6], coords)))
+        print(f"phase 23 rays from outside the box: t_min in [{float(z_out[:, 0].min()):.4f}, "
+              f"{float(z_out[:, 0].max()):.4f}], {int((z_out[:, 0] > z_out[0, 0]).sum())} of "
+              f"{chunk} above the first ray's", flush=True)
+        table = {
+            "K7 (linear r)": kernel_row(
+                "K7 chart (coarse, linear r)", "egonerf_torch/csrc/chart.cu",
+                "egonerf_tpu/coords/yinyang.py:74", err7,
+                time_ms(lambda: ops.KERNELS.chart(*c_args)),
+                time_ms(lambda: ops.PLAIN.chart(*c_args), reps=5),
+                *chart_cost(rays, coarse_z, 0)),
+            "K4 (linear r)": kernel_row(
+                "K4 resample + fine chart (linear r)", "egonerf_torch/csrc/resample.cu",
+                "egonerf_tpu/ops/pdf.py:14", err4,
+                time_ms(lambda: ops.KERNELS.resample_chart(*args, *fine_rays)),
+                time_ms(lambda: ops.PLAIN.resample_chart(*args, *fine_rays), reps=5),
+                *k4_cost(c_feat, n_f, n_c + n_f, n_grid=0))}
+    print(f"phase 23 linear depths of the chunk: t_min in [{float(coarse_z[:, 0].min()):.4f}, "
+          f"{float(coarse_z[:, 0].max()):.4f}], step {model.step_size:.6f}, last depth up to "
+          f"{float(coarse_z[:, -1].max()):.4f}", flush=True)
+    # one recorded training step: its coarse chart and its resampling
+    rec_c, rec_r = Recorder(ops.KERNELS.chart), Recorder(ops.KERNELS.resample_chart)
+    model.ops = ops.KERNELS._replace(chart=rec_c, resample_chart=rec_r)
+    try:
+        trainer.train_step(0)
+    finally:
+        model.ops = ops.KERNELS
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        check_chart("K7 chart (coarse, linear r, training step)", ops, rec_c.args)
+        k4_checks("linear r, training step", ops,
+                  drawn_u(ops, rec_r.args[:9], rec_r.kwargs["draw"]), model.near_far[1],
+                  rec_r.args[9:12])
+    return table
+
+
+def linear_phase(root, presets, ops, wrappers, dirs_np) -> dict:
+    """Phase 23: EgoNeRF's linear ray sampling at the production width
+    (``exp_sampling`` off: the chart's linear radius, K7's mode 2 and K4's
+    mode-2 epilogue): the kernels against their plain versions, one
+    2000x1000 view with a few chunks against the plain versions and its
+    profile, timed and profiled steps, one step against the plain versions.
+    Returns the two kernels' rows with their launches in the view."""
+    from egonerf_torch.render.renderer import Renderer
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import Trainer
+
+    cfg = load_config(overrides=presets.production_overrides(
+        basedir=os.path.join(root, "build", "chip_smoke_runs"), expname="linear",
+        n_iters=10 ** 9, N_vis=0, progress_refresh_rate=10 ** 9, exp_sampling=False))
+    trainer = Trainer(cfg, device=DEVICE)
+    print(f"phase 23 linear trainer: grid {trainer.model.grid_size}, step size "
+          f"{trainer.model.step_size:.6f}, {cfg.n_coarse} + {cfg.n_fine} samples", flush=True)
+    rows = linear_kernel_checks(trainer, ops, torch.as_tensor(dirs_np, device=DEVICE),
+                                presets.EVAL_CHUNK)
+    with torch.no_grad():
+        launches, _ = render_phases(
+            trainer.model, trainer.params, dirs_np, ops, presets, Renderer, wrappers,
+            phases=("23", "23", "23"),
+            renderer=Renderer.from_config(trainer.model, cfg, trainer.white_bg),
+            per_chunk=dict(K1=1, K3=1, K4=1, K6=1, K7=1))
+    _, median = timed_steps(trainer.train_step, f"phase 23 linear training step, {cfg.n_coarse} "
+                            f"+ {cfg.n_fine} samples", cfg, wrappers,
+                            step_launches(wrappers, envmap=False))
+    it = 10 ** 4
+
+    def steps():
+        nonlocal it
+        for _ in range(PROFILE_STEPS):
+            trainer.train_step(it)
+            it += 1
+    profile(steps, PROFILE_STEPS, "phase 23", "step")
+    step_vs_plain(trainer, ops, "phase 23")
+    rows["K7 (linear r)"]["launches"] = launches["K7"]
+    rows["K4 (linear r)"]["launches"] = launches["K4"]
+    return rows
+
+
+def variant_quality_phase(root: str) -> None:
+    """Phase 8v: the smoke recipe of phase 8 through the command line under
+    each of SMOKE_VARIANTS (EgoNeRF's grid upsampling, its linear
+    sampling): test PSNR above the JAX package's for the same recipe on the
+    CPU (tests/smoke_variants_jax.py) less the seed band."""
+    from egonerf_torch.__main__ import main as cli_main
+    from egonerf_torch.train.checkpoint import latest_checkpoint, load_checkpoint
+
+    for name, extra in SMOKE_VARIANTS.items():
+        base = os.path.join(root, "build", "chip_smoke_runs", f"smoke_{name}")
+        shutil.rmtree(base, ignore_errors=True)
+        argv = ["--config", os.path.join(root, SMOKE_CONFIG), "--n_iters", str(SMOKE_ITERS),
+                "--vis_list", f"[{SMOKE_ITERS}]", "--N_vis", "-1", "--basedir", base, *extra]
+        t0 = time.time()
+        cli_main(argv)
+        torch.cuda.synchronize()
+        logdir = os.path.join(base, "smoke")
+        psnr = float(np.loadtxt(os.path.join(logdir, "imgs_vis",
+                                             f"{SMOKE_ITERS - 1:06d}_mean.txt"))[0])
+        _, header = load_checkpoint(latest_checkpoint(logdir))
+        floor = JAX_SMOKE_VARIANT_PSNR[name] - SEED_BAND_DB
+        print(f"phase 8v smoke run, {name} ({' '.join(extra)}; {SMOKE_ITERS} iterations, "
+              f"{time.time() - t0:.1f} s): test PSNR {psnr:.2f} dB, grid "
+              f"{header['coords_spec']['resolution']}; the JAX package on the CPU "
+              f"{JAX_SMOKE_VARIANT_PSNR[name]:.2f} dB, floor {floor:.2f} dB", flush=True)
+        if not psnr >= floor:
+            fail(f"smoke {name} test PSNR {psnr:.2f} dB below {floor:.2f}")
 
 
 def main() -> int:
@@ -3358,6 +3850,7 @@ def main() -> int:
     smoke_psnr = quality_phase(root)
     cull_quality_phase(root, smoke_psnr)
     combined_quality_phase(root, smoke_psnr, wrappers)
+    variant_quality_phase(root)
 
     # -- phases 9-11: the outdoor shape: render, envmap training --------------
     with torch.no_grad():
@@ -3422,12 +3915,21 @@ def main() -> int:
     capture_rows["K14f"]["launches"] = ricoh_phase(root, wrappers)
     torch.cuda.empty_cache()
     omniblender_phase(root, wrappers)
+    torch.cuda.empty_cache()
     # K15 and K16 have no caller on any path: their launches stay 0
+
+    # -- phases 23-24: linear sampling and grid upsampling at production width --
+    linear_rows = linear_phase(root, presets, ops, wrappers, dirs_np)
+    torch.cuda.empty_cache()
+    upsample_phase(root, presets, ops, wrappers, exp=True)
+    torch.cuda.empty_cache()
+    upsample_phase(root, presets, ops, wrappers, exp=False)
 
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K4+draw", "K5",
                                                      "K6", "K6b", "K6e", "K6+env", "K6b+env",
                                                      "K7", "K8", "K8b", "K4w", "K12", "K4c",
                                                      "K4c+draw", "K13")]
+                      + [linear_rows[k] for k in ("K7 (linear r)", "K4 (linear r)")]
                       + [tf_rows[k] for k in ("K1 (S=1)", "K2 (S=1)", "K3 (S=1)", "K6 gated",
                                               "K6b gated", "K9")]
                       + [form_rows[k] for k in ("K10 fwd", "K10 da", "K10 db", "K11")]

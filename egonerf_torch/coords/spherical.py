@@ -4,10 +4,12 @@ and ``GenericSphericalCoords``).  The other spherical charts wait
 (ROADMAP.md §1)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .base import Coordinates
-from .expgrid import exp_ratio, make_reference_r_grid, normalize_r_exp, normalize_r_lookup
+from .expgrid import (apply_interval_th, exp_ratio, index2r, make_reference_r_grid,
+                      normalize_r_exp, normalize_r_lookup)
 
 
 def _safe_acos(num: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -55,12 +57,18 @@ class GenericSphericalCoords(SphericalCoords):
                 self.ref_grid = make_reference_r_grid(self.r0, self.far_r, self.resolution[0])
 
     def axis_positions(self, dim: int, new_size: int):
-        """The exponential radius needs JAX's r-aware positions
-        (``coords/spherical.py:128-135``), which are not ported."""
-        if dim == 0 and self.exp_r:
-            raise NotImplementedError("upsampling the exponential radius is not ported yet "
-                                      "(ROADMAP.md §1)")
-        return super().axis_positions(dim, new_size)
+        """Normalized [-1, 1] positions in the current grid of a new grid's
+        nodes (JAX ``coords/spherical.py:128-135``): on the exponential
+        radius the new grid's node radii (``index2r`` at the new size's
+        ratio, the ``interval_th`` prefix spliced in) through the current
+        ``normalize_r``; linear on every other axis.  Called before
+        :meth:`set_resolution` takes the new size."""
+        if dim != 0 or not self.exp_r:
+            return super().axis_positions(dim, new_size)
+        grid = index2r(self.r0, exp_ratio(self.r0, self.far_r, new_size), np.arange(new_size))
+        if self.interval_th:
+            grid = apply_interval_th(grid, self.r0)
+        return (self.normalize_r(torch.as_tensor(grid)) * 2.0 - 1.0).numpy()
 
     def extra_spec(self) -> dict:
         return {"exp_r": self.exp_r, "interval_th": self.interval_th, "r0": self.r0}

@@ -384,8 +384,49 @@ class EgoNeRF(nn.Module):
             interpx = near + torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=-1)
         return interpx
 
-    def sample_ray_linear(self, rays_o, rays_d, n_samples: int):
-        raise NotImplementedError(f"linear ray sampling {_LATER}")
+    def sample_depths_linear(self, rays_o: torch.Tensor, rays_d: torch.Tensor, n_samples: int,
+                             jitter: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(R, n_samples) depths in uniform steps of ``step_size`` from each
+        ray's entry into the aabb, clipped to near/far (the ``interpx`` of
+        JAX's ``sample_ray_linear``, ``models/egonerf.py:322-336``; exact
+        zeros of ``rays_d`` divide as 1e-6); with ``jitter`` (R, n_samples)
+        U(0, 1) draws, each depth moves that many steps further
+        (training)."""
+        near, far = self.near_far
+        dev = rays_o.device
+        key = ("aabb", dev)
+        aabb = self._sample_grid_cache.get(key)
+        if aabb is None:
+            aabb = self._sample_grid_cache[key] = torch.as_tensor(self.aabb, device=dev)
+        vec = torch.where(rays_d == 0, torch.full_like(rays_d, 1e-6), rays_d)
+        rate_a = (aabb[1] - rays_o) / vec
+        rate_b = (aabb[0] - rays_o) / vec
+        t_min = torch.minimum(rate_a, rate_b).amax(dim=-1).clamp(near, far)
+        rng = torch.arange(n_samples, dtype=torch.float32, device=dev).expand(
+            rays_o.shape[0], n_samples)
+        if jitter is not None:
+            rng = rng + jitter
+        return t_min[:, None] + self.step_size * rng
+
+    @torch.no_grad()
+    def upsample_params(self, params, res_target) -> dict:
+        """Resample every plane and line onto ``res_target`` at the chart's
+        axis positions (r-aware on an exponential radius; JAX
+        ``models/egonerf.py:559-577``) and install them as the module's
+        parameters; returns :meth:`params`.  The caller then sets the
+        chart's resolution, calls :meth:`update_step_size` and rebuilds
+        Adam.  Nothing cached depends on the grid: the coarse grid, the
+        lookup tables and the line modes are derived from the parameters at
+        each use, and the chart's constants follow its resolution."""
+        up = self.coordinates.up_sampling_VM
+        for pk, lk in (("density_planes", "density_lines"), ("app_planes", "app_lines")):
+            for i in range(3):
+                m0, m1 = MAT_MODE[i]
+                getattr(self, pk)[i] = nn.Parameter(
+                    up(params[f"{pk}.{i}"], res_target, ids=[m1, m0]).contiguous())
+                getattr(self, lk)[i] = nn.Parameter(
+                    up(params[f"{lk}.{i}"], res_target, ids=[VEC_MODE[i]]).contiguous())
+        return self.params()
 
     # ------------------------------------------------------------------
     # alpha mask and regularizers (JAX models/egonerf.py:503-542,579-630)
@@ -458,6 +499,8 @@ class EgoNeRF(nn.Module):
         K8 with K8b behind it), differentiable in the table.  ``white_bg`` is
         accepted and unused, as in JAX.
 
+        ``exp_sampling`` takes the exponential coarse depths, else the
+        linear ones (:meth:`sample_depths_linear`).
         Training (``is_train`` with a ``key``) jitters the coarse depths and
         K4 (or K4c) draws its ``u``, K5's sorted uniforms for (seed, step),
         in its prologue; ``jitter`` (R, n_coarse) and ``u`` (R, n_fine,
@@ -500,10 +543,10 @@ class EgoNeRF(nn.Module):
                 draw = {"draw": (key.seed, key.step)}
 
         with torch.no_grad():
-            # 1) coarse depths
-            if not exp_sampling:
-                self.sample_ray_linear(rays_o, viewdirs, n_coarse)
-            coarse_z = self.sample_depths_exp(n_rays, n_coarse, dev, jitter)
+            # 1) coarse depths; the chart's radial mode (K7, K4's epilogue)
+            # is the chart's own, whichever sampling gave the depths
+            coarse_z = (self.sample_depths_exp(n_rays, n_coarse, dev, jitter) if exp_sampling
+                        else self.sample_depths_linear(rays_o, viewdirs, n_coarse, jitter))
             coarse_dists = _dists(coarse_z)
 
             # 2) coarse chart + half-res normalization (K7)

@@ -112,21 +112,8 @@ class TensorVMSplit(nn.Module):
             self.envmap.copy_(init_envmap(self.cfg.envmap_res_h, generator))
         return self.params()
 
-    @torch.no_grad()
-    def upsample_params(self, params, res_target) -> dict:
-        """Resample every plane and line of ``params`` onto ``res_target``
-        (JAX ``tensorf.py:386-397``) and install them as the module's
-        parameters; returns :meth:`params`.  The caller sets the chart's
-        resolution, calls :meth:`update_step_size` and rebuilds Adam."""
-        up = self.coordinates.up_sampling_VM
-        for pk, lk in (("density_planes", "density_lines"), ("app_planes", "app_lines")):
-            for i in range(3):
-                m0, m1 = MAT_MODE[i]
-                getattr(self, pk)[i] = nn.Parameter(
-                    up(params[f"{pk}.{i}"], res_target, ids=[m1, m0]).contiguous())
-                getattr(self, lk)[i] = nn.Parameter(
-                    up(params[f"{lk}.{i}"], res_target, ids=[VEC_MODE[i]]).contiguous())
-        return self.params()
+    # JAX tensorf.py:386-397: the same resampling on the single grid
+    upsample_params = EgoNeRF.upsample_params
 
     # ------------------------------------------------------------------
     # field lookups

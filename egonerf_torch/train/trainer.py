@@ -19,15 +19,14 @@ Adam.  Nothing synchronises the host per step: the MSE is read with
 ``.item()`` only every ``progress_refresh_rate`` steps.  Events fire
 after a step as in JAX: ``vis_list``, ``i_weights``, the alpha-mask bake
 (``update_AlphaMask_list``; its first switches the L1 weight) and the grid
-upsample (``upsamp_list``, TensorVMSplit), then the end.  With the envmap a
+upsample (``upsamp_list``), then the end, with ``render_train``,
+``render_path`` (``imgs_path_all``) and ``render_test``.  With the envmap a
 fresh run first fits the envmap alone (``pretrain_envmap``, JAX
 ``trainer.py:612-645``).
 
 What the JAX trainer does besides, the port does not carry yet and refuses
-by name (ROADMAP.md §1): the entropy, sparsity and depth losses; EgoNeRF's
-grid upsampling and linear sampling (sentinel schedules beyond ``n_iters``
-are accepted); ray filtering, NDC rays, the device mesh and the profiler
-hook.  TensorVMSplit refuses the cull, which JAX's accepts and ignores (it
+by name (ROADMAP.md §1): the entropy, sparsity and depth losses; ray
+filtering, NDC rays, mesh export, the device mesh and the profiler hook.  TensorVMSplit refuses the cull, which JAX's accepts and ignores (it
 renders unculled).
 """
 from __future__ import annotations
@@ -48,7 +47,7 @@ from ..data.samplers import (DeviceRaySampler, DeviceThetaSampler, HostRaySample
 from ..models import StepKey, build_model, model_meta, params_from_jax
 from ..models.alphamask import mask_from_volumes
 from ..render.metrics import mse2psnr
-from ..render.renderer import Renderer, evaluation
+from ..render.renderer import Renderer, evaluation, evaluation_path
 from .checkpoint import (latest_checkpoint, load_alpha_masks, load_checkpoint, mask_volumes,
                          save_checkpoint)
 from .config import Config, export_config
@@ -73,12 +72,7 @@ def check_supported(cfg: Config) -> None:
             refused.append(f"{name} > 0")
     if cfg.use_depth:
         refused.append("depth supervision")
-    egonerf = cfg.model_name == "EgoNeRF"
-    early = [v for v in (cfg.upsamp_list or []) if v < cfg.n_iters]
-    if egonerf and early:
-        # the radial axis needs JAX's r-aware positions
-        refused.append(f"EgoNeRF's grid upsampling (upsamp_list entries {early} below n_iters)")
-    if not egonerf and (cfg.train_keep or cfg.eval_keep):
+    if cfg.model_name != "EgoNeRF" and (cfg.train_keep or cfg.eval_keep):
         # JAX's TensorVMSplit.forward swallows the options and renders
         # unculled; the port says so instead of accepting and ignoring them
         refused.append(f"the empty-space cull (train_keep, eval_keep) on {cfg.model_name}, "
@@ -91,12 +85,10 @@ def check_supported(cfg: Config) -> None:
         refused.append("the profiler hook (profile_dir)")
     if cfg.coarse_sigma_grid_update_rule == "samp":
         refused.append("the 'samp' coarse-grid rule")
-    if egonerf and not cfg.exp_sampling:
-        refused.append("EgoNeRF's linear ray sampling (exp_sampling off)")
     if cfg.ndc_ray:
         refused.append("NDC rays")
-    if cfg.render_path or cfg.export_mesh:
-        refused.append("render_path and export_mesh")
+    if cfg.export_mesh:
+        refused.append("mesh export (export_mesh)")
     if refused:
         raise NotImplementedError("; ".join(refused) + f": {_ROADMAP}")
 
@@ -334,9 +326,10 @@ class Trainer:
                    save_path=os.path.join(self.logdir, "imgs_vis"), envmap_only=True)
         self.optimizer = self._build_optimizer(cfg.lr_envmap)
 
-    def _evaluate(self, save_path, prefix="", n_vis=-1) -> list:
+    def _evaluate(self, save_path, prefix="", n_vis=-1, compute_extra_metrics=True) -> list:
         return evaluation(self.test_dataset, self.model, self.params, self.renderer,
-                          save_path=save_path, n_vis=n_vis, prefix=prefix)
+                          save_path=save_path, n_vis=n_vis, prefix=prefix,
+                          compute_extra_metrics=compute_extra_metrics)
 
     def train(self) -> list:
         cfg = self.cfg
@@ -359,7 +352,8 @@ class Trainer:
 
             if (iteration + 1) in vis_list and cfg.N_vis != 0:
                 psnrs_test = self._evaluate(os.path.join(self.logdir, "imgs_vis"),
-                                            prefix=f"{iteration:06d}_", n_vis=cfg.N_vis)
+                                            prefix=f"{iteration:06d}_", n_vis=cfg.N_vis,
+                                            compute_extra_metrics=False)
                 if psnrs_test:
                     self.log.scalar("test/psnr", float(np.mean(psnrs_test)), iteration)
                 t_start, rays_done = time.time(), 0
@@ -384,8 +378,13 @@ class Trainer:
                 downsample=cfg.downsample_train, near_far=cfg.near_far, roi=cfg.roi,
                 localization_method=cfg.localization_method)
             psnrs_train = evaluation(train_stacked, self.model, self.params, self.renderer,
-                                     save_path=os.path.join(self.logdir, "imgs_train_all"))
+                                     save_path=os.path.join(self.logdir, "imgs_train_all"),
+                                     compute_extra_metrics=False)
             print(f"======> {cfg.expname} train all psnr: {np.mean(psnrs_train)} <====")
+        if cfg.render_path and hasattr(self.test_dataset, "render_path"):
+            evaluation_path(self.test_dataset, self.model, self.params,
+                            self.test_dataset.render_path, self.renderer,
+                            save_path=os.path.join(self.logdir, "imgs_path_all"))
         if cfg.render_test:
             psnrs_test = self._evaluate(os.path.join(self.logdir, "imgs_test_all"))
             print(f"======> {cfg.expname} test all psnr: {np.mean(psnrs_test)} <====")
@@ -423,8 +422,9 @@ class Trainer:
 
 def render_test(cfg: Config, device="cuda"):
     """Evaluation entry: restore the newest (or the given) checkpoint and
-    render the whole test set; returns the PSNR of each view and writes
-    ``evaluation/mean.txt`` in the log folder."""
+    render the whole test set with every metric; returns the PSNR of each
+    view and writes ``evaluation/`` in the log folder: ``mean.txt``,
+    ``mean.json`` and the images of :func:`evaluation`."""
     if cfg.metric_only:
         raise NotImplementedError(f"metric_only {_ROADMAP}")
     dev = resolve_device(device)

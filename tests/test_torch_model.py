@@ -175,11 +175,36 @@ def test_load_jax_checkpoint(pair, tmp_path):
         np.testing.assert_array_equal(back[k], flat[k], err_msg=k)
 
 
-# the cull is ported (tests/test_torch_cull.py); with linear sampling it still raises
-@pytest.mark.parametrize("kwargs", [dict(is_train=True, exp_sampling=False),
-                                    dict(eval_keep=8, exp_sampling=False),
-                                    dict(exp_sampling=False), dict(ndc_ray=True)])
+@pytest.mark.parametrize("kwargs", [dict(ndc_ray=True)])
 def test_unported_options_raise(pair, kwargs):
     _, _, _, tm = pair
     with pytest.raises(NotImplementedError):
         tm.forward(tm.params(), torch.from_numpy(_rays(4)), **RENDER, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(is_train=True), dict(eval_keep=8), dict()],
+                         ids=["train", "eval_keep", "eval"])
+def test_linear_sampling_matches_jax(pair, kwargs):
+    """``exp_sampling`` off on the exponential chart (the chart's radial
+    mode stays its own): the eval forward, culled at eval_keep 8, and a
+    training forward with JAX's draws (jitter from k_coarse, u sorted from
+    k_pdf), against JAX's; rgb 1e-5 and depth 1e-4 as the eval forward
+    above (more tests of the linear sampler: tests/test_torch_upsample.py)."""
+    from egonerf_tpu.ops.merge import sorted_uniform as jax_sorted_uniform
+
+    jm, jp, _, tm = pair
+    rays = _rays(64, seed=5)
+    kw = dict(RENDER, exp_sampling=False, **kwargs)
+    got_kw = {}
+    key = None
+    if kwargs.get("is_train"):
+        key = jax.random.PRNGKey(9)
+        k_coarse, k_pdf = jax.random.split(key)
+        got_kw = dict(jitter=torch.from_numpy(np.array(jax.random.uniform(k_coarse, (64, 16)))),
+                      u=torch.from_numpy(np.array(jax_sorted_uniform(k_pdf, (64, 16)))))
+    want = jax.jit(lambda p, r: jm.forward(p, r, key=key, **kw))(jp, jnp.asarray(rays))
+    with torch.no_grad():
+        got = tm.forward(tm.params(), torch.from_numpy(rays), **kw, **got_kw)
+    np.testing.assert_allclose(got["rgb"].numpy(), np.asarray(want["rgb"]), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got["depth"].numpy(), np.asarray(want["depth"]),
+                               rtol=0, atol=1e-4)

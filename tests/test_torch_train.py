@@ -327,13 +327,12 @@ UNPORTED = {
     "entropy": dict(entropy_weight=1e-3),
     "sparsity": dict(sparsity_lambda=0.1),
     "depth": dict(use_depth=True),
-    "upsample": dict(upsamp_list="[10]"),
     # EgoNeRF's cull is ported (tests/test_torch_cull.py); TensorVMSplit
     # refuses it, as JAX's accepts and ignores it
     "cull": dict(model_name="TensorVMSplit", coordinates_name="xyz", train_keep=8),
     "filter_ray": dict(filter_ray=True),
     "mesh": dict(mesh_shape="[4]"),
-    "linear_sampling": dict(exp_sampling=False),
+    "export_mesh": dict(export_mesh=True),
 }
 
 
@@ -345,7 +344,8 @@ def test_unported_options_raise(tmp_path, name):
 
 
 # the losses and the alpha mask that EgoNeRF's trainer carries since the
-# TensoRF slice (EgoNeRF's upsampling and linear sampling stay refused above)
+# TensoRF slice, and EgoNeRF's upsampling, linear sampling and trajectory
+# render (tests/test_torch_upsample.py, tests/test_torch_evaluation.py)
 PORTED = {
     "tv": dict(TV_weight_density=0.1),
     "l1": dict(L1_weight_initial=1e-4),
@@ -354,6 +354,9 @@ PORTED = {
     "cull": dict(train_keep=8, eval_keep=8, train_keep_full_every=4, train_cull_tau=1.0),
     # the theta-importance sampler (tests/test_torch_theta_sampler.py)
     "theta_importance": dict(sampling_method="theta_importance"),
+    "upsample": dict(upsamp_list="[10]"),
+    "linear_sampling": dict(exp_sampling=False),
+    "render_path": dict(render_path=1),
 }
 
 
