@@ -197,6 +197,28 @@ The evaluation outputs, EgoNeRF's linear sampling and its grid upsampling:
     after, K1-K4 and K7 on a recorded step of the new grid against their
     plain versions, timed steps after the event.
 
+The entropy, sparsity and depth losses (LOSSES: entropy 1e-3, sparsity
+0.1 on 10,000 points, depth supervision):
+
+2. (also) on the inputs of a production step with the entropy and
+   sparsity terms (indoor, outdoor, TensoRF): K6's training instantiation
+   (alpha out) in its three forms (K6, K6e, gated; alpha abs <= 1e-6, the
+   rest at K6's limits), K6b's (d_alpha in) in its three (rel 1e-5 as K6b;
+   also at 1, 33 and 1536 samples), K3's (the relu mask equal to its
+   lane-order states) and K2 at no appearance channels (per cell as K2) on
+   the sparsity lookup's points at S = 2 and S = 1, and K14f at 10 floats a
+   row bit for bit (the same ids as at 9);
+8v. (also) the smoke run with the three losses against the JAX package's
+   CPU figure less the seed band;
+25. the production trainers with the three losses through
+    ``Trainer.train_step``: indoor, culled at train_keep 128, under
+    ``theta_importance`` (K14f at 10 floats), outdoor (K6e with alpha) and
+    TensoRF (gated, S = 1): step ms (median of 20) beside the same steps
+    with the losses off in the same process, launches (the training
+    instantiations once a step, one more K3 and K2), device operations a
+    step, and one loss step against the plain versions (loss rel 1e-5,
+    gradients 1e-3).
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
 result and exits 2.
@@ -297,14 +319,17 @@ DEVICE = "cuda"
 JAX_SMOKE_PSNR, SEED_BAND_DB = 14.92, 2.45
 SMOKE_CONFIG = "configs/smoke/synthetic.txt"
 # the smoke recipe's variants (phase 8v): EgoNeRF's grid upsampling (N_voxel
-# 27,000 -> 64,000 in two steps, at steps 100 and 200) and its linear ray
-# sampling, each beside the JAX package's test PSNR for the same
-# arguments on the CPU (tests/smoke_variants_jax.py)
+# 27,000 -> 64,000 in two steps, at steps 100 and 200), its linear ray
+# sampling, and the entropy, sparsity and depth losses at once (the
+# weights of phase 25), each beside the JAX package's test PSNR for the
+# same arguments on the CPU (tests/smoke_variants_jax.py)
 SMOKE_VARIANTS = {"upsample": ["--N_voxel_init", "27000", "--upsamp_list", "[100,200]"],
-                  "linear": ["--exp_sampling", "0"]}
+                  "linear": ["--exp_sampling", "0"],
+                  "losses": ["--entropy_weight", "1e-3", "--sparsity_lambda", "0.1",
+                             "--use_depth", "1"]}
 # JAX_PLATFORMS=cpu python tests/smoke_variants_jax.py (the JAX package on the
 # CPU, 300 iterations each)
-JAX_SMOKE_VARIANT_PSNR = {"upsample": 16.25, "linear": 15.12}
+JAX_SMOKE_VARIANT_PSNR = {"upsample": 16.25, "linear": 15.12, "losses": 14.88}
 # the outdoor config driven through the command line (phase 12)
 OUTDOOR_CLI_ITERS = 20
 # the JAX package's envmap quality recipe (egonerf_tpu/tools/envmap_e2e.py)
@@ -398,6 +423,17 @@ EVAL_RUNS = (("PSNR alone, no images", dict(compute_extra_metrics=False, save_im
 EVAL_ORDER = (0, 1, 2, 2, 1)
 PATH_FRAMES = 3
 LPIPS_TOL = 1e-4
+# phase 25 (and phase 2's rows of the losses' kernels): the three losses at
+# the weights the port's trainer test names (tests/test_torch_train.py's
+# PORTED), JAX's N_sparsity_points default; the switches of the three
+LOSSES = dict(entropy_weight=1e-3, sparsity_lambda=0.1, use_depth=True,
+              N_sparsity_points=10_000)
+LOSS_SWITCHES = ("entropy_weight", "sparsity_lambda", "use_depth")
+# K6's training instantiation against its plain version: alpha is the same
+# float32 exp of the same products on both sides, its libraries' expf
+ALPHA_TOL = 1e-6
+# K6b's training instantiation at these sample counts (and the steps' 256)
+K6B_ALPHA_SWEEP_S = (1, 33, 1536)
 # phase 24: the production EgoNeRF upsampled from N_voxel 8e6 to the
 # production grid after step 10; the host's resampling of the same grid in
 # float32 (the same lerps of the same rows)
@@ -1509,9 +1545,11 @@ def step_launches(wrappers, envmap: bool) -> dict:
     return {k: TRAIN_STEPS if k in per_step else 0 for k in wrappers}
 
 
-def step_vs_plain(trainer, ops, label: str, cull_keep: int = 0) -> None:
+def step_vs_plain(trainer, ops, label: str, cull_keep: int = 0, it: int = 5) -> None:
     """One training step with the kernels and with the plain versions, the
-    same weights and draws: the loss to rel REL_TOL, every gradient to
+    same weights and draws: ``Trainer.loss`` at iteration ``it`` (the MSE
+    and the terms the config turns on; with the sparsity loss its points
+    drawn here, the same on both sides) to rel REL_TOL, every gradient to
     GRAD_TOL in relative L2 norm.  With ``cull_keep`` the step culls to
     that many samples a ray (the tie-break on the same ``cull_u``), and the
     rays whose kept set differs on the two sides are printed."""
@@ -1526,6 +1564,15 @@ def step_vs_plain(trainer, ops, label: str, cull_keep: int = 0) -> None:
     if cull_keep:
         cull = dict(train_keep=cull_keep, cull_u=torch.rand(
             cfg.batch_size, cfg.n_coarse + cfg.n_fine, device=dev, generator=gen))
+    pts = None
+    if cfg.sparsity_lambda > 0:
+        # EgoNeRF's points carry a chart flag, TensorVMSplit's do not
+        n = cfg.N_sparsity_points
+        pts = torch.rand(n, 3, device=dev, generator=gen) * 2.0 - 1.0
+        if cfg.model_name == "EgoNeRF":
+            pts = torch.cat([pts, (torch.rand(n, 1, device=dev, generator=gen) < 0.5).float()],
+                            -1)
+    depth_gt = row[:, 9] if cfg.use_depth else None
     logs = []
 
     def loss_and_grads(o):
@@ -1536,8 +1583,8 @@ def step_vs_plain(trainer, ops, label: str, cull_keep: int = 0) -> None:
                 p.grad = None
             out = model.forward(params, row[:, :6], is_train=True, n_coarse=cfg.n_coarse,
                                 n_fine=cfg.n_fine, exp_sampling=cfg.exp_sampling,
-                                jitter=jitter, u=u, **cull)
-            loss = torch.mean((out["rgb"] - row[:, 6:9]) ** 2)
+                                jitter=jitter, u=u, with_alpha=trainer.entropy_on(it), **cull)
+            loss, _ = trainer.loss(out, row[:, 6:9], it, depth_gt, pts)
             loss.backward()
             return loss.item(), {k: p.grad.detach().clone() for k, p in params.items()}
         finally:
@@ -3695,6 +3742,355 @@ def linear_phase(root, presets, ops, wrappers, dirs_np) -> dict:
     return rows
 
 
+# -- the training losses: K6/K6b/K3's training instantiations, K2 at no
+# appearance channels, K14f at 10 floats (phase 2) and phase 25 ---------------
+@contextlib.contextmanager
+def losses(cfg, on: bool, keys=LOSS_SWITCHES):
+    """The switches ``keys`` of the losses at LOSSES's values (``on``) or
+    off in ``cfg`` for the block, then back as they were.  ``use_depth``'s
+    buffer column is installed with the sampler: switching it on needs a
+    trainer built with it."""
+    saved = {k: getattr(cfg, k) for k in keys}
+    for k in keys:
+        setattr(cfg, k, LOSSES[k] if on else type(LOSSES[k])(0))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(cfg, k, v)
+
+
+def record_loss_step(trainer, ops) -> dict:
+    """One training step of ``trainer`` with the entropy and sparsity terms
+    on (the weights do not matter to the kernels' inputs; the depth term
+    launches nothing), recording the calls of K6, K6b, K3 (the last: the
+    sparsity lookup's training instantiation) and every K2."""
+    model, cfg = trainer.model, trainer.cfg
+    recs = {k: Recorder(getattr(ops.KERNELS, k)) for k in ("composite", "composite_bwd",
+                                                            "density")}
+    log = CallLog(ops.KERNELS.field_bwd)
+    model.ops = ops.KERNELS._replace(field_bwd=log, **recs)
+    try:
+        with losses(cfg, True, ("entropy_weight", "sparsity_lambda")):
+            trainer.train_step(1)
+    finally:
+        model.ops = ops.KERNELS
+    torch.cuda.synchronize()
+    if not recs["composite"].kwargs.get("with_alpha") or "d_alpha" not in \
+            recs["composite_bwd"].kwargs or not recs["density"].kwargs.get("with_mask"):
+        fail("the loss step took the default instantiations")
+    dens_k2 = [a for a in log.calls if a[4].shape[1] == 0]
+    if len(dens_k2) != 1:
+        fail(f"the loss step launched {len(dens_k2)} K2 at no appearance channels, not 1")
+    return dict(recs, k2=dens_k2[0])
+
+
+def composite_alpha_case(name, ops, args, kwargs, n_bytes, n_ops) -> dict:
+    """K6's training instantiation against its plain version: alpha abs <=
+    ALPHA_TOL, every other output at K6's limit (rel REL_TOL of
+    max|plain|); its row with times, the alpha written in the bytes."""
+    with torch.no_grad():
+        out, ref = ops.KERNELS.composite(*args, **kwargs), ops.PLAIN.composite(*args, **kwargs)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        if o.shape != r.shape or not torch.isfinite(o).all():
+            fail(f"{name}: shape {tuple(o.shape)} (plain {tuple(r.shape)}) or non-finite")
+    a_err = float((out[-1] - ref[-1]).abs().max())
+    abs_err, rel_err = max_err(out[:-1], ref[:-1])
+    check_close(name, f"alpha abs {a_err:.2e} <= {ALPHA_TOL:.0e}; the rest rel <= "
+                f"{REL_TOL:.0e} of max|plain|", a_err <= ALPHA_TOL and rel_err <= REL_TOL,
+                max(abs_err, a_err), rel_err)
+    return kernel_row(name, "egonerf_torch/csrc/composite.cu", "egonerf_tpu/ops/volrend.py:11",
+                      max(abs_err, a_err),
+                      time_ms(lambda: ops.KERNELS.composite(*args, **kwargs)),
+                      time_ms(lambda: ops.PLAIN.composite(*args, **kwargs), reps=5), n_bytes,
+                      n_ops)
+
+
+def touched_table_bytes(coords, planes, lines) -> int:
+    """The bytes of the rows of ``planes`` and ``lines`` that the lookups at
+    ``coords`` read (each row once; float32 line weights): what a lookup
+    of few points must move, where the whole tables would overcount."""
+    from egonerf_torch.ops import vm_lookup as vm
+
+    xyz, sel = coords[:, :3], vm.chart_sel(coords, planes[0].shape[0])
+    total = 0
+    for i in range(3):
+        m0, m1 = vm.MAT_MODE[i]
+        _, h, w, c = planes[i].shape
+        rows = torch.cat([idx[wt != 0] for idx, wt in
+                          vm._plane_corners(xyz[:, m0], xyz[:, m1], sel, h, w)])
+        lrows = torch.cat([idx[wt != 0] for idx, wt in
+                           vm._line_rows(xyz[:, vm.VEC_MODE[i]], sel, lines[i].shape[1],
+                                         vm.LINEAR)])
+        total += (rows.unique().numel() * c * planes[i].element_size()
+                  + lrows.unique().numel() * c * lines[i].element_size())
+    return total
+
+
+def density_train_case(name, ops, args) -> dict:
+    """K3's training instantiation against its plain version: the density
+    rel REL_TOL of max|plain| (and equal to the eval instantiation's), the
+    relu mask equal to the states of its lane-order sums (the plain
+    version's) on every sample; its row."""
+    with torch.no_grad():
+        dens, mask = ops.KERNELS.density(*args, with_mask=True)
+        want_d, want_m = ops.PLAIN.density(*args, with_mask=True)
+        eval_d = ops.KERNELS.density(*args)
+    torch.cuda.synchronize()
+    abs_err, rel_err = max_err([dens], [want_d])
+    flips = int((mask != want_m).sum())
+    ties = int(sum(((want_m >> (2 * i)) & 3 == 1).sum() for i in range(3)))
+    same = torch.equal(dens, eval_d)
+    check_close(name, f"rel <= {REL_TOL:.0e} of max|plain|; mask differs on {flips} of "
+                f"{mask.numel():,} samples ({ties} exact-zero partials), density "
+                f"{'equal' if same else 'NOT equal'} to the eval instantiation's",
+                rel_err <= REL_TOL and flips == 0 and same, abs_err, rel_err)
+    coords, planes, lines = args
+    return kernel_row(
+        name, "egonerf_torch/csrc/vm_lookup.cu", "egonerf_tpu/ops/vm_lookup.py:436", abs_err,
+        time_ms(lambda: ops.KERNELS.density(*args, with_mask=True)),
+        time_ms(lambda: ops.PLAIN.density(*args, with_mask=True), reps=5),
+        # the coords, the rows the points touch; the density and mask out
+        nbytes(coords) + touched_table_bytes(coords, planes, lines) + coords.shape[0] * 5,
+        coords.shape[0] * sum(p.shape[-1] for p in planes) * 11)
+
+
+def k6b_alpha_sweep(ops) -> None:
+    """Phase 2, K6b's training instantiation on seeded rays of each of
+    K6B_ALPHA_SWEEP_S samples in its three forms (EgoNeRF, envmap, gated),
+    rel REL_TOL of max|plain|."""
+    from egonerf_torch.ops import volrend
+
+    for s in K6B_ALPHA_SWEEP_S:
+        r = 1024 if s > 256 else 4096
+        for label, env, gated in (("EgoNeRF", False, False), ("env", True, False),
+                                  ("gated", False, True)):
+            warps, smem = volrend.bwd_geometry(s, gated, d_alpha=True)
+            args = k6b_case(r, s, env, gated, SEED + 7 * s, DEVICE)
+            d_alpha = torch.randn(r, s, device=DEVICE,
+                                  generator=torch.Generator(device=DEVICE).manual_seed(s))
+            with torch.no_grad():
+                out = ops.KERNELS.composite_bwd(*args, d_alpha=d_alpha)
+                ref = ops.PLAIN.composite_bwd(*args, d_alpha=d_alpha)
+            torch.cuda.synchronize()
+            if not all(torch.isfinite(o).all() for o in out):
+                fail(f"K6b alpha {label} at S = {s}: non-finite output")
+            abs_err, rel_err = max_err(out, ref)
+            check_close(f"K6b composite_bwd with d_alpha, {label} at {r} x {s} ({warps} warps "
+                        f"a block, {smem} shared bytes)", f"rel <= {REL_TOL:.0e} of max|plain|",
+                        rel_err <= REL_TOL, abs_err, rel_err)
+
+
+def loss_kernel_checks(trainer, outdoor, tf, ops) -> dict:
+    """Phase 2, the training losses' kernels on the inputs one production
+    step with the entropy and sparsity terms gives them (indoor, outdoor,
+    TensoRF): K6's training instantiation in its three forms (K6, K6e,
+    gated) and K6b's with d_alpha, K3's training instantiation and K2 at no
+    appearance channels on the N_sparsity_points lookups (S = 2 and S = 1),
+    K6b with d_alpha at K6B_ALPHA_SWEEP_S samples, and K14f at 10 floats a
+    row bit for bit.  Returns their rows."""
+    from egonerf_torch.ops import envmap
+
+    table = {}
+    # the rows of K3's training instantiation and K2 at no appearance
+    # channels: the indoor step's (S = 2) and TensoRF's (S = 1); the
+    # outdoor step's lookup is checked alike
+    for label, tr, k6, k6b, s1 in (("indoor", trainer, "K6 alpha", "K6b alpha", ""),
+                                   ("outdoor", outdoor, "K6e alpha", "K6b+env alpha",
+                                    " (outdoor)"),
+                                   ("TensoRF", tf, "K6 gated alpha", "K6b gated alpha",
+                                    " (S=1)")):
+        rec = record_loss_step(tr, ops)
+        c_args, c_kw = rec["composite"].args, rec["composite"].kwargs
+        feat, dists, z, rgb, dz = c_args[:5]
+        valid, emission, dirs = c_args[9], c_args[11], c_args[12]
+        r, s = feat.shape
+        # K6's bytes and outputs, the alphas written; the gates' mask; K6e's
+        # directions, the texels this batch touches, env and bg_map out
+        n_bytes = nbytes(feat, dists, z, rgb, dz) + r * 6 * 4 + 4 * r * s
+        if valid is not None:
+            n_bytes += nbytes(valid)
+        if emission is not None:
+            corners = envmap.envmap_corners(dirs, emission.shape[1])
+            texels = int(torch.cat([i[w > 0] for i, w in corners]).unique().numel())
+            n_bytes += r * 12 + texels * 12 + r * 24
+        table[k6] = composite_alpha_case(f"{k6} composite with alpha ({label} loss step)", ops,
+                                         c_args, c_kw, n_bytes, r * s * 20)
+        b_args, b_kw = rec["composite_bwd"].args, rec["composite_bwd"].kwargs
+        b_extra = [t for t in b_args[4:] if isinstance(t, torch.Tensor)]
+        # K6b's, with d_alpha read
+        table[k6b] = check_case(
+            f"{k6b} composite_bwd with d_alpha ({label} loss step)",
+            "egonerf_torch/csrc/composite.cu", "egonerf_tpu/ops/volrend.py:27",
+            lambda *a: ops.KERNELS.composite_bwd(*a, **b_kw),
+            lambda *a: ops.PLAIN.composite_bwd(*a, **b_kw), b_args,
+            nbytes(*b_args[:4], *b_extra, b_kw["d_alpha"]) + 4 * (feat.numel() + rgb.numel()),
+            feat.numel() * 62)
+        d_args = rec["density"].args
+        table[f"K3 train{s1}"] = density_train_case(
+            f"K3 density_fwd, training instantiation ({label} sparsity lookup, "
+            f"{d_args[0].shape[0]:,} points)", ops, d_args)
+        k2_args = rec["k2"]
+        row = check_field_bwd(
+            f"K2 field_bwd at no appearance channels ({label} sparsity lookup)", k2_args, ops)
+        # JAX's float32 VJPs of the lookups, _plane_bwd and _line_bwd; the
+        # bound reads only the rows the points touch (the gradient tables
+        # are written whole)
+        row["replaces"] = "egonerf_tpu/ops/vm_lookup.py:456"
+        k_coords, k_planes, k_lines = k2_args[:3]
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes(k_coords, *k2_args[3:6]) + touched_table_bytes(k_coords, k_planes, k_lines)
+            + sum(4 * t.numel() for t in (*k_planes, *k_lines)),
+            k_coords.shape[0] * sum(p.shape[-1] for p in k_planes) * 18)
+        print(f"phase 2 K2 at no appearance channels ({label}): bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) with the touched rows read", flush=True)
+        table[f"K2 (n_app=0){s1}"] = row
+        print(f"phase 2 loss step ({label}): composite {r} x {s}, sparsity lookup on "
+              f"{d_args[0].shape[0]:,} points, density tables "
+              f"{[tuple(p.shape) for p in d_args[1]]}", flush=True)
+    k6b_alpha_sweep(ops)
+    # K14f at 10 floats a row (rays | rgb | depth): both rasters, two
+    # batches, bit for bit
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    for roi in THETA_ROIS:
+        sam = theta_raster(roi)
+        cdf = torch.as_tensor(np.cumsum(sam.weight).astype(np.float32), device=dev)
+        buffer = torch.rand(sam.img_len * sam.w * sam.h, 10, generator=gen, device=dev)
+        for t in (1, 2):
+            ids = batch_equal(f"K14f at 10 floats, {sam.w}x{sam.h} raster, roi {list(roi)}, "
+                              f"batch {t}", ops, (buffer, cdf, sam.w, sam.h, THETA_DRAWS, SEED, t))
+            want = ops.KERNELS.theta_batch(buffer[:, :9].contiguous(), cdf, sam.w, sam.h,
+                                           THETA_DRAWS, SEED, t)[0]
+            if not torch.equal(ids, want):
+                fail("K14f draws other ids at 10 floats than at 9")
+    args = (buffer, cdf, sam.w, sam.h, THETA_DRAWS, SEED, 5)
+    table["K14f (10 floats)"] = kernel_row(
+        "K14f theta_batch (10 floats)", "egonerf_torch/csrc/theta_sampler.cu",
+        "egonerf_tpu/data/samplers.py:87", 0.0, time_ms(lambda: ops.KERNELS.theta_batch(*args)),
+        time_ms(lambda: ops.PLAIN.theta_batch(*args), reps=5),
+        THETA_DRAWS * (8 + 2 * 40) + 4 * sam.h,
+        THETA_DRAWS * (80 + 6 + 2 * int(np.ceil(np.log2(sam.h))) + 6))
+    return table
+
+
+def loss_launches(base: dict) -> dict:
+    """``base``'s launches of TRAIN_STEPS default steps, plus those of the
+    three losses: K6 and K6b in their training instantiations (counted in
+    their forms too), and one more K3 (its training instantiation) and K2
+    (at no appearance channels) a step."""
+    want = dict(base)
+    for k in ("K6 alpha", "K6b alpha", "K3 train", "K2 dens"):
+        want[k] = TRAIN_STEPS
+    want["K3"] += TRAIN_STEPS
+    want["K2"] += TRAIN_STEPS
+    return want
+
+
+def loss_variant(label, trainer, ops, wrappers, base: dict, it: int, cull_keep: int = 0):
+    """Phase 25 for one trainer with LOSSES on: TRAIN_STEPS timed steps
+    (launches: ``base`` plus the losses'), the same with the losses off in
+    this process, the profile of the loss steps, one loss step against the
+    plain versions.  Returns (launches, loss median, default median)."""
+    cfg = trainer.cfg
+    cfg.train_keep = cull_keep
+    try:
+        launches, median = timed_steps(
+            trainer.train_step, f"phase 25 {label} step with the losses", cfg, wrappers,
+            loss_launches(base))
+        steps_it = 10 ** 4
+
+        def steps():
+            nonlocal steps_it
+            for _ in range(PROFILE_STEPS):
+                trainer.train_step(steps_it)
+                steps_it += 1
+        profile(steps, PROFILE_STEPS, f"phase 25 {label}", "step", top=16)
+        step_vs_plain(trainer, ops, f"phase 25 {label}", cull_keep, it)
+        with losses(cfg, False):
+            _, default = timed_steps(trainer.train_step, f"phase 25 {label} step, losses off",
+                                     cfg, wrappers, base)
+    finally:
+        cfg.train_keep = 0
+    print(f"phase 25 summary {label}: median step {median:.3f} ms with the losses, "
+          f"{default:.3f} ms without ({median - default:+.3f} ms)", flush=True)
+    return launches, median, default
+
+
+def losses_phase(root, presets, ops, wrappers) -> dict:
+    """Phase 25: the entropy, sparsity and depth losses (LOSSES) at full
+    width through ``Trainer.train_step``: the indoor production trainer,
+    the outdoor shape (K6e with alpha), a culled step (train_keep
+    CULL_TRAIN_KEEP), the TensoRF shape (gated, S = 1) and the indoor
+    trainer under ``theta_importance`` (K14f at 10 floats).  Returns the
+    launches of the training instantiations in the timed loss steps, by
+    kernel row."""
+    from egonerf_torch.data.datasets import SyntheticEgoDataset
+    from egonerf_torch.models.alphamask import AlphaGridMask
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import Trainer
+
+    base_dir = os.path.join(root, "build", "chip_smoke_runs")
+    common = dict(basedir=base_dir, n_iters=10 ** 9, N_vis=0, progress_refresh_rate=10 ** 9,
+                  **LOSSES)
+    rows = {}
+
+    def trainer_of(overrides, scene=None):
+        t = Trainer(load_config(overrides=overrides), device=DEVICE)
+        if scene is not None:
+            s = dict(scene, near_far=t.cfg.near_far)
+            t.set_datasets(SyntheticEgoDataset(split="train", **s),
+                           SyntheticEgoDataset(split="test", is_stack=True, **s))
+        if t.sampler.buffer.shape[1] != 10:
+            fail(f"phase 25: a buffer of {t.sampler.buffer.shape[1]} floats a ray under use_depth")
+        return t
+
+    indoor = trainer_of(presets.production_overrides(expname="losses", **common))
+    print(f"phase 25 indoor trainer: {LOSSES}, {indoor.sampler.buffer.shape[0]:,} rays of "
+          f"{indoor.sampler.buffer.shape[1]} floats, "
+          f"{int((indoor.sampler.buffer[:, 9] != 0).sum()):,} with a depth", flush=True)
+    plain = step_launches(wrappers, envmap=False)
+    launches, _, _ = loss_variant("indoor", indoor, ops, wrappers, plain, 5)
+    rows.update({"K6 alpha": launches["K6 alpha"], "K6b alpha": launches["K6b alpha"],
+                 "K3 train": launches["K3 train"], "K2 (n_app=0)": launches["K2 dens"]})
+    culled = {k: TRAIN_STEPS * ((k in ("K1", "K2", "K3", "K4c", "K4c+draw", "K6", "K6b",
+                                       "K13")) + (k == "K7") * 2) for k in wrappers}
+    loss_variant(f"culled (train_keep {CULL_TRAIN_KEEP})", indoor, ops, wrappers, culled, 5,
+                 cull_keep=CULL_TRAIN_KEEP)
+    del indoor
+    torch.cuda.empty_cache()
+
+    theta = trainer_of(presets.production_overrides(expname="losses_theta",
+                                                    sampling_method="theta_importance",
+                                                    **common))
+    launches, _, _ = loss_variant("theta_importance", theta, ops, wrappers,
+                                  dict(plain, K14f=TRAIN_STEPS), 5)
+    rows["K14f (10 floats)"] = launches["K14f"]
+    del theta
+    torch.cuda.empty_cache()
+
+    outdoor = trainer_of(presets.outdoor_overrides(expname="losses_outdoor", **common),
+                         ENV_SCENE)
+    launches, _, _ = loss_variant("outdoor", outdoor, ops, wrappers,
+                                  step_launches(wrappers, envmap=True), 5)
+    rows.update({"K6e alpha": launches["K6 alpha"], "K6b+env alpha": launches["K6b alpha"]})
+    del outdoor
+    torch.cuda.empty_cache()
+
+    tf = trainer_of(presets.tensorf_mask_overrides(expname="losses_tensorf", **common),
+                    presets.TENSORF_BENCH_SCENE)
+    tf.model.alpha_mask = AlphaGridMask(half_mask(TF_MASK_RESO, DEVICE), device=DEVICE)
+    tf_base = {k: TRAIN_STEPS if k in ("K1", "K2", "K9", "K6", "K6b") else 0 for k in wrappers}
+    launches, _, _ = loss_variant("TensoRF", tf, ops, wrappers, tf_base, 5)
+    rows.update({"K6 gated alpha": launches["K6 alpha"], "K6b gated alpha": launches["K6b alpha"],
+                 "K3 train (S=1)": launches["K3 train"],
+                 "K2 (n_app=0) (S=1)": launches["K2 dens"]})
+    del tf
+    torch.cuda.empty_cache()
+    return rows
+
+
 def variant_quality_phase(root: str) -> None:
     """Phase 8v: the smoke recipe of phase 8 through the command line under
     each of SMOKE_VARIANTS (EgoNeRF's grid upsampling, its linear
@@ -3755,7 +4151,13 @@ def main() -> int:
                 "K4c+draw": pdf.resample_score.draw_form, "K13": cull.select_top_k,
                 "K14": sampler.theta_ids, "K14f": sampler.theta_batch,
                 "K15 plane": vm_lookup.sample_plane_nograd,
-                "K15 line": vm_lookup.sample_line_nograd, "K16": grid_sample.sample_line}
+                "K15 line": vm_lookup.sample_line_nograd, "K16": grid_sample.sample_line,
+                # the training instantiations of the losses, each also counted
+                # in its kernel's own count (K6, K6e or K6+env; K6b; K3; K2)
+                "K6 alpha": volrend.composite.alpha_form,
+                "K6b alpha": volrend.composite_bwd.alpha_form,
+                "K3 train": vm_lookup.density_fwd.train_form,
+                "K2 dens": vm_lookup.field_bwd.density_form}
 
     # -- phase 1: card + build ----------------------------------------------
     card = card_line()
@@ -3820,6 +4222,7 @@ def main() -> int:
     k6b_sweep(ops)
     tf_rows = tensorf_kernel_checks(tf, ops)
     k2_stage_checks(root, presets, ops)
+    loss_rows = loss_kernel_checks(trainer, outdoor, tf, ops)
     capture_rows = theta_kernel_checks(ops)
     capture_rows.update(nograd_kernel_checks(ops))
 
@@ -3924,6 +4327,11 @@ def main() -> int:
     upsample_phase(root, presets, ops, wrappers, exp=True)
     torch.cuda.empty_cache()
     upsample_phase(root, presets, ops, wrappers, exp=False)
+    torch.cuda.empty_cache()
+
+    # -- phase 25: the entropy, sparsity and depth losses at full width --------
+    for k, n in losses_phase(root, presets, ops, wrappers).items():
+        loss_rows[k]["launches"] = n
 
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K4+draw", "K5",
                                                      "K6", "K6b", "K6e", "K6+env", "K6b+env",
@@ -3935,7 +4343,11 @@ def main() -> int:
                       + [form_rows[k] for k in ("K10 fwd", "K10 da", "K10 db", "K11")]
                       + [capture_rows[k] for k in ("K14", "K14f", "K15 plane", "K15 plane (S=1)",
                                                    "K15 line", "K15 line (S=1)", "K16",
-                                                   "K16 (S=1)")]}),
+                                                   "K16 (S=1)")]
+                      + [loss_rows[k] for k in ("K6 alpha", "K6e alpha", "K6 gated alpha",
+                                                "K6b alpha", "K6b+env alpha", "K6b gated alpha",
+                                                "K3 train", "K3 train (S=1)", "K2 (n_app=0)",
+                                                "K2 (n_app=0) (S=1)", "K14f (10 floats)")]}),
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

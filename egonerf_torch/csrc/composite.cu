@@ -43,6 +43,15 @@
 // the rgb gate drops has q_j = 0 and d rgb_j = 0; d feat_j = 0 where valid
 // is false.
 //
+// Training with the entropy loss (ray_entropy, egonerf_tpu/ops/volrend.py:27)
+// asks for each sample's alpha too: K6's training instantiation (kAlpha, in
+// every form: plain, gated, with a given env and K6e) writes alpha (R, S)
+// beside its other outputs, from the shared array it already keeps, one
+// coalesced row a warp after the scan; K6b's (kDAlpha) takes its cotangent
+// d_alpha (R, S) and adds it into d alpha_j before the chain to d feat_j.
+// Both are template parameters, so the default instantiations are the code
+// they were; d feat_j stays 0 where valid is false.
+//
 // K6e, the envmap instantiation of K6, takes each ray's view direction and
 // the (2h, h, 3) table in place of env and computes env with K8's code
 // (csrc/envmap.cuh), so it is K8's to the bit; it writes env beside bg_map
@@ -109,7 +118,7 @@ struct Envmap {
   float* env_out;
 };
 
-template <bool kGates, bool kEnvmap>
+template <bool kGates, bool kEnvmap, bool kAlpha>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 composite_kernel(const float* __restrict__ feat, const float* __restrict__ dists,
                  const float* __restrict__ z, const float* __restrict__ rgb,
@@ -117,7 +126,8 @@ composite_kernel(const float* __restrict__ feat, const float* __restrict__ dists
                  const unsigned char* __restrict__ valid, Envmap em, int R, int S, float shift,
                  float scale, int act, float thres, float* __restrict__ rgb_out,
                  float* __restrict__ depth_out, float* __restrict__ acc_out,
-                 float* __restrict__ bg_out, float* __restrict__ bg_map) {
+                 float* __restrict__ bg_out, float* __restrict__ bg_map,
+                 float* __restrict__ alpha_out) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -148,6 +158,12 @@ composite_kernel(const float* __restrict__ feat, const float* __restrict__ dists
   }
   float total;
   float t = warp_exclusive_prod(prod, &total);
+  if constexpr (kAlpha) {
+    // the lanes' chunks of al out as one row, lane-strided (coalesced)
+    __syncwarp();
+    float* ao = alpha_out + ray * S;
+    for (int i = lane; i < S; i += 32) ao[i] = al[i];
+  }
   float acc = 0.0f, r = 0.0f, g = 0.0f, bl = 0.0f, depth = 0.0f;
   for (int j = a; j < b; ++j) {
     const float alpha = al[j];
@@ -305,14 +321,14 @@ __device__ __forceinline__ void store_rgb(const float* src, int S, int P,
   }
 }
 
-template <bool kGates>
+template <bool kGates, bool kDAlpha>
 __global__ void __launch_bounds__(kBwdMaxWarps * 32, 4)
 composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ dists,
                      const float* __restrict__ rgb, const float* __restrict__ g_rgb,
                      const float* __restrict__ env, const unsigned char* __restrict__ valid,
-                     int R, int S, float shift, float scale, int act, float thres,
-                     float* __restrict__ d_feat, float* __restrict__ d_rgb,
-                     float* __restrict__ d_env) {
+                     const float* __restrict__ g_alpha, int R, int S, float shift, float scale,
+                     int act, float thres, float* __restrict__ d_feat,
+                     float* __restrict__ d_rgb, float* __restrict__ d_env) {
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -424,7 +440,9 @@ composite_bwd_kernel(const float* __restrict__ feat, const float* __restrict__ d
     const float alpha = __fsub_rn(1.0f, e);
     const bool keep = !kGates || __fmul_rn(alpha, T) > thres;
     const float q = c0[p];
-    const float d_alpha = __fmul_rn(T, __fsub_rn(q, Rn));
+    float d_alpha = __fmul_rn(T, __fsub_rn(q, Rn));
+    // the entropy's cotangent of alpha_j (the lane's chunk, cached in L1)
+    if constexpr (kDAlpha) d_alpha = __fadd_rn(d_alpha, __ldg(g_alpha + ray * S + j));
     Rn = __fmaf_rn(Rn, trans_factor(alpha), __fmul_rn(alpha, q));
     if (!((vbits >> (j - a)) & 1)) {
       f[p] = 0.0f;
@@ -453,7 +471,7 @@ bool gated(const unsigned char* valid, float thres) { return valid != nullptr ||
 // an SM, where 4-warp blocks leave 28 warps.  The kernel's dynamic shared
 // limit is first lifted to the device's opt-in maximum: the attribute is
 // the device's, so it is set on every call.
-template <bool kGates>
+template <bool kGates, bool kDAlpha>
 cudaError_t bwd_layout(int S, int* warps) {
   int dev = 0, optin = 0, best = 0;
   *warps = 0;
@@ -461,12 +479,13 @@ cudaError_t bwd_layout(int S, int* warps) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(composite_bwd_kernel<kGates>,
+    err = cudaFuncSetAttribute(composite_bwd_kernel<kGates, kDAlpha>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   for (int w = 1; err == cudaSuccess && w <= kBwdMaxWarps && w * bwd_warp_bytes(S) <= optin;
        ++w) {
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, composite_bwd_kernel<kGates>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks,
+                                                        composite_bwd_kernel<kGates, kDAlpha>,
                                                         w * 32, (size_t)w * bwd_warp_bytes(S));
     if (err == cudaSuccess && w * blocks > best) {
       best = w * blocks;
@@ -477,17 +496,64 @@ cudaError_t bwd_layout(int S, int* warps) {
   return err;
 }
 
-template <bool kGates>
+template <bool kGates, bool kDAlpha>
 int launch_bwd(const float* feat, const float* dists, const float* rgb, const float* g_rgb,
-               const float* env, const unsigned char* valid, int R, int S, float shift,
-               float scale, int act, float thres, float* d_feat, float* d_rgb, float* d_env,
-               cudaStream_t st) {
+               const float* env, const unsigned char* valid, const float* g_alpha, int R, int S,
+               float shift, float scale, int act, float thres, float* d_feat, float* d_rgb,
+               float* d_env, cudaStream_t st) {
   int warps = 0;
-  const cudaError_t err = bwd_layout<kGates>(S, &warps);
+  const cudaError_t err = bwd_layout<kGates, kDAlpha>(S, &warps);
   if (err != cudaSuccess) return (int)err;
-  composite_bwd_kernel<kGates><<<(R + warps - 1) / warps, warps * 32,
-                                 (size_t)warps * bwd_warp_bytes(S), st>>>(
-      feat, dists, rgb, g_rgb, env, valid, R, S, shift, scale, act, thres, d_feat, d_rgb, d_env);
+  composite_bwd_kernel<kGates, kDAlpha><<<(R + warps - 1) / warps, warps * 32,
+                                          (size_t)warps * bwd_warp_bytes(S), st>>>(
+      feat, dists, rgb, g_rgb, env, valid, g_alpha, R, S, shift, scale, act, thres, d_feat,
+      d_rgb, d_env);
+  return (int)cudaGetLastError();
+}
+
+// K6b in the gated or ungated instantiation, with d_alpha (g_alpha) or
+// without.
+int composite_bwd_any(const float* feat, const float* dists, const float* rgb,
+                      const float* g_rgb, const float* env, const unsigned char* valid,
+                      const float* g_alpha, int R, int S, float shift, float scale, int act,
+                      float thres, float* d_feat, float* d_rgb, float* d_env, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool gate = gated(valid, thres);
+  if (g_alpha != nullptr) {
+    return gate ? launch_bwd<true, true>(feat, dists, rgb, g_rgb, env, valid, g_alpha, R, S,
+                                         shift, scale, act, thres, d_feat, d_rgb, d_env, st)
+                : launch_bwd<false, true>(feat, dists, rgb, g_rgb, env, valid, g_alpha, R, S,
+                                          shift, scale, act, thres, d_feat, d_rgb, d_env, st);
+  }
+  return gate ? launch_bwd<true, false>(feat, dists, rgb, g_rgb, env, valid, nullptr, R, S,
+                                        shift, scale, act, thres, d_feat, d_rgb, d_env, st)
+              : launch_bwd<false, false>(feat, dists, rgb, g_rgb, env, valid, nullptr, R, S,
+                                         shift, scale, act, thres, d_feat, d_rgb, d_env, st);
+}
+
+template <bool kAlpha>
+int launch_fwd(const float* feat, const float* dists, const float* z, const float* rgb,
+               const float* ray_dz, const float* env, const unsigned char* valid,
+               const Envmap& em, int R, int S, float shift, float scale, int act, float thres,
+               float* rgb_out, float* depth_out, float* acc_out, float* bg_out, float* bg_map,
+               float* alpha_out, cudaStream_t st) {
+  const size_t smem = sizeof(float) * kWarpsPerBlock * S;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (em.table != nullptr) {
+    if (gated(valid, thres)) return (int)cudaErrorInvalidValue;
+    composite_kernel<false, true, kAlpha><<<blocks, kWarpsPerBlock * 32, smem, st>>>(
+        feat, dists, z, rgb, ray_dz, nullptr, nullptr, em, R, S, shift, scale, act, thres,
+        rgb_out, depth_out, acc_out, bg_out, bg_map, alpha_out);
+  } else if (gated(valid, thres)) {
+    composite_kernel<true, false, kAlpha><<<blocks, kWarpsPerBlock * 32, smem, st>>>(
+        feat, dists, z, rgb, ray_dz, env, valid, em, R, S, shift, scale, act, thres, rgb_out,
+        depth_out, acc_out, bg_out, bg_map, alpha_out);
+  } else {
+    composite_kernel<false, false, kAlpha><<<blocks, kWarpsPerBlock * 32, smem, st>>>(
+        feat, dists, z, rgb, ray_dz, env, valid, em, R, S, shift, scale, act, thres, rgb_out,
+        depth_out, acc_out, bg_out, bg_map, alpha_out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -497,7 +563,16 @@ int launch_bwd(const float* feat, const float* dists, const float* rgb, const fl
 // samples on the current device (``gated``: its gated instantiation), and
 // the block's dynamic shared bytes.
 extern "C" int composite_bwd_geometry(int S, int gated, int* warps, int* smem_bytes) {
-  const cudaError_t err = gated ? bwd_layout<true>(S, warps) : bwd_layout<false>(S, warps);
+  const cudaError_t err = gated ? bwd_layout<true, false>(S, warps)
+                                : bwd_layout<false, false>(S, warps);
+  *smem_bytes = *warps * bwd_warp_bytes(S);
+  return (int)err;
+}
+
+// The same for composite_bwd_alpha.
+extern "C" int composite_bwd_alpha_geometry(int S, int gated, int* warps, int* smem_bytes) {
+  const cudaError_t err = gated ? bwd_layout<true, true>(S, warps)
+                                : bwd_layout<false, true>(S, warps);
   *smem_bytes = *warps * bwd_warp_bytes(S);
   return (int)err;
 }
@@ -506,12 +581,20 @@ extern "C" int composite_bwd(const float* feat, const float* dists, const float*
                              const float* g_rgb, const float* env, const unsigned char* valid,
                              int R, int S, float shift, float scale, int act, float thres,
                              float* d_feat, float* d_rgb, float* d_env, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (gated(valid, thres))
-    return launch_bwd<true>(feat, dists, rgb, g_rgb, env, valid, R, S, shift, scale, act, thres,
-                            d_feat, d_rgb, d_env, st);
-  return launch_bwd<false>(feat, dists, rgb, g_rgb, env, valid, R, S, shift, scale, act, thres,
-                           d_feat, d_rgb, d_env, st);
+  return composite_bwd_any(feat, dists, rgb, g_rgb, env, valid, nullptr, R, S, shift, scale,
+                           act, thres, d_feat, d_rgb, d_env, stream);
+}
+
+// K6b's training instantiation: composite_bwd with the alphas' cotangent
+// g_alpha (R, S).
+extern "C" int composite_bwd_alpha(const float* feat, const float* dists, const float* rgb,
+                                   const float* g_rgb, const float* env,
+                                   const unsigned char* valid, const float* g_alpha, int R,
+                                   int S, float shift, float scale, int act, float thres,
+                                   float* d_feat, float* d_rgb, float* d_env, void* stream) {
+  if (g_alpha == nullptr) return (int)cudaErrorInvalidValue;
+  return composite_bwd_any(feat, dists, rgb, g_rgb, env, valid, g_alpha, R, S, shift, scale,
+                           act, thres, d_feat, d_rgb, d_env, stream);
 }
 
 // With ``table`` (K6e) the envmap comes from ``dirs`` and the table, and
@@ -523,24 +606,25 @@ extern "C" int composite_fwd(const float* feat, const float* dists, const float*
                              int S, float shift, float scale, int act, float thres,
                              float* rgb_out, float* depth_out, float* acc_out, float* bg_out,
                              float* bg_map, void* stream) {
-  const size_t smem = sizeof(float) * kWarpsPerBlock * S;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Envmap em{dirs, d_stride, table, h, inv_2pi, env_out};
-  if (table != nullptr) {
-    if (gated(valid, thres)) return (int)cudaErrorInvalidValue;
-    composite_kernel<false, true><<<blocks, kWarpsPerBlock * 32, smem, st>>>(
-        feat, dists, z, rgb, ray_dz, nullptr, nullptr, em, R, S, shift, scale, act, thres,
-        rgb_out, depth_out, acc_out, bg_out, bg_map);
-  } else if (gated(valid, thres)) {
-    composite_kernel<true, false><<<blocks, kWarpsPerBlock * 32, smem, st>>>(
-        feat, dists, z, rgb, ray_dz, env, valid, em, R, S, shift, scale, act, thres, rgb_out,
-        depth_out, acc_out, bg_out, bg_map);
-  } else {
-    composite_kernel<false, false><<<blocks, kWarpsPerBlock * 32, smem, st>>>(
-        feat, dists, z, rgb, ray_dz, env, valid, em, R, S, shift, scale, act, thres, rgb_out,
-        depth_out, acc_out, bg_out, bg_map);
-  }
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(feat, dists, z, rgb, ray_dz, env, valid, em, R, S, shift, scale, act,
+                           thres, rgb_out, depth_out, acc_out, bg_out, bg_map, nullptr,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K6's training instantiation (every form): composite_fwd that also writes
+// each sample's alpha to alpha_out (R, S).
+extern "C" int composite_fwd_alpha(const float* feat, const float* dists, const float* z,
+                                   const float* rgb, const float* ray_dz, const float* env,
+                                   const unsigned char* valid, const float* dirs,
+                                   long long d_stride, const float* table, int h, float inv_2pi,
+                                   float* env_out, int R, int S, float shift, float scale,
+                                   int act, float thres, float* rgb_out, float* depth_out,
+                                   float* acc_out, float* bg_out, float* bg_map,
+                                   float* alpha_out, void* stream) {
+  if (alpha_out == nullptr) return (int)cudaErrorInvalidValue;
+  const Envmap em{dirs, d_stride, table, h, inv_2pi, env_out};
+  return launch_fwd<true>(feat, dists, z, rgb, ray_dz, env, valid, em, R, S, shift, scale, act,
+                          thres, rgb_out, depth_out, acc_out, bg_out, bg_map, alpha_out,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -27,11 +27,13 @@
 // K5's draws use another stream word) and maps its words x, y, z to img =
 // (x * img_len) >> 32, col = (y * w) >> 32 and u = (z >> 8) * 2^-24 (exact
 // in float32); the row is theta_ids_kernel's lower bound and clamp, the id
-// the same arithmetic; the id's 9 floats of the (N, 9) buffer go to row i
-// of the (B, 9) output.  Bound: bytes, 4 x 9 floats read and written and
-// the int64 id written a draw (0.3 MB at 4,096 draws), so the launch.
+// the same arithmetic; the id's F floats of the (N, F) buffer go to row i
+// of the (B, F) output, F = 9 (rays | rgb) or 10 (| depth, under
+// use_depth: JAX's trainer.py:479-481, 540-542), a template parameter.
+// Bound: bytes, 4 x F floats read and written and the int64 id written a
+// draw (0.3 MB at 4,096 draws), so the launch.
 // Design: theta_ids_kernel's grid and staging; one thread a draw, and each
-// warp copies its 32 rows' 288 floats together, lane-strided over the
+// warp copies its 32 rows' 32 F floats together, lane-strided over the
 // warp's output rows (coalesced stores), each float's id taken from its
 // draw's lane by a shuffle.  Measured: 5.1 us a 4,096-draw batch against
 // the five launches' 17.9 (tools/draw_ab.py, H100 80GB HBM3, 700 W).
@@ -46,7 +48,6 @@ using namespace egonerf;
 
 // counter word 3 of the theta sampler's draws: its stream
 constexpr uint32_t kThetaStream = 0x7E7Au;
-constexpr int kRowFloats = 9;  // rays (6) | rgb (3)
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 2048;
 constexpr int kMaxStaged = 48 * 1024 / sizeof(float);
@@ -82,7 +83,8 @@ theta_ids_kernel(const int64_t* __restrict__ img, const int64_t* __restrict__ co
   }
 }
 
-template <bool kStaged>
+// kRowFloats: rays (6) | rgb (3), and | depth (1) under use_depth
+template <bool kStaged, int kRowFloats>
 __global__ void __launch_bounds__(kThreads)
 theta_batch_kernel(const float* __restrict__ buffer, const float* __restrict__ cdf, int h, int w,
                    long long img_len, long long n, uint32_t k0, uint32_t k1,
@@ -140,21 +142,38 @@ extern "C" int theta_ids(const int64_t* img, const int64_t* col, const float* u,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+template <int kRowFloats>
+void launch_batch(unsigned blocks, cudaStream_t st, const float* buffer, const float* cdf, int h,
+                  int w, long long img_len, long long n, unsigned int seed, unsigned int t,
+                  int64_t* ids, float* rows) {
+  if (h <= kMaxStaged) {
+    theta_batch_kernel<true, kRowFloats><<<blocks, kThreads, h * sizeof(float), st>>>(
+        buffer, cdf, h, w, img_len, n, seed, t, ids, rows);
+  } else {
+    theta_batch_kernel<false, kRowFloats><<<blocks, kThreads, 0, st>>>(
+        buffer, cdf, h, w, img_len, n, seed, t, ids, rows);
+  }
+}
+
+}  // namespace
+
 // K14f: B draws of batch t under seed: the ids (B,) int64 and the rows
-// (B, 9) of the (img_len * h * w, 9) float32 buffer.
-extern "C" int theta_batch(const float* buffer, const float* cdf, int h, int w,
+// (B, F) of the (img_len * h * w, F) float32 buffer, F = row_floats, 9 or
+// 10.
+extern "C" int theta_batch(const float* buffer, int row_floats, const float* cdf, int h, int w,
                            long long img_len, long long n, unsigned int seed, unsigned int t,
                            int64_t* ids, float* rows, void* stream) {
+  if (row_floats != 9 && row_floats != 10) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   const long long want = (n + kThreads - 1) / kThreads;
   const unsigned blocks = (unsigned)(want < kMaxBlocks ? want : kMaxBlocks);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (h <= kMaxStaged) {
-    theta_batch_kernel<true><<<blocks, kThreads, h * sizeof(float), st>>>(
-        buffer, cdf, h, w, img_len, n, seed, t, ids, rows);
+  if (row_floats == 9) {
+    launch_batch<9>(blocks, st, buffer, cdf, h, w, img_len, n, seed, t, ids, rows);
   } else {
-    theta_batch_kernel<false><<<blocks, kThreads, 0, st>>>(buffer, cdf, h, w, img_len, n, seed,
-                                                           t, ids, rows);
+    launch_batch<10>(blocks, st, buffer, cdf, h, w, img_len, n, seed, t, ids, rows);
   }
   return (int)cudaGetLastError();
 }

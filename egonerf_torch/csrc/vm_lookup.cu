@@ -16,6 +16,11 @@
 //       under EGONERF_LINE_HAT=0.  The corner
 //       packing, _scatter_chunked, _unpack_plane_grads and
 //       _corner_cotangents are TPU layout answers and are not copied.
+//   K3 with its relu mask, and K2 with no appearance channels in line
+//       mode 0: sample_plane_packed + sample_line_packed with their float32
+//       VJPs _plane_bwd / _line_bwd (:435-463, 503-528), the sparsity
+//       loss's density (EgoNeRF.compute_density_feature,
+//       TensorVMSplit.compute_density_feature_only).
 //
 // For i in 0..2 each sample reads 4 corners of plane_i and 2 rows of line_i
 // (bf16 tables; with a stack of two grids, EgoNeRF's yin and yang, the {0,1}
@@ -59,8 +64,9 @@
 // for K3's plain version: channel c < CD lies in chunk c / 8 and chunk q
 // belongs to lane q mod G; each lane adds its channels in increasing c, from
 // 0.0f; then a butterfly over the group, xor offsets G/2, ..., 1.  K1's
-// training instantiation also writes, from the same sums, one byte a sample
-// (the relu mask): two bits for decomposition i at bit 2i, 2 where the
+// training instantiation, and K3's (the sparsity loss's density, whose
+// backward is K2 with no appearance channels), also write, from the same
+// sums, one byte a sample (the relu mask): two bits for decomposition i at bit 2i, 2 where the
 // partial is > 0, 1 where it is == 0, 0 where it is < 0.  K2 scales the
 // density cotangent by half the state (1, 0.5 or 0: jnp.maximum's gradient,
 // which splits a tie), so it repeats no sum and needs no order.
@@ -228,8 +234,8 @@ __device__ __forceinline__ void products(const __nv_bfloat16* __restrict__ P,
 // contiguous [samples x n_app] range of the output, in shared memory and
 // writes them with one bulk asynchronous copy (the layout guarantees
 // n_app % 4 == 0 and a tile of at most 48 KB); the scalar one writes
-// streaming 4-byte stores.  kMask (K1 in training) also writes the relu
-// mask, one byte a sample; the eval instantiation has no trace of it.
+// streaming 4-byte stores.  kMask (K1 and K3 in training) also writes the
+// relu mask, one byte a sample; the eval instantiations have no trace of it.
 template <bool kApp, bool kTwoGrids, bool kVec, bool kMask>
 __global__ void __launch_bounds__(kThreads, kApp && kVec ? kBulkBlocksPerSM : 1)
 vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb, int log2_group,
@@ -630,7 +636,7 @@ int launch(const float* coords, long long n, const void* const* planes,
   if (smem > kMaxTileBytes || (kApp && vec && (n_app & 3) != 0)) {
     return (int)cudaErrorInvalidValue;  // ops/vm_lookup.py::lookup_layout takes the scalar one
   }
-  if (kApp && mask != nullptr) {
+  if (mask != nullptr) {
     launch_grid<kApp, true>(two, vec, blocks, smem, st, coords, n, tb, log2_group, density, app,
                             n_app, mask);
   } else {
@@ -809,6 +815,15 @@ extern "C" int vm_density_fwd(const float* coords, long long n, const void* cons
                               const void* const* lines, const int* dims, float* density,
                               void* stream) {
   return launch<false>(coords, n, planes, lines, dims, density, nullptr, 0, nullptr, stream);
+}
+
+// K3's training instantiation (the sparsity loss's differentiable density):
+// vm_density_fwd that also writes the relu mask, as K1's does.
+extern "C" int vm_density_train_fwd(const float* coords, long long n, const void* const* planes,
+                                    const void* const* lines, const int* dims, float* density,
+                                    uint8_t* mask, void* stream) {
+  if (mask == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<false>(coords, n, planes, lines, dims, density, nullptr, 0, mask, stream);
 }
 
 // K15: dims {H, W, C, log2 of the lanes a sample takes, 1 for the vector

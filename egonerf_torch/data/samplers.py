@@ -2,7 +2,8 @@
 of the trainer's choice between its device and host paths).
 
 The training rays and colors live on the card as one (N, 9) buffer
-(rays | rgb).  On the card, :class:`DeviceRaySampler` draws ``batch`` ray
+(rays | rgb), (N, 10) with the ground-truth depths under ``use_depth``
+(rays | rgb | depth, as JAX's resident buffer).  On the card, :class:`DeviceRaySampler` draws ``batch`` ray
 ids uniformly with replacement from the step's generator (the
 ``SimpleSampler`` branch of JAX's ``make_device_id_sampler``) and
 :class:`DeviceThetaSampler` draws, picks and gathers a theta-importance
@@ -15,6 +16,8 @@ them to the card each step.  The trainer picks the host path by JAX's rule
 (:func:`host_sampling`).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -99,20 +102,24 @@ class ThetaImportanceSampler:
         return img_id * self.w * self.h + (col + row * self.w)
 
 
-def _resident(all_rays: np.ndarray, all_rgbs: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(np.concatenate([all_rays, all_rgbs], axis=1).astype(np.float32),
-                           device=device)
+def _resident(all_rays: np.ndarray, all_rgbs: np.ndarray, device,
+              all_depths: Optional[np.ndarray] = None) -> torch.Tensor:
+    """The (N, 9) rays | rgb buffer on ``device``, (N, 10) with the depths."""
+    cols = [all_rays, all_rgbs]
+    if all_depths is not None:
+        cols.append(all_depths.reshape(-1, 1))
+    return torch.as_tensor(np.concatenate(cols, axis=1).astype(np.float32), device=device)
 
 
 class DeviceRaySampler:
     def __init__(self, all_rays: np.ndarray, all_rgbs: np.ndarray, batch: int,
-                 generator: torch.Generator):
-        self.buffer = _resident(all_rays, all_rgbs, generator.device)
+                 generator: torch.Generator, all_depths: Optional[np.ndarray] = None):
+        self.buffer = _resident(all_rays, all_rgbs, generator.device, all_depths)
         self.batch = int(batch)
         self.generator = generator
 
     def next_batch(self) -> torch.Tensor:
-        """(batch, 9) rows, uniform with replacement."""
+        """(batch, 9 or 10) rows, uniform with replacement."""
         ids = torch.randint(0, self.buffer.shape[0], (self.batch,),
                             generator=self.generator, device=self.buffer.device)
         return self.buffer[ids]
@@ -128,8 +135,9 @@ class DeviceThetaSampler:
     to float32, as JAX's (``samplers.py:88``), made once."""
 
     def __init__(self, all_rays: np.ndarray, all_rgbs: np.ndarray,
-                 sampler: ThetaImportanceSampler, batch: int, device, seed: int = 0):
-        self.buffer = _resident(all_rays, all_rgbs, device)
+                 sampler: ThetaImportanceSampler, batch: int, device, seed: int = 0,
+                 all_depths: Optional[np.ndarray] = None):
+        self.buffer = _resident(all_rays, all_rgbs, device, all_depths)
         self.cdf = torch.as_tensor(np.cumsum(sampler.weight).astype(np.float32),
                                    device=self.buffer.device)
         self.img_len, self.w, self.h = sampler.img_len, sampler.w, sampler.h
@@ -138,24 +146,25 @@ class DeviceThetaSampler:
         self.t = 0
 
     def draw(self, t: int):
-        """(ids (batch,) int64, rows (batch, 9)) of batch ``t``; the counter
-        does not move."""
+        """(ids (batch,) int64, rows (batch, 9 or 10)) of batch ``t``; the
+        counter does not move."""
         return ops.KERNELS.theta_batch(self.buffer, self.cdf, self.w, self.h, self.batch,
                                        self.seed, t)
 
     def next_batch(self) -> torch.Tensor:
-        """(batch, 9) rows of the next batch, with replacement."""
+        """(batch, 9 or 10) rows of the next batch, with replacement."""
         self.t += 1
         return self.draw(self.t)[1]
 
 
 class HostRaySampler:
-    def __init__(self, all_rays: np.ndarray, all_rgbs: np.ndarray, sampler, device):
-        self.buffer = _resident(all_rays, all_rgbs, device)
+    def __init__(self, all_rays: np.ndarray, all_rgbs: np.ndarray, sampler, device,
+                 all_depths: Optional[np.ndarray] = None):
+        self.buffer = _resident(all_rays, all_rgbs, device, all_depths)
         self.sampler = sampler
 
     def next_batch(self) -> torch.Tensor:
-        """(batch, 9) rows of the host sampler's next ids.  On the card the
+        """(batch, 9 or 10) rows of the host sampler's next ids.  On the card the
         ids go through pinned memory, so the copy does not hold the host
         until the card has caught up."""
         ids = torch.from_numpy(self.sampler.nextids())

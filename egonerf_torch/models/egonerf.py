@@ -26,8 +26,12 @@ table its gradient) and blended behind the last sample; the pretrain
 phase looks it up alone (K8).
 The kernels come from ``self.ops`` (``ops.KERNELS``).
 
-The regularizers (L1, TV, Ortho) and the alpha-mask bake are here as in
-JAX; the forward never reads the mask, in JAX as here.
+The regularizers (L1, TV, Ortho), the sparsity loss's density
+(:meth:`EgoNeRF.sparsity_density`: K3's training instantiation, K2 behind
+it) and the alpha-mask bake are here as in JAX; the forward never reads
+the mask, in JAX as here.  For the entropy loss the training forward
+returns each sample's alpha (``with_alpha``, K6's training
+instantiation).
 
 The JAX module's opt-in forms, from the environment at import with JAX's
 names and defaults: ``EGONERF_MIXED_MM=1`` takes the shader's products and
@@ -55,8 +59,8 @@ from ..coords.yinyang import YinYangSphericalCoords
 from ..ops import KERNELS
 from ..ops.mm import mixed_matmul
 from ..ops.vm_lookup import LINE_HAT as _vm_lookup_line_hat
-from ..ops.vm_lookup import (HAT, LINEAR, LINEAR_BF16_GRAD, MAT_MODE, VEC_MODE, field_train,
-                             line_hat_ok, line_onehot_ok)
+from ..ops.vm_lookup import (HAT, LINEAR, LINEAR_BF16_GRAD, MAT_MODE, VEC_MODE, density_train,
+                             field_train, line_hat_ok, line_onehot_ok)
 from ..ops.cull import dilate, gumbel_perturb, train_tiebreak
 from ..ops.volrend import composite_train, density_activation, raw2alpha
 from .alphamask import YinYangAlphaGridMask, bake_alpha_mask, dense_alpha
@@ -456,6 +460,25 @@ class EgoNeRF(nn.Module):
         return (vector_diffs([params[f"density_lines.{i}"] for i in range(3)])
                 + vector_diffs([params[f"app_lines.{i}"] for i in range(3)]))
 
+    def sparsity_density(self, params, generator: Optional[torch.Generator], n_points: int,
+                         points: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sigma at ``n_points`` random normalized coords on either chart,
+        for the sparsity loss (JAX ``models/egonerf.py:547-557``): (n, 3)
+        uniform in [-1, 1) and a Bernoulli(1/2) chart flag, drawn from
+        ``generator`` (the step's, after the forward's draws), or the given
+        (n, 4) ``points``.  The density is K3's training instantiation on
+        the float32 density tables, differentiable in them through K2."""
+        if points is None:
+            dev = generator.device
+            xyz = torch.rand(n_points, 3, generator=generator, device=dev) * 2.0 - 1.0
+            flag = (torch.rand(n_points, 1, generator=generator, device=dev) < 0.5).float()
+            points = torch.cat([xyz, flag], dim=-1)
+        feat = density_train(points.contiguous(),
+                             [params[f"density_planes.{i}"] for i in range(3)],
+                             [params[f"density_lines.{i}"] for i in range(3)],
+                             self.ops.density, self.ops.field_bwd)
+        return feature2density(feat, self.cfg)
+
     def density_l1(self, params) -> torch.Tensor:
         """Per grid means summed, as JAX's separate yin and yang terms (x2)."""
         return sum(params[f"density_planes.{i}"].abs().mean() * 2
@@ -489,9 +512,13 @@ class EgoNeRF(nn.Module):
                 ndc_ray=False, eval_keep=0, train_keep=0, train_cull_tau=0.0,
                 eval_keep_score="coarse", tables: Optional[LookupTables] = None,
                 jitter: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None,
-                cull_u: Optional[torch.Tensor] = None):
+                cull_u: Optional[torch.Tensor] = None, with_alpha: bool = False):
         """Render an (R, 6) ray batch.  Returns dict(rgb (R, 3), depth (R,),
-        acc (R,), bg, env); with the envmap, env (R, 3) is each ray's
+        acc (R,), bg, env), and with ``with_alpha`` (the entropy loss's
+        input) also alpha: each kept sample's alpha (R, S), differentiable
+        in ``params`` (K6's and K6b's training instantiations), with JAX's
+        column of ones appended under the envmap (its cotangent dropped).
+        With the envmap, env (R, 3) is each ray's
         background radiance and bg (R, 3) = its transmittance times env,
         else both are None; both come out of the composite (K6e) and take
         no gradient (the table's flows through rgb).  ``pretrain_envmap``
@@ -604,7 +631,18 @@ class EgoNeRF(nn.Module):
             feat, dists, z_vals, rgb, rays[:, -1].contiguous(), cfg.density_shift,
             cfg.distance_scale, cfg.fea2dense_act, self.ops.composite, self.ops.composite_bwd,
             envmap=envmap, viewdirs=viewdirs if cfg.use_envmap else None,
-            env_bwd=self.ops.envmap_bwd)
-        return {"rgb": outs[0], "depth": outs[1], "acc": outs[2],
-                "bg": outs[4] if envmap is not None else None,
-                "env": outs[5] if envmap is not None else None}
+            env_bwd=self.ops.envmap_bwd, with_alpha=with_alpha)
+        out = {"rgb": outs[0], "depth": outs[1], "acc": outs[2],
+               "bg": outs[4] if envmap is not None else None,
+               "env": outs[5] if envmap is not None else None}
+        if with_alpha:
+            out["alpha"] = with_background(outs[-1], cfg.use_envmap)
+        return out
+
+
+def with_background(alpha: torch.Tensor, envmap: bool) -> torch.Tensor:
+    """The forward's alpha as JAX returns it: with the envmap a column of
+    ones (the background's alpha) after the samples."""
+    if not envmap:
+        return alpha
+    return torch.cat([alpha, torch.ones_like(alpha[:, :1])], dim=-1)

@@ -30,10 +30,12 @@ from .._device import full_f32_matmul, resolve_device
 from ..coords.cartesian import CartesianCoords
 from ..ops import KERNELS
 from ..ops.vm_lookup import LINE_HAT as _LINE_HAT
-from ..ops.vm_lookup import HAT, LINEAR, MAT_MODE, VEC_MODE, field_train, line_hat_ok
+from ..ops.vm_lookup import (HAT, LINEAR, MAT_MODE, VEC_MODE, density_train, field_train,
+                             line_hat_ok)
 from ..ops.volrend import composite_train
 from .alphamask import AlphaGridMask, bake_alpha_mask, dense_alpha
-from .egonerf import EgoNeRF, LookupTables, StepKey, _bf16, _dists, feature2density, tv_plane
+from .egonerf import (EgoNeRF, LookupTables, StepKey, _bf16, _dists, feature2density, tv_plane,
+                      with_background)
 from .envmap import envmap_radiance, init_envmap
 from .shading import _HOIST_DIRS, MLPFea
 
@@ -162,6 +164,23 @@ class TensorVMSplit(nn.Module):
         flat = norm_coords.reshape(-1, 4).contiguous()
         return self.ops.density(flat, planes, lines).reshape(norm_coords.shape[:-1])
 
+    def sparsity_density(self, params, generator: Optional[torch.Generator], n_points: int,
+                         points: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sigma at ``n_points`` random normalized coords of the grid, for
+        the sparsity loss (JAX ``models/tensorf.py:284-287``): (n, 3)
+        uniform in [-1, 1) drawn from ``generator`` (the step's, after the
+        forward's draws), or the given (n, 3) ``points``.  The density is
+        K3's training instantiation on the float32 density tables,
+        differentiable in them through K2."""
+        if points is None:
+            points = torch.rand(n_points, 3, generator=generator,
+                                device=generator.device) * 2.0 - 1.0
+        feat = density_train(F.pad(points, (0, 1)).contiguous(),
+                             [params[f"density_planes.{i}"] for i in range(3)],
+                             [params[f"density_lines.{i}"] for i in range(3)],
+                             self.ops.density, self.ops.field_bwd)
+        return feature2density(feat, self.cfg)
+
     # ------------------------------------------------------------------
     # alpha mask (JAX tensorf.py:123-164)
     # ------------------------------------------------------------------
@@ -249,14 +268,15 @@ class TensorVMSplit(nn.Module):
                 is_train=False, n_coarse=-1, n_fine=0, exp_sampling=False, resampling=False,
                 use_coarse_sample=False, pretrain_envmap=False, white_bg=True, ndc_ray=False,
                 eval_keep=0, tables: Optional[LookupTables] = None,
-                jitter: Optional[torch.Tensor] = None, u=None):
+                jitter: Optional[torch.Tensor] = None, u=None, with_alpha: bool = False):
         """Render an (R, 6) ray batch with ``n_coarse`` samples a ray
         (``n_samples_auto`` if not positive); ``n_fine``, ``resampling``,
         ``use_coarse_sample`` and ``white_bg`` are accepted and unused, as
         in JAX.  Training (``is_train`` with a ``key``) jitters the depths;
         ``jitter`` (R, n) gives the draws explicitly.  Returns dict(rgb,
-        depth, acc, bg, env) as ``EgoNeRF.forward``; rgb is differentiable
-        in ``params``.  ``tables`` are :meth:`lookup_tables` for an eval
+        depth, acc, bg, env), and alpha with ``with_alpha``, as
+        ``EgoNeRF.forward``; rgb and alpha are differentiable in
+        ``params``.  ``tables`` are :meth:`lookup_tables` for an eval
         render.  Eval callers run under ``torch.no_grad()``."""
         if ndc_ray:
             raise NotImplementedError(f"NDC rays {_LATER}")
@@ -293,9 +313,12 @@ class TensorVMSplit(nn.Module):
         outs = composite_train(
             feat, dists, z_vals, rgb, rays[:, -1].contiguous(), cfg.density_shift,
             cfg.distance_scale, cfg.fea2dense_act, self.ops.composite, self.ops.composite_bwd,
-            env=env, valid=valid, rgb_thres=cfg.ray_march_weight_thres)
-        return {"rgb": outs[0], "depth": outs[1], "acc": outs[2],
-                "bg": outs[4] if env is not None else None, "env": env}
+            env=env, valid=valid, rgb_thres=cfg.ray_march_weight_thres, with_alpha=with_alpha)
+        out = {"rgb": outs[0], "depth": outs[1], "acc": outs[2],
+               "bg": outs[4] if env is not None else None, "env": env}
+        if with_alpha:
+            out["alpha"] = with_background(outs[-1], cfg.use_envmap)
+        return out
 
     # ------------------------------------------------------------------
     # regularizers (JAX tensorf.py:262-287,369-383)

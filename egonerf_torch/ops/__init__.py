@@ -51,7 +51,11 @@ and TensorVMSplit's envmap take K8 itself.
 K2, K6b and K8b are the backwards of K1, K6 and K8 inside the autograd
 Functions ``vm_lookup.field_train``, ``volrend.composite_train`` (which
 also gives K6e's table its gradient through K8b) and
-``envmap.envmap_train``.  K10 (``mm``: the forward ``a @ b``; ``mm_da`` and
+``envmap.envmap_train``.  The training losses take training
+instantiations: the entropy's alphas are K6's (``with_alpha``) and their
+cotangent K6b's (``d_alpha``), and the sparsity loss's density is K3's
+with its relu mask (``with_mask``), differentiated by K2 at no appearance
+channels inside ``vm_lookup.density_train``.  K10 (``mm``: the forward ``a @ b``; ``mm_da`` and
 ``mm_db``: its backward's two contractions, all bf16 x bf16 -> float32) runs
 inside ``mm.mixed_matmul`` and K11 (``bias_grad``) is the backward of
 ``bias.bias_add``; only the shader forms that ``EGONERF_MIXED_MM=1`` and

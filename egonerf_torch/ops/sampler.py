@@ -97,29 +97,35 @@ def theta_batch_plain(buffer, cdf, w: int, h: int, n: int, seed: int, t: int):
     return ids, buffer[ids]
 
 
-_BATCH_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-               ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
-               ctypes.c_void_p]
+_BATCH_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+               ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+# the row widths K14f takes: rays | rgb, and | depth under use_depth
+ROW_FLOATS = (9, 10)
 
 
 def theta_batch(buffer: torch.Tensor, cdf: torch.Tensor, w: int, h: int, n: int, seed: int,
                 t: int):
     """K14f: ``n`` theta-importance draws of batch ``t`` in one launch:
-    (ids (n,) int64, rows (n, 9) float32 = ``buffer[ids]``).
+    (ids (n,) int64, rows (n, F) float32 = ``buffer[ids]``).
 
     Draw i takes the Philox4x32-10 block at counter (i, i >> 32, 0,
     THETA_STREAM) under key (seed, t) (:func:`theta_words`) and maps its
     words x, y, z to img = (x * img_len) >> 32, col = (y * w) >> 32 and
     u = (z >> 8) * 2**-24; the row and the id are :func:`theta_ids`'s.
-    buffer (img_len * h * w, 9) float32, contiguous, in the flat (img, row,
-    col) layout; cdf (h,) float32, non-decreasing; ``seed``, ``t`` Python
-    ints, so nothing crosses from the host per batch.
+    buffer (img_len * h * w, F) float32, contiguous, in the flat (img, row,
+    col) layout, F = 9 (rays | rgb) or 10 (| depth, under ``use_depth``;
+    the row width is a template parameter of the kernel); cdf (h,)
+    float32, non-decreasing; ``seed``, ``t`` Python ints, so nothing
+    crosses from the host per batch.
 
     Replaces the theta branch of ``make_device_id_sampler`` with its draws
     and the trainer's gather (egonerf_tpu/data/samplers.py:87-102).
     Kernel: csrc/theta_sampler.cu (``theta_batch_kernel``).  CPU tensors
     take :func:`theta_batch_plain`."""
-    check_tensor("buffer", buffer, torch.float32, (None, 9))
+    check_tensor("buffer", buffer, torch.float32, (None, None))
+    if buffer.shape[1] not in ROW_FLOATS:
+        raise ValueError(f"theta_batch: rows of {ROW_FLOATS} floats, got {buffer.shape[1]}")
     dev = buffer.device
     check_tensor("cdf", cdf, torch.float32, (None,), dev)
     w, h, n = int(w), int(h), int(n)
@@ -134,11 +140,12 @@ def theta_batch(buffer: torch.Tensor, cdf: torch.Tensor, w: int, h: int, n: int,
     if dev.type == "cpu":
         return theta_batch_plain(buffer, cdf, w, h, n, seed, t)
     ids = torch.empty(n, dtype=torch.int64, device=dev)
-    rows = torch.empty(n, 9, dtype=torch.float32, device=dev)
+    rows = torch.empty(n, buffer.shape[1], dtype=torch.float32, device=dev)
     if n:
         fn = kernel("theta_sampler", "theta_batch", _BATCH_ARGS)
         with torch.cuda.device(dev):
-            err = fn(buffer.data_ptr(), cdf.data_ptr(), h, w, img_len, n, seed & MASK, t & MASK,
+            err = fn(buffer.data_ptr(), buffer.shape[1], cdf.data_ptr(), h, w, img_len, n,
+                     seed & MASK, t & MASK,
                      ids.data_ptr(), rows.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         check_launch("theta_batch", err)
         theta_batch.launches += 1

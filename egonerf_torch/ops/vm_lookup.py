@@ -32,11 +32,16 @@ no channel padding.  What carries over exactly:
   1 where a partial is > 0, 0.5 where it is exactly 0, 0 below.  K1 in
   training writes each partial's state (the relu mask) from the sums that
   gave the relu, and K2 takes it, so one sum decides the relu both ways.
+* The sparsity loss differentiates the density alone
+  (:func:`density_train`): K3's training instantiation writes the relu
+  mask as K1's does, and K2 at no appearance channels, in line mode
+  ``LINEAR``, is its backward.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+from types import SimpleNamespace
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -212,19 +217,23 @@ def field_fwd_plain(coords, planes, lines, n_density, line_hat, with_mask=False)
     return (dens, app, mask) if with_mask else (dens, app)
 
 
-def density_fwd_plain(coords, planes, lines):
+def density_fwd_plain(coords, planes, lines, with_mask=False):
     """Plain version of K3: see :func:`density_fwd`.  Each partial is summed
     in K3's lane order (:func:`_warp_order_sum`): K4 places the fine
-    samples from these densities, so a last bit moves a sample."""
+    samples from these densities, so a last bit moves a sample.  The mask,
+    with ``with_mask``, comes from the same sums that give the relu."""
     xyz = coords[:, :3]
     sel = chart_sel(coords, planes[0].shape[0])
     dens = torch.zeros(coords.shape[0], dtype=torch.float32, device=coords.device)
+    mask = torch.zeros(coords.shape[0], dtype=torch.uint8, device=coords.device)
     for i in range(3):
         m0, m1 = MAT_MODE[i]
         p = sample_plane(planes[i], xyz[:, m0], xyz[:, m1], sel)
         l = sample_line(lines[i], xyz[:, VEC_MODE[i]], sel)
-        dens = dens + torch.relu(_warp_order_sum(p * l))
-    return dens
+        partial = _warp_order_sum(p * l)
+        dens = dens + torch.relu(partial)
+        mask |= relu_states(partial) << (2 * i)
+    return (dens, mask) if with_mask else dens
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +245,8 @@ _FWD_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p)
 _DENSITY_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
                  ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                  ctypes.c_void_p, ctypes.c_void_p]
+# vm_density_train_fwd: the mask before the stream
+_DENSITY_MASK_ARGS = _DENSITY_ARGS[:-1] + [ctypes.c_void_p] * 2
 
 
 def _check_field_args(coords, planes, lines, n_density):
@@ -392,35 +403,46 @@ field_fwd.launches = 0
 
 
 def density_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
-                lines: Sequence[torch.Tensor]) -> torch.Tensor:
+                lines: Sequence[torch.Tensor], with_mask: bool = False):
     """K3: the coarse density sum_i relu(sum_c plane_i * line_i) with float32
     line weights, on bfloat16 tables; coords as for :func:`field_fwd`.
-    Returns (N,) float32.
+    Returns (N,) float32; with ``with_mask`` (the training instantiation,
+    the sparsity loss's density) also the relu mask (N,) uint8 of
+    :func:`field_fwd`, from the sums that gave the density (K2's input).
 
     Replaces ``sample_plane_packed`` + ``sample_line_packed`` as composed by
     ``EgoNeRF.compute_density_feature`` and
     ``TensorVMSplit.compute_density_feature_only``, over the real channels
     only (egonerf_tpu/ops/vm_lookup.py:436,504; models/egonerf.py:249-270,
-    models/tensorf.py:351-367).  Kernel: csrc/vm_lookup.cu.  CPU tensors
-    take :func:`density_fwd_plain`."""
+    models/tensorf.py:351-367).  Kernel: csrc/vm_lookup.cu.  A launch
+    counts in ``density_fwd.launches``, with the mask also in
+    ``density_fwd.train_form.launches``.  CPU tensors take
+    :func:`density_fwd_plain`."""
     n_density = [p.shape[-1] for p in planes]
     _check_field_args(coords, planes, lines, n_density)
     if coords.device.type == "cpu":
-        return density_fwd_plain(coords, planes, lines)
+        return density_fwd_plain(coords, planes, lines, with_mask)
     dev = coords.device
-    dens = torch.empty(coords.shape[0], dtype=torch.float32, device=dev)
-    if coords.shape[0]:
-        fn = kernel("vm_lookup", "vm_density_fwd", _DENSITY_ARGS)
+    n = coords.shape[0]
+    dens = torch.empty(n, dtype=torch.float32, device=dev)
+    mask = torch.empty(n, dtype=torch.uint8, device=dev) if with_mask else None
+    if n:
+        name = "vm_density_train_fwd" if with_mask else "vm_density_fwd"
+        fn = kernel("vm_lookup", name, _DENSITY_MASK_ARGS if with_mask else _DENSITY_ARGS)
         with torch.cuda.device(dev):
-            err = fn(coords.data_ptr(), coords.shape[0], *_tables(planes, lines),
+            err = fn(coords.data_ptr(), n, *_tables(planes, lines),
                      _dims(coords, planes, lines, n_density, (0, 0, 0)), dens.data_ptr(),
+                     *((mask.data_ptr(),) if with_mask else ()),
                      torch.cuda.current_stream(dev).cuda_stream)
-        check_launch("vm_density_fwd", err)
+        check_launch(name, err)
         density_fwd.launches += 1
-    return dens
+        if with_mask:
+            density_fwd.train_form.launches += 1
+    return (dens, mask) if with_mask else dens
 
 
 density_fwd.launches = 0
+density_fwd.train_form = SimpleNamespace(launches=0)
 
 
 # ---------------------------------------------------------------------------
@@ -557,10 +579,15 @@ def field_bwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
                      *_tables(g_planes, g_lines), torch.cuda.current_stream(dev).cuda_stream)
         check_launch("vm_field_bwd", err)
         field_bwd.launches += 1
+        if n_app == 0:
+            field_bwd.density_form.launches += 1
     return g_planes, g_lines
 
 
+# K2's launches; those with no appearance channels (the backward of
+# density_train, the sparsity loss's) also apart
 field_bwd.launches = 0
+field_bwd.density_form = SimpleNamespace(launches=0)
 
 
 class _Field(torch.autograd.Function):
@@ -595,6 +622,43 @@ def field_train(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     (N, n_app)."""
     return _Field.apply(coords, tuple(int(d) for d in n_density),
                         tuple(int(h) for h in line_hat), fwd, bwd, *planes, *lines)
+
+
+class _Density(torch.autograd.Function):
+    """K3's training instantiation forward, K2 at no appearance channels
+    backward (``fwd`` and ``bwd`` an ``Ops`` pair): the density alone,
+    differentiable in its float32 tables, as JAX differentiates
+    ``sample_plane_packed`` and ``sample_line_packed`` (their float32
+    ``_plane_bwd`` and ``_line_bwd``: K2's line mode ``LINEAR``).  The
+    tables are cast to bf16 inside; the coords, the bf16 tables and K3's
+    relu mask are saved."""
+
+    @staticmethod
+    def forward(ctx, coords, fwd, bwd, *tables):
+        bf16 = [t.detach().to(torch.bfloat16).contiguous() for t in tables]
+        dens, mask = fwd(coords, bf16[:3], bf16[3:], with_mask=True)
+        ctx.save_for_backward(coords, mask, *bf16)
+        ctx.bwd = bwd
+        return dens
+
+    @staticmethod
+    def backward(ctx, d_dens):
+        coords, mask, *bf16 = ctx.saved_tensors
+        n_density = [p.shape[-1] for p in bf16[:3]]
+        d_app = torch.empty(coords.shape[0], 0, dtype=torch.float32, device=coords.device)
+        g_planes, g_lines = ctx.bwd(coords, bf16[:3], bf16[3:], d_dens.contiguous(), d_app,
+                                    mask, n_density, (LINEAR,) * 3)
+        return (None, None, None, *g_planes, *g_lines)
+
+
+def density_train(coords: torch.Tensor, planes: Sequence[torch.Tensor],
+                  lines: Sequence[torch.Tensor], fwd=density_fwd, bwd=field_bwd) -> torch.Tensor:
+    """:func:`density_fwd` on float32 ``planes`` and ``lines`` (read as
+    bf16, stacks of 2 or 1 grids), differentiable in them through ``bwd``
+    (K2 with every channel a density channel, float32 line weights, and
+    JAX's relu-tie rule, half the gradient at an exactly zero partial).
+    Returns the density (N,)."""
+    return _Density.apply(coords, fwd, bwd, *planes, *lines)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ the caller gives its radiance or, K6e, the envmap's table and the view
 directions (K8's lookup inside the composite), and TensoRF's two sample
 gates where the caller gives them: ``valid`` (sigma 0 outside the box and
 the alpha mask) and ``rgb_thres`` (rgb 0 where the weight is not above
-it)."""
+it).  For the entropy loss, :func:`ray_entropy` (JAX's arithmetic in plain
+torch), K6's training instantiation writes each sample's alpha
+(``with_alpha``) and K6b's takes its cotangent (``d_alpha``)."""
 from __future__ import annotations
 
 import ctypes
@@ -42,6 +44,14 @@ def raw2alpha(sigma: torch.Tensor, dist: torch.Tensor):
     trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
     t_excl = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
     return alpha, alpha * t_excl, trans[..., -1:]
+
+
+def ray_entropy(alpha: torch.Tensor) -> torch.Tensor:
+    """The InfoNeRF ray entropy of (R, S) alphas (JAX
+    ``egonerf_tpu/ops/volrend.py:27-32``): prob = alpha / (sum alpha +
+    1e-10) per ray, -sum prob log2(prob + 1e-10), averaged over the rays."""
+    prob = alpha / (alpha.sum(-1, keepdim=True) + 1e-10)
+    return (-(prob * torch.log2(prob + 1e-10)).sum(-1)).mean()
 
 
 # The per-ray kernels (K4, K6, K6b) keep a ray on one warp: lane l owns the
@@ -120,30 +130,35 @@ def _gate(weight: torch.Tensor, rgb: torch.Tensor, rgb_thres: Optional[float]):
 
 def composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift=-8.0,
                     distance_scale=25.0, act="softplus", env=None, valid=None, rgb_thres=None,
-                    envmap=None, viewdirs=None):
+                    envmap=None, viewdirs=None, with_alpha=False):
     """Plain version of K6 and K6e: see :func:`composite`.  The
     transmittance is taken in K6's order, so the rgb gate decides as K6
     does; K6e's radiance is K8's plain version."""
     if envmap is not None:
         env = envmap_fwd_plain(envmap, viewdirs)
-        return composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale,
-                               act, env, valid, rgb_thres) + (env,)
-    weight, bg_weight = _warp_transmittance(
-        _alpha(feat, dists, density_shift, distance_scale, act, valid))
+        outs = composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale,
+                               act, env, valid, rgb_thres, with_alpha=with_alpha)
+        return outs[:5] + (env,) + outs[5:]
+    alpha = _alpha(feat, dists, density_shift, distance_scale, act, valid)
+    weight, bg_weight = _warp_transmittance(alpha)
     rgb = _gate(weight, rgb, rgb_thres)
     acc = weight.sum(-1)
     x = (weight[..., None] * rgb).sum(-2)
     depth = (weight * z_vals).sum(-1) + (1.0 - acc) * ray_dz
     if env is None:
-        return x.clamp(0.0, 1.0), depth, acc, bg_weight
-    bg_map = bg_weight * env
-    return (x + bg_map).clamp(0.0, 1.0), depth, acc, bg_weight, bg_map
+        outs = (x.clamp(0.0, 1.0), depth, acc, bg_weight)
+    else:
+        bg_map = bg_weight * env
+        outs = ((x + bg_map).clamp(0.0, 1.0), depth, acc, bg_weight, bg_map)
+    return outs + (alpha,) if with_alpha else outs
 
 
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float] + \
     [ctypes.c_void_p] * 6
+# composite_fwd_alpha: alpha_out before the stream
+_ALPHA_ARGS = _ARGS[:-1] + [ctypes.c_void_p] * 2
 
 
 def _ptr(t):
@@ -163,7 +178,8 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
               distance_scale: float = 25.0, act: str = "softplus",
               env: Optional[torch.Tensor] = None, valid: Optional[torch.Tensor] = None,
               rgb_thres: Optional[float] = None, envmap: Optional[torch.Tensor] = None,
-              viewdirs: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+              viewdirs: Optional[torch.Tensor] = None,
+              with_alpha: bool = False) -> Tuple[torch.Tensor, ...]:
     """K6: per ray, sigma = feature2density(feat), 0 where ``valid`` is
     False; alpha = 1 -
     exp(-sigma * dists * distance_scale); the exclusive transmittance;
@@ -185,7 +201,9 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
     feat, dists, z_vals (R, S), rgb (R, S, 3), ray_dz (R,), env (R, 3) or
     None, all float32; valid (R, S) bool or None.  Returns rgb_map (R, 3),
     depth (R,), acc (R,), bg_weight (R, 1), and bg_map (R, 3) with ``env``;
-    with ``envmap`` also env (R, 3) after bg_map.
+    with ``envmap`` also env (R, 3) after bg_map; with ``with_alpha`` (the
+    training instantiation, for the entropy loss) last each sample's alpha
+    (R, S), 0 where ``valid`` is False.
 
     Replaces ``raw2alpha`` + ``feature2density`` + the composite of
     ``EgoNeRF.forward`` with its envmap blend and of ``TensorBase.forward``
@@ -194,8 +212,9 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
     only; K6e also ``envmap_radiance`` (egonerf_tpu/models/envmap.py:39-43).
     Kernel: csrc/composite.cu (+ csrc/envmap.cuh).  A launch counts in
     ``composite.launches``, with ``env`` in ``composite.env_form.launches``
-    and with ``envmap`` in ``composite.envmap_form.launches`` instead.  CPU
-    tensors take :func:`composite_plain`."""
+    and with ``envmap`` in ``composite.envmap_form.launches`` instead; with
+    ``with_alpha`` also in ``composite.alpha_form.launches``.  CPU tensors
+    take :func:`composite_plain`."""
     check_tensor("feat", feat, torch.float32, (None, None))
     r, s = feat.shape
     for name, t, shape in (("dists", dists, (r, s)), ("z_vals", z_vals, (r, s)),
@@ -220,7 +239,8 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
     thres = _check_gates(valid, rgb_thres, r, s, feat.device)
     if feat.device.type == "cpu":
         return composite_plain(feat, dists, z_vals, rgb, ray_dz, density_shift,
-                               distance_scale, act, env, valid, rgb_thres, envmap, viewdirs)
+                               distance_scale, act, env, valid, rgb_thres, envmap, viewdirs,
+                               with_alpha)
     dev = feat.device
     rgb_map = torch.empty(r, 3, dtype=torch.float32, device=dev)
     depth = torch.empty(r, dtype=torch.float32, device=dev)
@@ -229,8 +249,10 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
     blend = env is not None or envmap is not None
     bg_map = torch.empty(r, 3, dtype=torch.float32, device=dev) if blend else None
     env_out = None if envmap is None else torch.empty(r, 3, dtype=torch.float32, device=dev)
+    alpha = torch.empty(r, s, dtype=torch.float32, device=dev) if with_alpha else None
     if r:
-        fn = kernel("composite", "composite_fwd", _ARGS)
+        name = "composite_fwd_alpha" if with_alpha else "composite_fwd"
+        fn = kernel("composite", name, _ALPHA_ARGS if with_alpha else _ARGS)
         with torch.cuda.device(dev):
             err = fn(feat.data_ptr(), dists.data_ptr(), z_vals.data_ptr(),
                      rgb.data_ptr(), ray_dz.data_ptr(), _ptr(env), _ptr(valid), _ptr(viewdirs),
@@ -238,21 +260,28 @@ def composite(feat: torch.Tensor, dists: torch.Tensor, z_vals: torch.Tensor,
                      _ptr(env_out), r, s, float(density_shift), float(distance_scale),
                      ACTIVATIONS.index(act), thres, rgb_map.data_ptr(), depth.data_ptr(),
                      acc.data_ptr(), bg.data_ptr(), _ptr(bg_map),
+                     *((alpha.data_ptr(),) if with_alpha else ()),
                      torch.cuda.current_stream(dev).cuda_stream)
-        check_launch("composite_fwd", err)
+        check_launch(name, err)
         (composite if not blend else composite.envmap_form if envmap is not None
          else composite.env_form).launches += 1
+        if with_alpha:
+            composite.alpha_form.launches += 1
     outs = (rgb_map, depth, acc, bg)
     if envmap is not None:
-        return outs + (bg_map, env_out)
-    return outs if env is None else outs + (bg_map,)
+        outs += (bg_map, env_out)
+    elif env is not None:
+        outs += (bg_map,)
+    return outs + (alpha,) if with_alpha else outs
 
 
 # K6's launches, and those of its two background forms apart: K6 with a
-# given env and K6e
+# given env and K6e; the training instantiation's (alpha out) also apart,
+# in whichever form
 composite.launches = 0
 composite.env_form = SimpleNamespace(launches=0)
 composite.envmap_form = SimpleNamespace(launches=0)
+composite.alpha_form = SimpleNamespace(launches=0)
 
 
 def clip_grad(x: torch.Tensor) -> torch.Tensor:
@@ -265,11 +294,12 @@ def clip_grad(x: torch.Tensor) -> torch.Tensor:
 
 def composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift=-8.0,
                         distance_scale=25.0, act="softplus", env=None, valid=None,
-                        rgb_thres=None):
+                        rgb_thres=None, d_alpha=None):
     """Plain version of K6b: see :func:`composite_bwd`.  torch autograd
     through the forward of :func:`composite_plain`, with the slopes the
     kernel uses: sigmoid(feat + shift) for softplus, [feat > 0] for relu,
-    and JAX's clip gradient; the rgb gate is a constant mask."""
+    and JAX's clip gradient; the rgb gate is a constant mask; ``d_alpha``
+    the cotangent of the alphas themselves."""
     with torch.enable_grad():
         f = feat.detach().requires_grad_(True)
         c = rgb.detach().requires_grad_(True)
@@ -279,30 +309,40 @@ def composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift=-8.0,
         sigma = density_activation(f, density_shift, act).detach() + (f - f.detach()) * slope
         if valid is not None:
             sigma = torch.where(valid, sigma, torch.zeros_like(sigma))
-        weight, bg_weight = _warp_transmittance(1.0 - torch.exp(-sigma * (dists * distance_scale)))
+        alpha = 1.0 - torch.exp(-sigma * (dists * distance_scale))
+        weight, bg_weight = _warp_transmittance(alpha)
         x = (weight[..., None] * _gate(weight.detach(), c, rgb_thres)).sum(-2)
         leaves = (f, c)
         if env is not None:
             e = env.detach().requires_grad_(True)
             x = x + bg_weight * e
             leaves += (e,)
-        return torch.autograd.grad(x, leaves, d_rgb_map * clip_grad(x.detach()))
+        outs, cots = [x], [d_rgb_map * clip_grad(x.detach())]
+        if d_alpha is not None:
+            outs.append(alpha)
+            cots.append(d_alpha)
+        return torch.autograd.grad(outs, leaves, cots)
 
 
 _BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                      ctypes.c_float, ctypes.c_int, ctypes.c_float] + \
     [ctypes.c_void_p] * 4
+# composite_bwd_alpha: d_alpha after valid
+_BWD_ALPHA_ARGS = _BWD_ARGS[:6] + [ctypes.c_void_p] + _BWD_ARGS[6:]
 
 _GEOMETRY_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def bwd_geometry(s: int, gated: bool = False, device=None) -> Tuple[int, int]:
+def bwd_geometry(s: int, gated: bool = False, device=None,
+                 d_alpha: bool = False) -> Tuple[int, int]:
     """K6b's launch geometry on a CUDA ``device`` (the current one by
     default) for rays of ``s`` samples, as :func:`composite_bwd`'s entry
-    chooses it (``gated``: its gated instantiation): (warps a block, the
-    block's dynamic shared bytes)."""
+    chooses it (``gated``: its gated instantiation; ``d_alpha``: its
+    training one): (warps a block, the block's dynamic shared bytes)."""
     warps, smem = ctypes.c_int(), ctypes.c_int()
-    fn = kernel("composite", "composite_bwd_geometry", _GEOMETRY_ARGS)
+    fn = kernel("composite",
+                "composite_bwd_alpha_geometry" if d_alpha else "composite_bwd_geometry",
+                _GEOMETRY_ARGS)
     with torch.cuda.device(device):
         err = fn(s, int(gated), ctypes.addressof(warps), ctypes.addressof(smem))
     check_launch("composite_bwd_geometry", err)
@@ -313,7 +353,8 @@ def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
                   d_rgb_map: torch.Tensor, density_shift: float = -8.0,
                   distance_scale: float = 25.0, act: str = "softplus",
                   env: Optional[torch.Tensor] = None, valid: Optional[torch.Tensor] = None,
-                  rgb_thres: Optional[float] = None) -> Tuple[torch.Tensor, ...]:
+                  rgb_thres: Optional[float] = None,
+                  d_alpha: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """K6b: the gradient of :func:`composite`'s rgb_map with respect to
     feat and rgb (and ``env``, where given), given d_rgb_map (R, 3).  Per
     ray it recomputes the forward scan and runs the division-free reverse
@@ -324,23 +365,32 @@ def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
     d rgb_j = w_j g and d env = bg_weight g.  A sample the rgb gate drops
     has q_j = 0 and d rgb_j = 0 (the gate recomputes K6's weight with K6's
     arithmetic, so both decide alike); d feat_j = 0 where ``valid`` is
-    False.  depth, acc and bg take no gradient (JAX stops depth's; z and
-    dists are constants).
+    False.  With ``d_alpha`` (R, S), the cotangent of the training
+    instantiation's alphas (the entropy loss's), the training instantiation
+    adds it into d alpha_j before the chain to d feat_j.  depth, acc and bg
+    take no gradient (JAX stops depth's; z and dists are constants), so
+    the depth loss has no cotangent here.
 
     feat, dists (R, S), rgb (R, S, 3), d_rgb_map (R, 3), env (R, 3) or
-    None, float32; valid (R, S) bool or None.  Returns d_feat (R, S) and
-    d_rgb (R, S, 3), and d_env (R, 3) with ``env``.
+    None, d_alpha (R, S) or None, float32; valid (R, S) bool or None.
+    Returns d_feat (R, S) and d_rgb (R, S, 3), and d_env (R, 3) with
+    ``env``.
 
     Replaces the autodiff of ``raw2alpha`` + ``feature2density`` + the
     composite with its envmap blend or its gates
     (egonerf_tpu/ops/volrend.py:11-24, models/egonerf.py:466-493,
-    models/tensorf.py:226-258).  Kernel: csrc/composite.cu.  CPU tensors
-    take :func:`composite_bwd_plain`."""
+    models/tensorf.py:226-258), and of ``ray_entropy`` into the alphas
+    (``ops/volrend.py:27-32``).  Kernel: csrc/composite.cu.  A launch counts
+    in ``composite_bwd.launches``, with ``d_alpha`` also in
+    ``composite_bwd.alpha_form.launches``.  CPU tensors take
+    :func:`composite_bwd_plain`."""
     check_tensor("feat", feat, torch.float32, (None, None))
     r, s = feat.shape
     for name, t, shape in (("dists", dists, (r, s)), ("rgb", rgb, (r, s, 3)),
                            ("d_rgb_map", d_rgb_map, (r, 3))):
         check_tensor(name, t, torch.float32, shape, feat.device)
+    if d_alpha is not None:
+        check_tensor("d_alpha", d_alpha, torch.float32, (r, s), feat.device)
     if env is not None:
         check_tensor("env", env, torch.float32, (r, 3), feat.device)
     if act not in ACTIVATIONS:
@@ -350,63 +400,75 @@ def composite_bwd(feat: torch.Tensor, dists: torch.Tensor, rgb: torch.Tensor,
     thres = _check_gates(valid, rgb_thres, r, s, feat.device)
     if feat.device.type == "cpu":
         return composite_bwd_plain(feat, dists, rgb, d_rgb_map, density_shift,
-                                   distance_scale, act, env, valid, rgb_thres)
+                                   distance_scale, act, env, valid, rgb_thres, d_alpha)
     dev = feat.device
     d_feat = torch.empty(r, s, dtype=torch.float32, device=dev)
     d_rgb = torch.empty(r, s, 3, dtype=torch.float32, device=dev)
     d_env = None if env is None else torch.empty(r, 3, dtype=torch.float32, device=dev)
     if r:
-        fn = kernel("composite", "composite_bwd", _BWD_ARGS)
+        name = "composite_bwd" if d_alpha is None else "composite_bwd_alpha"
+        fn = kernel("composite", name, _BWD_ARGS if d_alpha is None else _BWD_ALPHA_ARGS)
         with torch.cuda.device(dev):
             err = fn(feat.data_ptr(), dists.data_ptr(), rgb.data_ptr(), d_rgb_map.data_ptr(),
-                     _ptr(env), _ptr(valid), r, s, float(density_shift), float(distance_scale),
+                     _ptr(env), _ptr(valid), *(() if d_alpha is None else (d_alpha.data_ptr(),)),
+                     r, s, float(density_shift), float(distance_scale),
                      ACTIVATIONS.index(act), thres, d_feat.data_ptr(), d_rgb.data_ptr(),
                      _ptr(d_env), torch.cuda.current_stream(dev).cuda_stream)
-        check_launch("composite_bwd", err)
+        check_launch(name, err)
         composite_bwd.launches += 1
+        if d_alpha is not None:
+            composite_bwd.alpha_form.launches += 1
     return (d_feat, d_rgb) if env is None else (d_feat, d_rgb, d_env)
 
 
 composite_bwd.launches = 0
+composite_bwd.alpha_form = SimpleNamespace(launches=0)
 
 
 class _Composite(torch.autograd.Function):
     """K6 forward, K6b backward (``fwd`` and ``bwd`` are an ``Ops`` pair,
     so the plain versions run through the same Function).  In the envmap
     form (K6e) the table takes its gradient from K6b's d env through
-    ``env_bwd`` (K8b), given K6e's env."""
+    ``env_bwd`` (K8b), given K6e's env.  With ``with_alpha`` the training
+    instantiations run: alpha, the last output, is differentiable too, and
+    its cotangent goes to K6b as ``d_alpha``."""
 
     @staticmethod
     def forward(ctx, feat, dists, z_vals, rgb, ray_dz, env, valid, envmap, viewdirs,
-                density_shift, distance_scale, act, rgb_thres, fwd, bwd, env_bwd):
+                density_shift, distance_scale, act, rgb_thres, fwd, bwd, env_bwd, with_alpha):
+        kw = {"with_alpha": True} if with_alpha else {}
         outs = fwd(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act, env,
-                   valid, rgb_thres, envmap, viewdirs)
+                   valid, rgb_thres, envmap, viewdirs, **kw)
         if envmap is not None:
             env = outs[5]
         ctx.save_for_backward(feat, dists, rgb, env, valid, viewdirs)
         ctx.args = (density_shift, distance_scale, act, rgb_thres, bwd, env_bwd,
-                    None if envmap is None else envmap.shape[1])
-        ctx.mark_non_differentiable(*outs[1:])
+                    None if envmap is None else envmap.shape[1], with_alpha)
+        ctx.mark_non_differentiable(*outs[1:len(outs) - int(with_alpha)])
         return outs
 
     @staticmethod
-    def backward(ctx, d_rgb_map, *_):
+    def backward(ctx, d_rgb_map, *rest):
         feat, dists, rgb, env, valid, viewdirs = ctx.saved_tensors
-        shift, scale, act, rgb_thres, bwd, env_bwd, h = ctx.args
+        shift, scale, act, rgb_thres, bwd, env_bwd, h, with_alpha = ctx.args
+        kw = {"d_alpha": rest[-1].contiguous()} if with_alpha else {}
         grads = bwd(feat, dists, rgb, d_rgb_map.contiguous(), shift, scale, act, env, valid,
-                    rgb_thres)
+                    rgb_thres, **kw)
         d_env = grads[2] if env is not None else None
         d_table = None
         if h is not None:
             d_table, d_env = env_bwd(viewdirs, env, d_env, h), None
-        return (grads[0], None, None, grads[1], None, d_env, None, d_table) + (None,) * 8
+        return (grads[0], None, None, grads[1], None, d_env, None, d_table) + (None,) * 9
 
 
 def composite_train(feat, dists, z_vals, rgb, ray_dz, density_shift, distance_scale, act,
                     fwd=composite, bwd=composite_bwd, env=None, valid=None, rgb_thres=None,
-                    envmap=None, viewdirs=None, env_bwd=envmap_bwd):
+                    envmap=None, viewdirs=None, env_bwd=envmap_bwd, with_alpha=False):
     """:func:`composite` with a gradient: rgb_map is differentiable in feat
     and rgb (and ``env``, or the ``envmap`` table through ``env_bwd``, K8b)
-    through ``bwd`` (K6b); depth, acc, bg, bg_map and K6e's env are not."""
+    through ``bwd`` (K6b); depth, acc, bg, bg_map and K6e's env are not.
+    With ``with_alpha`` the alphas (R, S) come last, differentiable in feat
+    (K6b's ``d_alpha``)."""
     return _Composite.apply(feat, dists, z_vals, rgb, ray_dz, env, valid, envmap, viewdirs,
-                            density_shift, distance_scale, act, rgb_thres, fwd, bwd, env_bwd)
+                            density_shift, distance_scale, act, rgb_thres, fwd, bwd, env_bwd,
+                            with_alpha)

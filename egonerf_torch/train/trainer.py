@@ -1,7 +1,8 @@
 """The training loop (counterpart of ``egonerf_tpu/train/trainer.py``:
 ``Trainer`` and ``render_test``), cut to what the port carries.
 
-One step draws a batch of ray ids from the resident (N, 9) buffer: on the
+One step draws a batch of ray ids from the resident (N, 9) buffer (N, 10
+with the ground-truth depths under ``use_depth``): on the
 card (uniformly, or under ``sampling_method = theta_importance`` the image
 and column uniformly and the row by the cos-latitude weights, drawn, picked
 and gathered by K14f in one launch), or on the host by JAX's
@@ -14,7 +15,13 @@ gate, K1/K2 on its single grid; both: the shader through torch autograd,
 the composite through K6/K6b; under ``train_keep`` EgoNeRF's empty-space
 cull, K4c (K4 with the cull score, drawing as K4) and K13, with a full
 step every ``train_keep_full_every``), takes
-the MSE plus the L1, TV and Ortho terms at JAX's schedules, and steps
+the MSE plus, in JAX's order, the sparsity term (the density at random
+points, ``sparsity_density``: K3's training instantiation, K2 behind it,
+the points drawn from the step's generator after the forward's draws),
+Ortho, L1, TV, the ray entropy of the forward's alphas (K6's and K6b's
+training instantiations, asked for only while the term is on) and the
+depth term (masked where the ground truth is 0; the forward's depth
+carries no gradient, as JAX stops it), at JAX's schedules, and steps
 Adam.  Nothing synchronises the host per step: the MSE is read with
 ``.item()`` only every ``progress_refresh_rate`` steps.  Events fire
 after a step as in JAX: ``vis_list``, ``i_weights``, the alpha-mask bake
@@ -25,9 +32,9 @@ fresh run first fits the envmap alone (``pretrain_envmap``, JAX
 ``trainer.py:612-645``).
 
 What the JAX trainer does besides, the port does not carry yet and refuses
-by name (ROADMAP.md §1): the entropy, sparsity and depth losses; ray
-filtering, NDC rays, mesh export, the device mesh and the profiler hook.  TensorVMSplit refuses the cull, which JAX's accepts and ignores (it
-renders unculled).
+by name (ROADMAP.md §1): ray filtering, NDC rays, mesh export, the device
+mesh and the profiler hook.  TensorVMSplit refuses the cull, which JAX's
+accepts and ignores (it renders unculled).
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import datetime
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,6 +54,7 @@ from ..data.samplers import (DeviceRaySampler, DeviceThetaSampler, HostRaySample
                              SimpleSampler, ThetaImportanceSampler, host_sampling)
 from ..models import StepKey, build_model, model_meta, params_from_jax
 from ..models.alphamask import mask_from_volumes
+from ..ops.volrend import ray_entropy
 from ..render.metrics import mse2psnr
 from ..render.renderer import Renderer, evaluation, evaluation_path
 from .checkpoint import (latest_checkpoint, load_alpha_masks, load_checkpoint, mask_volumes,
@@ -67,11 +76,6 @@ def check_supported(cfg: Config) -> None:
     if cfg.sampling_method not in ("simple", "theta_importance"):
         raise ValueError(f"sampling method {cfg.sampling_method} not supported")
     refused = []
-    for name in ("entropy_weight", "sparsity_lambda"):
-        if getattr(cfg, name) > 0:
-            refused.append(f"{name} > 0")
-    if cfg.use_depth:
-        refused.append("depth supervision")
     if cfg.model_name != "EgoNeRF" and (cfg.train_keep or cfg.eval_keep):
         # JAX's TensorVMSplit.forward swallows the options and renders
         # unculled; the port says so instead of accepting and ignoring them
@@ -104,6 +108,14 @@ class MetricsLogger:
     def scalar(self, tag: str, value: float, step: int):
         with open(self.path, "a") as f:
             f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
+
+
+def check_depths(cfg: Config, train_dataset) -> None:
+    """JAX's ``ValueError`` (``trainer.py:124-129,556-558``) where
+    ``use_depth`` is on and the loader gives no depths (only the synthetic
+    loader gives them)."""
+    if cfg.use_depth and train_dataset.all_depths is None:
+        raise ValueError(f"use_depth=True but dataset '{cfg.dataset_name}' provides no depths")
 
 
 def initial_l1_weight(cfg: Config, start_step: int) -> float:
@@ -143,6 +155,7 @@ class Trainer:
                                     downsample=cfg.downsample_train, **common)
         self.test_dataset = ds_cls(split="test", is_stack=True,
                                    downsample=cfg.downsample_test, skip=cfg.test_skip, **common)
+        check_depths(cfg, self.train_dataset)
         self.near_far = self.train_dataset.near_far
         self.white_bg = self.train_dataset.white_bg
         aabb = self.train_dataset.scene_bbox
@@ -224,21 +237,25 @@ class Trainer:
             full_wh = getattr(ds, "img_wh_origin", ds.img_wh)
             host = ThetaImportanceSampler(cfg.theta_importance_lambda, n_rays, full_wh,
                                           cfg.batch_size, ds.roi, seed=cfg.seed)
+        # the depth column (JAX trainer.py:479-481, 540-542)
+        depths = ds.all_depths if cfg.use_depth else None
         if host_sampling(n_rays, cfg.device_sampling):
-            self.sampler = HostRaySampler(ds.all_rays, ds.all_rgbs, host, self.device)
+            self.sampler = HostRaySampler(ds.all_rays, ds.all_rgbs, host, self.device, depths)
         elif cfg.sampling_method == "simple":
             self.sampler = DeviceRaySampler(ds.all_rays, ds.all_rgbs, cfg.batch_size,
-                                            self.generator)
+                                            self.generator, depths)
         else:
             self.sampler = DeviceThetaSampler(ds.all_rays, ds.all_rgbs, host, cfg.batch_size,
-                                              self.device, seed=cfg.seed)
+                                              self.device, seed=cfg.seed, all_depths=depths)
 
     def set_datasets(self, train_dataset, test_dataset) -> None:
         """Swap datasets after construction (JAX ``trainer.py:548-563``):
         the resident training rays and the sampler follow.  The scene
         geometry taken at construction (aabb, near/far, white_bg and the
         model built from them) stays: swap datasets of the same scene
-        setup."""
+        setup.  A depthless loader under ``use_depth`` raises JAX's
+        ``ValueError``."""
+        check_depths(self.cfg, train_dataset)
         self.train_dataset = train_dataset
         self.test_dataset = test_dataset
         self._install_sampler()
@@ -255,12 +272,54 @@ class Trainer:
         f = float(np.float32(self.lr_factor) ** np.float32(n_dec))
         return cfg.TV_weight_density * f, cfg.TV_weight_app * f
 
-    def loss(self, out, rgbs: torch.Tensor, iteration: int):
-        """(total loss, MSE): the MSE plus Ortho, L1 (at the current weight)
-        and TV (at :meth:`tv_weights`) where their weights are positive."""
+    def entropy_on(self, iteration: int) -> bool:
+        """Whether the entropy term is in the loss at ``iteration`` (JAX's
+        ``entropy_on``: after ``iter_ignore_entropy``, with a positive
+        weight)."""
+        return self.cfg.entropy_weight > 0 and iteration > self.cfg.iter_ignore_entropy
+
+    def entropy_weight_at(self, iteration: int) -> float:
+        """The entropy weight at ``iteration``, in float32 as JAX's
+        ``dyn_of`` computes it (``trainer.py:276-280``): decayed by
+        lr_factor once a step counted from max(resume point,
+        ``iter_ignore_entropy`` + 1); 0 while the term is off."""
+        cfg = self.cfg
+        if not self.entropy_on(iteration):
+            return 0.0
+        n_dec = max(iteration - max(self._sched_start, cfg.iter_ignore_entropy + 1) + 1, 0)
+        f = np.float32(self.lr_factor) ** np.float32(n_dec)
+        return float(np.float32(cfg.entropy_weight) * f)
+
+    def depth_weight_at(self, iteration: int) -> float:
+        """The depth weight at ``iteration``, in float32 as JAX's ``dyn_of``
+        computes it (``trainer.py:281-289``): depth_lambda *
+        depth_rate^(iteration // depth_step_size), 0 after
+        ``depth_end_iter``."""
+        cfg = self.cfg
+        if cfg.depth_end_iter is not None and iteration > cfg.depth_end_iter:
+            return 0.0
+        f = np.float32(cfg.depth_rate) ** np.float32(iteration // cfg.depth_step_size)
+        return float(np.float32(cfg.depth_lambda) * f)
+
+    def loss(self, out, rgbs: torch.Tensor, iteration: int,
+             depth_gt: Optional[torch.Tensor] = None,
+             sparsity_points: Optional[torch.Tensor] = None):
+        """(total loss, MSE) of a forward's ``out`` against the batch's
+        ``rgbs``: the MSE plus, in JAX's order, the sparsity term (its
+        points drawn from the step's generator, or ``sparsity_points``),
+        Ortho, L1 (at the current weight), TV (at :meth:`tv_weights`), the
+        entropy of ``out["alpha"]`` (at :meth:`entropy_weight_at`) and,
+        under ``use_depth``, the depth term against ``depth_gt`` (the
+        batch's depth column; at :meth:`depth_weight_at`, masked where the
+        ground truth is 0, no gradient), each where JAX takes it."""
         cfg, model, p = self.cfg, self.model, self.params
         mse = torch.mean((out["rgb"] - rgbs) ** 2)
         total = mse
+        if cfg.sparsity_lambda > 0:
+            sp = model.sparsity_density(p, self.generator, cfg.N_sparsity_points,
+                                        points=sparsity_points)
+            loss_sp = 1.0 - torch.mean(torch.exp(-cfg.sparsity_length * sp))
+            total = total + cfg.sparsity_lambda * loss_sp
         if cfg.Ortho_weight > 0:
             total = total + cfg.Ortho_weight * model.vector_comp_diffs(p)
         if self.l1_weight > 0:
@@ -270,6 +329,12 @@ class Trainer:
             total = total + tv_d * model.tv_loss_density(p)
         if tv_a > 0:
             total = total + tv_a * model.tv_loss_app(p)
+        if self.entropy_on(iteration):
+            total = total + self.entropy_weight_at(iteration) * ray_entropy(out["alpha"])
+        if cfg.use_depth:
+            mask = (depth_gt != 0).to(depth_gt.dtype)
+            dloss = torch.sum(mask * (out["depth"] - depth_gt) ** 2) / (torch.sum(mask) + 1e-8)
+            total = total + self.depth_weight_at(iteration) * dloss
         return total, mse
 
     def train_step(self, iteration: int) -> torch.Tensor:
@@ -288,8 +353,10 @@ class Trainer:
             is_train=True, n_coarse=cfg.n_coarse, n_fine=cfg.n_fine,
             exp_sampling=cfg.exp_sampling,
             resampling=cfg.resampling and iteration > cfg.iter_ignore_resampling,
-            use_coarse_sample=cfg.use_coarse_sample, white_bg=self.white_bg, **cull)
-        total, mse = self.loss(out, row[:, 6:9], iteration)
+            use_coarse_sample=cfg.use_coarse_sample, white_bg=self.white_bg,
+            with_alpha=self.entropy_on(iteration), **cull)
+        total, mse = self.loss(out, row[:, 6:9], iteration,
+                               row[:, 9] if cfg.use_depth else None)
         self.optimizer.zero_grad()
         total.backward()
         self.optimizer.step()

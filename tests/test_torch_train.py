@@ -324,9 +324,6 @@ def test_render_test_reads_the_checkpoint(trained):
 
 
 UNPORTED = {
-    "entropy": dict(entropy_weight=1e-3),
-    "sparsity": dict(sparsity_lambda=0.1),
-    "depth": dict(use_depth=True),
     # EgoNeRF's cull is ported (tests/test_torch_cull.py); TensorVMSplit
     # refuses it, as JAX's accepts and ignores it
     "cull": dict(model_name="TensorVMSplit", coordinates_name="xyz", train_keep=8),
@@ -357,6 +354,10 @@ PORTED = {
     "upsample": dict(upsamp_list="[10]"),
     "linear_sampling": dict(exp_sampling=False),
     "render_path": dict(render_path=1),
+    # the entropy, sparsity and depth losses (tests/test_torch_losses.py)
+    "entropy": dict(entropy_weight=1e-3),
+    "sparsity": dict(sparsity_lambda=0.1),
+    "depth": dict(use_depth=True),
 }
 
 
