@@ -219,6 +219,38 @@ The entropy, sparsity and depth losses (LOSSES: entropy 1e-3, sparsity
     step, and one loss step against the plain versions (loss rel 1e-5,
     gradients 1e-3).
 
+The rest of the TensoRF family (TensorVM, TensorCP, NDC rays, filter_ray):
+
+2. (also) TensorVM's relu-free K1, K3 and K2 at S = 1 on the inputs of
+   phase 2's TensoRF step and bake, with decomposition 0's density
+   channels zeroed on half of its plane's rows (negative, exactly zero and
+   positive partials), at K1's, K3's and K2's limits; K17, the CP line
+   product, in its eval (bf16 lines), training (float32) and density-only
+   (float32) forms on the hat and the linear line weights, and K17b, its
+   backward (per row as K2, at K2's limit; also with every sample on four
+   points, and on 10,000 points of the density alone), on a recorded
+   TensorCP step at CP-384 (``presets.tensorcp_overrides``: 500^3, 96 +
+   288 channels, 1,048,576 samples);
+8v. (also) the smoke run as TensorVM and as TensorCP (96 + 288
+   components) on the xyz chart against the JAX package's CPU figure less
+   the seed band;
+26. TensorVM at the ``tensorf_bench`` shape with a 128^3 mask of half
+    occupancy: one step against the plain versions, 20 timed steps (K1 and
+    K2 in their relu-free instantiations, K9, K6, K6b once a step) beside
+    TensorVMSplit's in this process, the profile, a 1000x500 view and a few
+    of its chunks against the plain versions, and the bake (K3 relu-free,
+    K9);
+27. TensorCP at CP-384 likewise: K17's training form and K17b once a step,
+    the view on K17's eval form, the bake on its density-only form, each
+    on the hat (counted by form and line mode, so the linear forms' 0 is a
+    count);
+28. TensorVMSplit on the bench scene with ``ndc_ray``: a step against the
+    plain versions and timed NDC steps; a trainer with ``filter_ray`` on
+    the scene's training rays and rays whose lines miss the box: the
+    filter's kept count against the slab test on the host and against the
+    rays that touch the box, its seconds, the sampler's buffer, and timed
+    steps after it.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
 result and exits 2.
@@ -320,16 +352,23 @@ JAX_SMOKE_PSNR, SEED_BAND_DB = 14.92, 2.45
 SMOKE_CONFIG = "configs/smoke/synthetic.txt"
 # the smoke recipe's variants (phase 8v): EgoNeRF's grid upsampling (N_voxel
 # 27,000 -> 64,000 in two steps, at steps 100 and 200), its linear ray
-# sampling, and the entropy, sparsity and depth losses at once (the
-# weights of phase 25), each beside the JAX package's test PSNR for the
-# same arguments on the CPU (tests/smoke_variants_jax.py)
+# sampling, the entropy, sparsity and depth losses at once (the weights of
+# phase 25), and TensorVM and TensorCP (at its published 96 + 288
+# components) on the xyz chart, each beside the JAX package's test PSNR for
+# the same arguments on the CPU (tests/smoke_variants_jax.py)
 SMOKE_VARIANTS = {"upsample": ["--N_voxel_init", "27000", "--upsamp_list", "[100,200]"],
                   "linear": ["--exp_sampling", "0"],
                   "losses": ["--entropy_weight", "1e-3", "--sparsity_lambda", "0.1",
-                             "--use_depth", "1"]}
+                             "--use_depth", "1"],
+                  "tensorvm": ["--model_name", "TensorVM", "--coordinates_name", "xyz",
+                               "--resampling", "0"],
+                  "tensorcp": ["--model_name", "TensorCP", "--coordinates_name", "xyz",
+                               "--resampling", "0", "--n_lamb_sigma", "[96]",
+                               "--n_lamb_sh", "[288]"]}
 # JAX_PLATFORMS=cpu python tests/smoke_variants_jax.py (the JAX package on the
 # CPU, 300 iterations each)
-JAX_SMOKE_VARIANT_PSNR = {"upsample": 16.25, "linear": 15.12, "losses": 14.88}
+JAX_SMOKE_VARIANT_PSNR = {"upsample": 16.25, "linear": 15.12, "losses": 14.88, "tensorvm": 16.02,
+                          "tensorcp": 18.05}
 # the outdoor config driven through the command line (phase 12)
 OUTDOOR_CLI_ITERS = 20
 # the JAX package's envmap quality recipe (egonerf_tpu/tools/envmap_e2e.py)
@@ -502,6 +541,8 @@ def max_err(outs, refs):
     """(max abs error, max abs error / max |ref|) over matching outputs."""
     abs_err = rel = 0.0
     for o, r in zip(outs, refs):
+        if not r.numel():  # an empty output (K17's density-only appearance)
+            continue
         e = float((o - r).abs().max())
         abs_err = max(abs_err, e)
         rel = max(rel, e / max(float(r.abs().max()), 1e-30))
@@ -631,20 +672,31 @@ def check_case(name, source, replaces, kern, plain, args, n_bytes, n_ops, abs_to
     return row
 
 
-def k2_compare(name, args, ops) -> float:
+def k2_compare(name, args, ops, kw=None) -> float:
     """K2 against its plain version: per cell |kernel - plain| <= K2_TOL *
     sum|terms| (float32 atomics add in another order), the plain version's
     float32 terms summed in float64 (its float32 index_add rounds by up to
     ~3e-4 of the terms where a million samples hit one cell); the float32
-    plain version's error is printed beside.  Returns the max abs error."""
-    got = ops.KERNELS.field_bwd(*args)
-    ref = ops.PLAIN.field_bwd(*args, accumulate=torch.float64)
-    ref32 = ops.PLAIN.field_bwd(*args)
-    mag = ops.PLAIN.field_bwd(*args, magnitude=True, accumulate=torch.float64)
+    plain version's error is printed beside.  ``kw`` goes to both (the
+    relu-free form's).  Returns the max abs error."""
+    kw = kw or {}
+    got = ops.KERNELS.field_bwd(*args, **kw)
+    ref = ops.PLAIN.field_bwd(*args, accumulate=torch.float64, **kw)
+    ref32 = ops.PLAIN.field_bwd(*args, **kw)
+    mag = ops.PLAIN.field_bwd(*args, magnitude=True, accumulate=torch.float64, **kw)
     torch.cuda.synchronize()
+    return per_cell_check(name, got[0] + got[1], ref[0] + ref[1], ref32[0] + ref32[1],
+                          mag[0] + mag[1])
+
+
+def per_cell_check(name, got, ref, ref32, mag) -> float:
+    """A scatter kernel's tables against its plain version's float32 terms
+    summed in float64 (``ref``; ``ref32`` in float32, ``mag`` their
+    magnitudes): per cell |kernel - plain| <= K2_TOL * sum|terms|; the
+    float32 plain version's error is printed beside.  Returns the max abs
+    error."""
     worst = worst32 = abs_err = 0.0
-    for g, r, r32, m in zip(got[0] + got[1], ref[0] + ref[1], ref32[0] + ref32[1],
-                            mag[0] + mag[1]):
+    for g, r, r32, m in zip(got, ref, ref32, mag):
         if not torch.isfinite(g).all():
             fail(f"{name}: non-finite gradient")
         d = (g.double() - r).abs()
@@ -671,30 +723,32 @@ def k2_adversarial(args):
                           d_app[perm].contiguous(), mask[perm].contiguous(), *rest)))
 
 
-def check_field_bwd(name, args, ops, adversarial=False) -> dict:
+def check_field_bwd(name, args, ops, adversarial=False, kw=None) -> dict:
     """K2 against its plain version (:func:`k2_compare`), its layout, its
     row with a cold-L2 time printed, and with ``adversarial`` the same on
-    :func:`k2_adversarial`'s inputs."""
+    :func:`k2_adversarial`'s inputs; ``kw`` goes to every call (the
+    relu-free form's)."""
     from egonerf_torch.ops import vm_lookup
 
+    kw = kw or {}
     coords, planes, lines, d_dens, d_app, mask, n_density = args[:7]
     layout = vm_lookup._bwd_layout_of(coords, planes, lines, n_density, d_app)
     print(f"phase 2 {name}: bwd_layout {layout.group} lanes a sample, "
           f"{'vector' if layout.vector else 'scalar'}", flush=True)
-    abs_err = k2_compare(name, args, ops)
+    abs_err = k2_compare(name, args, ops, kw)
     n_ch = sum(p.shape[-1] for p in planes)
     row = kernel_row(
         name, "egonerf_torch/csrc/vm_lookup.cu", "egonerf_tpu/ops/vm_lookup.py:482", abs_err,
-        time_ms(lambda: ops.KERNELS.field_bwd(*args)),
-        time_ms(lambda: ops.PLAIN.field_bwd(*args), reps=5),
-        nbytes(coords, *planes, *lines, d_dens, d_app, mask)
+        time_ms(lambda: ops.KERNELS.field_bwd(*args, **kw)),
+        time_ms(lambda: ops.PLAIN.field_bwd(*args, **kw), reps=5),
+        nbytes(coords, *planes, *lines, d_dens, d_app, *([] if mask is None else [mask]))
         + sum(4 * t.numel() for t in planes + lines),
         # per sample and channel: plane (7) and line (3) recomputed, dp and
         # dl, 4 + 2 weighted contributions
         coords.shape[0] * n_ch * 18)
-    print(f"phase 2 {name}: kernel {time_cold_ms(lambda: ops.KERNELS.field_bwd(*args)):.4f} ms "
-          f"with a cold L2 ({FLUSH_BYTES >> 20} MB read before each call), {row['ms']:.4f} ms "
-          f"warm", flush=True)
+    cold = time_cold_ms(lambda: ops.KERNELS.field_bwd(*args, **kw))
+    print(f"phase 2 {name}: kernel {cold:.4f} ms with a cold L2 ({FLUSH_BYTES >> 20} MB read "
+          f"before each call), {row['ms']:.4f} ms warm", flush=True)
     if adversarial:
         for label, a in k2_adversarial(args):
             k2_compare(f"{name}, {label}", a, ops)
@@ -1583,7 +1637,8 @@ def step_vs_plain(trainer, ops, label: str, cull_keep: int = 0, it: int = 5) -> 
                 p.grad = None
             out = model.forward(params, row[:, :6], is_train=True, n_coarse=cfg.n_coarse,
                                 n_fine=cfg.n_fine, exp_sampling=cfg.exp_sampling,
-                                jitter=jitter, u=u, with_alpha=trainer.entropy_on(it), **cull)
+                                ndc_ray=bool(cfg.ndc_ray), jitter=jitter, u=u,
+                                with_alpha=trainer.entropy_on(it), **cull)
             loss, _ = trainer.loss(out, row[:, 6:9], it, depth_gt, pts)
             loss.backward()
             return loss.item(), {k: p.grad.detach().clone() for k, p in params.items()}
@@ -1808,7 +1863,8 @@ def tensorf_kernel_checks(trainer, ops) -> dict:
     """Phase 2, the TensoRF path: K3 and K9 on the inputs of its bake (the
     dense 128^3 grid on the 256^3 tables, under the installed mask), K1,
     K2, K6 and K6b with the gates and K9 on the inputs of one of its
-    training steps, each against its plain version."""
+    training steps, each against its plain version; TensorVM's relu-free
+    K1, K3 and K2 on the same inputs (:func:`norelu_kernel_checks`)."""
     import torch.nn.functional as F
     from egonerf_torch.ops import volrend
 
@@ -1851,6 +1907,7 @@ def tensorf_kernel_checks(trainer, ops) -> dict:
         "K3 density_fwd (S=1)", vm_src, f"{vm}:436", ops.KERNELS.density, ops.PLAIN.density,
         d_args, nbytes(dc, *dp, *dl) + dc.shape[0] * 4,
         dc.shape[0] * sum(p.shape[-1] for p in dp) * 11, cold=True)
+    table.update(norelu_kernel_checks(ops, rec["field"].args, rec["field_bwd"].args, d_args))
 
     c_args = rec["composite"].args
     feat, dists, z, rgb, dz = c_args[:5]
@@ -4091,6 +4148,280 @@ def losses_phase(root, presets, ops, wrappers) -> dict:
     return rows
 
 
+# -- the rest of the TensoRF family: TensorVM, TensorCP, NDC, filter_ray -------
+def partial_states(coords, planes, lines, n_density, line_hat, ops) -> str:
+    """The share of negative, exactly zero and positive density partials of
+    these inputs (the plain version's relu states)."""
+    mask = ops.PLAIN.field(coords, planes, lines, n_density, line_hat, with_mask=True)[2]
+    states = torch.stack([(mask >> (2 * i)) & 3 for i in range(3)])
+    n = states.numel()
+    return ", ".join(f"{int((states == v).sum()) / n:.1%} {label}"
+                     for v, label in ((0, "negative"), (1, "exactly zero"), (2, "positive")))
+
+
+def norelu_kernel_checks(ops, f_args, b_args, d_args) -> dict:
+    """Phase 2, TensorVM's relu-free K1, K3 and K2 at S = 1 on the inputs
+    of a recorded TensoRF step and bake, with decomposition 0's density
+    channels zeroed on half of its plane's rows, so that the partials are
+    negative, exactly zero and positive: each against its plain version at
+    K1's, K3's and K2's limits.  Returns their rows."""
+    vm_src, vm = "egonerf_torch/csrc/vm_lookup.cu", "egonerf_tpu/ops/vm_lookup.py"
+    coords, planes, lines, n_density, line_hat = f_args[:5]
+
+    def zeroed(ps, nd):
+        p0 = ps[0].clone()
+        p0[:, : p0.shape[1] // 2, :, :nd] = 0
+        return [p0, *ps[1:]]
+
+    planes = zeroed(planes, n_density[0])
+    print(f"phase 2 relu-free inputs: the TensoRF step's {coords.shape[0]:,} samples, plane 0's "
+          f"density channels zeroed on half its rows: partials "
+          f"{partial_states(coords, planes, lines, n_density, line_hat, ops)}", flush=True)
+    n, n_ch = coords.shape[0], sum(p.shape[-1] for p in planes)
+    n_app = n_ch - sum(n_density)
+    table = {}
+    table["K1 (S=1, no relu)"] = check_case(
+        "K1 field_fwd (S=1, no relu)", vm_src, f"{vm}:467",
+        lambda *a: ops.KERNELS.field(*a, relu=False), lambda *a: ops.PLAIN.field(*a, relu=False),
+        (coords, planes, lines, n_density, line_hat),
+        nbytes(coords, *planes, *lines) + n * (1 + n_app) * 4, n * n_ch * 11)
+    dc, dp, dl = d_args
+    table["K3 (S=1, no relu)"] = check_case(
+        "K3 density_fwd (S=1, no relu)", vm_src, f"{vm}:436",
+        lambda *a: ops.KERNELS.density(*a, relu=False),
+        lambda *a: ops.PLAIN.density(*a, relu=False), (dc, zeroed(dp, dp[0].shape[-1]), dl),
+        nbytes(dc, *dp, *dl) + dc.shape[0] * 4, dc.shape[0] * sum(p.shape[-1] for p in dp) * 11)
+    bc, _, bl, d_dens, d_app, _, nd, lh = b_args[:8]
+    table["K2 (S=1, no relu)"] = check_field_bwd(
+        "K2 field_bwd (S=1, no relu)", (bc, planes, bl, d_dens, d_app, None, nd, lh), ops,
+        kw=dict(relu=False))
+    return table
+
+
+def cp_bwd_case(name, args, ops, row=True):
+    """K17b against its plain version per row (:func:`per_cell_check`, K2's
+    limit: float32 atomics add in another order), timed; its row."""
+    from egonerf_torch.ops import cp
+
+    coords, lines, d_dens, d_app, nd, modes = args
+    print(f"phase 2 {name}: {cp.bwd_plan(coords, lines, nd, d_app if d_app.shape[1] else None)}",
+          flush=True)
+    got = ops.KERNELS.cp_bwd(*args)
+    ref = ops.PLAIN.cp_bwd(*args, accumulate=torch.float64)
+    ref32 = ops.PLAIN.cp_bwd(*args)
+    mag = ops.PLAIN.cp_bwd(*args, magnitude=True, accumulate=torch.float64)
+    torch.cuda.synchronize()
+    abs_err = per_cell_check(name, got, ref, ref32, mag)
+    del got, ref, ref32, mag
+    ms = time_ms(lambda: ops.KERNELS.cp_bwd(*args))
+    if not row:
+        print(f"phase 2 {name}: kernel {ms:.4f} ms", flush=True)
+        return None
+    return kernel_row(
+        name, "egonerf_torch/csrc/cp_lookup.cu", "egonerf_tpu/ops/vm_lookup.py:611", abs_err,
+        ms, time_ms(lambda: ops.PLAIN.cp_bwd(*args), reps=5),
+        # coords and cotangents read once, the lines read, the gradients written
+        nbytes(coords, *lines, d_dens, d_app) + sum(4 * l.numel() for l in lines),
+        # per sample and channel: three line samples (9), the three douts
+        # (5), two weighted contributions an axis (6)
+        coords.shape[0] * lines[0].shape[-1] * 20)
+
+
+def cp_kernel_checks(trainer, ops) -> dict:
+    """Phase 2, K17 and K17b at CP-384 on the inputs of one recorded
+    TensorCP training step (1,048,576 samples; lines of 500 rows, 96 + 288
+    channels): K17 in its eval (bf16 lines), training (float32) and
+    density-only (96 float32 channels: the bake, ``compute_alpha`` and the
+    sparsity loss) forms on the hat and the linear line weights, at K1's
+    limit (rel 1e-5 of max|plain|: the density sums go in another order);
+    K17b on both weights and with every sample on four points (a few rows,
+    262,144 terms a row and no run to merge), per row at K2's limit.
+    Returns their rows, named as the launch counters (``K17 (form,
+    mode)``, ``K17b (mode)``)."""
+    from egonerf_torch.ops.vm_lookup import HAT, LINEAR
+
+    model = trainer.model
+    rec_f, rec_b = Recorder(ops.KERNELS.cp), Recorder(ops.KERNELS.cp_bwd)
+    model.ops = ops.KERNELS._replace(cp=rec_f, cp_bwd=rec_b)
+    try:
+        trainer.train_step(0)
+    finally:
+        model.ops = ops.KERNELS
+    torch.cuda.synchronize()
+    coords, lines, nd, modes = rec_f.args
+    d_dens, d_app = rec_b.args[2:4]
+    n, c = coords.shape[0], lines[0].shape[-1]
+    print(f"phase 2 TensorCP inputs: {trainer.cfg.batch_size} rays x {trainer.cfg.n_coarse} "
+          f"samples ({n:,}), lines {[tuple(l.shape) for l in lines]} ({nd} density + "
+          f"{c - nd} appearance channels), grid {model.grid_size}, line modes {list(modes)}",
+          flush=True)
+    src, rep = "egonerf_torch/csrc/cp_lookup.cu", "egonerf_tpu/models/tensorf.py:459"
+    bf = [l.to(torch.bfloat16) for l in lines]
+    dens32 = [l[..., :nd].contiguous() for l in lines]
+    table = {}
+    for mode_name, m in (("hat", HAT), ("linear", LINEAR)):
+        mm = (m,) * 3
+        for form, tabs in (("eval", bf), ("train", lines), ("density", dens32)):
+            out_bytes = n * 4 + n * (tabs[0].shape[-1] - nd) * 4
+            table[f"K17 ({form}, {mode_name})"] = check_case(
+                f"K17 cp_fwd ({form}, {mode_name})", src, rep, ops.KERNELS.cp, ops.PLAIN.cp,
+                (coords, tabs, nd, mm), nbytes(coords, *tabs) + out_bytes,
+                # per sample and channel: three line samples (9), two
+                # products, the density sum
+                n * tabs[0].shape[-1] * 12, cold=form == "train")
+        table[f"K17b ({mode_name})"] = cp_bwd_case(
+            f"K17b cp_bwd ({mode_name})", (coords, lines, d_dens, d_app, nd, mm), ops)
+    # consecutive samples on alternate points: no run to merge, so an
+    # atomic a term, 262,144 terms a row (the float32 plain version's error,
+    # printed beside, is several times K2's limit here)
+    few = coords[torch.arange(n, device=coords.device) % 4 * (n // 4)].contiguous()
+    cp_bwd_case("K17b cp_bwd (hat, every sample on four points)",
+                (few, lines, d_dens, d_app, nd, modes), ops, row=False)
+    k = min(10_000, n)
+    cp_bwd_case(f"K17b cp_bwd (density only, {k:,} points)",
+                (coords[:k].contiguous(), dens32, d_dens[:k].contiguous(),
+                 d_app.new_zeros(k, 0), nd, modes), ops, row=False)
+    return table
+
+
+def family_trainer(root, presets, overrides, expname):
+    """A TensoRF-family trainer on the bench scene with a 128^3 mask of
+    half occupancy (random weights from the config's seed)."""
+    from egonerf_torch.data.datasets import SyntheticEgoDataset
+    from egonerf_torch.models.alphamask import AlphaGridMask
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import Trainer
+
+    cfg = load_config(overrides=overrides(
+        basedir=os.path.join(root, "build", "chip_smoke_runs"), expname=expname,
+        n_iters=10 ** 9, progress_refresh_rate=10 ** 9))
+    trainer = Trainer(cfg, device=DEVICE)
+    scene = dict(presets.TENSORF_BENCH_SCENE, near_far=cfg.near_far)
+    trainer.set_datasets(SyntheticEgoDataset(split="train", **scene),
+                         SyntheticEgoDataset(split="test", is_stack=True, **scene))
+    trainer.model.alpha_mask = AlphaGridMask(half_mask(TF_MASK_RESO, trainer.device),
+                                             device=trainer.device)
+    return trainer
+
+
+def family_phase(phase, trainer, ops, wrappers, presets, Renderer, per_step, per_chunk,
+                 per_bake, base_ms=None) -> dict:
+    """Phases 26 and 27 for one TensoRF member: a step against the plain
+    versions, TRAIN_STEPS timed steps (``per_step`` kernels once a step;
+    beside TensorVMSplit's ``base_ms`` of this process), the profile, a
+    1000x500 view (``per_chunk`` kernels once a chunk, a few chunks against
+    the plain versions), and the bake at 128^3 (``per_bake`` launched, the
+    rest not).  Returns the launches of the steps, the view and the bake."""
+    from egonerf_torch.data.ray_utils import get_ray_directions_360
+
+    cfg, model = trainer.cfg, trainer.model
+    label = f"phase {phase} {cfg.model_name}"
+    step_vs_plain(trainer, ops, label)
+    steps, median = timed_steps(
+        trainer.train_step, f"{label} training step, {cfg.n_coarse} samples, grid "
+        f"{model.grid_size}", cfg, wrappers,
+        {k: TRAIN_STEPS if k in per_step else 0 for k in wrappers})
+    if base_ms is not None:
+        print(f"{label} step {median:.3f} ms beside TensorVMSplit's {base_ms:.3f} ms in this "
+              f"process ({median - base_ms:+.3f})", flush=True)
+    it = 10 ** 4
+
+    def run():
+        nonlocal it
+        for _ in range(PROFILE_STEPS):
+            trainer.train_step(it)
+            it += 1
+    profile(run, PROFILE_STEPS, label, "step", top=12)
+    with torch.no_grad():
+        view, s_image = render_phases(
+            model, trainer.params, get_ray_directions_360(*TF_IMAGE_HW).reshape(-1, 3), ops,
+            presets, Renderer, wrappers, phases=(phase, phase, phase),
+            renderer=Renderer.from_config(model, cfg, trainer.white_bg), per_chunk=per_chunk,
+            hw=TF_IMAGE_HW)
+    mask = model.alpha_mask
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.update_alpha_mask()
+    torch.cuda.synchronize()
+    bake_ms = (time.time() - t0) * 1e3
+    bake = {k: w.launches for k, w in wrappers.items()}
+    model.alpha_mask = mask
+    print(f"{label} bake at {[min(r, TF_MASK_RESO) for r in model.grid_size]}: {bake_ms:.1f} ms, "
+          f"launches {bake}", flush=True)
+    if any(bake[k] < 1 for k in per_bake) or any(v for k, v in bake.items()
+                                                 if k not in per_bake):
+        fail(f"{label}: the bake launched {bake}, expected {sorted(per_bake)} only")
+    return {"steps": steps, "view": view, "bake": bake, "median": median, "s_image": s_image}
+
+
+def ndc_filter_phase(root, presets, ops, wrappers) -> None:
+    """Phase 28 on the TensoRF bench scene: TensorVMSplit's training step
+    under ``ndc_ray`` against the plain versions, and timed NDC steps (K1,
+    K2, K9, K6, K6b once a step); then a trainer with ``filter_ray``: the
+    filter's kept count on the scene's training rays against the slab test
+    on the host, its seconds, the sampler's buffer, and timed steps."""
+    from egonerf_torch.data.datasets import SyntheticEgoDataset
+
+    per_step = ("K1", "K2", "K9", "K6", "K6b")
+    want = {k: TRAIN_STEPS if k in per_step else 0 for k in wrappers}
+    ndc = family_trainer(root, presets, lambda **kw: presets.tensorf_mask_overrides(
+        ndc_ray=1, **kw), "tensorf_ndc")
+    step_vs_plain(ndc, ops, "phase 28 NDC")
+    timed_steps(ndc.train_step, f"phase 28 TensorVMSplit NDC training step, {ndc.cfg.n_coarse} "
+                f"samples over [near, far]", ndc.cfg, wrappers, want)
+    del ndc
+    torch.cuda.empty_cache()
+    filt = family_trainer(root, presets, lambda **kw: presets.tensorf_mask_overrides(
+        filter_ray=1, **kw), "tensorf_filter")
+    train = SyntheticEgoDataset(split="train", **dict(presets.TENSORF_BENCH_SCENE,
+                                                      near_far=filt.cfg.near_far))
+    rays, rgbs = np.asarray(train.all_rays), np.asarray(train.all_rgbs)
+    # a tenth as many rays again whose lines miss the box (from three box
+    # radii out along u, heading across u) and as many heading away from it
+    # (their lines cross the box behind the origin: JAX's slab test has no
+    # t > 0, so it keeps them)
+    box = filt.model.aabb
+    centre, radius = box.mean(0), float(np.linalg.norm(box[1] - box[0])) / 2
+    rng = np.random.default_rng(SEED)
+    m = rays.shape[0] // 10
+    u = rng.normal(size=(2 * m, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    v = np.cross(u, rng.normal(size=(2 * m, 3)))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    origins = centre + 3 * radius * u
+    extra = np.concatenate([np.concatenate([origins[:m], v[:m]], 1),
+                            np.concatenate([origins[m:], u[m:]], 1)]).astype(np.float32)
+    all_rays = np.concatenate([rays[:, :6], extra])
+    all_rgbs = np.concatenate([rgbs, np.zeros((2 * m, rgbs.shape[1]), rgbs.dtype)])
+
+    def slab(r):  # the slab test on the host, as JAX's _filter_chunk computes it
+        vec = np.where(r[:, 3:6] == 0, np.float32(1e-6), r[:, 3:6])
+        rate_a, rate_b = (box[1] - r[:, :3]) / vec, (box[0] - r[:, :3]) / vec
+        return np.minimum(rate_a, rate_b).max(-1) < np.maximum(rate_a, rate_b).min(-1)
+
+    touch = int(slab(rays).sum())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    kept = filt.model.filtering_rays(filt.params, all_rays, all_rgbs, bbox_only=True)[0].shape[0]
+    seconds = time.time() - t0
+    host_kept = int(slab(all_rays).sum())
+    train.all_rays, train.all_rgbs = all_rays, all_rgbs
+    filt.set_datasets(train, filt.test_dataset)  # filters again as it installs the sampler
+    resident = int(filt.sampler.buffer.shape[0])
+    print(f"phase 28 filter_ray: kept {kept:,} of {all_rays.shape[0]:,} rays ({rays.shape[0]:,} "
+          f"of the scene, {touch:,} of them touching the box; {m:,} whose lines miss it; {m:,} "
+          f"heading away) in {seconds:.3f} s (the host's slab test {host_kept:,}; the sampler "
+          f"holds {resident:,})", flush=True)
+    if not kept == host_kept == resident == touch + m < all_rays.shape[0]:
+        fail("phase 28: filter_ray kept other rays than the slab test")
+    timed_steps(filt.train_step, "phase 28 TensorVMSplit training step after filter_ray",
+                filt.cfg, wrappers, want)
+    del filt
+    torch.cuda.empty_cache()
+
+
 def variant_quality_phase(root: str) -> None:
     """Phase 8v: the smoke recipe of phase 8 through the command line under
     each of SMOKE_VARIANTS (EgoNeRF's grid upsampling, its linear
@@ -4131,8 +4462,8 @@ def main() -> int:
     from egonerf_torch.models.egonerf import _dists
     from egonerf_torch.data.datasets import SyntheticEgoDataset
     from egonerf_torch.models.alphamask import AlphaGridMask
-    from egonerf_torch.ops import (alphamask, bias, chart, cull, envmap, grid_sample, merge, mm,
-                                   pdf, sampler, vm_lookup, volrend)
+    from egonerf_torch.ops import (alphamask, bias, chart, cp, cull, envmap, grid_sample, merge,
+                                   mm, pdf, sampler, vm_lookup, volrend)
     from egonerf_torch.render.renderer import Renderer
     from egonerf_torch.train.config import load_config
     from egonerf_torch.train.trainer import Trainer
@@ -4157,7 +4488,16 @@ def main() -> int:
                 "K6 alpha": volrend.composite.alpha_form,
                 "K6b alpha": volrend.composite_bwd.alpha_form,
                 "K3 train": vm_lookup.density_fwd.train_form,
-                "K2 dens": vm_lookup.field_bwd.density_form}
+                "K2 dens": vm_lookup.field_bwd.density_form,
+                # TensorVM's relu-free instantiations (also in K1, K3, K2),
+                # TensorCP's line product and its forms (also in K17, K17b)
+                "K1 norelu": vm_lookup.field_fwd.norelu_form,
+                "K3 norelu": vm_lookup.density_fwd.norelu_form,
+                "K2 norelu": vm_lookup.field_bwd.norelu_form,
+                "K17": cp.cp_fwd, "K17b": cp.cp_bwd,
+                **{f"K17 ({form}, {mode})": w for (form, mode), w in cp.cp_fwd.forms.items()},
+                **{f"K17b ({mode})" if form == "train" else f"K17b ({form}, {mode})": w
+                   for (form, mode), w in cp.cp_bwd.forms.items()}}
 
     # -- phase 1: card + build ----------------------------------------------
     card = card_line()
@@ -4208,6 +4548,11 @@ def main() -> int:
           f"{tf.model.grid_size}, step {tf.model.step_size:.5f}, mask "
           f"{tf.model.alpha_mask.grid_size}, {tf.sampler.buffer.shape[0]:,} training rays",
           flush=True)
+    # TensorCP at its published width (CP-384) on the same scene and mask
+    cp_tf = family_trainer(root, presets, presets.tensorcp_overrides, "tensorcp")
+    print(f"TensorCP trainer: grid {cp_tf.model.grid_size}, lines "
+          f"{[tuple(cp_tf.params[f'density_lines.{i}'].shape) for i in range(3)]} + "
+          f"{[tuple(cp_tf.params[f'app_lines.{i}'].shape) for i in range(3)]}", flush=True)
 
     # -- phase 2: each kernel against its plain version ------------------------
     with torch.no_grad():
@@ -4221,6 +4566,7 @@ def main() -> int:
     rows.update(envmap_kernel_checks(outdoor, ops))
     k6b_sweep(ops)
     tf_rows = tensorf_kernel_checks(tf, ops)
+    cp_rows = cp_kernel_checks(cp_tf, ops)
     k2_stage_checks(root, presets, ops)
     loss_rows = loss_kernel_checks(trainer, outdoor, tf, ops)
     capture_rows = theta_kernel_checks(ops)
@@ -4333,6 +4679,38 @@ def main() -> int:
     for k, n in losses_phase(root, presets, ops, wrappers).items():
         loss_rows[k]["launches"] = n
 
+    # -- phases 26-28: TensorVM, TensorCP, NDC rays and filter_ray ------------
+    base = family_trainer(root, presets, presets.tensorf_mask_overrides, "tensorf_base")
+    _, base_ms = timed_steps(
+        base.train_step, "phase 26 TensorVMSplit training step (beside TensorVM and TensorCP)",
+        base.cfg, wrappers, {k: TRAIN_STEPS if k in ("K1", "K2", "K9", "K6", "K6b") else 0
+                             for k in wrappers})
+    del base
+    vm = family_trainer(root, presets, lambda **kw: presets.tensorf_mask_overrides(
+        model_name="TensorVM", **kw), "tensorvm")
+    vm_out = family_phase(26, vm, ops, wrappers, presets, Renderer,
+                          ("K1", "K2", "K9", "K6", "K6b", "K1 norelu", "K2 norelu"),
+                          {"K1": 1, "K1 norelu": 1, "K9": 1, "K6": 1}, ("K3", "K3 norelu", "K9"),
+                          base_ms)
+    del vm
+    torch.cuda.empty_cache()
+    cp_out = family_phase(27, cp_tf, ops, wrappers, presets, Renderer,
+                          ("K17", "K17 (train, hat)", "K17b", "K17b (hat)", "K9", "K6", "K6b"),
+                          {"K17": 1, "K17 (eval, hat)": 1, "K9": 1, "K6": 1},
+                          ("K17", "K17 (density, hat)", "K9"), base_ms)
+    del cp_tf
+    torch.cuda.empty_cache()
+    ndc_filter_phase(root, presets, ops, wrappers)
+    # the relu-free rows: their launches in TensorVM's steps and bake; each
+    # K17 and K17b row its own counter's (form and line mode) over TensorCP's
+    # steps, view and bake
+    for k, (part, counter) in {"K1 (S=1, no relu)": ("steps", "K1 norelu"),
+                               "K2 (S=1, no relu)": ("steps", "K2 norelu"),
+                               "K3 (S=1, no relu)": ("bake", "K3 norelu")}.items():
+        tf_rows[k]["launches"] = vm_out[part][counter]
+    for k, row in cp_rows.items():
+        row["launches"] = sum(cp_out[part][k] for part in ("steps", "view", "bake"))
+
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K4+draw", "K5",
                                                      "K6", "K6b", "K6e", "K6+env", "K6b+env",
                                                      "K7", "K8", "K8b", "K4w", "K12", "K4c",
@@ -4347,7 +4725,10 @@ def main() -> int:
                       + [loss_rows[k] for k in ("K6 alpha", "K6e alpha", "K6 gated alpha",
                                                 "K6b alpha", "K6b+env alpha", "K6b gated alpha",
                                                 "K3 train", "K3 train (S=1)", "K2 (n_app=0)",
-                                                "K2 (n_app=0) (S=1)", "K14f (10 floats)")]}),
+                                                "K2 (n_app=0) (S=1)", "K14f (10 floats)")]
+                      + [tf_rows[k] for k in ("K1 (S=1, no relu)", "K2 (S=1, no relu)",
+                                              "K3 (S=1, no relu)")]
+                      + list(cp_rows.values())}),
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -59,6 +59,12 @@
 // tried, since one window covers one allocation and the tables are six.
 // The single grid, the appearance output and the vector load are template
 // parameters: a run-time flag costs registers.
+// TensorVM (egonerf_tpu/models/tensorf.py:422-431, _density_relu = False)
+// sums each decomposition's partial raw, with no relu: K1's and K3's
+// instantiations with kRelu = false (the *_norelu entry points, single grid
+// only) add the partial itself, in JAX's order 0 + d_0 + d_1 + d_2, and
+// write no mask; K2's pass the density cotangent at scale 1 and read none.
+// The default instantiations (kRelu = true) are the code they were.
 //
 // The density sum's order, which ops/vm_lookup.py::_warp_order_sum repeats
 // for K3's plain version: channel c < CD lies in chunk c / 8 and chunk q
@@ -81,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookup_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;      // K1/K3 block
@@ -100,31 +108,6 @@ struct Grads {
   float* plane[3];
   float* line[3];
 };
-
-struct Cell {
-  int i0;
-  float w0, w1;
-};
-
-// _axis_cells: [-1, 1] coord -> clamped cell0 and the weights of the clamped
-// pair (cell0, cell0 + 1), align_corners=True, zeros padding.
-__device__ __forceinline__ Cell axis_cell(float coord, int size) {
-  const float p = __fmul_rn(__fmul_rn(__fadd_rn(coord, 1.0f), 0.5f), (float)(size - 1));
-  const float i0f = floorf(p);
-  const float t = __fsub_rn(p, i0f);
-  const int i0 = (int)i0f;
-  const bool v0 = i0 >= 0 && i0 <= size - 1;
-  const bool v1 = i0 + 1 >= 0 && i0 + 1 <= size - 1;
-  Cell c;
-  c.w0 = (i0 == -1) ? t : (v0 ? __fsub_rn(1.0f, t) : 0.0f);
-  c.w1 = (v1 && i0 >= 0) ? t : 0.0f;
-  c.i0 = min(max(i0, 0), size - 1);
-  return c;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
@@ -236,7 +219,7 @@ __device__ __forceinline__ void products(const __nv_bfloat16* __restrict__ P,
 // n_app % 4 == 0 and a tile of at most 48 KB); the scalar one writes
 // streaming 4-byte stores.  kMask (K1 and K3 in training) also writes the
 // relu mask, one byte a sample; the eval instantiations have no trace of it.
-template <bool kApp, bool kTwoGrids, bool kVec, bool kMask>
+template <bool kApp, bool kTwoGrids, bool kVec, bool kMask, bool kRelu = true>
 __global__ void __launch_bounds__(kThreads, kApp && kVec ? kBulkBlocksPerSM : 1)
 vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb, int log2_group,
                  float* __restrict__ density, float* __restrict__ app, int n_app,
@@ -298,7 +281,7 @@ vm_lookup_kernel(const float* __restrict__ coords, long long n, Tables tb, int l
     for (int off = group >> 1; off > 0; off >>= 1) {
       part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
     }
-    dsum = __fadd_rn(dsum, fmaxf(part, 0.0f));
+    dsum = __fadd_rn(dsum, kRelu ? fmaxf(part, 0.0f) : part);
     if (kMask) relu_bits |= (part > 0.0f ? 2u : part == 0.0f ? 1u : 0u) << (2 * i);
   }
   if (live && g == 0) {
@@ -427,7 +410,7 @@ struct Sample {
   float dprod[kCh];
 };
 
-template <bool kVec, int kCh = BwdShape<kVec>::kChannels>
+template <bool kVec, bool kRelu = true, int kCh = BwdShape<kVec>::kChannels>
 __device__ __forceinline__ Sample<kCh> load_sample(int s, int i, int c0, int C, int CD,
                                                    const float* __restrict__ coords,
                                                    const float* __restrict__ d_dens,
@@ -449,7 +432,8 @@ __device__ __forceinline__ Sample<kCh> load_sample(int s, int i, int c0, int C, 
       return in;
     }
   }
-  const float dd = __fmul_rn(d_dens[s], 0.5f * (float)((mask[s] >> (2 * i)) & 3));
+  const float dd =
+      kRelu ? __fmul_rn(d_dens[s], 0.5f * (float)((mask[s] >> (2 * i)) & 3)) : d_dens[s];
 #pragma unroll
   for (int j = 0; j < kCh; ++j) {
     const int c = c0 + j;
@@ -458,36 +442,9 @@ __device__ __forceinline__ Sample<kCh> load_sample(int s, int i, int c0, int C, 
   return in;
 }
 
-// w * v, rounded to bf16 under kRound and `round` (line mode 2's corner
-// cotangent); without kRound the plain product.
-template <bool kRound>
-__device__ __forceinline__ float corner_term(float w, float v, bool round) {
-  const float t = __fmul_rn(w, v);
-  return (kRound && round) ? bf16_round(t) : t;
-}
-
-// One slot of a walking group: while the row repeats, add w * v to the
-// pending sum; on another row hand the sum to flush(row, sum) and start
-// anew.  row < 0: nothing pending.  A zero weight adds nothing.  With
-// kRound and `round`, each w * v is rounded to bf16 before it is added.
-template <int kCh, bool kRound = false, typename Flush>
-__device__ __forceinline__ void merge(int& row, float acc[kCh], int next, float w,
-                                      const float v[kCh], Flush flush, bool round = false) {
-  if (w == 0.0f) return;
-  if (next != row) {
-    if (row >= 0) flush(row, acc);
-    row = next;
-#pragma unroll
-    for (int j = 0; j < kCh; ++j) acc[j] = corner_term<kRound>(w, v[j], round);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kCh; ++j) acc[j] = __fadd_rn(acc[j], corner_term<kRound>(w, v[j], round));
-  }
-}
-
 // run: the samples of one group's run.  Rows are element offsets
 // (row * C) in int: the wrapper holds every table below 2^31 elements.
-template <bool kTwoGrids, bool kVec, bool kLineBf16>
+template <bool kTwoGrids, bool kVec, bool kLineBf16, bool kRelu = true>
 __global__ void __launch_bounds__(BwdShape<kVec>::kThreads, 1)
 vm_field_bwd_kernel(const float* __restrict__ coords, int n, Tables tb,
                     const float* __restrict__ d_dens, const float* __restrict__ d_app,
@@ -517,7 +474,7 @@ vm_field_bwd_kernel(const float* __restrict__ coords, int n, Tables tb,
       auto to_line = [&](int at, const float* v) { red_global<kVec>(gL + at, c0, C, v); };
       for (int s = s_begin; s < s_end; ++s) {
         const Sample<kCh> cur =
-            load_sample<kVec>(s, i, c0, C, CD, coords, d_dens, d_app, mask, n_app, app0);
+            load_sample<kVec, kRelu>(s, i, c0, C, CD, coords, d_dens, d_app, mask, n_app, app0);
         float dprod[kCh];
         bool any = false;
 #pragma unroll
@@ -595,11 +552,11 @@ Tables make_tables(const void* const* planes, const void* const* lines, const in
   return tb;
 }
 
-template <bool kApp, bool kTwoGrids, bool kVec, bool kMask>
+template <bool kApp, bool kTwoGrids, bool kVec, bool kMask, bool kRelu = true>
 void launch_one(unsigned blocks, size_t smem, cudaStream_t st, const float* coords, long long n,
                 const Tables& tb, int log2_group, float* density, float* app, int n_app,
                 uint8_t* mask) {
-  vm_lookup_kernel<kApp, kTwoGrids, kVec, kMask><<<blocks, kThreads, smem, st>>>(
+  vm_lookup_kernel<kApp, kTwoGrids, kVec, kMask, kRelu><<<blocks, kThreads, smem, st>>>(
       coords, n, tb, log2_group, density, app, n_app, mask);
 }
 
@@ -622,7 +579,7 @@ void launch_grid(bool two, bool vec, unsigned blocks, size_t smem, cudaStream_t 
   }
 }
 
-template <bool kApp>
+template <bool kApp, bool kRelu = true>
 int launch(const float* coords, long long n, const void* const* planes,
            const void* const* lines, const int* dims, float* density, float* app,
            int n_app, uint8_t* mask, void* stream) {
@@ -636,7 +593,17 @@ int launch(const float* coords, long long n, const void* const* planes,
   if (smem > kMaxTileBytes || (kApp && vec && (n_app & 3) != 0)) {
     return (int)cudaErrorInvalidValue;  // ops/vm_lookup.py::lookup_layout takes the scalar one
   }
-  if (mask != nullptr) {
+  if constexpr (!kRelu) {
+    // TensorVM's raw sums: a single grid, no mask
+    if (two || mask != nullptr) return (int)cudaErrorInvalidValue;
+    if (vec) {
+      launch_one<kApp, false, true, false, false>(blocks, smem, st, coords, n, tb, log2_group,
+                                                  density, app, n_app, nullptr);
+    } else {
+      launch_one<kApp, false, false, false, false>(blocks, 0, st, coords, n, tb, log2_group,
+                                                   density, app, n_app, nullptr);
+    }
+  } else if (mask != nullptr) {
     launch_grid<kApp, true>(two, vec, blocks, smem, st, coords, n, tb, log2_group, density, app,
                             n_app, mask);
   } else {
@@ -646,12 +613,13 @@ int launch(const float* coords, long long n, const void* const* planes,
   return (int)cudaGetLastError();
 }
 
-template <bool kTwoGrids, bool kVec, bool kLineBf16>
+template <bool kTwoGrids, bool kVec, bool kLineBf16, bool kRelu = true>
 void launch_bwd(unsigned blocks, cudaStream_t st, const float* coords, int n, const Tables& tb,
                 const float* d_dens, const float* d_app, const uint8_t* mask, int n_app,
                 const Grads& gr, int log2_group, int run, unsigned line_bf16) {
-  vm_field_bwd_kernel<kTwoGrids, kVec, kLineBf16><<<blocks, BwdShape<kVec>::kThreads, 0, st>>>(
-      coords, n, tb, d_dens, d_app, mask, n_app, gr, log2_group, run, line_bf16);
+  vm_field_bwd_kernel<kTwoGrids, kVec, kLineBf16, kRelu>
+      <<<blocks, BwdShape<kVec>::kThreads, 0, st>>>(coords, n, tb, d_dens, d_app, mask, n_app,
+                                                    gr, log2_group, run, line_bf16);
 }
 
 template <bool kLineBf16>
@@ -767,18 +735,12 @@ void launch_sample(bool with_sel, unsigned blocks, cudaStream_t st, const float*
   }
 }
 
-}  // namespace
-
-extern "C" int vm_field_fwd(const float* coords, long long n, const void* const* planes,
-                            const void* const* lines, const int* dims, float* density,
-                            float* app, int n_app, uint8_t* mask, void* stream) {
-  return launch<true>(coords, n, planes, lines, dims, density, app, n_app, mask, stream);
-}
-
-extern "C" int vm_field_bwd(const float* coords, long long n, const void* const* planes,
-                            const void* const* lines, const int* dims, const float* d_dens,
-                            const float* d_app, const uint8_t* mask, int n_app,
-                            void* const* gplanes, void* const* glines, void* stream) {
+// K2's entry: the persistent grid and the instantiation of these tables
+template <bool kRelu>
+int field_bwd(const float* coords, long long n, const void* const* planes,
+              const void* const* lines, const int* dims, const float* d_dens,
+              const float* d_app, const uint8_t* mask, int n_app, void* const* gplanes,
+              void* const* glines, void* stream) {
   const Tables tb = make_tables(planes, lines, dims);
   Grads gr;
   for (int i = 0; i < 3; ++i) {
@@ -801,7 +763,17 @@ extern "C" int vm_field_bwd(const float* coords, long long n, const void* const*
   const int ni = (int)n, r = (int)run;
   unsigned line_bf16 = 0;  // the decompositions in line mode 2
   for (int i = 0; i < 3; ++i) line_bf16 |= (dims[6 * i + 5] == 2 ? 1u : 0u) << i;
-  if (line_bf16) {
+  if constexpr (!kRelu) {
+    // TensorVM's raw sums: a single grid, line modes 0 and 1
+    if (two || line_bf16) return (int)cudaErrorInvalidValue;
+    if (vec) {
+      launch_bwd<false, true, false, false>(blocks, st, coords, ni, tb, d_dens, d_app, nullptr,
+                                            n_app, gr, log2_group, r, 0u);
+    } else {
+      launch_bwd<false, false, false, false>(blocks, st, coords, ni, tb, d_dens, d_app, nullptr,
+                                             n_app, gr, log2_group, r, 0u);
+    }
+  } else if (line_bf16) {
     launch_bwd_grid<true>(two, vec, blocks, st, coords, ni, tb, d_dens, d_app, mask, n_app, gr,
                           log2_group, r, line_bf16);
   } else {
@@ -809,6 +781,48 @@ extern "C" int vm_field_bwd(const float* coords, long long n, const void* const*
                            log2_group, r, 0u);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int vm_field_fwd(const float* coords, long long n, const void* const* planes,
+                            const void* const* lines, const int* dims, float* density,
+                            float* app, int n_app, uint8_t* mask, void* stream) {
+  return launch<true>(coords, n, planes, lines, dims, density, app, n_app, mask, stream);
+}
+
+extern "C" int vm_field_bwd(const float* coords, long long n, const void* const* planes,
+                            const void* const* lines, const int* dims, const float* d_dens,
+                            const float* d_app, const uint8_t* mask, int n_app,
+                            void* const* gplanes, void* const* glines, void* stream) {
+  return field_bwd<true>(coords, n, planes, lines, dims, d_dens, d_app, mask, n_app, gplanes,
+                         glines, stream);
+}
+
+// TensorVM's K2: the density cotangent at scale 1 on every decomposition;
+// `mask` is not read (it may be null).
+extern "C" int vm_field_bwd_norelu(const float* coords, long long n, const void* const* planes,
+                                   const void* const* lines, const int* dims,
+                                   const float* d_dens, const float* d_app,
+                                   const uint8_t* mask, int n_app, void* const* gplanes,
+                                   void* const* glines, void* stream) {
+  return field_bwd<false>(coords, n, planes, lines, dims, d_dens, d_app, nullptr, n_app,
+                          gplanes, glines, stream);
+}
+
+// TensorVM's K1: raw partial sums, no mask (mask must be null).
+extern "C" int vm_field_fwd_norelu(const float* coords, long long n, const void* const* planes,
+                                   const void* const* lines, const int* dims, float* density,
+                                   float* app, int n_app, uint8_t* mask, void* stream) {
+  return launch<true, false>(coords, n, planes, lines, dims, density, app, n_app, mask, stream);
+}
+
+// TensorVM's K3: raw partial sums (the bake and the sparsity loss's density).
+extern "C" int vm_density_fwd_norelu(const float* coords, long long n, const void* const* planes,
+                                     const void* const* lines, const int* dims, float* density,
+                                     void* stream) {
+  return launch<false, false>(coords, n, planes, lines, dims, density, nullptr, 0, nullptr,
+                              stream);
 }
 
 extern "C" int vm_density_fwd(const float* coords, long long n, const void* const* planes,

@@ -3,8 +3,9 @@
 equirectangular, pinhole and Blender directions, ``get_rays`` with its roi
 crop, the NDC projections, the slab test, the legacy ray marcher, the LLFF
 pose averaging and spiral, and the PFM reader.  Plain numpy; the loaders
-call them once per dataset on the host.  The model's NDC sampling is not
-ported (ROADMAP.md §1), so the trainer refuses ``ndc_ray``.
+call them once per dataset on the host.  ``ndc_rays`` has no caller, in
+JAX as here: no loader converts its rays, and ``ndc_ray`` selects the
+TensoRF family's NDC sampling of the rays as they are, in training only.
 """
 from __future__ import annotations
 

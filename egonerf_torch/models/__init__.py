@@ -1,7 +1,7 @@
 """Models of the port: EgoNeRF with MLP_Fea shading and the envmap, the
-TensoRF family's TensorVMSplit, their construction from a training config
-(counterpart of ``egonerf_tpu/models/__init__.py``), and the converter for
-JAX checkpoints.  TensorVM and TensorCP wait (ROADMAP.md §1)."""
+TensoRF family (TensorVMSplit, TensorVM, TensorCP), their construction
+from a training config (counterpart of ``egonerf_tpu/models/__init__.py``),
+and the converter for JAX checkpoints."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,9 +9,10 @@ import dataclasses
 from .convert import load_jax_checkpoint, params_from_jax, params_to_jax
 from .egonerf import EgoNeRF, FieldConfig, LookupTables, StepKey, feature2density
 from .shading import MLPFea
-from .tensorf import TensorVMSplit
+from .tensorf import TensorCP, TensorVM, TensorVMSplit
 
-MODELS = {"EgoNeRF": EgoNeRF, "TensorVMSplit": TensorVMSplit}
+MODELS = {"EgoNeRF": EgoNeRF, "TensorVMSplit": TensorVMSplit, "TensorVM": TensorVM,
+          "TensorCP": TensorCP}
 
 
 def _field_config(cfg, meta=None) -> FieldConfig:

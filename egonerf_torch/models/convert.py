@@ -5,8 +5,9 @@ the flattened parameter tree under ``/``-joined keys (``density_planes/0``,
 ``basis``, ``shader/l1/w``, ``envmap``, ...) plus a JSON ``__header__``
 with the ``coords_spec`` and ``model_meta``, and the bit-packed alpha
 masks.  Plane, line, basis and envmap arrays keep their layout (the
-envmap channel-last (2h, h, 3)), for EgoNeRF's stacked grids and
-TensorVMSplit's single one alike.
+envmap channel-last (2h, h, 3)), for EgoNeRF's stacked grids, the
+single ones of TensorVMSplit and TensorVM, and TensorCP's lines with no
+plane alike.
 MLP weights are the one trap: JAX stores them (n_in, n_out),
 ``nn.Linear.weight`` is (out, in), so the converter transposes them.
 """
@@ -72,7 +73,7 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 def load_jax_checkpoint(path: str, near_far=(0.01, 15.0), device="cuda"):
     """Read a JAX ``.npz`` checkpoint with numpy alone.  Builds the chart
-    from ``coords_spec`` and the model (EgoNeRF or TensorVMSplit) from
+    from ``coords_spec`` and the model (EgoNeRF or a TensoRF member) from
     ``model_meta`` (``near_far`` is not stored; it comes from the dataset),
     loads the weights and the alpha mask into it and returns (model,
     params, header)."""

@@ -551,7 +551,8 @@ class EgoNeRF(nn.Module):
         original dists, and K7 takes the chart of the kept depths.  The kept
         depths are constants for autograd, as in JAX."""
         if ndc_ray:
-            raise NotImplementedError("NDC rays are not supported by the egocentric model")
+            raise NotImplementedError("NDC rays are not supported by the egocentric model "
+                                      "(reference: models/EgoNeRF.py:504), as in JAX")
         cfg = self.cfg
         rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
         if pretrain_envmap:

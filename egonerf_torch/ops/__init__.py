@@ -28,6 +28,8 @@ K14f  sampler.theta_batch            theta_batch_plain          csrc/theta_sampl
 K15   vm_lookup.sample_plane_nograd  sample_plane_nograd_plain  csrc/vm_lookup.cu
 K15   vm_lookup.sample_line_nograd   sample_line_nograd_plain   csrc/vm_lookup.cu
 K16   grid_sample.sample_line        sample_line_plain          csrc/grid_sample.cu
+K17   cp.cp_fwd                      cp_fwd_plain               csrc/cp_lookup.cu
+K17b  cp.cp_bwd                      cp_bwd_plain               csrc/cp_lookup.cu
 ====  =============================  =========================  =======================
 
 ``resample_chart`` is K4 with K7's chart of the merged depths in its
@@ -67,11 +69,19 @@ linear sample) have no caller on either package's paths, so they stay out
 of ``Ops``: they are the counterparts of JAX's
 ``sample_plane_packed_nograd``, ``sample_line_packed_nograd`` and
 ``grid_sample.sample_line``.
+TensorVM takes K1, K3 and K2 in their relu-free instantiations (the
+``relu=False`` argument of ``field``, ``density``, ``field_bwd`` and of
+``vm_lookup.field_train`` / ``density_train``).  TensorCP's field is K17,
+the product of three line samples, with K17b its backward inside
+``cp.cp_train``; its eval form reads bf16 lines, its training form the
+float32 ones, and its density-only form (no appearance) serves the bake
+and the sparsity loss.
 """
 from typing import Callable, NamedTuple
 
 from .alphamask import alpha_fwd, alpha_fwd_plain
 from .bias import bias_grad, bias_grad_plain
+from .cp import cp_bwd, cp_bwd_plain, cp_fwd, cp_fwd_plain
 from .chart import chart_fwd, chart_fwd_plain
 from .cull import select_top_k, select_top_k_plain
 from .envmap import envmap_bwd, envmap_bwd_plain, envmap_fwd, envmap_fwd_plain
@@ -107,14 +117,17 @@ class Ops(NamedTuple):
     select_top_k: Callable
     theta_ids: Callable
     theta_batch: Callable
+    cp: Callable
+    cp_bwd: Callable
 
 
 KERNELS = Ops(field_fwd, field_bwd, density_fwd, resample_chart, sorted_uniform, composite,
               composite_bwd, chart_fwd, envmap_fwd, envmap_bwd, alpha_fwd, mixed_mm, mixed_mm_da,
               mixed_mm_db, bias_grad, resample_weights, resample_score, select_top_k,
-              theta_ids, theta_batch)
+              theta_ids, theta_batch, cp_fwd, cp_bwd)
 PLAIN = Ops(field_fwd_plain, field_bwd_plain, density_fwd_plain, resample_chart_plain,
             sorted_uniform_plain, composite_plain, composite_bwd_plain, chart_fwd_plain,
             envmap_fwd_plain, envmap_bwd_plain, alpha_fwd_plain, mixed_mm_plain,
             mixed_mm_da_plain, mixed_mm_db_plain, bias_grad_plain, resample_weights_plain,
-            resample_score_plain, select_top_k_plain, theta_ids_plain, theta_batch_plain)
+            resample_score_plain, select_top_k_plain, theta_ids_plain, theta_batch_plain,
+            cp_fwd_plain, cp_bwd_plain)

@@ -36,6 +36,9 @@ no channel padding.  What carries over exactly:
   (:func:`density_train`): K3's training instantiation writes the relu
   mask as K1's does, and K2 at no appearance channels, in line mode
   ``LINEAR``, is its backward.
+* TensorVM sums each partial raw (JAX's ``_density_relu = False``):
+  ``relu=False`` takes K1's and K3's relu-free instantiations (a single
+  grid; no mask) and K2's, which passes the density cotangent at scale 1.
 """
 from __future__ import annotations
 
@@ -195,7 +198,7 @@ def relu_scale(mask: torch.Tensor, i: int) -> torch.Tensor:
     return ((mask >> (2 * i)) & 3).to(torch.float32) * 0.5
 
 
-def field_fwd_plain(coords, planes, lines, n_density, line_hat, with_mask=False):
+def field_fwd_plain(coords, planes, lines, n_density, line_hat, with_mask=False, relu=True):
     """Plain version of K1: see :func:`field_fwd`.  The density partials
     are ``.sum(-1)`` (eager JAX's bits); the mask, with ``with_mask``,
     comes from the same sums that give the relu."""
@@ -210,14 +213,14 @@ def field_fwd_plain(coords, planes, lines, n_density, line_hat, with_mask=False)
         line_fn = sample_line_hat if line_hat[i] == HAT else sample_line
         prod = p * line_fn(lines[i], xyz[:, VEC_MODE[i]], sel)
         partial = prod[:, : n_density[i]].sum(-1)
-        dens = dens + torch.relu(partial)
+        dens = dens + (torch.relu(partial) if relu else partial)
         mask |= relu_states(partial) << (2 * i)
         parts.append(prod[:, n_density[i]:])
     app = torch.cat(parts, dim=-1)
     return (dens, app, mask) if with_mask else (dens, app)
 
 
-def density_fwd_plain(coords, planes, lines, with_mask=False):
+def density_fwd_plain(coords, planes, lines, with_mask=False, relu=True):
     """Plain version of K3: see :func:`density_fwd`.  Each partial is summed
     in K3's lane order (:func:`_warp_order_sum`): K4 places the fine
     samples from these densities, so a last bit moves a sample.  The mask,
@@ -231,7 +234,7 @@ def density_fwd_plain(coords, planes, lines, with_mask=False):
         p = sample_plane(planes[i], xyz[:, m0], xyz[:, m1], sel)
         l = sample_line(lines[i], xyz[:, VEC_MODE[i]], sel)
         partial = _warp_order_sum(p * l)
-        dens = dens + torch.relu(partial)
+        dens = dens + (torch.relu(partial) if relu else partial)
         mask |= relu_states(partial) << (2 * i)
     return (dens, mask) if with_mask else dens
 
@@ -353,9 +356,14 @@ def _tables(planes, lines):
     return ptrs(*[p.data_ptr() for p in planes]), ptrs(*[l.data_ptr() for l in lines])
 
 
+def _check_relu(relu: bool, with_mask: bool, planes) -> None:
+    if not relu and (with_mask or planes[0].shape[0] != 1):
+        raise ValueError("the relu-free forms (TensorVM) take a single grid and write no mask")
+
+
 def field_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
               lines: Sequence[torch.Tensor], n_density: Sequence[int],
-              line_hat: Sequence[int], with_mask: bool = False):
+              line_hat: Sequence[int], with_mask: bool = False, relu: bool = True):
     """K1: the fused fine field.  For i in 0..2 the bilinear sample of
     plane_i at (x_{m0}, x_{m1}) times the linear sample of line_i at
     x_{vec}, per channel; density = sum_i relu(sum of the first
@@ -370,7 +378,10 @@ def field_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     (N,) and appearance (N, sum_i C_i - n_density[i]), float32; with
     ``with_mask`` also the relu mask (N,) uint8, decomposition i's
     :func:`relu_states` at bits 2i, 2i+1, from the sums that gave the
-    density (K2's input).
+    density (K2's input).  ``relu=False`` (TensorVM, a single grid, no
+    mask) sums each partial raw: sum_i (sum of the first n_density[i]
+    channels), in the order 0 + d_0 + d_1 + d_2; a launch counts also in
+    ``field_fwd.norelu_form.launches``.
 
     Replaces ``sample_plane_packed_fastgrad`` + ``sample_line_hat`` as
     composed by ``EgoNeRF._fused_products`` / ``compute_field`` and by
@@ -379,8 +390,9 @@ def field_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     models/tensorf.py:325-349).
     Kernel: csrc/vm_lookup.cu.  CPU tensors take :func:`field_fwd_plain`."""
     _check_field_args(coords, planes, lines, n_density)
+    _check_relu(relu, with_mask, planes)
     if coords.device.type == "cpu":
-        return field_fwd_plain(coords, planes, lines, n_density, line_hat, with_mask)
+        return field_fwd_plain(coords, planes, lines, n_density, line_hat, with_mask, relu)
     n = coords.shape[0]
     dev = coords.device
     n_app = sum(p.shape[-1] - d for p, d in zip(planes, n_density))
@@ -388,22 +400,26 @@ def field_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     app = torch.empty(n, n_app, dtype=torch.float32, device=dev)
     mask = torch.empty(n, dtype=torch.uint8, device=dev) if with_mask else None
     if n:
-        fn = kernel("vm_lookup", "vm_field_fwd", _FWD_ARGS)
+        name = "vm_field_fwd" if relu else "vm_field_fwd_norelu"
+        fn = kernel("vm_lookup", name, _FWD_ARGS)
         with torch.cuda.device(dev):
             err = fn(coords.data_ptr(), n, *_tables(planes, lines),
                      _dims(coords, planes, lines, n_density, line_hat), dens.data_ptr(),
                      app.data_ptr(), n_app, 0 if mask is None else mask.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
-        check_launch("vm_field_fwd", err)
+        check_launch(name, err)
         field_fwd.launches += 1
+        if not relu:
+            field_fwd.norelu_form.launches += 1
     return (dens, app, mask) if with_mask else (dens, app)
 
 
 field_fwd.launches = 0
+field_fwd.norelu_form = SimpleNamespace(launches=0)
 
 
 def density_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
-                lines: Sequence[torch.Tensor], with_mask: bool = False):
+                lines: Sequence[torch.Tensor], with_mask: bool = False, relu: bool = True):
     """K3: the coarse density sum_i relu(sum_c plane_i * line_i) with float32
     line weights, on bfloat16 tables; coords as for :func:`field_fwd`.
     Returns (N,) float32; with ``with_mask`` (the training instantiation,
@@ -416,18 +432,22 @@ def density_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     only (egonerf_tpu/ops/vm_lookup.py:436,504; models/egonerf.py:249-270,
     models/tensorf.py:351-367).  Kernel: csrc/vm_lookup.cu.  A launch
     counts in ``density_fwd.launches``, with the mask also in
-    ``density_fwd.train_form.launches``.  CPU tensors take
-    :func:`density_fwd_plain`."""
+    ``density_fwd.train_form.launches``.  ``relu=False`` (TensorVM, a
+    single grid, no mask) sums the partials raw, as :func:`field_fwd`;
+    such a launch counts also in ``density_fwd.norelu_form.launches``.
+    CPU tensors take :func:`density_fwd_plain`."""
     n_density = [p.shape[-1] for p in planes]
     _check_field_args(coords, planes, lines, n_density)
+    _check_relu(relu, with_mask, planes)
     if coords.device.type == "cpu":
-        return density_fwd_plain(coords, planes, lines, with_mask)
+        return density_fwd_plain(coords, planes, lines, with_mask, relu)
     dev = coords.device
     n = coords.shape[0]
     dens = torch.empty(n, dtype=torch.float32, device=dev)
     mask = torch.empty(n, dtype=torch.uint8, device=dev) if with_mask else None
     if n:
-        name = "vm_density_train_fwd" if with_mask else "vm_density_fwd"
+        name = ("vm_density_train_fwd" if with_mask
+                else "vm_density_fwd" if relu else "vm_density_fwd_norelu")
         fn = kernel("vm_lookup", name, _DENSITY_MASK_ARGS if with_mask else _DENSITY_ARGS)
         with torch.cuda.device(dev):
             err = fn(coords.data_ptr(), n, *_tables(planes, lines),
@@ -438,11 +458,14 @@ def density_fwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
         density_fwd.launches += 1
         if with_mask:
             density_fwd.train_form.launches += 1
+        if not relu:
+            density_fwd.norelu_form.launches += 1
     return (dens, mask) if with_mask else dens
 
 
 density_fwd.launches = 0
 density_fwd.train_form = SimpleNamespace(launches=0)
+density_fwd.norelu_form = SimpleNamespace(launches=0)
 
 
 # ---------------------------------------------------------------------------
@@ -480,7 +503,7 @@ def _line_rows(coord, sel, l, hat):
 
 
 def field_bwd_plain(coords, planes, lines, d_dens, d_app, mask, n_density, line_hat,
-                    magnitude=False, accumulate=torch.float32):
+                    magnitude=False, accumulate=torch.float32, relu=True):
     """Plain version of K2: see :func:`field_bwd`.  With ``magnitude`` it
     scatters |contribution| instead, so that each cell holds the sum of the
     absolute terms that a float32 tolerance is stated against.  The float32
@@ -499,7 +522,7 @@ def field_bwd_plain(coords, planes, lines, d_dens, d_app, mask, n_density, line_
         pv = sample_plane(planes[i], xyz[:, m0], xyz[:, m1], sel)
         line_fn = sample_line_hat if line_hat[i] == HAT else sample_line
         lv = line_fn(lines[i], xyz[:, VEC_MODE[i]], sel)
-        dd = d_dens * relu_scale(mask, i)
+        dd = d_dens * relu_scale(mask, i) if relu else d_dens
         dprod = torch.cat([dd[:, None].expand(-1, cd), d_app[:, off:off + c - cd]], dim=-1)
         off += c - cd
         dp = dprod * lv
@@ -531,7 +554,7 @@ _BWD_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p)
 
 def field_bwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
               lines: Sequence[torch.Tensor], d_dens: torch.Tensor, d_app: torch.Tensor,
-              mask: torch.Tensor, n_density: Sequence[int], line_hat: Sequence[int]
+              mask, n_density: Sequence[int], line_hat: Sequence[int], relu: bool = True
               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """K2: the gradient of :func:`field_fwd` with respect to its tables.
     Per sample and decomposition i: dprod = d_dens times
@@ -549,7 +572,10 @@ def field_bwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     float32; mask (N,) uint8 from ``field_fwd(..., with_mask=True)``;
     planes and lines bfloat16 as for :func:`field_fwd`.  Returns float32
     gradients shaped like the planes and the lines.  The kernel's lanes
-    follow :func:`bwd_layout`.
+    follow :func:`bwd_layout`.  ``relu=False`` (TensorVM's raw sums, a
+    single grid, line modes ``LINEAR`` and ``HAT``) passes d_dens at scale 1
+    on every decomposition and reads no ``mask`` (None); such a launch
+    counts also in ``field_bwd.norelu_form.launches``.
 
     Replaces ``_plane_bwd_bf16`` + ``_hat_bwd`` (``_plane_bwd`` +
     ``_line_bwd`` where the lines take float32 weights, ``_line_bwd_onehot``
@@ -561,67 +587,90 @@ def field_bwd(coords: torch.Tensor, planes: Sequence[torch.Tensor],
     n_app = sum(p.shape[-1] - d for p, d in zip(planes, n_density))
     check_tensor("d_dens", d_dens, torch.float32, (n,), coords.device)
     check_tensor("d_app", d_app, torch.float32, (n, n_app), coords.device)
-    check_tensor("mask", mask, torch.uint8, (n,), coords.device)
+    if relu:
+        check_tensor("mask", mask, torch.uint8, (n,), coords.device)
+    else:
+        _check_relu(relu, False, planes)
+        if LINEAR_BF16_GRAD in tuple(int(h) for h in line_hat):
+            raise ValueError("the relu-free K2 takes line modes LINEAR and HAT")
     if any(t.numel() >= 2 ** 31 for t in (*planes, *lines)):
         raise ValueError("a table of 2**31 elements or more (K2 indexes rows in int)")
     if coords.device.type == "cpu":
-        return field_bwd_plain(coords, planes, lines, d_dens, d_app, mask, n_density, line_hat)
+        return field_bwd_plain(coords, planes, lines, d_dens, d_app, mask, n_density, line_hat,
+                               relu=relu)
     dev = coords.device
     g_planes = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in planes]
     g_lines = [torch.zeros(l.shape, dtype=torch.float32, device=dev) for l in lines]
     if n:
-        fn = kernel("vm_lookup", "vm_field_bwd", _BWD_ARGS)
+        name = "vm_field_bwd" if relu else "vm_field_bwd_norelu"
+        fn = kernel("vm_lookup", name, _BWD_ARGS)
         layout = _bwd_layout_of(coords, planes, lines, n_density, d_app)
         with torch.cuda.device(dev):
             err = fn(coords.data_ptr(), n, *_tables(planes, lines),
                      _dims(coords, planes, lines, n_density, line_hat, layout),
-                     d_dens.data_ptr(), d_app.data_ptr(), mask.data_ptr(), n_app,
+                     d_dens.data_ptr(), d_app.data_ptr(), mask.data_ptr() if relu else 0, n_app,
                      *_tables(g_planes, g_lines), torch.cuda.current_stream(dev).cuda_stream)
-        check_launch("vm_field_bwd", err)
+        check_launch(name, err)
         field_bwd.launches += 1
         if n_app == 0:
             field_bwd.density_form.launches += 1
+        if not relu:
+            field_bwd.norelu_form.launches += 1
     return g_planes, g_lines
 
 
 # K2's launches; those with no appearance channels (the backward of
-# density_train, the sparsity loss's) also apart
+# density_train, the sparsity loss's) and the relu-free ones also apart
 field_bwd.launches = 0
 field_bwd.density_form = SimpleNamespace(launches=0)
+field_bwd.norelu_form = SimpleNamespace(launches=0)
+
+
+def _no_mask(coords: torch.Tensor) -> torch.Tensor:
+    """The saved stand-in for the relu mask where the relu-free forms write
+    none."""
+    return coords.new_empty(0, dtype=torch.uint8)
 
 
 class _Field(torch.autograd.Function):
     """K1 forward, K2 backward on float32 tables (``fwd`` and ``bwd`` are
     an ``Ops`` pair, so the plain versions run through the same Function).
     The tables are cast to bf16 inside; the coords, the bf16 tables and
-    K1's relu mask are saved, and the backward recomputes the lookups."""
+    K1's relu mask (none without the relu) are saved, and the backward
+    recomputes the lookups."""
 
     @staticmethod
-    def forward(ctx, coords, n_density, line_hat, fwd, bwd, *tables):
+    def forward(ctx, coords, n_density, line_hat, relu, fwd, bwd, *tables):
         bf16 = [t.detach().to(torch.bfloat16).contiguous() for t in tables]
-        dens, app, mask = fwd(coords, bf16[:3], bf16[3:], n_density, line_hat, with_mask=True)
+        if relu:
+            dens, app, mask = fwd(coords, bf16[:3], bf16[3:], n_density, line_hat,
+                                  with_mask=True)
+        else:
+            dens, app = fwd(coords, bf16[:3], bf16[3:], n_density, line_hat, relu=False)
+            mask = _no_mask(coords)
         ctx.save_for_backward(coords, mask, *bf16)
-        ctx.args = (n_density, line_hat, bwd)
+        ctx.args = (n_density, line_hat, relu, bwd)
         return dens, app
 
     @staticmethod
     def backward(ctx, d_dens, d_app):
         coords, mask, *bf16 = ctx.saved_tensors
-        n_density, line_hat, bwd = ctx.args
+        n_density, line_hat, relu, bwd = ctx.args
         g_planes, g_lines = bwd(coords, bf16[:3], bf16[3:], d_dens.contiguous(),
-                                d_app.contiguous(), mask, n_density, line_hat)
-        return (None, None, None, None, None, *g_planes, *g_lines)
+                                d_app.contiguous(), mask if relu else None, n_density, line_hat,
+                                relu=relu)
+        return (None, None, None, None, None, None, *g_planes, *g_lines)
 
 
 def field_train(coords: torch.Tensor, planes: Sequence[torch.Tensor],
                 lines: Sequence[torch.Tensor], n_density: Sequence[int],
-                line_hat: Sequence[int], fwd=field_fwd, bwd=field_bwd):
+                line_hat: Sequence[int], fwd=field_fwd, bwd=field_bwd, relu: bool = True):
     """:func:`field_fwd` on float32 ``planes`` and ``lines`` (read as
     bf16), differentiable in them through ``bwd`` (K2); ``line_hat`` holds
-    each decomposition's line mode.  Returns density (N,) and appearance
-    (N, n_app)."""
+    each decomposition's line mode, ``relu=False`` takes the relu-free
+    pair (TensorVM).  Returns density (N,) and appearance (N, n_app)."""
     return _Field.apply(coords, tuple(int(d) for d in n_density),
-                        tuple(int(h) for h in line_hat), fwd, bwd, *planes, *lines)
+                        tuple(int(h) for h in line_hat), bool(relu), fwd, bwd, *planes, *lines)
 
 
 class _Density(torch.autograd.Function):
@@ -631,34 +680,42 @@ class _Density(torch.autograd.Function):
     ``sample_plane_packed`` and ``sample_line_packed`` (their float32
     ``_plane_bwd`` and ``_line_bwd``: K2's line mode ``LINEAR``).  The
     tables are cast to bf16 inside; the coords, the bf16 tables and K3's
-    relu mask are saved."""
+    relu mask (none without the relu: the eval instantiation's raw sums)
+    are saved."""
 
     @staticmethod
-    def forward(ctx, coords, fwd, bwd, *tables):
+    def forward(ctx, coords, relu, fwd, bwd, *tables):
         bf16 = [t.detach().to(torch.bfloat16).contiguous() for t in tables]
-        dens, mask = fwd(coords, bf16[:3], bf16[3:], with_mask=True)
+        if relu:
+            dens, mask = fwd(coords, bf16[:3], bf16[3:], with_mask=True)
+        else:
+            dens, mask = fwd(coords, bf16[:3], bf16[3:], relu=False), _no_mask(coords)
         ctx.save_for_backward(coords, mask, *bf16)
-        ctx.bwd = bwd
+        ctx.args = (relu, bwd)
         return dens
 
     @staticmethod
     def backward(ctx, d_dens):
         coords, mask, *bf16 = ctx.saved_tensors
+        relu, bwd = ctx.args
         n_density = [p.shape[-1] for p in bf16[:3]]
         d_app = torch.empty(coords.shape[0], 0, dtype=torch.float32, device=coords.device)
-        g_planes, g_lines = ctx.bwd(coords, bf16[:3], bf16[3:], d_dens.contiguous(), d_app,
-                                    mask, n_density, (LINEAR,) * 3)
-        return (None, None, None, *g_planes, *g_lines)
+        g_planes, g_lines = bwd(coords, bf16[:3], bf16[3:], d_dens.contiguous(), d_app,
+                                mask if relu else None, n_density, (LINEAR,) * 3,
+                                relu=relu)
+        return (None, None, None, None, *g_planes, *g_lines)
 
 
 def density_train(coords: torch.Tensor, planes: Sequence[torch.Tensor],
-                  lines: Sequence[torch.Tensor], fwd=density_fwd, bwd=field_bwd) -> torch.Tensor:
+                  lines: Sequence[torch.Tensor], fwd=density_fwd, bwd=field_bwd,
+                  relu: bool = True) -> torch.Tensor:
     """:func:`density_fwd` on float32 ``planes`` and ``lines`` (read as
     bf16, stacks of 2 or 1 grids), differentiable in them through ``bwd``
     (K2 with every channel a density channel, float32 line weights, and
-    JAX's relu-tie rule, half the gradient at an exactly zero partial).
+    JAX's relu-tie rule, half the gradient at an exactly zero partial;
+    ``relu=False``, TensorVM's raw sums, the cotangent at scale 1).
     Returns the density (N,)."""
-    return _Density.apply(coords, fwd, bwd, *planes, *lines)
+    return _Density.apply(coords, bool(relu), fwd, bwd, *planes, *lines)
 
 
 # ---------------------------------------------------------------------------

@@ -123,6 +123,23 @@ def tensorf_overrides(**deltas) -> dict:
         i_weights=2000), **deltas})
 
 
+# the published TensorCP width (the TensoRF README's CP command: n_lamb_sigma
+# [96], n_lamb_sh [288], N_voxel_final 125,000,000 = 500^3, L1 1e-5), kept
+# at TENSORF_SHAPE's 256 samples a ray where upstream marches about
+# n_samples_auto
+TENSORCP_WIDTH = dict(model_name="TensorCP", n_lamb_sigma="[96]", n_lamb_sh="[288]",
+                      N_voxel_init=125_000_000, N_voxel_final=125_000_000,
+                      L1_weight_initial=1e-5, L1_weight_rest=1e-5)
+
+
+def tensorcp_overrides(**deltas) -> dict:
+    """TensorCP at its published width (CP-384: 96 density and 288
+    appearance components, a fixed 500^3 grid, L1 1e-5) on the
+    ``tensorf_bench`` recipe of :func:`tensorf_mask_overrides`.
+    ``deltas`` win."""
+    return tensorf_mask_overrides(**{**TENSORCP_WIDTH, **deltas})
+
+
 def tensorf_mask_overrides(**deltas) -> dict:
     """The JAX ``tensorf_bench`` recipe: the TensorVMSplit shape at a fixed
     256^3 grid (N_voxel 16,777,216), 1200 steps with the alpha mask baked

@@ -2,7 +2,7 @@
 (counterpart of ``egonerf_tpu/render/renderer.py``: ``Renderer``,
 ``evaluation`` and ``evaluation_path``).
 
-Rays go through the model's forward (``EgoNeRF`` or ``TensorVMSplit``) in
+Rays go through the model's forward (``EgoNeRF`` or a TensoRF member) in
 fixed chunks under ``torch.no_grad()``; the tail is padded by repeating the
 last ray and trimmed from the outputs.  The bf16 lookup tables (and
 EgoNeRF's coarse grid) come from ``model.lookup_tables`` once per
@@ -32,8 +32,9 @@ class Renderer:
     keyword arguments are the model forward's (n_coarse, n_fine,
     exp_sampling, resampling, use_coarse_sample, white_bg, eval_keep), as
     the JAX ``Renderer.from_config`` maps them from a training config
-    (TensorVMSplit marches ``n_coarse`` samples a ray and ignores the
-    rest)."""
+    (the TensoRF family marches ``n_coarse`` samples a ray and ignores the
+    rest; ``ndc_ray`` is never passed, as JAX's renderer never passes
+    it)."""
 
     def __init__(self, model, chunk: int = 4096, **render_kwargs):
         self.model = model

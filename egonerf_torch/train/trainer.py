@@ -10,8 +10,11 @@ and gathered by K14f in one launch), or on the host by JAX's
 False``.  It runs the model's forward in training mode (EgoNeRF: the
 coarse chart K7, K3 and K4 on the detached coarse grid with K5's sorted
 uniforms drawn in K4's prologue and the fine chart in its epilogue, the
-fine field through K1/K2; TensorVMSplit: jittered uniform steps, K9's mask
-gate, K1/K2 on its single grid; both: the shader through torch autograd,
+fine field through K1/K2; the TensoRF family: jittered uniform steps, or
+NDC steps over [near, far] under ``ndc_ray`` (the training forward only,
+as in JAX), K9's mask gate, K1/K2 on the single grid of TensorVMSplit and
+TensorVM (relu-free), K17/K17b on TensorCP's lines; all: the shader
+through torch autograd,
 the composite through K6/K6b; under ``train_keep`` EgoNeRF's empty-space
 cull, K4c (K4 with the cull score, drawing as K4) and K13, with a full
 step every ``train_keep_full_every``), takes
@@ -29,12 +32,16 @@ after a step as in JAX: ``vis_list``, ``i_weights``, the alpha-mask bake
 upsample (``upsamp_list``), then the end, with ``render_train``,
 ``render_path`` (``imgs_path_all``) and ``render_test``.  With the envmap a
 fresh run first fits the envmap alone (``pretrain_envmap``, JAX
-``trainer.py:612-645``).
+``trainer.py:612-645``).  Under ``filter_ray`` the TensoRF family drops the
+training rays that miss the aabb when the sampler is installed, and the
+resident buffer holds the kept ones (JAX ``trainer.py:512-520``).
 
 What the JAX trainer does besides, the port does not carry yet and refuses
-by name (ROADMAP.md §1): ray filtering, NDC rays, mesh export, the device
-mesh and the profiler hook.  TensorVMSplit refuses the cull, which JAX's
-accepts and ignores (it renders unculled).
+by name (ROADMAP.md §1): mesh export, the device mesh and the profiler
+hook.  Where JAX accepts an option and ignores it or fails with it, the
+port refuses it and says so (ROADMAP.md §3): the cull and ``filter_ray``
+off their models, ``filter_ray`` with ``use_depth`` or
+``theta_importance``.
 """
 from __future__ import annotations
 
@@ -67,34 +74,53 @@ _ROADMAP = "is not ported yet (ROADMAP.md §1)"
 
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every option of the JAX trainer
-    that the port does not carry yet.  ``steps_per_call`` is accepted: in
-    JAX it only fuses that many steps into one compiled call, and the port
-    runs each step eagerly, so it changes no result.  ``device_sampling =
+    that the port does not carry yet, and for those that JAX accepts and
+    ignores (the reason given).  ``steps_per_call`` is accepted: in JAX it
+    only fuses that many steps into one compiled call, and the port runs
+    each step eagerly, so it changes no result.  ``device_sampling =
     False`` selects JAX's host samplers (``data/samplers.py``).  A
     ``sampling_method`` other than ``simple`` and ``theta_importance``
-    raises JAX's ``ValueError``."""
+    raises JAX's ``ValueError``, as does ``filter_ray`` where JAX's
+    trainer fails with it: under ``use_depth`` (it filters the rays and
+    the colours, not the depths, so the resident buffer cannot be built,
+    or the host sampler pairs rays with other rays' depths) and under
+    ``theta_importance`` (the sampler's ids index the unfiltered frames)."""
     if cfg.sampling_method not in ("simple", "theta_importance"):
         raise ValueError(f"sampling method {cfg.sampling_method} not supported")
-    refused = []
+    if cfg.filter_ray and cfg.model_name != "EgoNeRF":
+        if cfg.use_depth:
+            raise ValueError("filter_ray with use_depth: the JAX trainer filters the rays and "
+                             "colours but not the depths, and fails or pairs rays with the "
+                             "wrong depths (ROADMAP.md §3)")
+        if cfg.sampling_method == "theta_importance":
+            raise ValueError("filter_ray with theta_importance: the JAX trainer's sampler ids "
+                             "index the unfiltered frames, which the filter compacts "
+                             "(ROADMAP.md §3)")
+    unported, refused = [], []
     if cfg.model_name != "EgoNeRF" and (cfg.train_keep or cfg.eval_keep):
-        # JAX's TensorVMSplit.forward swallows the options and renders
-        # unculled; the port says so instead of accepting and ignoring them
+        # JAX's TensoRF forward swallows the options and renders unculled;
+        # the port says so instead of accepting and ignoring them
         refused.append(f"the empty-space cull (train_keep, eval_keep) on {cfg.model_name}, "
                        "which the JAX package accepts and ignores (ROADMAP.md §3)")
-    if cfg.filter_ray:
-        refused.append("filter_ray")
+    if cfg.filter_ray and cfg.model_name == "EgoNeRF":
+        # JAX's trainer filters only a model with filtering_rays
+        refused.append("filter_ray on EgoNeRF, which the JAX package accepts and ignores (the "
+                       "model has no filtering_rays; ROADMAP.md §3)")
+    if cfg.ndc_ray and cfg.model_name == "EgoNeRF":
+        refused.append("NDC rays are not supported by the egocentric model (JAX "
+                       "egonerf_tpu/models/egonerf.py:363-366; reference: models/EgoNeRF.py:504)")
     if cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1:
-        refused.append("a multi-device mesh")
+        unported.append("a multi-device mesh")
     if cfg.profile_dir:
-        refused.append("the profiler hook (profile_dir)")
+        unported.append("the profiler hook (profile_dir)")
     if cfg.coarse_sigma_grid_update_rule == "samp":
-        refused.append("the 'samp' coarse-grid rule")
-    if cfg.ndc_ray:
-        refused.append("NDC rays")
+        unported.append("the 'samp' coarse-grid rule")
     if cfg.export_mesh:
-        refused.append("mesh export (export_mesh)")
+        unported.append("mesh export (export_mesh)")
+    if unported:
+        refused.append("; ".join(unported) + f": {_ROADMAP}")
     if refused:
-        raise NotImplementedError("; ".join(refused) + f": {_ROADMAP}")
+        raise NotImplementedError("; ".join(refused))
 
 
 class MetricsLogger:
@@ -228,8 +254,14 @@ class Trainer:
         ``SimpleSampler``, or ``ThetaImportanceSampler`` over the full
         pre-crop frame (``img_wh_origin`` where the dataset crops by its
         roi) and the roi; its ids on the host under ``device_sampling =
-        False`` or a ray buffer of 6 GiB or more, else drawn on the card."""
+        False`` or a ray buffer of 6 GiB or more, else drawn on the card.
+        Under ``filter_ray`` the dataset's rays and colours are first cut to
+        those that touch the aabb (``filtering_rays(..., bbox_only=True)``),
+        as JAX's trainer does before it sizes the sampler."""
         cfg, ds = self.cfg, self.train_dataset
+        if cfg.filter_ray:
+            ds.all_rays, ds.all_rgbs = self.model.filtering_rays(
+                self.params, ds.all_rays, ds.all_rgbs, bbox_only=True)[:2]
         n_rays = ds.all_rays.shape[0]
         if cfg.sampling_method == "simple":
             host = SimpleSampler(n_rays, cfg.batch_size, seed=cfg.seed)
@@ -354,7 +386,7 @@ class Trainer:
             exp_sampling=cfg.exp_sampling,
             resampling=cfg.resampling and iteration > cfg.iter_ignore_resampling,
             use_coarse_sample=cfg.use_coarse_sample, white_bg=self.white_bg,
-            with_alpha=self.entropy_on(iteration), **cull)
+            ndc_ray=bool(cfg.ndc_ray), with_alpha=self.entropy_on(iteration), **cull)
         total, mse = self.loss(out, row[:, 6:9], iteration,
                                row[:, 9] if cfg.use_depth else None)
         self.optimizer.zero_grad()

@@ -127,9 +127,9 @@ class _Recorder:
     def __init__(self):
         self.args = None
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         self.args = args
-        return vm_lookup.field_bwd_plain(*args)
+        return vm_lookup.field_bwd_plain(*args, **kwargs)
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])

@@ -81,7 +81,8 @@ def test_build_dir_keyed_by_sources():
     assert {p.stem for p in _build.sources()} == {"vm_lookup", "resample", "composite",
                                                   "sorted_uniform", "chart", "envmap",
                                                   "alphamask", "mixed_mm", "bias_grad",
-                                                  "cull", "theta_sampler", "grid_sample"}
+                                                  "cull", "theta_sampler", "grid_sample",
+                                                  "cp_lookup"}
 
 
 def _tables(c=12, dtype=torch.bfloat16):

@@ -586,14 +586,19 @@ def test_jax_thresholds_survive_a_port_save(tmp_path):
 
 
 def test_build_model_refuses_tensorvm_and_tensorcp(tmp_path):
+    """The port builds every TensoRF member that JAX builds (it refused
+    TensorVM and TensorCP before they were ported; the name is kept): each
+    config's model_name gives that class, on the xyz chart."""
+    from egonerf_torch.models import TensorCP, TensorVM
+
     cfg = load_config(overrides=_tiny_cfg(tmp_path))
     tc = CartesianCoords(AABB)
     tc.set_resolution(RESO)
     assert isinstance(build_model(cfg, AABB, RESO, tc, NEAR_FAR, device="cpu"), TensorVMSplit)
-    for name in ("TensorVM", "TensorCP"):
+    for name, cls in (("TensorVM", TensorVM), ("TensorCP", TensorCP)):
         other = load_config(overrides=_tiny_cfg(tmp_path, model_name=name))
-        with pytest.raises(NotImplementedError, match=name):
-            build_model(other, AABB, RESO, tc, NEAR_FAR, device="cpu")
+        model = build_model(other, AABB, RESO, tc, NEAR_FAR, device="cpu")
+        assert type(model) is cls and model.name == name
 
 
 def test_cli_trains_tensorvmsplit(tmp_path, monkeypatch):

@@ -95,9 +95,9 @@ class _Recorder:
     def __init__(self):
         self.args = None
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         self.args = args
-        return vm_lookup.field_bwd_plain(*args)
+        return vm_lookup.field_bwd_plain(*args, **kwargs)
 
 
 @pytest.fixture(scope="module", params=["float32", "bfloat16"])
@@ -327,7 +327,9 @@ UNPORTED = {
     # EgoNeRF's cull is ported (tests/test_torch_cull.py); TensorVMSplit
     # refuses it, as JAX's accepts and ignores it
     "cull": dict(model_name="TensorVMSplit", coordinates_name="xyz", train_keep=8),
-    "filter_ray": dict(filter_ray=True),
+    # JAX's trainer filters only a model with filtering_rays, so EgoNeRF
+    # accepts and ignores it there; the port refuses it
+    "filter_ray_egonerf": dict(filter_ray=True),
     "mesh": dict(mesh_shape="[4]"),
     "export_mesh": dict(export_mesh=True),
 }
@@ -358,6 +360,10 @@ PORTED = {
     "entropy": dict(entropy_weight=1e-3),
     "sparsity": dict(sparsity_lambda=0.1),
     "depth": dict(use_depth=True),
+    # the TensoRF family's ray filter and NDC rays
+    # (tests/test_torch_tensorf_family.py)
+    "filter_ray": dict(filter_ray=True, model_name="TensorVMSplit", coordinates_name="xyz"),
+    "ndc_ray": dict(ndc_ray=1, model_name="TensorVMSplit", coordinates_name="xyz"),
 }
 
 
