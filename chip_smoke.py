@@ -251,6 +251,36 @@ The rest of the TensoRF family (TensorVM, TensorCP, NDC rays, filter_ray):
     rays that touch the box, its seconds, the sampler's buffer, and timed
     steps after it.
 
+The other charts, the other shading modes and mesh export:
+
+8v. (also) the smoke run as TensorVMSplit on generic_sphere (exp,
+   interval_th, r0 0.05) and on balanced_sphere, and as EgoNeRF under SH,
+   each against the JAX package's CPU figure less the seed band;
+29. TensorVMSplit at the ``tensorf_mask_overrides`` widths on generic_sphere
+    (exp, interval_th, r0 0.03, N_voxel 256^3 -> [128, 254, 508]) on the
+    indoor scene with a 128^3 mask of half occupancy: K7s (K7's
+    single-sphere form) against its plain version at K7's limits on a
+    chunk (radial modes 0, 1 and 2), on rays from outside the box, on the
+    poles and the phi = +-pi seam and on a recorded step, timed beside
+    each plain chart's map; a 2000x1000 view (K1, K9, K6, K7s once a
+    chunk), 20 timed steps (K7s once a step, no searchsorted in the
+    profile), a step against the plain versions, the bake and a 128^3
+    density grid for the export (K7s and K3); balanced_sphere at the same
+    budget (a view, steps, a step against plain); sphere, the two
+    directional charts, euler_sphere and cylinder (a step against plain and
+    one step's launches each);
+30. the production EgoNeRF under MLP_Fea, SH, MLP_PE and MLP in one
+    process: a view with chunks against plain and its profile, 20 timed and
+    profiled steps, a step against plain; MLP_PE and MLP under MIXED_MM
+    (K10's launches); RGB at data_dim_color 3 (a view, a step against
+    plain); TensorVMSplit at phase 14's shape under MLP_PE (a view, a step
+    against plain);
+31. ``--export_mesh 1`` on phase 8's smoke checkpoint through the command
+    line (the PLY's counts and seconds), and the production EgoNeRF's
+    density grid at 128^3 and 256^3 (K7 and K3 once per 8 x-rows): device
+    ms, host seconds of the marching tetrahedra, and the grid against the
+    plain versions' (rel <= 1e-5 of max|plain|).
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
 result and exits 2.
@@ -353,9 +383,11 @@ SMOKE_CONFIG = "configs/smoke/synthetic.txt"
 # the smoke recipe's variants (phase 8v): EgoNeRF's grid upsampling (N_voxel
 # 27,000 -> 64,000 in two steps, at steps 100 and 200), its linear ray
 # sampling, the entropy, sparsity and depth losses at once (the weights of
-# phase 25), and TensorVM and TensorCP (at its published 96 + 288
-# components) on the xyz chart, each beside the JAX package's test PSNR for
-# the same arguments on the CPU (tests/smoke_variants_jax.py)
+# phase 25), TensorVM and TensorCP (at its published 96 + 288 components)
+# on the xyz chart, TensorVMSplit on generic_sphere (the recipe's exp,
+# interval_th, r0 0.05) and on balanced_sphere, and EgoNeRF under SH, each
+# beside the JAX package's test PSNR for the same arguments on the CPU
+# (tests/smoke_variants_jax.py)
 SMOKE_VARIANTS = {"upsample": ["--N_voxel_init", "27000", "--upsamp_list", "[100,200]"],
                   "linear": ["--exp_sampling", "0"],
                   "losses": ["--entropy_weight", "1e-3", "--sparsity_lambda", "0.1",
@@ -364,11 +396,17 @@ SMOKE_VARIANTS = {"upsample": ["--N_voxel_init", "27000", "--upsamp_list", "[100
                                "--resampling", "0"],
                   "tensorcp": ["--model_name", "TensorCP", "--coordinates_name", "xyz",
                                "--resampling", "0", "--n_lamb_sigma", "[96]",
-                               "--n_lamb_sh", "[288]"]}
+                               "--n_lamb_sh", "[288]"],
+                  "generic_sphere": ["--model_name", "TensorVMSplit", "--coordinates_name",
+                                     "generic_sphere", "--resampling", "0"],
+                  "balanced_sphere": ["--model_name", "TensorVMSplit", "--coordinates_name",
+                                      "balanced_sphere", "--resampling", "0"],
+                  "sh": ["--shadingMode", "SH", "--data_dim_color", "27"]}
 # JAX_PLATFORMS=cpu python tests/smoke_variants_jax.py (the JAX package on the
 # CPU, 300 iterations each)
 JAX_SMOKE_VARIANT_PSNR = {"upsample": 16.25, "linear": 15.12, "losses": 14.88, "tensorvm": 16.02,
-                          "tensorcp": 18.05}
+                          "tensorcp": 18.05, "generic_sphere": 14.83, "balanced_sphere": 14.79,
+                          "sh": 24.40}
 # the outdoor config driven through the command line (phase 12)
 OUTDOOR_CLI_ITERS = 20
 # the JAX package's envmap quality recipe (egonerf_tpu/tools/envmap_e2e.py)
@@ -478,6 +516,17 @@ K6B_ALPHA_SWEEP_S = (1, 33, 1536)
 # float32 (the same lerps of the same rows)
 UPSAMPLE_FROM, UPSAMPLE_AT = 8_000_000, 10
 UPSAMPLE_TOL = 1e-6
+# phase 29: TensorVMSplit at the tensorf_mask_overrides widths on
+# generic_sphere (exponential radius under interval_th, r0 0.03; N_voxel
+# 256^3 gives [128, 254, 508]) on the indoor scene of phases 3-7
+CHART_29 = dict(coordinates_name="generic_sphere", exp_sampling=True, interval_th=True,
+                r0="0.03", near_far="[0.01, 15.0]")
+# phase 30: the production EgoNeRF's shading modes, MLP_Fea first (the
+# others are timed beside it), RGB at its three channels
+SHADING_30 = (("MLP_Fea", {}), ("SH", {}), ("MLP_PE", {}), ("MLP", {}),
+              ("RGB", dict(data_dim_color=3)))
+# phase 31: the export's density grids
+EXPORT_GRIDS = (128, 256)
 
 
 def fail(msg: str) -> None:
@@ -2721,9 +2770,33 @@ def cull_kernel_checks(model, params, dirs, ops, presets, trainer) -> dict:
             bits_equal(f"K13 select_top_k (row, K={k})", ops.KERNELS.select_top_k,
                        ops.PLAIN.select_top_k, k13),
             time_ms(lambda: ops.KERNELS.select_top_k(*k13)),
-            time_ms(lambda: ops.PLAIN.select_top_k(*k13), reps=5), *k13_cost(r, s, k))
+            time_ms(lambda: ops.PLAIN.select_top_k(*k13), reps=5), *k13_cost(r, s, k),
+            library_ms=topk_library_ms(f"K13 (K={k})", z_vals, dists, score, k, ops))
         table.setdefault("K13", row)
     return table
+
+
+def topk_library_ms(label, z_vals, dists, score, k, ops) -> float:
+    """The library call beside K13: ``torch.topk(score, k)`` on the same
+    scores, timed; printed beside it, the whole selection in library calls
+    (topk, a sort of the kept indices, two gathers) and the rays whose kept
+    set differs from K13's (``lax.top_k`` breaks ties toward the lower
+    index, K13 too; ``torch.topk`` promises no tie rule)."""
+    topk_ms = time_ms(lambda: torch.topk(score, k, dim=-1))
+
+    def select():
+        idx = torch.topk(score, k, dim=-1, sorted=False).indices.sort(dim=-1).values
+        return torch.gather(z_vals, -1, idx), torch.gather(dists, -1, idx)
+    whole_ms = time_ms(select)
+    z_lib, _ = select()
+    z_k13, _ = ops.KERNELS.select_top_k(z_vals, dists, score, k)
+    differ = int((z_lib != z_k13).any(dim=-1).sum())
+    ties = int((score[:, 1:] == score[:, :-1]).any(dim=-1).sum())
+    print(f"phase 2 {label}: torch.topk {topk_ms:.4f} ms; topk + sort + two gathers "
+          f"{whole_ms:.4f} ms; its kept set differs from K13's (ties to the lower index) on "
+          f"{differ} of {score.shape[0]} rays ({ties} rays hold equal neighbouring scores)",
+          flush=True)
+    return topk_ms
 
 
 def kept_set_diff(calls_a, calls_b) -> tuple:
@@ -4451,6 +4524,409 @@ def variant_quality_phase(root: str) -> None:
             fail(f"smoke {name} test PSNR {psnr:.2f} dB below {floor:.2f}")
 
 
+# -- the other charts, shading modes and mesh export: phases 29-31 -------------
+def sphere_check(name: str, ops, args) -> float:
+    """K7s against its plain version: every flag 0 on both sides, the coords
+    within K7_TOL; returns the max abs error."""
+    got, ref = ops.KERNELS.chart_sphere(*args), ops.PLAIN.chart_sphere(*args)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"{name}: shape {tuple(got.shape)} (plain {tuple(ref.shape)}) or non-finite")
+    flags = int((got[:, 3] != 0).sum()) + int((ref[:, 3] != 0).sum())
+    col_err = (got - ref).abs().amax(dim=0).tolist()
+    abs_err = max(col_err)
+    ok = flags == 0 and abs_err <= K7_TOL
+    print(f"phase 29 {name}: {got.shape[0]:,} samples, nonzero flags {flags}; max abs err "
+          f"{abs_err:.3e} (r {col_err[0]:.1e}, theta {col_err[1]:.1e}, phi {col_err[2]:.1e}; "
+          f"{int((got != ref).any(1).sum()):,} samples differ at all) (flags 0, abs <= "
+          f"{K7_TOL:.0e}) -> {'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return abs_err
+
+
+def chart_trainer(root, presets, expname, **deltas):
+    """TensorVMSplit at the ``tensorf_mask_overrides`` widths (256 samples a
+    ray) with CHART_29's chart on the indoor procedural scene of phases 3-7
+    (its default views, near/far), a 128^3 mask of half occupancy."""
+    from egonerf_torch.models.alphamask import AlphaGridMask
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import Trainer
+
+    cfg = load_config(overrides=presets.tensorf_mask_overrides(**{**CHART_29, **dict(
+        basedir=os.path.join(root, "build", "chip_smoke_runs"), expname=expname,
+        n_iters=10 ** 9, progress_refresh_rate=10 ** 9), **deltas}))
+    trainer = Trainer(cfg, device=DEVICE)
+    trainer.model.alpha_mask = AlphaGridMask(half_mask(TF_MASK_RESO, trainer.device),
+                                             device=trainer.device)
+    return trainer
+
+
+def plain_chart_ms(coords, pts) -> float:
+    """Device ms of a chart's plain map (from_cartesian, normalize_coord, the
+    flag column) on ``pts``, as the TensoRF forward runs it."""
+    import torch.nn.functional as F
+
+    return time_ms(lambda: F.pad(coords.normalize_coord(coords.from_cartesian(pts)), (0, 1)),
+                   reps=5)
+
+
+def sphere_kernel_checks(trainer, ops, dirs, chunk: int) -> dict:
+    """Phase 29: K7s against its plain version at K7's limits on one chunk of
+    the view's rays and their exponential depths (radial modes 0, 1, 2:
+    the lookup under interval_th, the closed-form cells, linear), on rays
+    from outside the box, on the poles and the phi = +-pi seam (both signs
+    of zero) and on a recorded training step; its row with time and bound;
+    and each plain chart's map on the chunk's points, timed beside it."""
+    from egonerf_torch.coords import make_coordinates
+    from egonerf_torch.coords.spherical import GenericSphericalCoords
+
+    model, cfg = trainer.model, trainer.cfg
+    coords, dev = model.coordinates, dirs.device
+    n = cfg.n_coarse
+    pick = torch.arange(chunk, device=dev) * (dirs.shape[0] // chunk)
+    viewdirs = dirs[pick]
+    rays_o = torch.zeros_like(viewdirs)
+    with torch.no_grad():
+        pts, z, _ = model.sample_ray_exp(rays_o, viewdirs, n)
+        args = (rays_o, viewdirs, z, coords)
+        err = sphere_check("K7s chart_sphere (exp depths, mode 0)", ops, args)
+        for label, exp_r, interval in (("mode 1, closed-form exp", True, False),
+                                       ("mode 2, linear", False, False)):
+            other = GenericSphericalCoords(coords.aabb, exp_r=exp_r, N_voxel=cfg.N_voxel_init,
+                                           r0=float(cfg.r0), interval_th=interval)
+            err = max(err, sphere_check(f"K7s chart_sphere ({label})", ops,
+                                        (rays_o, viewdirs, z, other)))
+        box = torch.as_tensor(coords.aabb, device=dev)
+        reach = float((box[1] - box[0]).norm()) / 2
+        away = torch.rand(chunk, 1, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED)) * 8 + reach
+        out_o = -viewdirs * away
+        _, z_out, _ = model.sample_ray(out_o, viewdirs, n)
+        err = max(err, sphere_check("K7s chart_sphere (rays from outside the box)", ops,
+                                    (out_o, viewdirs, z_out, coords)))
+        hard = torch.tensor(ENV_HARD_DIRS, dtype=torch.float32, device=dev)
+        hard = hard / hard.norm(dim=-1, keepdim=True)
+        hard = hard.repeat(-(-chunk // hard.shape[0]), 1)[:chunk]
+        centre = torch.as_tensor(coords.center, device=dev).expand(chunk, 3)
+        err = max(err, sphere_check("K7s chart_sphere (poles and the phi = +-pi seam, from the "
+                                    "centre)", ops, (centre, hard, z, coords)))
+        n_grid = coords.ref_grid.shape[0]
+        row = kernel_row("K7s chart_sphere (exp depths, mode 0)", "egonerf_torch/csrc/chart.cu",
+                         "egonerf_tpu/coords/spherical.py:48", err,
+                         time_ms(lambda: ops.KERNELS.chart_sphere(*args)),
+                         time_ms(lambda: ops.PLAIN.chart_sphere(*args), reps=5),
+                         *chart_cost(rays_o, z, n_grid))
+        print(f"phase 29 chart centre {coords.center.tolist()}, far r {coords.far_r:.4f}, "
+              f"radial grid {n_grid} entries; depths [{float(z.min()):.4f}, "
+              f"{float(z.max()):.4f}]", flush=True)
+        for name in ("sphere", "balanced_sphere", "directional_sphere",
+                     "directional_balanced_sphere", "euler_sphere", "cylinder",
+                     "generic_sphere"):
+            c = make_coordinates(name, coords.aabb, exp_r=False, N_voxel=cfg.N_voxel_init,
+                                 r0=float(cfg.r0))
+            if c.resolution is None:
+                c.set_resolution(c.N_to_reso(cfg.N_voxel_init))
+            label = "generic_sphere, linear r" if name == "generic_sphere" else name
+            print(f"phase 29 plain chart {label}: {plain_chart_ms(c, pts):.4f} ms on the chunk's "
+                  f"{pts.shape[0] * pts.shape[1]:,} points (K7s {row['ms']:.4f} ms)",
+                  flush=True)
+    rec = Recorder(ops.KERNELS.chart_sphere)
+    model.ops = ops.KERNELS._replace(chart_sphere=rec)
+    try:
+        trainer.train_step(0)
+    finally:
+        model.ops = ops.KERNELS
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        sphere_check("K7s chart_sphere (training step)", ops, rec.args)
+    return row
+
+
+def chart_phase(root, presets, ops, wrappers, dirs_np) -> dict:
+    """Phase 29: TensorVMSplit on generic_sphere (exp, interval_th, r0 0.03)
+    at full width: K7s against its plain version, a 2000x1000 view (K1, K9,
+    K6 and K7s once a chunk), 20 steps (K1, K2, K9, K6, K6b, K7s once a
+    step) with no searchsorted in the profile, a step against the plain
+    versions, the bake and a 128^3 mesh export (K7s and K3); then
+    balanced_sphere at the same budget (a view, steps, a step against
+    plain) and the other five charts (a step against plain and one step's
+    launches each).  Returns the K7s row with its launches in the view."""
+    from egonerf_torch.render.export import density_grid
+    from egonerf_torch.render.renderer import Renderer
+
+    trainer = chart_trainer(root, presets, "chart_generic")
+    cfg, model = trainer.cfg, trainer.model
+    print(f"phase 29 generic_sphere trainer: chart resolution {trainer.coords.resolution}, "
+          f"model grid {model.grid_size}, {cfg.n_coarse} samples a ray, step "
+          f"{model.step_size:.5f}, mask {model.alpha_mask.grid_size}, "
+          f"{trainer.sampler.buffer.shape[0]:,} training rays", flush=True)
+    # 16,777,216 ** (1 / 3) is 255.99999999999991 in float64, so N_to_reso
+    # gives [128, 254, 508] (n_r 127 forced even), in JAX as here
+    if trainer.coords.resolution != [128, 254, 508]:
+        fail(f"phase 29: generic_sphere at N_voxel {cfg.N_voxel_init} gives "
+             f"{trainer.coords.resolution}, not [128, 254, 508]")
+    row = sphere_kernel_checks(trainer, ops, torch.as_tensor(dirs_np, device=DEVICE),
+                               presets.EVAL_CHUNK)
+    per_step = ("K1", "K2", "K9", "K6", "K6b", "K7s")
+    with torch.no_grad():
+        view, s_image = render_phases(
+            model, trainer.params, dirs_np, ops, presets, Renderer, wrappers,
+            phases=("29", "29", "29"), renderer=Renderer.from_config(model, cfg,
+                                                                     trainer.white_bg),
+            per_chunk=dict(K1=1, K9=1, K6=1, K7s=1))
+    row["launches"] = view["K7s"]
+    _, median = timed_steps(trainer.train_step, f"phase 29 generic_sphere training step, "
+                            f"{cfg.n_coarse} samples", cfg, wrappers,
+                            {k: TRAIN_STEPS if k in per_step else 0 for k in wrappers})
+    it = 10 ** 4
+
+    def steps():
+        nonlocal it
+        for _ in range(PROFILE_STEPS):
+            trainer.train_step(it)
+            it += 1
+    names = profile(steps, PROFILE_STEPS, "phase 29 generic_sphere", "step")
+    found = [k for k in names if "searchsorted" in k.lower()]
+    print(f"phase 29 searchsorted kernels in the steps' profile: {found or 'none'}", flush=True)
+    if found or not names:
+        fail("phase 29: the generic_sphere step ran searchsorted, or the profile was empty")
+    step_vs_plain(trainer, ops, "phase 29 generic_sphere")
+    mask = model.alpha_mask
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.update_alpha_mask()
+    torch.cuda.synchronize()
+    bake = {k: w.launches for k, w in wrappers.items() if w.launches}
+    model.alpha_mask = mask
+    print(f"phase 29 bake: {(time.time() - t0) * 1e3:.1f} ms, launches {bake}", flush=True)
+    if set(bake) != {"K3", "K9"}:
+        fail(f"phase 29: the bake launched {bake}, expected K3 and K9")
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.no_grad():
+        alpha = density_grid(model, trainer.params, 128)
+    torch.cuda.synchronize()
+    export = {k: w.launches for k, w in wrappers.items() if w.launches}
+    print(f"phase 29 export's density grid at 128^3: launches {export}, alpha in "
+          f"[{float(alpha.min()):.4g}, {float(alpha.max()):.4g}]", flush=True)
+    if export != {"K3": 16, "K7s": 16}:
+        fail(f"phase 29: the export launched {export}, expected 16 of K3 and K7s")
+    del trainer, alpha
+    torch.cuda.empty_cache()
+
+    bal = chart_trainer(root, presets, "chart_balanced", coordinates_name="balanced_sphere")
+    print(f"phase 29 balanced_sphere trainer: chart resolution {bal.coords.resolution}, ratio "
+          f"{bal.coords.ratio:.6f}, r0 {bal.coords.r0:.6g}", flush=True)
+    with torch.no_grad():
+        render_phases(bal.model, bal.params, dirs_np, ops, presets, Renderer, wrappers,
+                      phases=("29 balanced", "29 balanced", "29 balanced"),
+                      renderer=Renderer.from_config(bal.model, bal.cfg, bal.white_bg),
+                      per_chunk=dict(K1=1, K9=1, K6=1))
+    _, bal_ms = timed_steps(bal.train_step, f"phase 29 balanced_sphere training step, "
+                            f"{bal.cfg.n_coarse} samples", bal.cfg, wrappers,
+                            {k: TRAIN_STEPS if k in per_step[:5] else 0 for k in wrappers})
+    print(f"phase 29 balanced_sphere step {bal_ms:.3f} ms beside generic_sphere's {median:.3f} "
+          f"({bal_ms - median:+.3f}); generic view {s_image:.3f} s/image", flush=True)
+    step_vs_plain(bal, ops, "phase 29 balanced_sphere")
+    del bal
+    torch.cuda.empty_cache()
+    for name in ("sphere", "directional_sphere", "directional_balanced_sphere", "euler_sphere",
+                 "cylinder"):
+        other = chart_trainer(root, presets, f"chart_{name}", coordinates_name=name)
+        step_vs_plain(other, ops, f"phase 29 {name}")
+        for w in wrappers.values():
+            w.launches = 0
+        other.train_step(1)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+        print(f"phase 29 {name}: chart resolution {other.coords.resolution}, model grid "
+              f"{other.model.grid_size}; one step's launches {launches}", flush=True)
+        if launches != {k: 1 for k in per_step[:5]}:
+            fail(f"phase 29 {name}: a step launched {launches}")
+        del other
+        torch.cuda.empty_cache()
+    return row
+
+
+def shading_phase(root, presets, ops, wrappers, dirs_np) -> None:
+    """Phase 30: the production EgoNeRF under each of SHADING_30 in one
+    process (MLP_Fea first): a 2000x1000 view with a few chunks against the
+    plain versions and its profile, 20 timed and profiled steps (device
+    operations a step), a step against the plain versions; MLP_PE and MLP
+    also under EGONERF_MIXED_MM (K10's launches); RGB at data_dim_color 3
+    (a view, a step against plain); TensorVMSplit at phase 14's shape under
+    MLP_PE, the config default (a 1000x500 view, a step against plain)."""
+    from egonerf_torch.data.ray_utils import get_ray_directions_360
+    from egonerf_torch.render.renderer import Renderer
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import Trainer
+
+    runs = os.path.join(root, "build", "chip_smoke_runs")
+    summary = {}
+    for mode, extra in SHADING_30:
+        cfg = load_config(overrides=presets.production_overrides(
+            basedir=runs, expname=f"shading_{mode}", n_iters=10 ** 9, N_vis=0,
+            progress_refresh_rate=10 ** 9, shadingMode=mode, **extra))
+        trainer = Trainer(cfg, device=DEVICE)
+        label = f"phase 30 {mode}"
+        print(f"{label}: data_dim_color {cfg.data_dim_color}, shader "
+              f"{sum(p.numel() for k, p in trainer.params.items() if k.startswith('shader')):,} "
+              f"parameters", flush=True)
+        with torch.no_grad():
+            _, s_image = render_phases(trainer.model, trainer.params, dirs_np, ops, presets,
+                                       Renderer, wrappers, phases=(f"30 {mode}",) * 3)
+        if mode == "RGB":
+            step_vs_plain(trainer, ops, label)
+            summary[mode] = (s_image, None)
+            del trainer
+            torch.cuda.empty_cache()
+            continue
+        _, median = timed_steps(trainer.train_step, f"{label} training step", cfg, wrappers,
+                                step_launches(wrappers, envmap=False))
+        it = 10 ** 4
+
+        def steps():
+            nonlocal it
+            for _ in range(PROFILE_STEPS):
+                trainer.train_step(it)
+                it += 1
+        profile(steps, PROFILE_STEPS, label, "step")
+        step_vs_plain(trainer, ops, label)
+        summary[mode] = (s_image, median)
+        if mode in ("MLP_PE", "MLP"):
+            sw = dict(mixed=True)
+            with shader_form(trainer.model, **sw):
+                want = step_launches(wrappers, envmap=False)
+                want.update({k: TRAIN_STEPS * n
+                             for k, n in form_launches(trainer.model, sw, True).items()})
+                _, mixed_ms = timed_steps(trainer.train_step, f"{label} training step under "
+                                          "MIXED_MM", cfg, wrappers, want)
+            print(f"{label} under MIXED_MM: {mixed_ms:.3f} ms a step against {median:.3f} "
+                  f"({mixed_ms - median:+.3f})", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    base_s, base_ms = summary["MLP_Fea"]
+    for mode, (s_image, median) in summary.items():
+        step = "" if median is None else (f", step {median:.3f} ms "
+                                          f"({median - base_ms:+.3f} against MLP_Fea)")
+        print(f"phase 30 {mode}: view {s_image:.3f} s/image ({s_image - base_s:+.3f} against "
+              f"MLP_Fea){step}", flush=True)
+    tf = family_trainer(root, presets, lambda **kw: presets.tensorf_mask_overrides(
+        shadingMode="MLP_PE", **kw), "tensorf_mlp_pe")
+    with torch.no_grad():
+        render_phases(tf.model, tf.params, get_ray_directions_360(*TF_IMAGE_HW).reshape(-1, 3),
+                      ops, presets, Renderer, wrappers, phases=("30 TensorVMSplit MLP_PE",) * 3,
+                      renderer=Renderer.from_config(tf.model, tf.cfg, tf.white_bg),
+                      per_chunk=dict(K1=1, K9=1, K6=1), hw=TF_IMAGE_HW)
+    step_vs_plain(tf, ops, "phase 30 TensorVMSplit MLP_PE")
+    del tf
+    torch.cuda.empty_cache()
+
+
+def ply_counts(path: str) -> tuple:
+    """(vertices, faces) named in a PLY's header."""
+    with open(path, "rb") as f:
+        head = f.read(512).split(b"end_header\n")[0].decode()
+    counts = dict(line.split()[1:3] for line in head.splitlines()
+                  if line.startswith("element "))
+    return int(counts["vertex"]), int(counts["face"])
+
+
+def export_phase(root, presets, ops, wrappers) -> None:
+    """Phase 31: ``--export_mesh 1`` through the command line on phase 8's
+    smoke checkpoint (the PLY, its counts and seconds); then the production
+    EgoNeRF's density grid (the density tables x20, so alphas spread) at
+    EXPORT_GRIDS: the device ms of the grid (K7 and K3 once each per
+    chunk_rows x-rows), the host seconds of the marching tetrahedra at the
+    grid's 99th percentile, and the kernels' grid against the plain
+    versions' (rel <= REL_TOL of max|plain|, as K3)."""
+    from egonerf_torch.__main__ import main as cli_main
+    from egonerf_torch.render.export import density_grid, marching_tetrahedra, write_ply
+    from egonerf_torch.train.checkpoint import latest_checkpoint
+
+    base = os.path.join(root, "build", "chip_smoke_runs")
+    logdir = os.path.join(base, "smoke")
+    ckpt = latest_checkpoint(logdir)
+    if ckpt is None:
+        fail("phase 31: phase 8's smoke checkpoint is gone")
+    argv = ["--config", os.path.join(root, SMOKE_CONFIG), "--n_iters", str(SMOKE_ITERS),
+            "--vis_list", f"[{SMOKE_ITERS}]", "--N_vis", "-1", "--basedir", base,
+            "--export_mesh", "1"]
+    t0 = time.time()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    ply = os.path.join(logdir, "smoke.ply")
+    if not os.path.exists(ply):
+        fail("phase 31: --export_mesh 1 wrote no PLY")
+    n_v, n_f = ply_counts(ply)
+    with open(ply, "rb") as f:
+        head = len(f.read(512).split(b"end_header\n")[0]) + len(b"end_header\n")
+    size = os.path.getsize(ply)
+    print(f"phase 31 --export_mesh 1 on {os.path.basename(ckpt)}: {ply} with {n_v:,} vertices "
+          f"and {n_f:,} faces, {size:,} bytes; the command {time.time() - t0:.1f} s "
+          f"(resume, export at 128^3)", flush=True)
+    if size != head + 12 * n_v + 13 * n_f:
+        fail(f"phase 31: the PLY holds {size} bytes, its header names {n_v} vertices and "
+             f"{n_f} faces")
+
+    model = presets.production_model(device=DEVICE)
+    params = model.init_params(torch.Generator(device=DEVICE).manual_seed(SEED))
+    with torch.no_grad():
+        for k, p in params.items():
+            if k.startswith("density_"):
+                p.mul_(20.0)
+    aabb = np.asarray(model.aabb, np.float32)
+    with torch.no_grad():
+        density_grid(model, params, EXPORT_GRIDS[0])  # warm
+        for g in EXPORT_GRIDS:
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            alpha = density_grid(model, params, g)
+            end.record()
+            torch.cuda.synchronize()
+            launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+            model.ops = ops.PLAIN
+            try:
+                ref = density_grid(model, params, g)
+            finally:
+                model.ops = ops.KERNELS
+            abs_err, rel_err = max_err((alpha,), (ref,))
+            host = alpha.cpu().numpy()
+            # random tables put a surface about every cell at JAX's level 0.005;
+            # the level of the top 1% keeps the mesh to blobs around the peaks
+            level = float(np.quantile(host[::4, ::4, ::4], 0.99))
+            t0 = time.time()
+            verts, faces = marching_tetrahedra(host, level, spacing=(aabb[1] - aabb[0]) / (g - 1),
+                                               origin=aabb[0])
+            march_s = time.time() - t0
+            out = os.path.join(base, f"production_{g}.ply")
+            write_ply(out, verts, faces)
+            n_chunks = -(-g // 8)
+            print(f"phase 31 production EgoNeRF density grid {g}^3: {start.elapsed_time(end):.3f} "
+                  f"ms on the device (events around the call), launches {launches} (expect "
+                  f"{n_chunks} of K7 and K3); vs plain max abs err {abs_err:.3e}, rel "
+                  f"{rel_err:.3e} (<= {REL_TOL:.0e}); level {level:.4g} (the 99th percentile), "
+                  f"{float((host >= level).mean()):.2%} of the grid at or above it; marching "
+                  f"tetrahedra {march_s:.2f} s on the host: "
+                  f"{len(verts):,} vertices, {len(faces):,} faces, {os.path.getsize(out):,} bytes",
+                  flush=True)
+            if launches != {"K3": n_chunks, "K7": n_chunks}:
+                fail(f"phase 31: the density grid launched {launches}")
+            if not torch.isfinite(alpha).all() or rel_err > REL_TOL:
+                fail("phase 31: the density grid disagrees with the plain versions")
+            if len(faces) == 0:
+                fail("phase 31: the production density grid has no surface")
+            del alpha, ref, host, verts, faces
+    del model, params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4474,7 +4950,7 @@ def main() -> int:
                 "K4+draw": pdf.resample_chart.draw_form, "K5": merge.sorted_uniform,
                 "K6": volrend.composite, "K6e": volrend.composite.envmap_form,
                 "K6+env": volrend.composite.env_form, "K6b": volrend.composite_bwd,
-                "K7": chart.chart_fwd,
+                "K7": chart.chart_fwd, "K7s": chart.chart_sphere_fwd,
                 "K8": envmap.envmap_fwd, "K8b": envmap.envmap_bwd, "K9": alphamask.alpha_fwd,
                 "K10": mm.mixed_mm, "K10da": mm.mixed_mm_da, "K10db": mm.mixed_mm_db,
                 "K11": bias.bias_grad, "K4w": pdf.resample_weights,
@@ -4701,6 +5177,13 @@ def main() -> int:
     del cp_tf
     torch.cuda.empty_cache()
     ndc_filter_phase(root, presets, ops, wrappers)
+    # -- phases 29-31: the other charts, the shading modes, mesh export ------
+    k7s_row = chart_phase(root, presets, ops, wrappers, dirs_np)
+    torch.cuda.empty_cache()
+    shading_phase(root, presets, ops, wrappers, dirs_np)
+    torch.cuda.empty_cache()
+    export_phase(root, presets, ops, wrappers)
+    torch.cuda.empty_cache()
     # the relu-free rows: their launches in TensorVM's steps and bake; each
     # K17 and K17b row its own counter's (form and line mode) over TensorCP's
     # steps, view and bake
@@ -4728,7 +5211,7 @@ def main() -> int:
                                                 "K2 (n_app=0) (S=1)", "K14f (10 floats)")]
                       + [tf_rows[k] for k in ("K1 (S=1, no relu)", "K2 (S=1, no relu)",
                                               "K3 (S=1, no relu)")]
-                      + list(cp_rows.values())}),
+                      + list(cp_rows.values()) + [k7s_row]}),
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -42,6 +42,24 @@ class Coordinates:
         self._consts: dict = {}
         self.update_aabb(self.aabb)
 
+    name = "base"
+
+    # -- the chart: each subclass defines these ---------------------------
+    def from_cartesian(self, xyz: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def normalize_coord(self, coords: torch.Tensor, downsample=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def update_aabb(self, new_aabb) -> None:
+        raise NotImplementedError
+
+    def get_normalized_range(self, new_aabb):
+        raise NotImplementedError
+
+    def N_to_reso(self, n_voxels: int, aabb=None):
+        raise NotImplementedError
+
     def set_resolution(self, resolution) -> None:
         self.resolution = [int(v) for v in resolution]
         self._consts.clear()

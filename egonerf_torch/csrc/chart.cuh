@@ -1,6 +1,7 @@
 // The yin-yang chart and its normalization of one sample, shared by the
 // standalone chart kernel K7 (chart.cu) and K4's fused epilogue
-// (resample.cu), so that both write the same coords bit for bit.
+// (resample.cu), so that both write the same coords bit for bit; its
+// single-sphere form (K7s, chart.cu) is generic_sphere's chart.
 //
 // In the order of the plain version (egonerf_torch/ops/chart.py), every
 // step rounded on its own (__f*_rn, so nvcc contracts nothing into an
@@ -93,7 +94,11 @@ __device__ __forceinline__ float chart_to_unit(float x) {
   return __fsub_rn(__fmul_rn(x, 2.0f), 1.0f);
 }
 
-// The normalized [r, theta, phi, flag] of the point o + d z.
+// The normalized [r, theta, phi, flag] of the point o + d z.  kSphere
+// (K7s, the single-sphere form of generic_sphere) takes the yin frame for
+// every point: theta = acos(dz / r), phi = atan2(dy, dx), flag 0; the
+// caller passes that chart's near (0, -pi) and inverse spans.
+template <bool kSphere = false>
 __device__ __forceinline__ float4 chart_point(float ox, float oy, float oz, float ddx,
                                               float ddy, float ddz, float zz,
                                               const ChartArgs& a, const float* grid) {
@@ -108,19 +113,21 @@ __device__ __forceinline__ float4 chart_point(float ox, float oy, float oz, floa
   // the chosen frame (the same calls on the same arguments as the angles
   // the test would have taken)
   const float qz = chart_q(dz, r);
-  const float aq = fabsf(qz), span = __fadd_rn(fabsf(dx), fabsf(dy));
-  const float side = __fadd_rn(dx, fabsf(dy));
-  bool yin;
-  if (aq > kChartQOut) {
-    yin = false;
-  } else if (aq < kChartQIn && side > __fmul_rn(kChartPhiMargin, span)) {
-    yin = true;
-  } else if (aq < kChartQIn && side < -__fmul_rn(kChartPhiMargin, span)) {
-    yin = false;
-  } else {
-    const float theta_n = acosf(qz), phi_n = atan2f(dy, dx);
-    yin = kChartLo <= theta_n && theta_n <= kChartHi && kChartPhiLo <= phi_n &&
-          phi_n <= kChartPhiHi;
+  bool yin = true;
+  if constexpr (!kSphere) {
+    const float aq = fabsf(qz), span = __fadd_rn(fabsf(dx), fabsf(dy));
+    const float side = __fadd_rn(dx, fabsf(dy));
+    if (aq > kChartQOut) {
+      yin = false;
+    } else if (aq < kChartQIn && side > __fmul_rn(kChartPhiMargin, span)) {
+      yin = true;
+    } else if (aq < kChartQIn && side < -__fmul_rn(kChartPhiMargin, span)) {
+      yin = false;
+    } else {
+      const float theta_n = acosf(qz), phi_n = atan2f(dy, dx);
+      yin = kChartLo <= theta_n && theta_n <= kChartHi && kChartPhiLo <= phi_n &&
+            phi_n <= kChartPhiHi;
+    }
   }
   const float theta = acosf(yin ? qz : chart_q(dy, r));
   const float phi = atan2f(yin ? dy : dz, yin ? dx : -dx);

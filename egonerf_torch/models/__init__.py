@@ -1,14 +1,16 @@
-"""Models of the port: EgoNeRF with MLP_Fea shading and the envmap, the
-TensoRF family (TensorVMSplit, TensorVM, TensorCP), their construction
-from a training config (counterpart of ``egonerf_tpu/models/__init__.py``),
-and the converter for JAX checkpoints."""
+"""Models of the port: EgoNeRF with the envmap, the TensoRF family
+(TensorVMSplit, TensorVM, TensorCP), each with any of JAX's five shading
+modes, their construction from a training config (counterpart of
+``egonerf_tpu/models/__init__.py``), and the converter for JAX
+checkpoints."""
 from __future__ import annotations
 
 import dataclasses
 
-from .convert import load_jax_checkpoint, params_from_jax, params_to_jax
+from .convert import (load_jax_checkpoint, load_params, params_from_jax, params_to_jax,
+                      stored_grid_size)
 from .egonerf import EgoNeRF, FieldConfig, LookupTables, StepKey, feature2density
-from .shading import MLPFea
+from .shading import MLPFea, make_shader
 from .tensorf import TensorCP, TensorVM, TensorVMSplit
 
 MODELS = {"EgoNeRF": EgoNeRF, "TensorVMSplit": TensorVMSplit, "TensorVM": TensorVM,

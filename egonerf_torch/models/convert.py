@@ -9,7 +9,9 @@ envmap channel-last (2h, h, 3)), for EgoNeRF's stacked grids, the
 single ones of TensorVMSplit and TensorVM, and TensorCP's lines with no
 plane alike.
 MLP weights are the one trap: JAX stores them (n_in, n_out),
-``nn.Linear.weight`` is (out, in), so the converter transposes them.
+``nn.Linear.weight`` is (out, in), so the converter transposes them.  The
+MLP shading modes (MLP_Fea, MLP_PE, MLP) store ``shader/l{1,2,3}/{w,b}``;
+SH and RGB have no shader keys, in either package.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from .._device import resolve_device
 from ..coords import coords_from_spec
+from ..ops.vm_lookup import VEC_MODE
 from .alphamask import mask_from_volumes
 from .egonerf import FieldConfig
 
@@ -71,6 +74,27 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
+def stored_grid_size(flat: Dict[str, np.ndarray]) -> list:
+    """The grid size of a checkpoint's parameters, read off its density
+    lines (each (S, L, C), line i along axis ``VEC_MODE[i]``)."""
+    gs = [0, 0, 0]
+    for i, axis in enumerate(VEC_MODE):
+        gs[axis] = int(np.shape(flat[f"density_lines/{i}"])[1])
+    return gs
+
+
+def load_params(model, coords, flat: Dict[str, np.ndarray]) -> None:
+    """Load a checkpoint's parameters into ``model``, built at
+    :func:`stored_grid_size`.  Where the chart's resolution differs from
+    that grid (the directional balanced chart, whose ``set_resolution``
+    halves the radius) the march step follows the chart's, as JAX's resume
+    builds its model at the chart's resolution
+    (``egonerf_tpu/train/trainer.py:162-164``)."""
+    model.load_state_dict(params_from_jax(flat, device=model.device))
+    if list(coords.resolution) != list(model.grid_size):
+        model.update_step_size(coords.resolution)
+
+
 def load_jax_checkpoint(path: str, near_far=(0.01, 15.0), device="cuda"):
     """Read a JAX ``.npz`` checkpoint with numpy alone.  Builds the chart
     from ``coords_spec`` and the model (EgoNeRF or a TensoRF member) from
@@ -84,9 +108,9 @@ def load_jax_checkpoint(path: str, near_far=(0.01, 15.0), device="cuda"):
     meta = dict(header["model_meta"])
     coords = coords_from_spec(header["coords_spec"])
     model = model_class(meta.get("model_name", "EgoNeRF"))(
-        coords.aabb, coords.resolution, coords, FieldConfig.from_meta(meta),
+        coords.aabb, stored_grid_size(flat), coords, FieldConfig.from_meta(meta),
         near_far=near_far, device=device)
-    model.load_state_dict(params_from_jax(flat, device=device))
+    load_params(model, coords, flat)
     masks = load_alpha_masks(path)
     if masks:
         model.alpha_mask = mask_from_volumes([masks[k] for k in sorted(masks)], model.device)

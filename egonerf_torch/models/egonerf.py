@@ -65,19 +65,16 @@ from ..ops.cull import dilate, gumbel_perturb, train_tiebreak
 from ..ops.volrend import composite_train, density_activation, raw2alpha
 from .alphamask import YinYangAlphaGridMask, bake_alpha_mask, dense_alpha
 from .envmap import envmap_radiance, init_envmap
-from .shading import _HOIST_DIRS, MLPFea
+from .shading import _HOIST_DIRS, make_shader
 
 _MIXED_MM = os.environ.get("EGONERF_MIXED_MM", "0") == "1"
 _LINE_HAT = _vm_lookup_line_hat
-
-_LATER = "is not ported yet (ROADMAP.md §1)"
 
 
 @dataclasses.dataclass(frozen=True)
 class FieldConfig:
     """Static model hyperparameters: every field of the JAX ``FieldConfig``
-    (``pos_pe`` is kept for checkpoints and read by no shading mode of the
-    port)."""
+    (``pos_pe`` is the MLP_PE shader's; the other modes ignore it)."""
     density_n_comp: Sequence[int] = (16, 16, 16)
     app_n_comp: Sequence[int] = (48, 48, 48)
     app_dim: int = 27
@@ -190,8 +187,6 @@ class EgoNeRF(nn.Module):
         super().__init__()
         if not isinstance(coordinates, YinYangSphericalCoords):
             raise TypeError("EgoNeRF requires the yin-yang chart")
-        if cfg.shading_mode != "MLP_Fea":
-            raise NotImplementedError(f"shading mode {cfg.shading_mode!r} {_LATER}")
         if cfg.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
         self.device = resolve_device(device)
@@ -226,8 +221,8 @@ class EgoNeRF(nn.Module):
         self.app_lines = lines(cfg.app_n_comp)
         self.basis = nn.Parameter(torch.zeros(2, int(sum(cfg.app_n_comp)), cfg.app_dim,
                                               device=self.device))
-        self.shader = MLPFea(cfg.app_dim, cfg.view_pe, cfg.fea_pe,
-                             cfg.feature_c).to(self.device)
+        self.shader = make_shader(cfg.shading_mode, cfg.app_dim, cfg.pos_pe, cfg.view_pe,
+                                  cfg.fea_pe, cfg.feature_c).to(self.device)
         if cfg.use_envmap:
             self.envmap = nn.Parameter(init_envmap(cfg.envmap_res_h, init_strategy="zero",
                                                    device=self.device))
@@ -617,12 +612,13 @@ class EgoNeRF(nn.Module):
             else:
                 z_vals, dists, norm = coarse_z, coarse_dists, coarse_norm
 
-        # 4) fine field (K1, K2 backward) + shading
+        # 4) fine field (K1, K2 backward) + shading of the normalized coords
         feat, app_feat = self.compute_field(params, norm, tables)
-        # the hoist hands the shader each ray's direction once
-        dirs = viewdirs if _HOIST_DIRS else viewdirs[:, None, :].expand(*norm.shape[:-1], 3)
+        # the hoist hands MLP_Fea each ray's direction once
+        dirs = (viewdirs if _HOIST_DIRS and self.shader.name == "MLP_Fea"
+                else viewdirs[:, None, :].expand(*norm.shape[:-1], 3))
         rgb = self.shader.apply_params(params, "shader.", dirs, app_feat, self.ops,
-                                       self.mixed_mm)
+                                       self.mixed_mm, pts=norm[..., :3])
 
         # 5) the composite (K6, K6b backward); with the envmap, K6e looks up
         # each ray's radiance and blends it as a last sample of alpha 1, and

@@ -1,6 +1,6 @@
-"""The TensoRF family: single Cartesian grids (counterpart of
-``egonerf_tpu/models/tensorf.py``: ``TensorBase``, ``TensorVMSplit``,
-``TensorVM``, ``TensorCP``).
+"""The TensoRF family: single grids on any chart but the yin-yang one
+(counterpart of ``egonerf_tpu/models/tensorf.py``: ``TensorBase``,
+``TensorVMSplit``, ``TensorVM``, ``TensorCP``).
 
 The parameters keep the JAX layout at the module's public functions:
 planes (1, H, W, C), lines (1, L, C), basis (n_app, app_dim), under
@@ -16,9 +16,12 @@ exponentially, or, in training under ``ndc_ray``, over [near, far] in NDC
 space); K9 gates them with the alpha mask once one is baked; the
 composite (K6, K6b backward) zeroes sigma outside the box and the mask,
 and rgb where the weight is not above ``ray_march_weight_thres``.  The
-family also carries JAX's ``shrink`` (a crop of the grids to a tighter
-aabb; no trainer calls it, in either package) and ``filtering_rays``
-(the trainer's ``filter_ray``).  Of the JAX module's opt-in forms the
+samples' chart is ``generic_sphere``'s K7s under ``interval_th`` (JAX's
+gather-free ``normalize_r_lookup``) and the chart's plain torch map
+otherwise, as JAX computes those outside any hand op; the shader is any of
+JAX's five modes.  The family also carries JAX's ``shrink`` (a crop of the
+grids to a tighter aabb; no trainer calls it, in either package) and
+``filtering_rays`` (the trainer's ``filter_ray``).  Of the JAX module's opt-in forms the
 family takes ``EGONERF_LINE_HAT=0`` (float32 line weights) and the
 shader's (``EGONERF_HOIST_DIRS``, ``EGONERF_SPLIT_L1``,
 ``EGONERF_BIAS_DOT``), not ``EGONERF_MIXED_MM``, as in JAX.
@@ -34,8 +37,10 @@ from torch import nn
 import torch.nn.functional as F
 
 from .._device import full_f32_matmul, resolve_device
-from ..coords.cartesian import CartesianCoords
+from ..coords.base import Coordinates
+from ..coords.yinyang import YinYangSphericalCoords
 from ..ops import KERNELS
+from ..ops.chart import is_single_sphere
 from ..ops.cp import cp_train
 from ..ops.vm_lookup import LINE_HAT as _LINE_HAT
 from ..ops.vm_lookup import (HAT, LINEAR, MAT_MODE, VEC_MODE, density_train, field_train,
@@ -45,9 +50,7 @@ from .alphamask import AlphaGridMask, bake_alpha_mask, dense_alpha
 from .egonerf import (EgoNeRF, LookupTables, StepKey, _bf16, _dists, feature2density, tv_plane,
                       with_background)
 from .envmap import envmap_radiance, init_envmap
-from .shading import _HOIST_DIRS, MLPFea
-
-_LATER = "is not ported yet (ROADMAP.md §1)"
+from .shading import _HOIST_DIRS, make_shader
 
 
 def linspace(start: float, stop: float, n: int, device=None) -> torch.Tensor:
@@ -73,13 +76,14 @@ class TensorBase(nn.Module):
 
     name = "TensorBase"
 
-    def __init__(self, aabb, grid_size, coordinates: CartesianCoords, cfg, near_far=(2.0, 6.0),
+    def __init__(self, aabb, grid_size, coordinates: Coordinates, cfg, near_far=(2.0, 6.0),
                  device="cuda"):
         super().__init__()
-        if not isinstance(coordinates, CartesianCoords):
-            raise NotImplementedError(f"{self.name} on the {coordinates.name!r} chart {_LATER}")
-        if cfg.shading_mode != "MLP_Fea":
-            raise NotImplementedError(f"shading mode {cfg.shading_mode!r} {_LATER}")
+        if isinstance(coordinates, YinYangSphericalCoords):
+            # JAX's family reads the chart's [r, theta, phi] and drops the grid
+            # flag, so both halves of the sphere land on one grid
+            raise ValueError(f"{self.name} takes a single-grid chart; the yin-yang chart is "
+                             "EgoNeRF's (ROADMAP.md §3)")
         if cfg.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
         self.device = resolve_device(device)
@@ -92,8 +96,8 @@ class TensorBase(nn.Module):
         self.alpha_mask: Optional[AlphaGridMask] = None
         self._aabb_t: dict = {}
         self._make_params(grid_size)
-        self.shader = MLPFea(cfg.app_dim, cfg.view_pe, cfg.fea_pe,
-                             cfg.feature_c).to(self.device)
+        self.shader = make_shader(cfg.shading_mode, cfg.app_dim, cfg.pos_pe, cfg.view_pe,
+                                  cfg.fea_pe, cfg.feature_c).to(self.device)
         if cfg.use_envmap:
             self.envmap = nn.Parameter(init_envmap(cfg.envmap_res_h, init_strategy="zero",
                                                    device=self.device))
@@ -245,6 +249,17 @@ class TensorBase(nn.Module):
         pts = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
         return pts, interpx, self._in_box(pts)
 
+    def chart_coords(self, rays_o, rays_d, z_vals, pts) -> torch.Tensor:
+        """(R, S, 4) normalized coords [a, b, c, 0] of the samples ``pts`` =
+        rays_o + rays_d z_vals: ``generic_sphere`` under ``interval_th``
+        through K7s (``ops.chart_sphere``, which forms the points itself),
+        every other chart through its plain map (JAX ``tensorf.py:193,224``)."""
+        coords = self.coordinates
+        if is_single_sphere(coords) and coords.exp_r and coords.interval_th:
+            return self.ops.chart_sphere(rays_o, rays_d, z_vals, coords).reshape(
+                *z_vals.shape, 4)
+        return F.pad(coords.normalize_coord(coords.from_cartesian(pts)), (0, 1))
+
     # ------------------------------------------------------------------
     # ray filtering (JAX tensorf.py:166-195)
     # ------------------------------------------------------------------
@@ -278,9 +293,8 @@ class TensorBase(nn.Module):
             t_min = torch.minimum(rate_a, rate_b).amax(dim=-1)
             t_max = torch.maximum(rate_a, rate_b).amin(dim=-1)
             return t_max > t_min
-        pts, _, _ = self.sample_ray(rays_o, rays_d, n_samples)
-        coords = self.coordinates
-        norm = F.pad(coords.normalize_coord(coords.from_cartesian(pts)), (0, 1))
+        pts, z_vals, _ = self.sample_ray(rays_o, rays_d, n_samples)
+        norm = self.chart_coords(rays_o, rays_d, z_vals, pts)
         return (self.alpha_mask.sample_alpha(norm, self.ops.alpha) > 0).any(dim=-1)
 
     # ------------------------------------------------------------------
@@ -308,7 +322,8 @@ class TensorBase(nn.Module):
             raise NotImplementedError(f"the empty-space cull (eval_keep) on {self.name}, which "
                                       "the JAX package accepts and ignores (ROADMAP.md §3)")
         cfg = self.cfg
-        rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
+        rays_o, rays_d = rays[:, :3], rays[:, 3:6]
+        viewdirs = rays_d
         if pretrain_envmap:
             if not cfg.use_envmap:
                 raise ValueError("pretrain_envmap needs a model with the envmap")
@@ -320,25 +335,26 @@ class TensorBase(nn.Module):
 
         with torch.no_grad():
             if ndc_ray:
-                pts, z_vals, valid = self.sample_ray_ndc(rays_o, viewdirs, n, jitter)
+                pts, z_vals, valid = self.sample_ray_ndc(rays_o, rays_d, n, jitter)
                 norm_d = torch.linalg.vector_norm(viewdirs, dim=-1, keepdim=True)
                 d = z_vals[:, 1:] - z_vals[:, :-1]
                 dists = torch.cat([d, torch.zeros_like(d[:, :1])], dim=-1) * norm_d
                 viewdirs = viewdirs / norm_d
             else:
                 sampler = self.sample_ray_exp if exp_sampling else self.sample_ray
-                pts, z_vals, valid = sampler(rays_o, viewdirs, n, jitter)
+                pts, z_vals, valid = sampler(rays_o, rays_d, n, jitter)
                 dists = _dists(z_vals)
-            coords = self.coordinates
-            # (x, y, z, 0): the lookups' coords with the flag of a single grid
-            norm = F.pad(coords.normalize_coord(coords.from_cartesian(pts)), (0, 1))
+            # the lookups' coords with the flag of a single grid
+            norm = self.chart_coords(rays_o, rays_d, z_vals, pts)
             if self.alpha_mask is not None:
                 valid = valid & (self.alpha_mask.sample_alpha(norm, self.ops.alpha) > 0)
 
         feat, app_feat = self.compute_field(params, norm, tables)
-        # the hoist hands the shader each ray's direction once
-        dirs = viewdirs if _HOIST_DIRS else viewdirs[:, None, :].expand(n_rays, n, 3)
-        rgb = self.shader.apply_params(params, "shader.", dirs, app_feat, self.ops)
+        # the hoist hands MLP_Fea each ray's direction once
+        dirs = (viewdirs if _HOIST_DIRS and self.shader.name == "MLP_Fea"
+                else viewdirs[:, None, :].expand(n_rays, n, 3))
+        rgb = self.shader.apply_params(params, "shader.", dirs, app_feat, self.ops,
+                                       pts=norm[..., :3])
         env = (envmap_radiance(params["envmap"], viewdirs, self.ops) if cfg.use_envmap
                else None)
         outs = composite_train(

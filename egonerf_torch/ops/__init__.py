@@ -14,6 +14,7 @@ K6    volrend.composite              composite_plain            csrc/composite.c
 K6e   volrend.composite(envmap=)     composite_plain(envmap=)   csrc/composite.cu
 K6b   volrend.composite_bwd          composite_bwd_plain        csrc/composite.cu
 K7    chart.chart_fwd                chart_fwd_plain            csrc/chart.cu
+K7s   chart.chart_sphere_fwd         chart_sphere_fwd_plain     csrc/chart.cu
 K8    envmap.envmap_fwd              envmap_fwd_plain           csrc/envmap.cu
 K8b   envmap.envmap_bwd              envmap_bwd_plain           csrc/envmap.cu
 K9    alphamask.alpha_fwd            alpha_fwd_plain            csrc/alphamask.cu
@@ -69,6 +70,10 @@ linear sample) have no caller on either package's paths, so they stay out
 of ``Ops``: they are the counterparts of JAX's
 ``sample_plane_packed_nograd``, ``sample_line_packed_nograd`` and
 ``grid_sample.sample_line``.
+K7s is K7 instantiated for ``generic_sphere``'s single sphere (the yin
+test forced true): the TensoRF models' chart on that chart under
+``interval_th``, where JAX's radius is the gather-free
+``normalize_r_lookup``; their other charts are plain torch maps, as in JAX.
 TensorVM takes K1, K3 and K2 in their relu-free instantiations (the
 ``relu=False`` argument of ``field``, ``density``, ``field_bwd`` and of
 ``vm_lookup.field_train`` / ``density_train``).  TensorCP's field is K17,
@@ -82,7 +87,7 @@ from typing import Callable, NamedTuple
 from .alphamask import alpha_fwd, alpha_fwd_plain
 from .bias import bias_grad, bias_grad_plain
 from .cp import cp_bwd, cp_bwd_plain, cp_fwd, cp_fwd_plain
-from .chart import chart_fwd, chart_fwd_plain
+from .chart import chart_fwd, chart_fwd_plain, chart_sphere_fwd, chart_sphere_fwd_plain
 from .cull import select_top_k, select_top_k_plain
 from .envmap import envmap_bwd, envmap_bwd_plain, envmap_fwd, envmap_fwd_plain
 from .merge import sorted_uniform, sorted_uniform_plain
@@ -119,15 +124,16 @@ class Ops(NamedTuple):
     theta_batch: Callable
     cp: Callable
     cp_bwd: Callable
+    chart_sphere: Callable
 
 
 KERNELS = Ops(field_fwd, field_bwd, density_fwd, resample_chart, sorted_uniform, composite,
               composite_bwd, chart_fwd, envmap_fwd, envmap_bwd, alpha_fwd, mixed_mm, mixed_mm_da,
               mixed_mm_db, bias_grad, resample_weights, resample_score, select_top_k,
-              theta_ids, theta_batch, cp_fwd, cp_bwd)
+              theta_ids, theta_batch, cp_fwd, cp_bwd, chart_sphere_fwd)
 PLAIN = Ops(field_fwd_plain, field_bwd_plain, density_fwd_plain, resample_chart_plain,
             sorted_uniform_plain, composite_plain, composite_bwd_plain, chart_fwd_plain,
             envmap_fwd_plain, envmap_bwd_plain, alpha_fwd_plain, mixed_mm_plain,
             mixed_mm_da_plain, mixed_mm_db_plain, bias_grad_plain, resample_weights_plain,
             resample_score_plain, select_top_k_plain, theta_ids_plain, theta_batch_plain,
-            cp_fwd_plain, cp_bwd_plain)
+            cp_fwd_plain, cp_bwd_plain, chart_sphere_fwd_plain)

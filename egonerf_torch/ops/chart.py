@@ -3,7 +3,8 @@ point ``o + d z`` in the yin-yang chart's normalized ``[r, theta, phi,
 flag]`` coords that K1 and K3 read (counterpart of ``from_cartesian`` +
 ``normalize_coord`` in ``egonerf_tpu/coords/yinyang.py:47-76`` and
 ``normalize_r_lookup`` / ``normalize_r_exp`` in
-``egonerf_tpu/coords/expgrid.py:89-130``)."""
+``egonerf_tpu/coords/expgrid.py:89-130``); and K7s, its single-sphere form,
+``generic_sphere``'s ``[r, theta, phi, 0]`` for the TensoRF models."""
 from __future__ import annotations
 
 import ctypes
@@ -11,10 +12,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .._build import check_launch, kernel
 from .._device import check_rows
 from ..coords.expgrid import exp_ratio
+from ..coords.spherical import GenericSphericalCoords
 from ..coords.yinyang import YinYangSphericalCoords
 
 
@@ -40,14 +43,15 @@ _ARGS = [ctypes.c_void_p, ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + CHART_AR
 MAX_GRID = 4096  # radial grid entries the kernels stage in shared memory
 
 
-def chart_args(coords: YinYangSphericalCoords, downsample: Optional[int], dev) -> list:
+def chart_args(coords: GenericSphericalCoords, downsample: Optional[int], dev) -> list:
     """The chart's arguments as the kernels take them (``CHART_ARGS``):
     the centre, the angle bounds, the per-axis reciprocals, the radial
     mode (0 the grid lookup under ``interval_th``, 1 the closed-form
     exponential cells, 2 linear), the grid and its length, and the
-    reciprocals of the radial normalization."""
-    if not isinstance(coords, YinYangSphericalCoords):
-        raise TypeError("chart takes the yin-yang chart")
+    reciprocals of the radial normalization; of the yin-yang chart or of
+    ``generic_sphere``."""
+    if not isinstance(coords, GenericSphericalCoords):
+        raise TypeError("chart takes the yin-yang or the generic_sphere chart")
     n_r = coords.resolution[0]
     if coords.exp_r and coords.interval_th:
         mode, grid = 0, coords._const("ref_grid", dev)
@@ -120,3 +124,60 @@ def chart_fwd(rays_o: torch.Tensor, viewdirs: torch.Tensor, z: torch.Tensor,
 
 
 chart_fwd.launches = 0
+
+
+def is_single_sphere(coords) -> bool:
+    """Whether K7s takes ``coords``: ``generic_sphere``, not the yin-yang
+    chart that builds on it."""
+    return (isinstance(coords, GenericSphericalCoords)
+            and not isinstance(coords, YinYangSphericalCoords))
+
+
+def chart_sphere_fwd_plain(rays_o, viewdirs, z, coords: GenericSphericalCoords) -> torch.Tensor:
+    """Plain version of K7s: see :func:`chart_sphere_fwd`."""
+    xyz = rays_o[:, None, :] + viewdirs[:, None, :] * z[..., None]
+    return F.pad(coords.normalize_coord(coords.from_cartesian(xyz)), (0, 1)).reshape(-1, 4)
+
+
+def chart_sphere_fwd(rays_o: torch.Tensor, viewdirs: torch.Tensor, z: torch.Tensor,
+                     coords: GenericSphericalCoords) -> torch.Tensor:
+    """K7s: K7 on ``generic_sphere``'s single sphere.  Per sample, xyz =
+    rays_o + viewdirs * z; r, theta = acos(z / r) (pi / 2 at r = 0) and
+    phi = atan2(y, x) about the chart's centre; each mapped to [-1, 1] on
+    near (0, 0, -pi) and far (max_r, pi, pi), the radius through K7's
+    radial mode (0 the grid lookup under ``interval_th``, 1 the
+    closed-form exponential cells, 2 linear without ``exp_r``).
+
+    rays_o, viewdirs (R, 3) and z (R, S) float32 with unit column stride
+    (any row stride).  Returns the (R * S, 4) [r, theta, phi, 0] coords,
+    rows ray-major, the TensoRF lookups' layout.
+
+    Replaces ``GenericSphericalCoords.from_cartesian`` + ``normalize_coord``
+    with ``normalize_r_lookup`` (egonerf_tpu/coords/spherical.py:48-53,
+    119-126; coords/expgrid.py:89-130).  Kernel: csrc/chart.cu
+    (``chart_kernel<true>``, the yin test forced true).  CPU tensors take
+    :func:`chart_sphere_fwd_plain`."""
+    if not is_single_sphere(coords):
+        raise TypeError("chart_sphere_fwd takes the generic_sphere chart")
+    r, dev = check_rays(rays_o, viewdirs)
+    if not isinstance(z, torch.Tensor) or z.dim() != 2:
+        raise ValueError("z: expected an (R, S) tensor")
+    s = z.shape[1]
+    check_rows("z", z, r, s, dev)
+    if dev.type == "cpu":
+        return chart_sphere_fwd_plain(rays_o, viewdirs, z, coords)
+    out = torch.empty(r * s, 4, dtype=torch.float32, device=dev)
+    if r * s == 0:
+        return out
+    args = chart_args(coords, None, dev)
+    fn = kernel("chart", "chart_sphere_fwd", _ARGS)
+    with torch.cuda.device(dev):
+        err = fn(rays_o.data_ptr(), rays_o.stride(0), viewdirs.data_ptr(), viewdirs.stride(0),
+                 z.data_ptr(), z.stride(0), r, s, *args, out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("chart_sphere_fwd", err)
+    chart_sphere_fwd.launches += 1
+    return out
+
+
+chart_sphere_fwd.launches = 0

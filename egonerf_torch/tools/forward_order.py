@@ -63,9 +63,9 @@ def main(argv=None) -> None:
         seen = {}
         apply = shader.apply_params
 
-        def grab(p, prefix, viewdirs, features, o=None, mixed=False):
+        def grab(p, prefix, viewdirs, features, o=None, mixed=False, **kw):
             seen["in"] = (viewdirs, features)
-            return apply(p, prefix, viewdirs, features, o, mixed)
+            return apply(p, prefix, viewdirs, features, o, mixed, **kw)
 
         shader.apply_params = grab
         model.forward(params, rays[:chunk], tables=model.lookup_tables(params), **presets.RENDER)

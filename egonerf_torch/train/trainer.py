@@ -36,12 +36,13 @@ fresh run first fits the envmap alone (``pretrain_envmap``, JAX
 training rays that miss the aabb when the sampler is installed, and the
 resident buffer holds the kept ones (JAX ``trainer.py:512-520``).
 
-What the JAX trainer does besides, the port does not carry yet and refuses
-by name (ROADMAP.md §1): mesh export, the device mesh and the profiler
-hook.  Where JAX accepts an option and ignores it or fails with it, the
-port refuses it and says so (ROADMAP.md §3): the cull and ``filter_ray``
-off their models, ``filter_ray`` with ``use_depth`` or
-``theta_importance``.
+With ``export_mesh`` the end of training writes the density's iso-surface
+as ``{expname}.ply`` (``render/export.py``), as JAX does.  What the JAX
+trainer does besides, the port does not carry yet and refuses by name
+(ROADMAP.md §1): the device mesh and the profiler hook.  Where JAX accepts
+an option and ignores it or fails with it, the port refuses it and says so
+(ROADMAP.md §3): the cull and ``filter_ray`` off their models,
+``filter_ray`` with ``use_depth`` or ``theta_importance``.
 """
 from __future__ import annotations
 
@@ -59,10 +60,11 @@ from ..coords import coords_from_spec, make_coordinates
 from ..data.datasets import dataset_class
 from ..data.samplers import (DeviceRaySampler, DeviceThetaSampler, HostRaySampler,
                              SimpleSampler, ThetaImportanceSampler, host_sampling)
-from ..models import StepKey, build_model, model_meta, params_from_jax
+from ..models import StepKey, build_model, load_params, model_meta, stored_grid_size
 from ..models.alphamask import mask_from_volumes
 from ..ops.volrend import ray_entropy
 from ..render.metrics import mse2psnr
+from ..render.export import export_density_mesh
 from ..render.renderer import Renderer, evaluation, evaluation_path
 from .checkpoint import (latest_checkpoint, load_alpha_masks, load_checkpoint, mask_volumes,
                          save_checkpoint)
@@ -115,8 +117,6 @@ def check_supported(cfg: Config) -> None:
         unported.append("the profiler hook (profile_dir)")
     if cfg.coarse_sigma_grid_update_rule == "samp":
         unported.append("the 'samp' coarse-grid rule")
-    if cfg.export_mesh:
-        unported.append("mesh export (export_mesh)")
     if unported:
         refused.append("; ".join(unported) + f": {_ROADMAP}")
     if refused:
@@ -157,9 +157,9 @@ def _load_model(cfg: Config, path: str, aabb, near_far, device):
     mask reinstalled."""
     flat, header = load_checkpoint(path)
     coords = coords_from_spec(header["coords_spec"])
-    model = build_model(cfg, aabb, coords.resolution, coords, near_far,
+    model = build_model(cfg, aabb, stored_grid_size(flat), coords, near_far,
                         meta=header.get("model_meta"), device=device)
-    model.load_state_dict(params_from_jax(flat, device=device))
+    load_params(model, coords, flat)
     masks = load_alpha_masks(path)
     if masks:
         model.alpha_mask = mask_from_volumes([masks[k] for k in sorted(masks)], model.device)
@@ -205,10 +205,13 @@ class Trainer:
             self.coords = make_coordinates(cfg.coordinates_name, aabb, exp_r=cfg.exp_sampling,
                                            N_voxel=cfg.N_voxel_init, r0=cfg.r0,
                                            interval_th=cfg.interval_th)
+            # the model's grid is N_to_reso's, which the directional balanced
+            # chart's set_resolution halves for itself (JAX trainer.py:172-179)
+            reso = (self.coords.resolution if self.coords.resolution is not None
+                    else self.coords.N_to_reso(cfg.N_voxel_init))
             if self.coords.resolution is None:
-                self.coords.set_resolution(self.coords.N_to_reso(cfg.N_voxel_init))
-            self.model = build_model(cfg, aabb, self.coords.resolution, self.coords,
-                                     self.near_far, device=dev)
+                self.coords.set_resolution(reso)
+            self.model = build_model(cfg, aabb, reso, self.coords, self.near_far, device=dev)
             self.model.init_params(torch.Generator(device=dev).manual_seed(cfg.seed))
         self.params = self.model.params()
         self.reso_cur = list(self.coords.resolution)
@@ -484,6 +487,9 @@ class Trainer:
             evaluation_path(self.test_dataset, self.model, self.params,
                             self.test_dataset.render_path, self.renderer,
                             save_path=os.path.join(self.logdir, "imgs_path_all"))
+        if cfg.export_mesh:
+            export_density_mesh(self.model, self.params,
+                                os.path.join(self.logdir, f"{cfg.expname}.ply"))
         if cfg.render_test:
             psnrs_test = self._evaluate(os.path.join(self.logdir, "imgs_test_all"))
             print(f"======> {cfg.expname} test all psnr: {np.mean(psnrs_test)} <====")

@@ -331,7 +331,6 @@ UNPORTED = {
     # accepts and ignores it there; the port refuses it
     "filter_ray_egonerf": dict(filter_ray=True),
     "mesh": dict(mesh_shape="[4]"),
-    "export_mesh": dict(export_mesh=True),
 }
 
 
@@ -364,6 +363,8 @@ PORTED = {
     # (tests/test_torch_tensorf_family.py)
     "filter_ray": dict(filter_ray=True, model_name="TensorVMSplit", coordinates_name="xyz"),
     "ndc_ray": dict(ndc_ray=1, model_name="TensorVMSplit", coordinates_name="xyz"),
+    # mesh export at the end of training (tests/test_torch_export.py)
+    "export_mesh": dict(export_mesh=True),
 }
 
 
