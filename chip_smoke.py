@@ -373,7 +373,8 @@ PORT_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
                 "mm_db_sum_kernel",
                 "bias_grad_part_kernel", "bias_grad_sum_kernel", "cull_score_kernel",
                 "top_k_kernel", "theta_ids_kernel", "theta_batch_kernel", "vm_sample_kernel",
-                "line_sample_kernel")
+                "line_sample_kernel", "cp_fwd_kernel", "cp_dens_sum_kernel", "cp_bwd_kernel",
+                "cp_bwd_sum_kernel")
 TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 5, 20, 3
 SMOKE_ITERS = 300
 DEVICE = "cuda"
@@ -4271,22 +4272,24 @@ def norelu_kernel_checks(ops, f_args, b_args, d_args) -> dict:
     return table
 
 
-def cp_bwd_case(name, args, ops, row=True):
+def cp_bwd_case(name, args, ops, row=True, unstaged=False):
     """K17b against its plain version per row (:func:`per_cell_check`, K2's
-    limit: float32 atomics add in another order), timed; its row."""
+    limit: float32 atomics add in another order), timed; its row (with
+    ``unstaged``, the unstaged form's)."""
     from egonerf_torch.ops import cp
 
     coords, lines, d_dens, d_app, nd, modes = args
-    print(f"phase 2 {name}: {cp.bwd_plan(coords, lines, nd, d_app if d_app.shape[1] else None)}",
-          flush=True)
-    got = ops.KERNELS.cp_bwd(*args)
+    plan = cp.launch_plan(coords, lines, nd, d_app if d_app.shape[1] else None, backward=True,
+                          unstaged=unstaged)
+    print(f"phase 2 {name}: {plan}", flush=True)
+    got = ops.KERNELS.cp_bwd(*args, unstaged=unstaged)
     ref = ops.PLAIN.cp_bwd(*args, accumulate=torch.float64)
     ref32 = ops.PLAIN.cp_bwd(*args)
     mag = ops.PLAIN.cp_bwd(*args, magnitude=True, accumulate=torch.float64)
     torch.cuda.synchronize()
     abs_err = per_cell_check(name, got, ref, ref32, mag)
     del got, ref, ref32, mag
-    ms = time_ms(lambda: ops.KERNELS.cp_bwd(*args))
+    ms = time_ms(lambda: ops.KERNELS.cp_bwd(*args, unstaged=unstaged))
     if not row:
         print(f"phase 2 {name}: kernel {ms:.4f} ms", flush=True)
         return None
@@ -4300,21 +4303,30 @@ def cp_bwd_case(name, args, ops, row=True):
         coords.shape[0] * lines[0].shape[-1] * 20)
 
 
-def cp_kernel_checks(trainer, ops) -> dict:
-    """Phase 2, K17 and K17b at CP-384 on the inputs of one recorded
-    TensorCP training step (1,048,576 samples; lines of 500 rows, 96 + 288
-    channels): K17 in its eval (bf16 lines), training (float32) and
-    density-only (96 float32 channels: the bake, ``compute_alpha`` and the
-    sparsity loss) forms on the hat and the linear line weights, at K1's
-    limit (rel 1e-5 of max|plain|: the density sums go in another order);
-    K17b on both weights and with every sample on four points (a few rows,
-    262,144 terms a row and no run to merge), per row at K2's limit.
-    Returns their rows, named as the launch counters (``K17 (form,
-    mode)``, ``K17b (mode)``)."""
-    from egonerf_torch.ops.vm_lookup import HAT, LINEAR
+def cp_fwd_case(name, args, ops, unstaged=False, cold=False) -> dict:
+    """K17 against its plain version at K1's limit (rel 1e-5 of max|plain|:
+    the density sums go in another order), timed; its row."""
+    from egonerf_torch.ops import cp
 
+    coords, tabs, nd, modes = args
+    n = coords.shape[0]
+    print(f"phase 2 {name}: {cp.launch_plan(coords, tabs, nd, unstaged=unstaged)}", flush=True)
+    return check_case(
+        name, "egonerf_torch/csrc/cp_lookup.cu", "egonerf_tpu/models/tensorf.py:459",
+        lambda *a: ops.KERNELS.cp(*a, unstaged=unstaged), ops.PLAIN.cp, args,
+        nbytes(coords, *tabs) + n * 4 + n * (tabs[0].shape[-1] - nd) * 4,
+        # per sample and channel: three line samples (9), two products, the
+        # density sum
+        n * tabs[0].shape[-1] * 12, cold=cold)
+
+
+def record_cp_step(trainer, ops, plain=False):
+    """The K17 and K17b arguments of one TensorCP training step: (coords,
+    lines, n_density, line modes, d_dens, d_app); with ``plain`` the step
+    runs their plain versions."""
     model = trainer.model
-    rec_f, rec_b = Recorder(ops.KERNELS.cp), Recorder(ops.KERNELS.cp_bwd)
+    src = ops.PLAIN if plain else ops.KERNELS
+    rec_f, rec_b = Recorder(src.cp), Recorder(src.cp_bwd)
     model.ops = ops.KERNELS._replace(cp=rec_f, cp_bwd=rec_b)
     try:
         trainer.train_step(0)
@@ -4323,27 +4335,71 @@ def cp_kernel_checks(trainer, ops) -> dict:
     torch.cuda.synchronize()
     coords, lines, nd, modes = rec_f.args
     d_dens, d_app = rec_b.args[2:4]
+    return coords, lines, nd, modes, d_dens, d_app
+
+
+def cp_registers() -> None:
+    """ptxas's registers of the staged and the unstaged K17 and K17b."""
+    from egonerf_torch import _build
+
+    for name, regs, spill in _build.ptxas_report("cp_lookup"):
+        if "_kernel<" in name:
+            print(f"phase 2 K17/K17b registers: {regs} ({spill} bytes spilled) "
+                  f"{name.split('(float')[0]}", flush=True)
+
+
+def cp_kernel_checks(trainer, ops) -> dict:
+    """Phase 2, K17 and K17b at CP-384 on the inputs of one recorded
+    TensorCP training step (1,048,576 samples; lines of 500 rows, 96 + 288
+    channels): K17 in its eval (bf16 lines), training (float32) and
+    density-only (96 float32 channels: the bake, ``compute_alpha`` and the
+    sparsity loss) forms on the hat and the linear line weights, at K1's
+    limit (rel 1e-5 of max|plain|: the density sums go in another order);
+    K17b on both weights and with every sample on four points (a few rows,
+    262,144 terms a row and no run to merge), per row at K2's limit; each
+    staged kernel's time beside the unstaged form's (the PR 18 kernels) in
+    turns.  Then the shapes the staging must take: the scalar instantiation
+    (6 + 20 channels), uneven and long lines (17, 500, 1,700 rows), lines
+    past the staging limit (the unstaged form), n = 1 and an n no part or
+    run divides.  Returns their rows, named as the launch counters (``K17
+    (form, mode)``, ``K17b (mode)``, ``K17 (unstaged)``, ``K17b
+    (unstaged)``)."""
+    from egonerf_torch.ops import cp
+    from egonerf_torch.ops.vm_lookup import HAT, LINEAR
+
+    coords, lines, nd, modes, d_dens, d_app = record_cp_step(trainer, ops)
     n, c = coords.shape[0], lines[0].shape[-1]
     print(f"phase 2 TensorCP inputs: {trainer.cfg.batch_size} rays x {trainer.cfg.n_coarse} "
           f"samples ({n:,}), lines {[tuple(l.shape) for l in lines]} ({nd} density + "
-          f"{c - nd} appearance channels), grid {model.grid_size}, line modes {list(modes)}",
-          flush=True)
-    src, rep = "egonerf_torch/csrc/cp_lookup.cu", "egonerf_tpu/models/tensorf.py:459"
+          f"{c - nd} appearance channels), grid {trainer.model.grid_size}, line modes "
+          f"{list(modes)}", flush=True)
+    cp_registers()
     bf = [l.to(torch.bfloat16) for l in lines]
     dens32 = [l[..., :nd].contiguous() for l in lines]
     table = {}
     for mode_name, m in (("hat", HAT), ("linear", LINEAR)):
         mm = (m,) * 3
         for form, tabs in (("eval", bf), ("train", lines), ("density", dens32)):
-            out_bytes = n * 4 + n * (tabs[0].shape[-1] - nd) * 4
-            table[f"K17 ({form}, {mode_name})"] = check_case(
-                f"K17 cp_fwd ({form}, {mode_name})", src, rep, ops.KERNELS.cp, ops.PLAIN.cp,
-                (coords, tabs, nd, mm), nbytes(coords, *tabs) + out_bytes,
-                # per sample and channel: three line samples (9), two
-                # products, the density sum
-                n * tabs[0].shape[-1] * 12, cold=form == "train")
+            table[f"K17 ({form}, {mode_name})"] = cp_fwd_case(
+                f"K17 cp_fwd ({form}, {mode_name})", (coords, tabs, nd, mm), ops,
+                cold=form == "train")
         table[f"K17b ({mode_name})"] = cp_bwd_case(
             f"K17b cp_bwd ({mode_name})", (coords, lines, d_dens, d_app, nd, mm), ops)
+    # the staged kernels beside the unstaged form (the PR 18 kernels) on the
+    # step, in turns (unstaged, staged, staged, unstaged)
+    for form, tabs in (("eval", bf), ("train", lines), ("density", dens32)):
+        t = turns({"unstaged": lambda t=tabs: ops.KERNELS.cp(coords, t, nd, modes, unstaged=True),
+                   "staged": lambda t=tabs: ops.KERNELS.cp(coords, t, nd, modes)})
+        print(f"phase 2 K17 ({form}, hat) in turns: staged {t['staged']:.4f} ms, unstaged form "
+              f"{t['unstaged']:.4f} ms; shared bytes {cp.launch_plan(coords, tabs, nd)[1].smem:,} "
+              f"(unstaged 0)", flush=True)
+    b_args = (coords, lines, d_dens, d_app, nd, modes)
+    t = turns({"unstaged": lambda: ops.KERNELS.cp_bwd(*b_args, unstaged=True),
+               "staged": lambda: ops.KERNELS.cp_bwd(*b_args)})
+    print(f"phase 2 K17b (hat) in turns: staged {t['staged']:.4f} ms, unstaged form "
+          f"{t['unstaged']:.4f} ms; shared bytes "
+          f"{cp.launch_plan(coords, lines, nd, d_app, backward=True)[1].smem:,} (unstaged 0)",
+          flush=True)
     # consecutive samples on alternate points: no run to merge, so an
     # atomic a term, 262,144 terms a row (the float32 plain version's error,
     # printed beside, is several times K2's limit here)
@@ -4354,7 +4410,57 @@ def cp_kernel_checks(trainer, ops) -> dict:
     cp_bwd_case(f"K17b cp_bwd (density only, {k:,} points)",
                 (coords[:k].contiguous(), dens32, d_dens[:k].contiguous(),
                  d_app.new_zeros(k, 0), nd, modes), ops, row=False)
+    table.update(cp_shape_checks(coords, d_dens, d_app, modes, ops))
     return table
+
+
+def cp_shape_checks(coords, d_dens, d_app, modes, ops) -> dict:
+    """K17 (three forms) and K17b on seeded lines of other shapes, on the
+    step's samples and cotangents: the scalar instantiation (6 + 20
+    channels), uneven and long lines (17, 500, 1,700 rows, 96 + 288: one
+    block an SM), lines past the staging limit (17, 500, 30,000 rows: the
+    unstaged form, whose rows it returns), and n = 1 and 1,048,573 (no part
+    or run divides it) at CP-384's shape.  Each at its kernel's limit."""
+    from egonerf_torch.ops import cp
+
+    gen = torch.Generator(device=coords.device).manual_seed(SEED)
+
+    def seeded(ls, ch):
+        return [torch.randn(1, l, ch, device=coords.device, generator=gen) * 0.3 for l in ls]
+
+    def case(label, ls, nd, ch, n, unstaged_rows=False):
+        lines = seeded(ls, ch)
+        cs_, dd = coords[:n].contiguous(), d_dens[:n].contiguous()
+        da = torch.randn(n, ch - nd, device=coords.device, generator=gen)
+        rows = {}
+        for form, tabs in (("eval", [l.to(torch.bfloat16) for l in lines]), ("train", lines),
+                           ("density", [l[..., :nd].contiguous() for l in lines])):
+            rows[form] = cp_fwd_case(f"K17 cp_fwd ({form}, {label})", (cs_, tabs, nd, modes),
+                                     ops)
+        rows["bwd"] = cp_bwd_case(f"K17b cp_bwd ({label})", (cs_, lines, dd, da, nd, modes), ops,
+                                  row=unstaged_rows)
+        return rows
+
+    n = coords.shape[0]
+    case("scalar, 6 + 20 channels", (500, 500, 500), 6, 26, n)
+    case("lines of 17, 500, 1,700 rows", (17, 500, 1_700), 96, 384, n)
+    past = case("lines of 17, 500, 30,000 rows: unstaged", (17, 500, 30_000), 96, 384, n,
+                unstaged_rows=True)
+    if cp.launch_plan(coords, seeded((17, 500, 30_000), 8), 4)[1] is not None:
+        fail("lines of 30,517 rows got a staged K17 plan")
+    for m in (1, min(n, 1_048_573)):
+        case(f"n = {m:,}", (500, 500, 500), 96, 384, m)
+    return {"K17 (unstaged)": past["train"], "K17b (unstaged)": past["bwd"]}
+
+
+def turns(runs: dict) -> dict:
+    """Each of ``runs`` timed by :func:`time_ms` in turns (a, b, ..., b,
+    a); the mean of its two."""
+    names = list(runs)
+    t = {k: [] for k in names}
+    for k in names + names[::-1]:
+        t[k].append(time_ms(runs[k]))
+    return {k: sum(v) / len(v) for k, v in t.items()}
 
 
 def family_trainer(root, presets, overrides, expname):
@@ -4973,7 +5079,9 @@ def main() -> int:
                 "K17": cp.cp_fwd, "K17b": cp.cp_bwd,
                 **{f"K17 ({form}, {mode})": w for (form, mode), w in cp.cp_fwd.forms.items()},
                 **{f"K17b ({mode})" if form == "train" else f"K17b ({form}, {mode})": w
-                   for (form, mode), w in cp.cp_bwd.forms.items()}}
+                   for (form, mode), w in cp.cp_bwd.forms.items()},
+                # lines past the staging limit (counted in K17, K17b too)
+                "K17 (unstaged)": cp.cp_fwd.unstaged, "K17b (unstaged)": cp.cp_bwd.unstaged}
 
     # -- phase 1: card + build ----------------------------------------------
     card = card_line()

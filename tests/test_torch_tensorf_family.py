@@ -314,13 +314,17 @@ def test_cp_plain_versions_match_jax_products():
 
 
 def test_cp_layout():
-    """K17's lanes: the power of two that covers C / 4 chunks, at most 32
-    (every lane loops past 128 channels); the vector instantiation (K17's
-    and K17b's) needs C and n_density multiples of 4 and aligned tensors."""
+    """The vector instantiation needs C and n_density multiples of 4 and
+    aligned tensors; K17's plan at CP-384 stages 32-channel slices (1,500
+    rows x 64 bytes, two tiles' rows and three tiles' coords, two blocks an
+    SM: 12 slices, 3 of density, 22 parts of the 1,048,576 samples), at 96
+    density channels
+    3 slices, at 6 + 20 one slice of 32 written directly; the unstaged
+    form's lanes cover C / 4 chunks, at most 32."""
     coords = torch.zeros(8, 4)
     lines = [torch.zeros(1, 5, 384) for _ in range(3)]
     assert cp.cp_layout(coords, lines, 96) == cp.Layout(32, True)
-    assert cp.cp_layout(coords, [l[..., :96] .contiguous() for l in lines], 96) == cp.Layout(
+    assert cp.cp_layout(coords, [l[..., :96].contiguous() for l in lines], 96) == cp.Layout(
         32, True)
     narrow = [torch.zeros(1, 5, 26) for _ in range(3)]
     assert cp.cp_layout(coords, narrow, 6) == cp.Layout(8, False)
@@ -328,30 +332,186 @@ def test_cp_layout():
                         d_app=torch.zeros(8, 16)) == cp.Layout(8, True)
     assert not cp.cp_layout(coords, [torch.zeros(1, 5, 24) for _ in range(3)], 8,
                             d_app=torch.zeros(8, 17)[:, 1:]).vector
+    plan = cp.fwd_plan(1 << 20, 1500, 384, 96, 132)
+    assert plan == cp.Plan(width=32, slices=12, density_slices=3, blocks_per_sm=2, parts=22,
+                           per_part=47_663, smem=1500 * 64 + 128 * (2 * 48 + 3 * 16),
+                           copies=1)
+    assert plan.blocks == 264
+    assert cp.fwd_plan(1 << 20, 1500, 96, 96, 132)[:5] == (32, 3, 3, 2, 88)
+    assert cp.fwd_plan(1, 15, 26, 6, 132)[:6] == (32, 1, 1, 2, 1, 1)
+    # two blocks an SM up to 1,520 rows, then one; 6 channels: one slice
+    assert cp.fwd_plan(1 << 20, 1520, 384, 96, 132).blocks_per_sm == 2
+    assert cp.fwd_plan(1 << 20, 2217, 384, 96, 132)[:4] == (32, 12, 3, 1)
+    assert cp.fwd_plan(1000, 15, 6, 3, 132)[:3] == (32, 1, 1)
     dims = list(cp._dims(lines, 96, (1, 0, 1), cp.Layout(32, True)))
     assert dims == [5, 5, 5, 1, 0, 1, 384, 96, 5, 1]
+    assert list(cp._dims(lines, 96, (1, 1, 1), cp.Layout(32, True), plan))[10:] == [
+        3, 12, 47_663, 3, plan.smem, 264]
 
 
 def test_cp_bwd_geometry():
-    """K17b: a sample's lanes cover its channels (4 a lane in the vector
-    instantiation, 1 in the scalar one; at most 32), one 512-thread block
-    an SM walks runs of consecutive samples, and the blocks add into a copy
-    of the gradient rows a 16,384 samples, as many as fit 64 MB, at most
-    one a block."""
-    # CP-384 on 132 SMs: 1,048,576 samples, 1,500 rows of 384 channels
-    geo = cp.bwd_geometry(1 << 20, 384, 1500, True, 132)
-    assert geo == cp.BwdGeometry(group=32, run=497, blocks=132, copies=29)
-    assert geo.copies * 1500 * 384 * 4 <= cp.WORK_BYTES < (geo.copies + 1) * 1500 * 384 * 4
-    # every sample walked once: the last block's walkers reach n
-    per_block = cp.BWD_THREADS_PER_BLOCK // geo.group
-    assert (geo.blocks - 1) * per_block * geo.run < 1 << 20 <= geo.blocks * per_block * geo.run
-    # the sparsity loss's 10,000 points of 96 density channels: one copy
-    assert cp.bwd_geometry(10_000, 96, 1500, True, 132) == cp.BwdGeometry(32, 5, 125, 1)
+    """K17b's plan at CP-384: the same 32-channel slices, one block of 32
+    walkers an SM (the slice; each walker's two chunks of 8 samples' d_app,
+    coords and d_dens and one chunk's rows), 11 parts a slice each adding
+    into its own copy of
+    the gradient (11 x 2.3 MB within WORK_BYTES, in L2); the sparsity
+    loss's 10,000 points one copy; the unstaged form's geometry as PR 18's
+    for the lines past the staging limit."""
+    plan = cp.bwd_plan(1 << 20, 1500, 384, 96, 132)
+    assert plan == cp.Plan(width=32, slices=12, density_slices=3, blocks_per_sm=1, parts=11,
+                           per_part=95_326,
+                           smem=1500 * 64 + 32 * (2 * 8 * (128 + 16 + 4) + 8 * 48), copies=11)
+    assert plan.copies * 1500 * 384 * 4 <= cp.WORK_BYTES
+    # every sample walked once: the parts cover n, the last one not empty
+    assert (plan.parts - 1) * plan.per_part < 1 << 20 <= plan.parts * plan.per_part
+    assert list(cp._dims([torch.zeros(1, 500, 384)] * 3, 96, (1, 1, 1), cp.Layout(32, True),
+                         plan, backward=True))[10:] == [3, 12, 95_326, 11, plan.smem, 132]
+    assert cp.bwd_plan(10_000, 1500, 96, 96, 132)[:6] == (32, 3, 3, 1, 44, 228)
+    assert cp.bwd_plan(10_000, 1500, 96, 96, 132).copies == 1
     # a copy a 16,384 samples or part of it: 100,000 samples, 7 copies
-    assert cp.bwd_geometry(100_000, 96, 1500, True, 132).copies == 7
-    # scalar: a lane a channel; a few samples: one block, one copy
+    assert cp.bwd_plan(100_000, 1500, 96, 96, 132).copies == 7
+    # n = 1: one part a slice, one copy
+    assert cp.bwd_plan(1, 15, 26, 6, 132)[:6] == (32, 1, 1, 1, 1, 1)
+    # past the staging limit: the unstaged walk
+    assert cp.bwd_plan(1 << 20, 30_517, 26, 6, 132) is None
+    assert cp.bwd_geometry(1 << 20, 384, 1500, True, 132) == cp.BwdGeometry(32, 497, 132, 14)
     assert cp.bwd_geometry(10, 26, 15, False, 132) == cp.BwdGeometry(32, 1, 1, 1)
     assert cp.bwd_geometry(5000, 6, 15, False, 132).group == 8
+
+
+# (L_0, L_1, L_2, C, n_density): CP-384, its density-only form, the scalar
+# widths, odd and uneven lines, lines near and past the staging limits
+CP_PLAN_SHAPES = [(500, 500, 500, 384, 96), (500, 500, 500, 96, 96), (5, 5, 5, 26, 6),
+                  (17, 500, 1_700, 384, 96), (17, 500, 12_000, 384, 96), (1, 1, 1, 1, 1),
+                  (3, 7, 11, 7, 3), (1, 1, 30_000, 384, 1), (700, 700, 700, 97, 13),
+                  (1_000, 1_000, 1_000, 26, 6), (20_000, 5_000, 2_000, 33, 17),
+                  (30_000, 1, 1, 2, 1), (64, 128, 256, 130, 2)]
+
+
+@pytest.mark.parametrize("shape", CP_PLAN_SHAPES)
+def test_cp_plans_cover_every_channel_once(shape):
+    """Each staged plan: the slices [k W, (k + 1) W) cover the C channels
+    once, the first ceil(n_density / W) of them holding every density
+    channel; the block's shared bytes at most 232,448 and the blocks an SM
+    within the SM's 228 KB; the parts cover the samples; K17b's copies
+    within WORK_BYTES (or one); n from 1 to 2^20."""
+    *ls, c, nd = shape
+    rows = sum(ls)
+    for n in (1, 1000, 1 << 20):
+        for plan in (cp.fwd_plan(n, rows, c, nd, 132), cp.bwd_plan(n, rows, c, nd, 132)):
+            if plan is None:
+                continue
+            w = plan.width
+            assert w == cp.WIDTH and plan.slices * w >= c > (plan.slices - 1) * w
+            covered = [ch for k in range(plan.slices) for ch in range(k * w, min(k * w + w, c))]
+            assert covered == list(range(c))
+            assert plan.density_slices == len([k for k in range(plan.slices) if k * w < nd])
+            assert plan.smem <= cp.SMEM_PER_BLOCK == 232_448
+            assert plan.blocks_per_sm * (plan.smem + cp.SMEM_RESERVED) <= cp.SMEM_PER_SM
+            assert (plan.parts - 1) * plan.per_part < n <= plan.parts * plan.per_part
+            assert plan.copies == 1 or plan.copies * rows * c * 4 <= cp.WORK_BYTES
+            assert plan.copies <= plan.parts
+
+
+def test_cp_plans_take_every_shape():
+    """Every (L_0, L_1, L_2, C, n_density) the PR 18 kernels took gets a
+    launch: 1 to 30,000 rows, C from 1 to 384, odd widths.  A staged plan
+    where a 32-channel slice fits (3,344 rows in all for K17, 2,256 for
+    K17b), else the unstaged form, and no shape past that limit gets a
+    staged plan."""
+    rng = np.random.default_rng(20)
+    shapes = [tuple(int(x) for x in rng.integers(1, 1_201, 3)) for _ in range(100)] + [
+        tuple(int(x) for x in rng.integers(1, 10_001, 3)) for _ in range(50)] + [
+        (1, 1, 1), (10_000, 10_000, 10_000), (1, 1, 3_342), (1, 1, 3_343), (1, 1, 2_254),
+        (1, 1, 2_255)]
+    for ls in shapes:
+        rows = sum(ls)
+        for c in (1, 3, 4, 26, 97, 384):
+            nd = int(rng.integers(1, c + 1))
+            fwd, bwd = cp.fwd_plan(4096, rows, c, nd, 132), cp.bwd_plan(4096, rows, c, nd, 132)
+            assert (fwd is None) == (cp.fwd_smem(rows, 32) > cp.SMEM_PER_BLOCK), (ls, c)
+            assert (bwd is None) == (cp.bwd_smem(rows, 32) > cp.SMEM_PER_BLOCK), (ls, c)
+            if bwd is None:
+                geo = cp.bwd_geometry(4096, c, rows, c % 4 == 0, 132)
+                assert geo.blocks * (cp.UNSTAGED_BWD_THREADS // geo.group) * geo.run >= 4096
+    assert cp.fwd_plan(1, 3_344, 384, 96, 132).blocks_per_sm == 1
+    assert cp.fwd_plan(1, 3_345, 384, 96, 132) is None
+    assert cp.bwd_plan(1, 2_256, 384, 96, 132).width == 32
+    assert cp.bwd_plan(1, 2_257, 384, 96, 132) is None
+
+
+class _Window:
+    """Host model of one lane's window in K17b (``csrc/cp_lookup.cu``,
+    ``window_add``): two pending rows keyed by row, the one added to less
+    recently replaced on a miss; a replaced row is flushed."""
+
+    def __init__(self):
+        self.rows, self.sums, self.b_last = [-1, -1], [0.0, 0.0], False
+        self.flushed = []
+
+    def add(self, row, w, d):
+        if w == 0.0:
+            return
+        hit = [k for k in (0, 1) if self.rows[k] == row]
+        if hit:
+            k = hit[0]
+            self.sums[k] += w * d
+        else:
+            k = 0 if self.b_last else 1
+            if self.rows[k] >= 0:
+                self.flushed.append((self.rows[k], self.sums[k]))
+            self.rows[k], self.sums[k] = row, w * d
+        self.b_last = k == 1
+
+    def close(self):
+        for k in (0, 1):
+            if self.rows[k] >= 0:
+                self.flushed.append((self.rows[k], self.sums[k]))
+        return self.flushed
+
+
+def _walk_axis(coords, dout, length, mode):
+    """One lane's walk on one axis over samples in order: (flushes, the
+    scatter they add up to)."""
+    win = _Window()
+    sel = torch.zeros(coords.shape[0], dtype=torch.int64)
+    (i0, w0), (i1, w1) = vm_lookup._line_rows(coords, sel, length, mode)
+    for s in range(coords.shape[0]):
+        win.add(int(i0[s]), float(w0[s]), float(dout[s]))
+        win.add(int(i1[s]), float(w1[s]), float(dout[s]))
+    flushed = win.close()
+    g = np.zeros(length)
+    for row, v in flushed:
+        g[row] += v
+    return flushed, g
+
+
+@pytest.mark.parametrize("mode", [HAT, LINEAR])
+def test_cp_window_model_flushes_the_scatter(mode):
+    """The row-keyed window's flushes add up to cp_bwd_plain's scatter of
+    one channel on one axis (float64 sums), for monotone rays, shuffled
+    samples and samples outside the line; on a monotone ray each row is
+    flushed once."""
+    rng = np.random.default_rng(5)
+    length = 40
+    # four rays of 60 samples, each monotone along the axis, some outside
+    rays = np.concatenate([np.sort(rng.uniform(-1.1, 1.1, 60))[:: 1 if k % 2 else -1]
+                           for k in range(4)]).astype(np.float32)
+    for coords in (rays, rng.permutation(rays)):
+        d = torch.from_numpy(rng.normal(size=coords.shape[0]).astype(np.float32))
+        c4 = torch.zeros(coords.shape[0], 4)
+        c4[:, 2] = torch.from_numpy(coords)  # axis 0 samples coordinate x_2
+        # lines of ones: dout_0 = d, rounded to bf16 on the hat
+        dout = d.bfloat16().float() if mode == HAT else d
+        flushed, g = _walk_axis(c4[:, 2], dout.double().numpy(), length, mode)
+        want = cp.cp_bwd_plain(c4, [torch.ones(1, length, 1)] * 3, d,
+                               torch.zeros(coords.shape[0], 0), 1, (mode,) * 3,
+                               accumulate=torch.float64)[0]
+        np.testing.assert_allclose(g, want.reshape(-1).numpy(), rtol=1e-6, atol=1e-6)
+    ray = torch.from_numpy(np.sort(rng.uniform(-0.9, 0.9, 200)).astype(np.float32))
+    flushed, _ = _walk_axis(ray, rng.normal(size=200), length, mode)
+    rows = [r for r, _ in flushed]
+    assert len(rows) == len(set(rows))
 
 
 def test_cp_launch_counters_name_each_form_and_line_mode():
