@@ -17,7 +17,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    K4, K5, K6b) on the inputs of one production training step (K4's and
    K4c's training instantiations, which draw K5's uniforms in their
    prologue, bit for bit with K5 followed by the op at 128 and 1, 33, 48,
-   97, 255 draws a ray, without the merge and on K4's hard rays), K1, K3 and
+   97, 255 draws a ray, without the merge and on K4's hard rays, and so at
+   the ray offsets of a data-parallel shard, with K5 at the same offset;
+   K5 at an offset bit for bit with the rows of its draw from ray 0), K1,
+   K3 and
    K2 at the smoke config's widths and at one the kernels' scalar
    instantiation takes, and the envmap's (K6e, K6 with K8's lookup inside:
    its env bit for bit with K8's and its other outputs with K8 + K6's, also
@@ -279,7 +282,23 @@ The other charts, the other shading modes and mesh export:
     line (the PLY's counts and seconds), and the production EgoNeRF's
     density grid at 128^3 and 256^3 (K7 and K3 once per 8 x-rows): device
     ms, host seconds of the marching tetrahedra, and the grid against the
-    plain versions' (rel <= 1e-5 of max|plain|).
+    plain versions' (rel <= 1e-5 of max|plain|);
+32. the production training step through the data-parallel path on an
+    NCCL process group of one rank (loopback): 20 timed steps beside two
+    single-process trainers', in turns, the parameters after each round
+    against the two single-process runs' spread (``noise_check``), the
+    step's profile (the all-reduce), and one
+    2000x1000 view rendered with its chunks split over the group against
+    the same view unsplit, bit for bit;
+33. two gloo ranks sharing the card (``python3 chip_smoke.py --gloo-rank
+    R PORT DIR``, each under its own timeout) train the smoke config: rank
+    1's shard draws from ray 1024 on (K4's offset on the card); the ranks'
+    parameters bit for bit, and as close to the single-process trainer's
+    after the same steps as two single-process runs are to each other
+    (``noise_check``);
+34. a production trainer run of PROFILE_RUN_ITERS steps with
+    ``profile_dir``: ``traced_steps.json`` holds 24, the trace names the
+    step's kernels, and the steps' ms inside and outside the window.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
@@ -291,6 +310,7 @@ import contextlib
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -317,6 +337,10 @@ K5_TOL = 1e-6
 # to K5 then the op, beside the production 128: n + 1 off the 4- and
 # 32-grids, one draw, and more than a lane's 4 in K4c
 DRAW_SWEEP = (48, 1, 33, 97, 255)
+# the ray offsets at which they are held so: the second rank's first ray of
+# the production batch on two ranks, and one past 32 bits (the counter's
+# third word)
+DRAW_OFFSETS = (2048, 2 ** 32 + 3)
 # K7 vs plain, on the normalized coords in [-1, 1]: the kernel repeats the
 # plain version's float32 steps one by one, but its acos and atan2 come
 # from the CUDA math library nvcc links and torch's from the one torch was
@@ -528,6 +552,22 @@ SHADING_30 = (("MLP_Fea", {}), ("SH", {}), ("MLP_PE", {}), ("MLP", {}),
               ("RGB", dict(data_dim_color=3)))
 # phase 31: the export's density grids
 EXPORT_GRIDS = (128, 256)
+# phase 33: the smoke config's steps on two gloo ranks and each worker's
+# timeout
+GLOO_STEPS, GLOO_TIMEOUT_S = 10, 300
+# phases 32-33: a data-parallel run against a single-process one on the
+# same draws.  K2's float32 atomics add in another order on every run, and
+# Adam carries that through the steps, so two single-process runs part
+# too: the data-parallel run (its parameters in relative L2 norm, the
+# worst tensor, and its step MSEs) must stay within NOISE_FACTOR times
+# what two single-process runs part by, or NOISE_FLOOR where they do not
+# part (the shards' sums in another order)
+NOISE_FACTOR, NOISE_FLOOR = 4.0, 1e-5
+# phase 34: the profiled run's steps (the window opens at step 16 and holds
+# PROFILE_TRACE_ITERS), and the kernels that every step of it launches
+PROFILE_RUN_ITERS = 48
+STEP_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
+                "composite_kernel", "composite_bwd_kernel", "chart_kernel")
 
 
 def fail(msg: str) -> None:
@@ -1164,21 +1204,22 @@ def render_kernel_checks(model, params, dirs, ops, presets, dists_of) -> dict:
     return table
 
 
-def drawn_u(ops, args, draw) -> tuple:
+def drawn_u(ops, args, draw, ray0: int = 0) -> tuple:
     """K4's or K4c's arguments ``args`` (u None) with K5's uniforms for the
-    ``draw`` key (seed, step) as u: the launches that the training
-    instantiation's prologue replaces."""
-    u = ops.KERNELS.sorted_uniform(args[0].shape[0], args[3], *draw, args[0].device)
+    ``draw`` key (seed, step) at the ray offset ``ray0`` as u: the launches
+    that the training instantiation's prologue replaces."""
+    u = ops.KERNELS.sorted_uniform(args[0].shape[0], args[3], *draw, args[0].device, ray0=ray0)
     return (*args[:4], u, *args[5:])
 
 
-def draw_equal(name, ops, op, args, draw, rays=()) -> None:
+def draw_equal(name, ops, op, args, draw, rays=(), ray0: int = 0) -> None:
     """``op`` (K4's ``resample_chart`` with ``rays``, or K4c's
-    ``resample_score``) with the ``draw`` key on ``args`` (u None) against
-    K5 followed by ``op`` on its uniforms: every output (z_vals, dists, and
-    the coords or the scores) bit for bit."""
-    got = op(*args, *rays, draw=draw)
-    want = op(*drawn_u(ops, args, draw), *rays)
+    ``resample_score``) with the ``draw`` key at the ray offset ``ray0`` on
+    ``args`` (u None) against K5 at that offset followed by ``op`` on its
+    uniforms: every output (z_vals, dists, and the coords or the scores)
+    bit for bit."""
+    got = op(*args, *rays, draw=draw, ray0=ray0)
+    want = op(*drawn_u(ops, args, draw, ray0), *rays)
     torch.cuda.synchronize()
     diff = bits_differ(got, want)
     print(f"phase 2 {name}: {diff} of {sum(w.numel() for w in want):,} outputs differ from K5 "
@@ -1186,6 +1227,52 @@ def draw_equal(name, ops, op, args, draw, rays=()) -> None:
           flush=True)
     if diff:
         fail(f"{name}: the draw in the prologue differs from K5's")
+
+
+def offset_draw_checks(ops, args, rays, draw, far) -> None:
+    """Phase 2, the ray offset of a data-parallel shard: K5 at each of
+    DRAW_OFFSETS against its plain version (K5_TOL) and, at the offsets
+    inside the batch, bit for bit against the rows of its draw from ray 0;
+    K4's and K4c's training instantiations at an offset against their plain
+    versions at it (K4's limit); and each timed at the offset against
+    offset 0, in turns (0, offset, offset, 0)."""
+    c_feat, n_f = args[0], args[3]
+    r, dev = c_feat.shape[0], c_feat.device
+    from_zero = ops.KERNELS.sorted_uniform(r, n_f, *draw, dev)
+    for ray0 in DRAW_OFFSETS:
+        u = ops.KERNELS.sorted_uniform(r, n_f, *draw, dev, ray0=ray0)
+        ref = ops.PLAIN.sorted_uniform(r, n_f, *draw, dev, ray0=ray0)
+        torch.cuda.synchronize()
+        abs_err = float((u - ref).abs().max())
+        check_close(f"K5 sorted_uniform at ray offset {ray0}", f"abs <= {K5_TOL:.0e}",
+                    abs_err <= K5_TOL, abs_err, abs_err)
+        if ray0 < r:
+            tail = ops.KERNELS.sorted_uniform(r - ray0, n_f, *draw, dev, ray0=ray0)
+            diff = bits_differ([tail], [from_zero[ray0:]])
+            print(f"phase 2 K5 at ray offset {ray0}: {diff} of {tail.numel():,} uniforms differ "
+                  f"from rows {ray0}: of the draw from ray 0 (bit for bit) -> "
+                  f"{'ok' if diff == 0 else 'MISS'}", flush=True)
+            if diff:
+                fail(f"K5 at ray offset {ray0} draws other rows than from ray 0")
+    for name, op, plain, extra in (
+            ("K4 + draw", ops.KERNELS.resample_chart, ops.PLAIN.resample_chart, rays),
+            ("K4c + draw", ops.KERNELS.resample_score, ops.PLAIN.resample_score, ())):
+        ray0 = DRAW_OFFSETS[0]
+        got = op(*args, *extra, draw=draw, ray0=ray0)
+        ref = plain(*args, *extra, draw=draw, ray0=ray0)
+        torch.cuda.synchronize()
+        abs_err = max_err(got[:2], ref[:2])[0]
+        check_close(f"{name} at ray offset {ray0} against its plain version (z_vals, dists)",
+                    f"abs <= {REL_TOL * far:.1e}, 1e-5 x far", abs_err <= REL_TOL * far,
+                    abs_err, abs_err / far)
+        t = {}
+        for key in ("0", "offset", "offset ", "0 "):
+            t[key] = time_ms(lambda: op(*args, *extra, draw=draw,
+                                        ray0=ray0 if key.startswith("offset") else 0))
+        print(f"phase 2 {name} (training) at ray offset {ray0}: "
+              f"{(t['offset'] + t['offset ']) / 2:.4f} ms against {(t['0'] + t['0 ']) / 2:.4f} "
+              f"ms at offset 0, in turns ({t['0']:.4f}, {t['offset']:.4f}, {t['offset ']:.4f}, "
+              f"{t['0 ']:.4f})", flush=True)
 
 
 def draw_checks(ops, args, rays, draw, far) -> dict:
@@ -1201,10 +1288,14 @@ def draw_checks(ops, args, rays, draw, far) -> dict:
     act = args[6:9]
     r, n_c = c_feat.shape
     chart_op, score_op = ops.KERNELS.resample_chart, ops.KERNELS.resample_score
-    for f in (n_f, *DRAW_SWEEP):
-        a = (c_feat, coarse_z, coarse_dists, f, None, True, *act)
-        draw_equal(f"K4 + draw ({r} x {n_c} + {f})", ops, chart_op, a, draw, rays)
-        draw_equal(f"K4c + draw ({r} x {n_c} + {f})", ops, score_op, a, draw)
+    for ray0 in (0, *DRAW_OFFSETS):
+        at = f", ray offset {ray0}" if ray0 else ""
+        for f in (n_f, *DRAW_SWEEP):
+            a = (c_feat, coarse_z, coarse_dists, f, None, True, *act)
+            draw_equal(f"K4 + draw ({r} x {n_c} + {f}{at})", ops, chart_op, a, draw, rays, ray0)
+            draw_equal(f"K4c + draw ({r} x {n_c} + {f}{at})", ops, score_op, a, draw,
+                       ray0=ray0)
+    offset_draw_checks(ops, args, rays, draw, far)
     a = (c_feat, coarse_z, coarse_dists, n_f, None, False, *act)
     draw_equal("K4 + draw (no merge)", ops, chart_op, a, draw, rays)
     draw_equal("K4c + draw (no merge)", ops, score_op, a, draw)
@@ -5033,24 +5124,282 @@ def export_phase(root, presets, ops, wrappers) -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
-        return 2
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
-    from egonerf_torch import _build, ops, presets
-    from egonerf_torch.data.ray_utils import get_ray_directions_360
-    from egonerf_torch.models.egonerf import _dists
-    from egonerf_torch.data.datasets import SyntheticEgoDataset
-    from egonerf_torch.models.alphamask import AlphaGridMask
-    from egonerf_torch.ops import (alphamask, bias, chart, cp, cull, envmap, grid_sample, merge,
-                                   mm, pdf, sampler, vm_lookup, volrend)
-    from egonerf_torch.render.renderer import Renderer
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def production_trainer(root, presets, expname, **deltas):
     from egonerf_torch.train.config import load_config
     from egonerf_torch.train.trainer import Trainer
 
-    dev = torch.device(DEVICE)
+    return Trainer(load_config(overrides=presets.production_overrides(
+        basedir=os.path.join(root, "build", "chip_smoke_runs"), expname=expname,
+        **{"n_iters": 10 ** 9, "N_vis": 0, "progress_refresh_rate": 10 ** 9, **deltas})),
+        device=DEVICE)
+
+
+def params_differ(a: dict, b: dict) -> tuple:
+    """(entries that differ in any bit, max |a - b|, the largest relative
+    L2 norm of a tensor's difference and its name) over two parameter
+    sets."""
+    n, mx, worst, worst_k = 0, 0.0, 0.0, ""
+    with torch.no_grad():
+        for k in a:
+            x, y = a[k].detach().float(), b[k].detach().float()
+            n += bits_differ([x], [y])
+            mx = max(mx, float((x - y).abs().max()))
+            l2 = float((x - y).norm() / y.norm().clamp_min(1e-30))
+            if l2 >= worst:
+                worst, worst_k = l2, k
+    return n, mx, worst, worst_k
+
+
+def noise_check(label, runs: dict, mses: dict = None) -> None:
+    """The data-parallel run ``runs["parallel"]`` against the
+    single-process ``runs["alone"]`` beside the second single-process run
+    ``runs["twin"]`` (parameter dicts): the worst tensor's relative L2 norm
+    of the difference, and with ``mses`` (name: the step MSEs) the largest
+    relative difference of a step's MSE, each within NOISE_FACTOR times
+    the twin's, or NOISE_FLOOR."""
+    n_diff, max_diff, dp_l2, dp_k = params_differ(runs["parallel"], runs["alone"])
+    _, _, twin_l2, twin_k = params_differ(runs["twin"], runs["alone"])
+    limit = max(NOISE_FACTOR * twin_l2, NOISE_FLOOR)
+    ok = dp_l2 <= limit
+    line = (f"{label}: parameters against the single-process run: relative L2 {dp_l2:.3e} "
+            f"(worst {dp_k}), {n_diff:,} entries differ, max |diff| {max_diff:.3e}; a second "
+            f"single-process run {twin_l2:.3e} (worst {twin_k}); limit {limit:.3e}")
+    if mses is not None:
+        ref = np.asarray(mses["alone"])
+        dp_m = float(np.max(np.abs(np.asarray(mses["parallel"]) / ref - 1)))
+        twin_m = float(np.max(np.abs(np.asarray(mses["twin"]) / ref - 1)))
+        m_limit = max(NOISE_FACTOR * twin_m, NOISE_FLOOR)
+        ok = ok and dp_m <= m_limit
+        line += (f"; step MSEs rel {dp_m:.3e} (second run {twin_m:.3e}, limit "
+                 f"{m_limit:.3e})")
+    print(f"{line} -> {'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        fail(f"{label}: the data-parallel run left the single-process runs' spread")
+
+
+def dp_phase(root, presets, wrappers, dirs_np, phase6_ms) -> None:
+    """Phase 32: the production training step through the data-parallel
+    path on an NCCL group of one rank beside two single-process trainers:
+    two rounds of timed steps in turns, the parameters after each round
+    (one rank's mean is the gradient itself, so only K2's float32 atomics,
+    whose order changes from run to run, part them: ``noise_check``), one
+    2000x1000 view with its chunks split over the group against the same
+    view unsplit on the same weights, and the parallel step's profile."""
+    import torch.distributed as dist
+    from egonerf_torch.render.renderer import Renderer
+
+    alone = production_trainer(root, presets, "dp_alone")
+    twin = production_trainer(root, presets, "dp_twin")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        dp = production_trainer(root, presets, "dp_world1")
+        if dp.mesh is None or dp.mesh.world != 1 or alone.mesh is not None:
+            fail("phase 32: the trainers did not take the paths asked for")
+        want = step_launches(wrappers, envmap=False)
+        runs = {"alone": alone, "parallel": dp, "twin": twin}
+        ms = {}
+        for rnd, order in ((1, ("alone", "parallel", "twin")), (2, ("twin", "parallel", "alone"))):
+            for name in order:
+                tr = runs[name]
+                _, ms[(name, rnd)] = timed_steps(
+                    tr.train_step, f"phase 32 round {rnd}, {name} training step "
+                    f"({'NCCL, world size 1' if tr.mesh else 'no process group'})", tr.cfg,
+                    wrappers, want)
+            noise_check(f"phase 32 round {rnd}, after {rnd * (TRAIN_WARMUP + TRAIN_STEPS)} "
+                        f"steps", {k: tr.params for k, tr in runs.items()})
+        par = (ms[("parallel", 1)] + ms[("parallel", 2)]) / 2
+        one = sum(ms[(k, r)] for k in ("alone", "twin") for r in (1, 2)) / 4
+        print(f"phase 32 step: data-parallel (world size 1) {par:.3f} ms against the "
+              f"single-process {one:.3f} ms in the same turns (+{par - one:.3f} ms: the "
+              f"all-reduce of one flat bucket and the shard's bookkeeping); phase 6's median "
+              f"{phase6_ms:.3f} ms", flush=True)
+        del twin, runs
+        torch.cuda.empty_cache()
+
+        views = {}
+        for name, tr in (("unsplit", alone), ("split", dp)):
+            # both on the single-process trainer's weights
+            r = Renderer(tr.model, chunk=presets.EVAL_CHUNK, mesh=tr.mesh, **presets.RENDER)
+            r.set_directions(dirs_np)
+            with torch.no_grad():
+                r.render_view(alone.params, np.eye(4, dtype=np.float32))
+                torch.cuda.synchronize()
+                for w in wrappers.values():
+                    w.launches = 0
+                t0 = time.time()
+                views[name] = r.render_view(alone.params, np.eye(4, dtype=np.float32))
+                torch.cuda.synchronize()
+            print(f"phase 32 view {IMAGE_HW[1]}x{IMAGE_HW[0]}, {name} "
+                  f"({'chunks over the NCCL group' if tr.mesh else 'no group'}): "
+                  f"{time.time() - t0:.3f} s; launches "
+                  f"{ {k: w.launches for k, w in wrappers.items() if w.launches} }", flush=True)
+        n_diff = bits_differ([views["split"][k] for k in ("rgb", "depth")],
+                             [views["unsplit"][k] for k in ("rgb", "depth")])
+        print(f"phase 32 view split over the group against unsplit: {n_diff} outputs differ "
+              f"(bit for bit: the same chunks) -> {'ok' if n_diff == 0 else 'MISS'}",
+              flush=True)
+        if n_diff or not torch.isfinite(views["split"]["rgb"]).all():
+            fail("phase 32: the split view differs from the unsplit one")
+        it = 10 ** 5
+
+        def steps():
+            nonlocal it
+            for _ in range(PROFILE_STEPS):
+                dp.train_step(it)
+                it += 1
+        profile(steps, PROFILE_STEPS, "phase 32 data-parallel", "step", top=16)
+    finally:
+        dist.destroy_process_group()
+
+
+def smoke_trainer(root, expname):
+    from egonerf_torch.train.config import parse_cli
+    from egonerf_torch.train.trainer import Trainer
+
+    base = os.path.join(root, "build", "chip_smoke_runs")
+    return Trainer(parse_cli(["--config", os.path.join(root, SMOKE_CONFIG), "--basedir", base,
+                              "--expname", expname, "--N_vis", "0", "--n_iters", "1000000",
+                              "--progress_refresh_rate", "1000000"]), device=DEVICE)
+
+
+def gloo_worker(rank: int, port: int, out_dir: str) -> int:
+    """One rank of phase 33: join a two-rank gloo group, train the smoke
+    config GLOO_STEPS steps on the card through the data-parallel path,
+    and write the step MSEs and the parameters to ``out_dir``."""
+    import torch.distributed as dist
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from egonerf_torch.ops import pdf
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    trainer = smoke_trainer(root, "gloo")
+    lo, hi = trainer.mesh.shard(trainer.cfg.batch_size)
+    pdf.resample_chart.draw_form.launches = 0
+    mses = [float(trainer.train_step(it)) for it in range(GLOO_STEPS)]
+    torch.cuda.synchronize()
+    print(f"phase 33 rank {rank}: rays [{lo}, {hi}) of each {trainer.cfg.batch_size}-ray batch, "
+          f"{pdf.resample_chart.draw_form.launches} launches of K4's training instantiation "
+          f"over {GLOO_STEPS} steps, last mse {mses[-1]:.6f}", flush=True)
+    if torch.device(DEVICE).type == "cuda" and pdf.resample_chart.draw_form.launches != GLOO_STEPS:
+        print(f"chip_smoke FAILED: phase 33 rank {rank}: K4's training instantiation did not "
+              f"launch once a step", flush=True)
+        return 1
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), mses=np.asarray(mses),
+             **{k: p.detach().cpu().numpy() for k, p in trainer.params.items()})
+    dist.destroy_process_group()
+    return 0
+
+
+def gloo_phase(root) -> None:
+    """Phase 33: two gloo ranks on the one card train the smoke config
+    (each rank half the batch, K4 drawing from the shard's first global
+    ray); the ranks' parameters bit for bit, and the steps against two
+    single-process runs on the same draws (``noise_check``)."""
+    out_dir = os.path.join(root, "build", "chip_smoke_runs", "gloo_ranks")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    port = free_port()
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
+                               str(port), out_dir]) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=GLOO_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 33: a gloo rank did not finish in {GLOO_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        fail(f"phase 33: gloo ranks exited {[p.returncode for p in procs]}")
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(2)]
+    print(f"phase 33: two gloo ranks on the card, {GLOO_STEPS} smoke steps, "
+          f"{time.time() - t0:.1f} s with their start", flush=True)
+    n_diff = sum(int((ranks[0][k] != ranks[1][k]).sum()) for k in ranks[0])
+    print(f"phase 33: {n_diff} entries differ between the ranks (bit for bit) -> "
+          f"{'ok' if n_diff == 0 else 'MISS'}", flush=True)
+    if n_diff:
+        fail("phase 33: the two ranks hold different parameters")
+    runs, mses = {}, {}
+    for name in ("alone", "twin"):
+        tr = smoke_trainer(root, f"gloo_{name}")
+        mses[name] = [float(tr.train_step(it)) for it in range(GLOO_STEPS)]
+        runs[name] = {k: p.detach() for k, p in tr.params.items()}
+        del tr
+    runs["parallel"] = {k: torch.from_numpy(ranks[0][k]).to(DEVICE) for k in runs["alone"]}
+    mses["parallel"] = ranks[0]["mses"]
+    noise_check(f"phase 33 two ranks after {GLOO_STEPS} steps", runs, mses)
+
+
+def profile_phase(root, presets, wrappers) -> None:
+    """Phase 34: a production trainer run of PROFILE_RUN_ITERS steps with
+    ``profile_dir``; each step synchronised and timed on the host clock,
+    inside and outside the window; the trace's count and kernels."""
+    from egonerf_torch.train.trainer import PROFILE_TRACE_ITERS
+
+    out = os.path.join(root, "build", "chip_smoke_runs", "profile_trace")
+    shutil.rmtree(out, ignore_errors=True)
+    tr = production_trainer(root, presets, "profiled", n_iters=PROFILE_RUN_ITERS,
+                            profile_dir=out)
+    tr.save = lambda path, global_step: None  # the run's checkpoint is not measured here
+    step, ms = tr.train_step, {}
+
+    def timed(it):
+        t = time.perf_counter()
+        mse = step(it)
+        torch.cuda.synchronize()
+        ms[it] = (time.perf_counter() - t) * 1e3
+        return mse
+    tr.train_step = timed
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    tr.train()
+    wall = time.time() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    expect_launches("phase 34", launches, {k: PROFILE_RUN_ITERS * v // TRAIN_STEPS
+                                           for k, v in step_launches(wrappers, False).items()})
+    with open(os.path.join(out, "traced_steps.json")) as f:
+        traced = json.load(f)["steps"]
+    trace = os.path.join(out, "trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = [k for k in PORT_KERNELS if any(k in n for n in kernels)]
+    missing = [k for k in STEP_KERNELS if k not in found]
+    inside = [ms[i] for i in range(16, 16 + PROFILE_TRACE_ITERS)]
+    outside = [ms[i] for i in range(TRAIN_WARMUP, 16)] + \
+        [ms[i] for i in range(16 + PROFILE_TRACE_ITERS, PROFILE_RUN_ITERS)]
+    print(f"phase 34 profiled run: {PROFILE_RUN_ITERS} steps in {wall:.2f} s; traced_steps.json "
+          f"{traced} (expect {PROFILE_TRACE_ITERS}); trace {os.path.getsize(trace) / 2**20:.1f} "
+          f"MB, {len(events):,} events, {len(kernels)} kernel names; the port's kernels in it: "
+          f"{found}", flush=True)
+    print(f"phase 34 step ms (each synchronised, host clock): inside the window median "
+          f"{float(np.median(inside)):.3f} mean {float(np.mean(inside)):.3f}; outside median "
+          f"{float(np.median(outside)):.3f} mean {float(np.mean(outside)):.3f}; the window's "
+          f"open, close and trace export with the run's other host work "
+          f"{wall * 1e3 - sum(ms.values()):.1f} ms", flush=True)
+    if traced != PROFILE_TRACE_ITERS or missing:
+        fail(f"phase 34: traced {traced} steps, step kernels missing from the trace {missing}")
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper (or form) by its name in the kernel line: the
+    objects whose ``launches`` count the launches."""
+    from egonerf_torch.ops import (alphamask, bias, chart, cp, cull, envmap, grid_sample, merge,
+                                   mm, pdf, sampler, vm_lookup, volrend)
+
     wrappers = {"K1": vm_lookup.field_fwd, "K2": vm_lookup.field_bwd,
                 "K3": vm_lookup.density_fwd, "K4": pdf.resample,
                 "K4+draw": pdf.resample_chart.draw_form, "K5": merge.sorted_uniform,
@@ -5082,6 +5431,28 @@ def main() -> int:
                    for (form, mode), w in cp.cp_bwd.forms.items()},
                 # lines past the staging limit (counted in K17, K17b too)
                 "K17 (unstaged)": cp.cp_fwd.unstaged, "K17b (unstaged)": cp.cp_bwd.unstaged}
+    return wrappers
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from egonerf_torch import _build, ops, presets
+    from egonerf_torch.data.ray_utils import get_ray_directions_360
+    from egonerf_torch.models.egonerf import _dists
+    from egonerf_torch.data.datasets import SyntheticEgoDataset
+    from egonerf_torch.models.alphamask import AlphaGridMask
+    from egonerf_torch.ops import (alphamask, bias, chart, cp, cull, envmap, grid_sample, merge,
+                                   mm, pdf, sampler, vm_lookup, volrend)
+    from egonerf_torch.render.renderer import Renderer
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import Trainer
+
+    dev = torch.device(DEVICE)
+    wrappers = kernel_wrappers()
 
     # -- phase 1: card + build ----------------------------------------------
     card = card_line()
@@ -5103,9 +5474,7 @@ def main() -> int:
     print(f"model: grid {model.grid_size}, "
           f"{sum(p.numel() for p in params.values()):,} parameters", flush=True)
     dirs_np = get_ray_directions_360(*IMAGE_HW).reshape(-1, 3)
-    trainer = Trainer(load_config(overrides=presets.production_overrides(
-        basedir=os.path.join(root, "build", "chip_smoke_runs"), expname="production",
-        n_iters=10 ** 9, N_vis=0, progress_refresh_rate=10 ** 9)), device=dev)
+    trainer = production_trainer(root, presets, "production")
     print(f"trainer: synthetic scene, {trainer.sampler.buffer.shape[0]:,} training rays "
           f"resident, grid {trainer.model.grid_size}", flush=True)
     outdoor = Trainer(load_config(overrides=presets.outdoor_overrides(
@@ -5302,6 +5671,14 @@ def main() -> int:
     for k, row in cp_rows.items():
         row["launches"] = sum(cp_out[part][k] for part in ("steps", "view", "bake"))
 
+    # -- phases 32-34: data parallelism and the profiler hook -----------------
+    dp_phase(root, presets, wrappers, dirs_np, train_ms)
+    torch.cuda.empty_cache()
+    gloo_phase(root)
+    torch.cuda.empty_cache()
+    profile_phase(root, presets, wrappers)
+    torch.cuda.empty_cache()
+
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K4+draw", "K5",
                                                      "K6", "K6b", "K6e", "K6+env", "K6b+env",
                                                      "K7", "K8", "K8b", "K4w", "K12", "K4c",
@@ -5330,4 +5707,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        sys.exit(gloo_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

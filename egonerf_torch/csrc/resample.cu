@@ -117,8 +117,8 @@ template <bool kChart, bool kWeights, bool kDraw>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 resample_kernel(const float* __restrict__ feat, const float* __restrict__ z,
                 const float* __restrict__ dists, const float* __restrict__ u,
-                long long u_stride, float u_step, uint32_t key0, uint32_t key1, int R, int S,
-                int F, int merge, float shift, float scale, int act, float* __restrict__ z_out,
+                long long u_stride, float u_step, uint32_t key0, uint32_t key1, long long ray0,
+                int R, int S, int F, int merge, float shift, float scale, int act, float* __restrict__ z_out,
                 float* __restrict__ d_out, const float* __restrict__ o, long long o_stride,
                 const float* __restrict__ dv, long long dv_stride, ChartArgs ca,
                 const float* __restrict__ grid_g, float4* __restrict__ c_out,
@@ -141,7 +141,7 @@ resample_kernel(const float* __restrict__ feat, const float* __restrict__ z,
   float* zf = zc + S;       // F
   float* zo = zf + F;       // T
   if (ray >= R) return;
-  if constexpr (kDraw) warp_sorted_draw(ud, F, ray, key0, key1, ud);
+  if constexpr (kDraw) warp_sorted_draw(ud, F, ray0 + ray, key0, key1, ud);
   feat += ray * S;
   z += ray * S;
   dists += ray * S;
@@ -283,7 +283,8 @@ int launch(const float* feat, const float* z, const float* dists, const float* u
            long long u_stride, float u_step, int R, int S, int F, int merge, float shift,
            float scale, int act, float* z_out, float* d_out, const float* o, long long o_stride,
            const float* dv, long long dv_stride, const ChartArgs& ca, const float* grid,
-           float* coords, float* weights, void* stream, uint32_t k0 = 0, uint32_t k1 = 0) {
+           float* coords, float* weights, void* stream, uint32_t k0 = 0, uint32_t k1 = 0,
+           long long ray0 = 0) {
   const int T = merge ? S + F : F;
   const int n_grid = kChart && ca.mode == 0 ? ca.n_grid : 0;
   if (kChart && ca.mode == 0 && (n_grid < 2 || n_grid > kMaxChartGrid))
@@ -303,8 +304,9 @@ int launch(const float* feat, const float* z, const float* dists, const float* u
   const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
   resample_kernel<kChart, kWeights, kDraw><<<blocks, kWarpsPerBlock * 32, smem,
                                              static_cast<cudaStream_t>(stream)>>>(
-      feat, z, dists, u, u_stride, u_step, k0, k1, R, S, F, merge, shift, scale, act, z_out,
-      d_out, o, o_stride, dv, dv_stride, ca, grid, reinterpret_cast<float4*>(coords), weights);
+      feat, z, dists, u, u_stride, u_step, k0, k1, ray0, R, S, F, merge, shift, scale, act,
+      z_out, d_out, o, o_stride, dv, dv_stride, ca, grid, reinterpret_cast<float4*>(coords),
+      weights);
   return (int)cudaGetLastError();
 }
 
@@ -435,8 +437,9 @@ template <int PS, int PF, bool kDraw>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 resample_score_kernel(const float* __restrict__ feat, const float* __restrict__ z,
                       const float* __restrict__ dists, const float* __restrict__ u,
-                      long long u_stride, float u_step, uint32_t key0, uint32_t key1, int R,
-                      int S, int F, int merge, float shift, float scale, int act,
+                      long long u_stride, float u_step, uint32_t key0, uint32_t key1,
+                      long long ray0, int R, int S, int F, int merge, float shift, float scale,
+                      int act,
                       float* __restrict__ z_out, float* __restrict__ d_out,
                       float* __restrict__ s_out) {
   extern __shared__ float4 smem4[];
@@ -454,7 +457,7 @@ resample_score_kernel(const float* __restrict__ feat, const float* __restrict__ 
   int* nb = reinterpret_cast<int*>(zc + L.nb);
   float* ud = zc + L.ud;
   if (ray >= R) return;
-  if constexpr (kDraw) warp_sorted_draw(ud, F, ray, key0, key1, ud);
+  if constexpr (kDraw) warp_sorted_draw(ud, F, ray0 + ray, key0, key1, ud);
 
   // this lane's run of coarse samples, [a, a + n): feat, dists and z in
   // registers, whole float4s where the runs are multiples of 4
@@ -741,7 +744,8 @@ resample_score_kernel(const float* __restrict__ feat, const float* __restrict__ 
 
 template <int PS, int PF, bool kDraw>
 int launch_score(const float* feat, const float* z, const float* dists, const float* u,
-                 long long u_stride, float u_step, uint32_t k0, uint32_t k1, int R, int S, int F,
+                 long long u_stride, float u_step, uint32_t k0, uint32_t k1, long long ray0,
+                 int R, int S, int F,
                  int merge, float shift, float scale, int act, float* z_out, float* d_out,
                  float* score, void* stream) {
   const int T = merge ? S + F : F;
@@ -756,14 +760,15 @@ int launch_score(const float* feat, const float* z, const float* dists, const fl
   const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
   resample_score_kernel<PS, PF, kDraw><<<blocks, kWarpsPerBlock * 32, smem,
                                          static_cast<cudaStream_t>(stream)>>>(
-      feat, z, dists, u, u_stride, u_step, k0, k1, R, S, F, merge, shift, scale, act, z_out,
-      d_out, score);
+      feat, z, dists, u, u_stride, u_step, k0, k1, ray0, R, S, F, merge, shift, scale, act,
+      z_out, d_out, score);
   return (int)cudaGetLastError();
 }
 
 template <bool kDraw>
 int score_entry(const float* feat, const float* z, const float* dists, const float* u,
-                long long u_stride, float u_step, uint32_t k0, uint32_t k1, int R, int S, int F,
+                long long u_stride, float u_step, uint32_t k0, uint32_t k1, long long ray0,
+                int R, int S, int F,
                 int merge, float shift, float scale, int act, float* z_out, float* d_out,
                 float* score, void* stream) {
   const int T = merge ? S + F : F;
@@ -771,8 +776,8 @@ int score_entry(const float* feat, const float* z, const float* dists, const flo
   if (S < 3 || F < 1 || T < 2 || most > 32 * 16) return (int)cudaErrorInvalidValue;
   if (R <= 0) return (int)cudaSuccess;
   return (S <= 32 * 4 && F <= 32 * 4 ? launch_score<4, 4, kDraw> : launch_score<16, 16, kDraw>)(
-      feat, z, dists, u, u_stride, u_step, k0, k1, R, S, F, merge, shift, scale, act, z_out,
-      d_out, score, stream);
+      feat, z, dists, u, u_stride, u_step, k0, k1, ray0, R, S, F, merge, shift, scale, act,
+      z_out, d_out, score, stream);
 }
 
 }  // namespace
@@ -822,15 +827,18 @@ extern "C" int resample_score_fwd(const float* feat, const float* z, const float
                                   const float* u, long long u_stride, float u_step, int R,
                                   int S, int F, int merge, float shift, float scale, int act,
                                   float* z_out, float* d_out, float* score, void* stream) {
-  return score_entry<false>(feat, z, dists, u, u_stride, u_step, 0, 0, R, S, F, merge, shift,
-                            scale, act, z_out, d_out, score, stream);
+  return score_entry<false>(feat, z, dists, u, u_stride, u_step, 0, 0, 0, R, S, F, merge,
+                            shift, scale, act, z_out, d_out, score, stream);
 }
 
 // The training instantiations: resample_chart_fwd and resample_score_fwd
 // with u drawn in the kernel, K5's sorted draws under key (k0, k1) = (seed,
-// step) (csrc/philox.cuh), bit for bit what sorted_uniform_fwd writes.
+// step) (csrc/philox.cuh), bit for bit what sorted_uniform_fwd writes;
+// ray i of the launch draws as ray ray0 + i (a data-parallel shard's rays
+// draw as the global batch's, ray0 being its first).
 extern "C" int resample_chart_draw_fwd(const float* feat, const float* z, const float* dists,
-                                       unsigned int k0, unsigned int k1, int R, int S, int F,
+                                       unsigned int k0, unsigned int k1, long long ray0, int R,
+                                       int S, int F,
                                        int merge, float shift, float scale, int act,
                                        float* z_out, float* d_out, const float* o,
                                        long long o_stride, const float* d, long long d_stride,
@@ -843,13 +851,14 @@ extern "C" int resample_chart_draw_fwd(const float* feat, const float* z, const 
                      r0, inv_r0, ratio, inv_log_ratio};
   return launch<true, false, true>(feat, z, dists, nullptr, 0, 0.0f, R, S, F, merge, shift,
                                    scale, act, z_out, d_out, o, o_stride, d, d_stride, ca, grid,
-                                   coords, nullptr, stream, k0, k1);
+                                   coords, nullptr, stream, k0, k1, ray0);
 }
 
 extern "C" int resample_score_draw_fwd(const float* feat, const float* z, const float* dists,
-                                       unsigned int k0, unsigned int k1, int R, int S, int F,
-                                       int merge, float shift, float scale, int act,
-                                       float* z_out, float* d_out, float* score, void* stream) {
-  return score_entry<true>(feat, z, dists, nullptr, 0, 0.0f, k0, k1, R, S, F, merge, shift,
-                           scale, act, z_out, d_out, score, stream);
+                                       unsigned int k0, unsigned int k1, long long ray0, int R,
+                                       int S, int F, int merge, float shift, float scale,
+                                       int act, float* z_out, float* d_out, float* score,
+                                       void* stream) {
+  return score_entry<true>(feat, z, dists, nullptr, 0, 0.0f, k0, k1, ray0, R, S, F, merge,
+                           shift, scale, act, z_out, d_out, score, stream);
 }

@@ -38,24 +38,25 @@ using namespace egonerf;
 constexpr int kWarpsPerBlock = 4;
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sorted_uniform_kernel(long long R, int n, uint32_t k0, uint32_t k1, float* __restrict__ out) {
+sorted_uniform_kernel(long long R, int n, uint32_t k0, uint32_t k1, long long ray0,
+                      float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   const int warp = threadIdx.x >> 5;
   const long long ray = (long long)blockIdx.x * kWarpsPerBlock + warp;
   if (ray >= R) return;
   // each warp's row 16-byte aligned: the draws store float4s
   float* row = reinterpret_cast<float*>(smem4) + warp * ((n + 4) & ~3);
-  warp_sorted_draw(row, n, ray, k0, k1, out + ray * n);
+  warp_sorted_draw(row, n, ray0 + ray, k0, k1, out + ray * n);
 }
 
 }  // namespace
 
 extern "C" int sorted_uniform_fwd(long long R, int n, unsigned int k0, unsigned int k1,
-                                  float* out, void* stream) {
+                                  long long ray0, float* out, void* stream) {
   const size_t smem = sizeof(float) * kWarpsPerBlock * ((n + 4) & ~3);
   if (n < 1 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const long long blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
   sorted_uniform_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, smem,
-                          static_cast<cudaStream_t>(stream)>>>(R, n, k0, k1, out);
+                          static_cast<cudaStream_t>(stream)>>>(R, n, k0, k1, ray0, out);
   return (int)cudaGetLastError();
 }

@@ -33,18 +33,22 @@ def _field_config(cfg, meta=None) -> FieldConfig:
 
 
 def model_class(name: str):
-    """The port's class of a model family; raises for the ones it does not
-    carry yet."""
+    """The port's class of a model family; JAX's ``ValueError`` for a name
+    that no family has."""
     if name not in MODELS:
-        raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP.md §1); the "
-                                  f"port carries {sorted(MODELS)}")
+        raise ValueError(f"unknown model {name}")
     return MODELS[name]
 
 
 def build_model(cfg, aabb, grid_size, coordinates, near_far, meta=None, device="cuda"):
     """The model of a training config, or of a checkpoint's ``model_meta``
-    (whose family and fields win over the config's)."""
+    (whose family and fields win over the config's, with JAX's notice when
+    the two names differ)."""
     name = (meta or {}).get("model_name") or cfg.model_name
+    if (meta or {}).get("model_name") and name != cfg.model_name:
+        print(f"build_model: checkpoint stores model_name={name!r}; the "
+              f"config's {cfg.model_name!r} is ignored (a checkpoint's "
+              f"family always wins)")
     return model_class(name)(aabb, grid_size, coordinates, _field_config(cfg, meta),
                              near_far=near_far, device=device)
 

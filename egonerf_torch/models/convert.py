@@ -39,8 +39,7 @@ def _to_torch_key(key: str) -> Tuple[str, bool]:
         return key, False
     if parts[0] == "shader" and len(parts) == 3 and parts[2] in _LINEAR:
         return f"shader.{parts[1]}.{_LINEAR[parts[2]]}", parts[2] == "w"
-    raise NotImplementedError(f"parameter {key!r} has no counterpart in the port yet "
-                              f"(ROADMAP.md)")
+    raise NotImplementedError(f"parameter {key!r} has no counterpart in the port")
 
 
 def params_from_jax(flat: Dict[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:

@@ -164,10 +164,23 @@ class StepKey(NamedTuple):
     """The random draws of one training step (the JAX ``key``): the
     device-side generator of the coarse jitter, and the (seed, step) key of
     K5's counter-based generator, whose sorted uniforms K4 and K4c draw in
-    their prologue."""
+    their prologue.  Under data parallelism the forward's batch is the
+    shard of a global batch of ``n_global`` rays that starts at ray
+    ``ray0``: the generator's draws are taken for the global batch and
+    sliced (:meth:`rand`), and K5's are keyed by the global ray index, so
+    a shard draws what the global batch draws for its rays."""
     generator: torch.Generator
     seed: int
     step: int
+    ray0: int = 0
+    n_global: int = 0
+
+    def rand(self, n_rays: int, n: int, device) -> torch.Tensor:
+        """(n_rays, n) uniforms of this batch's rays: the (n_global, n)
+        draw's rows from ``ray0`` (the whole draw without a global batch)."""
+        total = self.n_global or n_rays
+        u = torch.rand(total, n, generator=self.generator, device=device)
+        return u if total == n_rays else u[self.ray0:self.ray0 + n_rays]
 
 
 class LookupTables(NamedTuple):
@@ -561,9 +574,9 @@ class EgoNeRF(nn.Module):
         draw = {}
         if is_train and key is not None:
             if jitter is None:
-                jitter = torch.rand(n_rays, n_coarse, generator=key.generator, device=dev)
+                jitter = key.rand(n_rays, n_coarse, dev)
             if u is None and resampling:
-                draw = {"draw": (key.seed, key.step)}
+                draw = {"draw": (key.seed, key.step), "ray0": key.ray0}
 
         with torch.no_grad():
             # 1) coarse depths; the chart's radial mode (K7, K4's epilogue)
@@ -598,8 +611,7 @@ class EgoNeRF(nn.Module):
                         z_vals, dists, score = self.ops.resample_score(*resampled, **draw)
                     if is_train and (key is not None or cull_u is not None):
                         if cull_u is None:
-                            cull_u = torch.rand(n_rays, n_merged, generator=key.generator,
-                                                device=dev)
+                            cull_u = key.rand(n_rays, n_merged, dev)
                         score = (gumbel_perturb(score, cull_u, float(train_cull_tau))
                                  if train_cull_tau > 0 else train_tiebreak(score, cull_u))
                     z_vals, dists = self.ops.select_top_k(z_vals, dists, score, keep)

@@ -331,7 +331,7 @@ class TensorBase(nn.Module):
         n = n_coarse if n_coarse > 0 else self.n_samples_auto
         n_rays = rays.shape[0]
         if is_train and key is not None and jitter is None:
-            jitter = torch.rand(n_rays, n, generator=key.generator, device=rays.device)
+            jitter = key.rand(n_rays, n, rays.device)
 
         with torch.no_grad():
             if ndc_ray:

@@ -38,13 +38,15 @@ def sorted_uniform_from_exp(e: torch.Tensor) -> torch.Tensor:
     return c[..., :-1] / c[..., -1:]
 
 
-def exp_draws(n_rays: int, m: int, seed: int, step: int, device) -> torch.Tensor:
+def exp_draws(n_rays: int, m: int, seed: int, step: int, device, ray0: int = 0) -> torch.Tensor:
     """(n_rays, m) float32 Exp(1) draws of K5's generator: draw j of ray r
     is word j % 4 of Philox4x32-10 at counter (j // 4, r, r >> 32, stream)
     under key (seed, step), mapped to -log((bits + 0.5) * 2**-32) in
-    float64 and rounded to float32."""
+    float64 and rounded to float32.  Row i is ray r = ``ray0`` + i: a shard
+    of a global batch that starts at ray ``ray0`` draws the global batch's
+    rows."""
     g = -(-m // 4)
-    ray = torch.arange(n_rays, dtype=torch.int64, device=device)[:, None]
+    ray = ray0 + torch.arange(n_rays, dtype=torch.int64, device=device)[:, None]
     c0 = torch.arange(g, dtype=torch.int64, device=device)[None, :].expand(n_rays, g)
     c1 = (ray & _MASK).expand(n_rays, g)
     c2 = (ray >> 32).expand(n_rays, g)
@@ -55,20 +57,30 @@ def exp_draws(n_rays: int, m: int, seed: int, step: int, device) -> torch.Tensor
     return (-torch.log(u)).to(torch.float32)
 
 
-def sorted_uniform_plain(n_rays: int, n: int, seed: int, step: int, device="cpu") -> torch.Tensor:
+def sorted_uniform_plain(n_rays: int, n: int, seed: int, step: int, device="cpu",
+                         ray0: int = 0) -> torch.Tensor:
     """Plain version of K5: see :func:`sorted_uniform`."""
-    return sorted_uniform_from_exp(exp_draws(n_rays, n + 1, seed, step, device))
+    return sorted_uniform_from_exp(exp_draws(n_rays, n + 1, seed, step, device, ray0))
 
 
-_ARGS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
-         ctypes.c_void_p]
+_ARGS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong,
+         ctypes.c_void_p, ctypes.c_void_p]
 
 
-def sorted_uniform(n_rays: int, n: int, seed: int, step: int, device="cuda") -> torch.Tensor:
+def check_ray0(ray0) -> int:
+    """A ray offset is a nonnegative Python int."""
+    if not isinstance(ray0, int) or isinstance(ray0, bool) or ray0 < 0:
+        raise ValueError(f"a ray offset is a nonnegative int, got {ray0!r}")
+    return ray0
+
+
+def sorted_uniform(n_rays: int, n: int, seed: int, step: int, device="cuda",
+                   ray0: int = 0) -> torch.Tensor:
     """K5: (n_rays, n) float32 uniforms, sorted ascending per ray, from
     n + 1 Exp(1) draws of Philox4x32-10 under key (seed, step) (each taken
     mod 2**32): c = cumsum(e); u = c[:-1] / c[-1].  ``seed`` and ``step``
-    are Python ints, so nothing crosses from the host per step.
+    are Python ints, so nothing crosses from the host per step.  Row i
+    draws as ray ``ray0`` + i (:func:`exp_draws`).
 
     Replaces ``sorted_uniform`` (egonerf_tpu/ops/merge.py:25-36).  Kernel:
     csrc/sorted_uniform.cu.  ``device="cpu"`` takes
@@ -78,13 +90,14 @@ def sorted_uniform(n_rays: int, n: int, seed: int, step: int, device="cuda") -> 
         raise ValueError(f"sorted_uniform takes 1..3071 draws per ray, got {n}")
     if n_rays < 0:
         raise ValueError(f"negative ray count {n_rays}")
+    check_ray0(ray0)
     if dev.type == "cpu":
-        return sorted_uniform_plain(n_rays, n, seed, step, dev)
+        return sorted_uniform_plain(n_rays, n, seed, step, dev, ray0)
     out = torch.empty(n_rays, n, dtype=torch.float32, device=dev)
     if n_rays:
         fn = kernel("sorted_uniform", "sorted_uniform_fwd", _ARGS)
         with torch.cuda.device(dev):
-            err = fn(n_rays, n, seed & _MASK, step & _MASK, out.data_ptr(),
+            err = fn(n_rays, n, seed & _MASK, step & _MASK, ray0, out.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
         check_launch("sorted_uniform_fwd", err)
         sorted_uniform.launches += 1

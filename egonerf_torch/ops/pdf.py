@@ -31,7 +31,7 @@ from .._device import check_tensor
 from ..coords.yinyang import YinYangSphericalCoords
 from .chart import CHART_ARGS, _recip, chart_args, chart_fwd_plain, check_rays
 from .cull import coarse_importance_plain
-from .merge import merge_sorted, sorted_uniform_plain
+from .merge import check_ray0, merge_sorted, sorted_uniform_plain
 from .philox import MASK
 from .volrend import (ACTIVATIONS, _chunk_fold, _lane_chunks, _warp_exclusive_scan,
                       _warp_weights, density_activation, raw2alpha)
@@ -102,14 +102,18 @@ def _dists(z: torch.Tensor) -> torch.Tensor:
     return torch.cat([d, d[:, -1:]], dim=-1)
 
 
-def _drawn_u(c_feat, n_fine, u, draw):
+def _drawn_u(c_feat, n_fine, u, draw, ray0=0):
     """The plain versions' u: ``u`` as given, K5's plain draws for the
-    ``draw`` key (seed, step), or None (eval's linspace); both raises."""
+    ``draw`` key (seed, step) at the ray offset ``ray0``, or None (eval's
+    linspace); both raises."""
     if draw is None:
+        if ray0:
+            raise ValueError("resample: a ray offset needs a draw key")
         return u
     if u is not None:
         raise ValueError("resample: pass u or a draw key, not both")
-    return sorted_uniform_plain(c_feat.shape[0], n_fine, draw[0], draw[1], c_feat.device)
+    return sorted_uniform_plain(c_feat.shape[0], n_fine, draw[0], draw[1], c_feat.device,
+                                check_ray0(ray0))
 
 
 def resample_weights_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
@@ -129,11 +133,11 @@ def resample_weights_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
 
 def resample_score_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
                          use_coarse_sample=True, density_shift=-8.0, distance_scale=25.0,
-                         act="softplus", draw=None):
+                         act="softplus", draw=None, ray0=0):
     """Plain version of K4c: see :func:`resample_score`.
     :func:`resample_weights_plain`, then K12's plain version on its merged
     depths and weights."""
-    u = _drawn_u(c_feat, n_fine, u, draw)
+    u = _drawn_u(c_feat, n_fine, u, draw, ray0)
     z_vals, dists, weights = resample_weights_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
                                                     use_coarse_sample, density_shift,
                                                     distance_scale, act)
@@ -150,10 +154,11 @@ def resample_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
 
 def resample_chart_plain(c_feat, coarse_z, coarse_dists, n_fine, u=None,
                          use_coarse_sample=True, density_shift=-8.0, distance_scale=25.0,
-                         act="softplus", rays_o=None, viewdirs=None, coords=None, draw=None):
+                         act="softplus", rays_o=None, viewdirs=None, coords=None, draw=None,
+                         ray0=0):
     """Plain version of K4 with its chart epilogue: :func:`resample_plain`,
     then :func:`~egonerf_torch.ops.chart.chart_fwd_plain` of the depths."""
-    u = _drawn_u(c_feat, n_fine, u, draw)
+    u = _drawn_u(c_feat, n_fine, u, draw, ray0)
     z_vals, dists = resample_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
                                    use_coarse_sample, density_shift, distance_scale, act)
     return z_vals, dists, chart_fwd_plain(rays_o, viewdirs, z_vals, coords)
@@ -169,9 +174,9 @@ _CHART_ARGS = _BASE_ARGS + [ctypes.c_void_p, ctypes.c_longlong] * 2 + CHART_ARGS
 
 def _draw_args(argtypes: list) -> list:
     """The argument types of an entry's training instantiation
-    (``*_draw_fwd``): the key's two words in place of u, its stride and
-    eval's step."""
-    return argtypes[:3] + [ctypes.c_uint, ctypes.c_uint] + argtypes[6:]
+    (``*_draw_fwd``): the key's two words and the ray offset in place of u,
+    its stride and eval's step."""
+    return argtypes[:3] + [ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong] + argtypes[6:]
 
 
 SMEM_BYTES = 232448  # the shared memory a block may opt into on sm_90
@@ -185,7 +190,7 @@ def _round4(n: int) -> int:
 
 
 def _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act, n_grid=0,
-           draw=None):
+           draw=None, ray0=0):
     """The arguments' shapes, and the shapes the kernel takes: 4 warps x
     (3S - 1 + F + T) floats and the radial grid in a block's shared memory,
     and with a ``draw`` key each warp's F + 1 draws (rows 16-byte aligned).
@@ -200,6 +205,8 @@ def _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act, n_
             raise ValueError("resample: pass u or a draw key, not both")
     if draw is not None and (len(draw) != 2 or not all(isinstance(k, int) for k in draw)):
         raise TypeError(f"resample: a draw key is two ints (seed, step), got {draw!r}")
+    if check_ray0(ray0) and draw is None:
+        raise ValueError("resample: a ray offset needs a draw key")
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown density activation {act!r}")
     n_out = s + n_fine if use_coarse_sample else n_fine
@@ -212,12 +219,13 @@ def _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act, n_
 
 
 def _launch(name, argtypes, c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample,
-            density_shift, distance_scale, act, n_out, *chart, counters=None, draw=None):
+            density_shift, distance_scale, act, n_out, *chart, counters=None, draw=None,
+            ray0=0):
     """K4's launch on the card: z_vals and dists, (R, n_out) each, and the
     arguments ``chart`` passed through after them; with a ``draw`` key the
     entry's training instantiation (``name`` with ``_draw_fwd``), which
-    draws u.  A launch counts in each of ``counters`` (default: K4's
-    ``resample``)."""
+    draws u for rays ``ray0``, ``ray0`` + 1, ...  A launch counts in each
+    of ``counters`` (default: K4's ``resample``)."""
     r, s = c_feat.shape
     dev = c_feat.device
     z_vals = torch.empty(r, n_out, dtype=torch.float32, device=dev)
@@ -229,7 +237,7 @@ def _launch(name, argtypes, c_feat, coarse_z, coarse_dists, n_fine, u, use_coars
                    _recip(n_fine - 1) if n_fine > 1 else 0.0)
         else:
             name, argtypes = name.replace("_fwd", "_draw_fwd"), _draw_args(argtypes)
-            src = (draw[0] & MASK, draw[1] & MASK)
+            src = (draw[0] & MASK, draw[1] & MASK, ray0)
         fn = kernel("resample", name, argtypes)
         with torch.cuda.device(dev):
             err = fn(c_feat.data_ptr(), coarse_z.data_ptr(), coarse_dists.data_ptr(),
@@ -279,7 +287,7 @@ def resample_chart(c_feat: torch.Tensor, coarse_z: torch.Tensor, coarse_dists: t
                    rays_o: Optional[torch.Tensor] = None,
                    viewdirs: Optional[torch.Tensor] = None,
                    coords: Optional[YinYangSphericalCoords] = None,
-                   draw: Optional[Tuple[int, int]] = None
+                   draw: Optional[Tuple[int, int]] = None, ray0: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 with the chart epilogue: :func:`resample`, and from the same
     launch the normalized [r, theta, phi, flag] coords of ``rays_o +
@@ -292,7 +300,9 @@ def resample_chart(c_feat: torch.Tensor, coarse_z: torch.Tensor, coarse_dists: t
     stride).  ``draw``, a key (seed, step) of Python ints in place of
     ``u``: the training instantiation draws K5's sorted uniforms for it in
     its prologue (``sorted_uniform(R, n_fine, seed, step)``, the same bits)
-    and counts in ``resample_chart.draw_form.launches`` too.  Returns
+    and counts in ``resample_chart.draw_form.launches`` too; ``ray0``, with
+    a key, draws row i as ray ``ray0`` + i (the shard of a global batch
+    that starts there draws the global batch's u).  Returns
     z_vals, dists (R, T) and coords (R * T, 4), rows ray-major.
 
     Replaces the EgoNeRF forward's resampling and the fine chart after it
@@ -304,20 +314,20 @@ def resample_chart(c_feat: torch.Tensor, coarse_z: torch.Tensor, coarse_dists: t
         raise TypeError("chart takes the yin-yang chart")
     grid = coords.ref_grid if coords.exp_r and coords.interval_th else ()
     r, n_out = _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act,
-                      len(grid), draw)
+                      len(grid), draw, ray0)
     dev = c_feat.device
     if check_rays(rays_o, viewdirs) != (r, dev):
         raise ValueError("rays_o, viewdirs: expected one ray per row of c_feat, on its device")
     if dev.type == "cpu":
         return resample_chart_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
                                     use_coarse_sample, density_shift, distance_scale, act,
-                                    rays_o, viewdirs, coords, draw)
+                                    rays_o, viewdirs, coords, draw, ray0)
     norm = torch.empty(r * n_out, 4, dtype=torch.float32, device=dev)
     chart = chart_args(coords, None, dev)
     z_vals, dists = _launch("resample_chart_fwd", _CHART_ARGS, c_feat, coarse_z, coarse_dists,
                             n_fine, u, use_coarse_sample, density_shift, distance_scale, act,
                             n_out, rays_o.data_ptr(), rays_o.stride(0), viewdirs.data_ptr(),
-                            viewdirs.stride(0), *chart, norm.data_ptr(), draw=draw,
+                            viewdirs.stride(0), *chart, norm.data_ptr(), draw=draw, ray0=ray0,
                             counters=(resample,) if draw is None else
                             (resample, resample_chart.draw_form))
     return z_vals, dists, norm
@@ -356,7 +366,7 @@ def resample_score(c_feat: torch.Tensor, coarse_z: torch.Tensor,
                    coarse_dists: torch.Tensor, n_fine: int, u: Optional[torch.Tensor] = None,
                    use_coarse_sample: bool = True, density_shift: float = -8.0,
                    distance_scale: float = 25.0, act: str = "softplus",
-                   draw: Optional[Tuple[int, int]] = None
+                   draw: Optional[Tuple[int, int]] = None, ray0: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4c, the empty-space cull's coarse pass: :func:`resample`'s z_vals
     and dists, and from the same launch each merged sample's score (R, T):
@@ -366,8 +376,8 @@ def resample_score(c_feat: torch.Tensor, coarse_z: torch.Tensor,
     score K12's plain version's on them.
 
     The arguments are :func:`resample`'s, with up to ``MAX_SCORE_SAMPLES``
-    coarse and merged samples a ray (K13 takes no more), and ``draw`` as in
-    :func:`resample_chart` (its launches also in
+    coarse and merged samples a ray (K13 takes no more), and ``draw`` and
+    ``ray0`` as in :func:`resample_chart` (its launches also in
     ``resample_score.draw_form.launches``).
 
     Replaces the EgoNeRF forward's resampling, its coarse weights and their
@@ -377,17 +387,18 @@ def resample_score(c_feat: torch.Tensor, coarse_z: torch.Tensor,
     with a key).  CPU tensors take :func:`resample_score_plain`.
     ``resample_score.launches`` counts its launches (K4's counter does not)."""
     r, n_out = _check(c_feat, coarse_z, coarse_dists, n_fine, u, use_coarse_sample, act,
-                      draw=draw)
+                      draw=draw, ray0=ray0)
     if max(c_feat.shape[1], n_out) > MAX_SCORE_SAMPLES:
         raise ValueError(f"resample_score takes up to {MAX_SCORE_SAMPLES} coarse and merged "
                          f"samples a ray, got {c_feat.shape[1]} and {n_out}")
     if c_feat.device.type == "cpu":
         return resample_score_plain(c_feat, coarse_z, coarse_dists, n_fine, u,
-                                    use_coarse_sample, density_shift, distance_scale, act, draw)
+                                    use_coarse_sample, density_shift, distance_scale, act, draw,
+                                    ray0)
     score = torch.empty(r, n_out, dtype=torch.float32, device=c_feat.device)
     z_vals, dists = _launch("resample_score_fwd", _WEIGHTS_ARGS, c_feat, coarse_z,
                             coarse_dists, n_fine, u, use_coarse_sample, density_shift,
-                            distance_scale, act, n_out, score.data_ptr(), draw=draw,
+                            distance_scale, act, n_out, score.data_ptr(), draw=draw, ray0=ray0,
                             counters=(resample_score,) if draw is None else
                             (resample_score, resample_score.draw_form))
     return z_vals, dists, score

@@ -4,7 +4,11 @@
 
 Rays go through the model's forward (``EgoNeRF`` or a TensoRF member) in
 fixed chunks under ``torch.no_grad()``; the tail is padded by repeating the
-last ray and trimmed from the outputs.  The bf16 lookup tables (and
+last ray and trimmed from the outputs.  On a data mesh
+(``parallel/mesh.py``) each rank renders its contiguous share of a view's
+chunks (the rays padded to a multiple of chunk x world, JAX's
+``pad_to_multiple``) and the outputs are gathered, so every rank holds the
+whole view, as JAX replicates it.  The bf16 lookup tables (and
 EgoNeRF's coarse grid) come from ``model.lookup_tables`` once per
 ``render_*`` call.  With the envmap the outputs gain ``bg``,
 and ``pretrain_envmap`` renders the envmap's radiance ``env`` alone.
@@ -21,6 +25,7 @@ import torch
 
 from ..data.png import write_png
 from ..data.ray_utils import get_ray_directions_360
+from ..parallel.mesh import pad_to_multiple
 from .lpips import rgb_lpips
 from .metrics import psnr as psnr_fn
 from .metrics import ssim_and_ws_ssim, ws_psnr
@@ -34,10 +39,12 @@ class Renderer:
     the JAX ``Renderer.from_config`` maps them from a training config
     (the TensoRF family marches ``n_coarse`` samples a ray and ignores the
     rest; ``ndc_ray`` is never passed, as JAX's renderer never passes
-    it)."""
+    it).  ``mesh`` (a ``parallel.mesh.DataMesh``) splits each view's chunks
+    over its ranks."""
 
-    def __init__(self, model, chunk: int = 4096, **render_kwargs):
+    def __init__(self, model, chunk: int = 4096, mesh=None, **render_kwargs):
         self.model = model
+        self.mesh = mesh
         # env is view-independent: the pretrain_envmap render gives it
         self.out_keys = ("rgb", "depth") + (("bg",) if model.cfg.use_envmap else ())
         self.chunk = int(chunk)
@@ -46,7 +53,7 @@ class Renderer:
         self._n_rays_view = 0
 
     @classmethod
-    def from_config(cls, model, cfg, white_bg, chunk=None, **overrides):
+    def from_config(cls, model, cfg, white_bg, chunk=None, mesh=None, **overrides):
         """The render keyword arguments of a training config, as the JAX
         ``Renderer.from_config`` maps them."""
         kw = dict(n_coarse=cfg.n_coarse, n_fine=(cfg.n_fine if cfg.resampling else 0),
@@ -54,11 +61,11 @@ class Renderer:
                   use_coarse_sample=cfg.use_coarse_sample, white_bg=white_bg,
                   eval_keep=cfg.eval_keep)
         kw.update(overrides)
-        return cls(model, chunk=int(cfg.eval_chunk if chunk is None else chunk), **kw)
+        return cls(model, chunk=int(cfg.eval_chunk if chunk is None else chunk), mesh=mesh, **kw)
 
     def _pad(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[0]
-        n_pad = -(-n // self.chunk) * self.chunk
+        n_pad = pad_to_multiple(n, self.chunk * (self.mesh.world if self.mesh else 1))
         if n_pad != n:
             x = torch.cat([x, x[-1:].expand(n_pad - n, x.shape[1])])
         return x
@@ -72,9 +79,15 @@ class Renderer:
         else:
             kw = dict(tables=model.lookup_tables(params), **self.render_kwargs)
             keys = self.out_keys
+        chunks = range(n_chunks)
+        if self.mesh is not None:
+            chunks = range(*self.mesh.shard(n_chunks))
         outs = [model.forward(params, rays_of_chunk(c), key=None, is_train=False, **kw)
-                for c in range(n_chunks)]
-        return {k: torch.cat([o[k] for o in outs])[:n] for k in keys}
+                for c in chunks]
+        out = {k: torch.cat([o[k] for o in outs]) for k in keys}
+        if self.mesh is not None:
+            out = {k: self.mesh.gather_rows(v) for k, v in out.items()}
+        return {k: v[:n] for k, v in out.items()}
 
     def render_rays(self, params, rays, pretrain_envmap: bool = False) -> dict:
         """rays (N, 6), numpy or tensor -> dict of (N, ...) tensors on the
@@ -194,9 +207,11 @@ def evaluation(test_dataset, model, params, renderer: Renderer, save_path=None,
                                     pretrain_envmap)
 
     save_maps = bool(save_path and save_images)
-    # the envmap is view-independent radiance: rendered once
+    # the envmap is view-independent radiance: rendered once (on a mesh by
+    # every rank whenever one writes it, since the render is collective)
     env = None
-    if idxs and save_maps and getattr(model.cfg, "use_envmap", False):
+    if idxs and save_images and getattr(model.cfg, "use_envmap", False) and (
+            save_path or renderer.mesh is not None):
         env = render(idxs[0], pretrain_envmap=True)["env"].reshape(h, w, 3).cpu().numpy()
     has_gt = len(test_dataset.all_rgbs) > 0
 

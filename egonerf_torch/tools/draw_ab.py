@@ -9,8 +9,9 @@ of ``chip_smoke.py``'s phase 20 (roi [0.05, 0.95, 0, 1], 6 images).
 run from the repository root.  DIR holds the other revision's
 ``sorted_uniform.cu``, ``resample.cu``, ``theta_sampler.cu`` and the
 headers they include (its ``egonerf_torch/csrc`` from ``git archive``),
-whose ``sorted_uniform_fwd``, ``resample_chart_fwd``,
-``resample_score_fwd`` and ``theta_ids`` take this checkout's arguments.
+whose ``resample_chart_fwd``, ``resample_score_fwd`` and ``theta_ids``
+take this checkout's arguments and whose ``sorted_uniform_fwd`` takes no
+ray offset (``OTHER_K5_ARGS``).
 
 ``--ablate`` first times the other revision's K5 as it is and ablated by
 text edits of a copy of its source (``K5_EDITS``; the outputs are wrong,
@@ -36,6 +37,7 @@ limit.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 from pathlib import Path
 
@@ -48,6 +50,9 @@ from .composite_ab import _edited
 from .resample_ab import _build_all, _fn, _turns
 
 OUT = _build.BUILD_ROOT.parent / "draw_ab"
+# the other revision's K5 entry: (R, n, seed, step, out, stream), no ray offset
+OTHER_K5_ARGS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+                 ctypes.c_void_p]
 SWEEP = (1, 33, 48, 97, 255)
 THETA_ROI = (0.05, 0.95, 0.0, 1.0)
 PROFILE_STEPS = 5
@@ -227,11 +232,11 @@ def ablate(cs, libs, args, rays, draw, trainer, theta) -> None:
     r, n_f = args[0].shape[0], args[3]
     dev = args[0].device
     _turns(cs, "ablation K5", {
-        name: _other_k5(_fn(libs[f"K5 {name}"], "sorted_uniform_fwd", merge._ARGS), r, n_f, draw,
+        name: _other_k5(_fn(libs[f"K5 {name}"], "sorted_uniform_fwd", OTHER_K5_ARGS), r, n_f, draw,
                         dev) for name, _ in K5_ABLATIONS})
     # a kernel held by one warp's chain keeps its time as the warps an SM
     # runs fall, one held by the SM's issue rate falls with them
-    k5 = _fn(libs["other sorted_uniform"], "sorted_uniform_fwd", merge._ARGS)
+    k5 = _fn(libs["other sorted_uniform"], "sorted_uniform_fwd", OTHER_K5_ARGS)
     _turns(cs, "ablation K5 rays", {f"{m} rays": _other_k5(k5, m, n_f, draw, dev)
                                     for m in (r // 8, r // 4, r // 2, r)})
     u = _other_k5(k5, r, n_f, draw, dev)().clone()
@@ -259,7 +264,7 @@ def compare(cs, libs, args, rays, draw, theta) -> bool:
     feat = args[0]
     r, n_c, n_f = feat.shape[0], feat.shape[1], args[3]
     dev = feat.device
-    k5 = _fn(libs["other sorted_uniform"], "sorted_uniform_fwd", merge._ARGS)
+    k5 = _fn(libs["other sorted_uniform"], "sorted_uniform_fwd", OTHER_K5_ARGS)
     ok = True
     for n in (n_f, *SWEEP):
         diff = cs.bits_differ([merge.sorted_uniform(r, n, *draw, dev)],

@@ -37,12 +37,21 @@ training rays that miss the aabb when the sampler is installed, and the
 resident buffer holds the kept ones (JAX ``trainer.py:512-520``).
 
 With ``export_mesh`` the end of training writes the density's iso-surface
-as ``{expname}.ply`` (``render/export.py``), as JAX does.  What the JAX
-trainer does besides, the port does not carry yet and refuses by name
-(ROADMAP.md §1): the device mesh and the profiler hook.  Where JAX accepts
-an option and ignores it or fails with it, the port refuses it and says so
+as ``{expname}.ply`` (``render/export.py``), as JAX does.  With
+``profile_dir`` a ``torch.profiler`` window traces ``PROFILE_TRACE_ITERS``
+steps from the 16th after the start step and writes its trace and
+``traced_steps.json`` there (JAX ``trainer.py:594-601,660-671,759-762``).
+
+In a ``torch.distributed`` process group the trainer is data parallel
+(``parallel/mesh.py``, JAX's 1-D data mesh): every rank builds the global
+batch, runs its shard of the rays with the global batch's draws, and one
+all-reduce averages the gradients; the evaluation splits each view's chunks
+over the ranks, and only the lead rank writes files.  Where JAX accepts an
+option and ignores it or fails with it, the port refuses it and says so
 (ROADMAP.md §3): the cull and ``filter_ray`` off their models,
-``filter_ray`` with ``use_depth`` or ``theta_importance``.
+``filter_ray`` with ``use_depth`` or ``theta_importance``; the refusals of
+what the reference never implemented (``metric_only``, the ``samp``
+coarse-grid rule) are JAX's own.
 """
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ from ..data.samplers import (DeviceRaySampler, DeviceThetaSampler, HostRaySample
 from ..models import StepKey, build_model, load_params, model_meta, stored_grid_size
 from ..models.alphamask import mask_from_volumes
 from ..ops.volrend import ray_entropy
+from ..parallel.mesh import check_batch, grads_of, make_mesh
 from ..render.metrics import mse2psnr
 from ..render.export import export_density_mesh
 from ..render.renderer import Renderer, evaluation, evaluation_path
@@ -71,13 +81,20 @@ from .checkpoint import (latest_checkpoint, load_alpha_masks, load_checkpoint, m
 from .config import Config, export_config
 from .optim import Optimizer
 
-_ROADMAP = "is not ported yet (ROADMAP.md §1)"
+# the steps the profiler hook traces (JAX trainer.py:49-51)
+PROFILE_TRACE_ITERS = 24
+# JAX's refusals of what the reference never implemented (JAX
+# trainer.py:104-107, 856-858)
+SAMP_REFUSAL = ("'samp' coarse-grid updates are not implemented (reference parity: "
+                "train.py:139-140); the 'conv' rule runs every step inside the train step")
+METRIC_ONLY_REFUSAL = ("metric_only re-scoring of existing renders is not implemented "
+                       "(reference parity: train.py:25-26)")
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for every option of the JAX trainer
-    that the port does not carry yet, and for those that JAX accepts and
-    ignores (the reason given).  ``steps_per_call`` is accepted: in JAX it
+    """Raise ``NotImplementedError`` for the options that JAX refuses
+    itself (its message) and for those that JAX accepts and ignores (the
+    reason given).  ``steps_per_call`` is accepted: in JAX it
     only fuses that many steps into one compiled call, and the port runs
     each step eagerly, so it changes no result.  ``device_sampling =
     False`` selects JAX's host samplers (``data/samplers.py``).  A
@@ -98,7 +115,9 @@ def check_supported(cfg: Config) -> None:
             raise ValueError("filter_ray with theta_importance: the JAX trainer's sampler ids "
                              "index the unfiltered frames, which the filter compacts "
                              "(ROADMAP.md §3)")
-    unported, refused = [], []
+    if cfg.coarse_sigma_grid_update_rule == "samp":
+        raise NotImplementedError(SAMP_REFUSAL)
+    refused = []
     if cfg.model_name != "EgoNeRF" and (cfg.train_keep or cfg.eval_keep):
         # JAX's TensoRF forward swallows the options and renders unculled;
         # the port says so instead of accepting and ignoring them
@@ -111,27 +130,25 @@ def check_supported(cfg: Config) -> None:
     if cfg.ndc_ray and cfg.model_name == "EgoNeRF":
         refused.append("NDC rays are not supported by the egocentric model (JAX "
                        "egonerf_tpu/models/egonerf.py:363-366; reference: models/EgoNeRF.py:504)")
-    if cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1:
-        unported.append("a multi-device mesh")
-    if cfg.profile_dir:
-        unported.append("the profiler hook (profile_dir)")
-    if cfg.coarse_sigma_grid_update_rule == "samp":
-        unported.append("the 'samp' coarse-grid rule")
-    if unported:
-        refused.append("; ".join(unported) + f": {_ROADMAP}")
     if refused:
         raise NotImplementedError("; ".join(refused))
 
 
 class MetricsLogger:
     """JSONL scalar log, ``metrics.jsonl`` in the log folder (written every
-    ``progress_refresh_rate`` steps, so each line opens the file)."""
+    ``progress_refresh_rate`` steps, so each line opens the file).
+    ``enabled=False`` (the ranks other than the lead) makes every call a
+    no-op, as in JAX."""
 
-    def __init__(self, logdir: str):
-        os.makedirs(logdir, exist_ok=True)
+    def __init__(self, logdir: str, enabled: bool = True):
+        self.enabled = enabled
         self.path = os.path.join(logdir, "metrics.jsonl")
+        if enabled:
+            os.makedirs(logdir, exist_ok=True)
 
     def scalar(self, tag: str, value: float, step: int):
+        if not self.enabled:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
 
@@ -167,9 +184,17 @@ def _load_model(cfg: Config, path: str, aabb, near_far, device):
 
 
 class Trainer:
-    def __init__(self, cfg: Config, device="cuda"):
+    """The training loop on ``device``.  In a ``torch.distributed`` process
+    group (``group``, or the default group once one is initialized) it is
+    data parallel over the group's ranks, one device a rank; without one it
+    runs alone."""
+
+    def __init__(self, cfg: Config, device="cuda", group=None):
         check_supported(cfg)
         self.cfg = cfg
+        self.mesh = make_mesh(cfg.mesh_shape, group)
+        check_batch(cfg.batch_size, self.mesh)
+        self.lead = self.mesh is None or self.mesh.rank == 0
         self.device = dev = resolve_device(device)
 
         # -- datasets ---------------------------------------------------
@@ -189,9 +214,10 @@ class Trainer:
         # -- logdir -----------------------------------------------------
         stamp = datetime.datetime.now().strftime("-%Y%m%d-%H%M%S") if cfg.add_timestamp else ""
         self.logdir = os.path.join(cfg.basedir, cfg.expname + stamp)
-        os.makedirs(os.path.join(self.logdir, "imgs_vis"), exist_ok=True)
-        export_config(cfg, self.logdir)
-        self.log = MetricsLogger(self.logdir)
+        if self.lead:
+            os.makedirs(os.path.join(self.logdir, "imgs_vis"), exist_ok=True)
+            export_config(cfg, self.logdir)
+        self.log = MetricsLogger(self.logdir, enabled=self.lead)
 
         # -- model: auto-resume from the newest checkpoint ---------------
         self.start_step = 0
@@ -214,6 +240,9 @@ class Trainer:
             self.model = build_model(cfg, aabb, reso, self.coords, self.near_far, device=dev)
             self.model.init_params(torch.Generator(device=dev).manual_seed(cfg.seed))
         self.params = self.model.params()
+        if self.mesh is not None:
+            # every rank starts from the lead's parameters (JAX replicate_tree)
+            self.mesh.broadcast_(list(self.params.values()))
         self.reso_cur = list(self.coords.resolution)
 
         # -- optimizer at the main loop's envmap lr (the pretrain builds its
@@ -242,7 +271,12 @@ class Trainer:
         # -- device-resident training rays and the step's generator -------
         self.generator = torch.Generator(device=dev).manual_seed(cfg.seed + 2)
         self._install_sampler()
-        self.renderer = Renderer.from_config(self.model, cfg, self.white_bg)
+        self.renderer = Renderer.from_config(self.model, cfg, self.white_bg, mesh=self.mesh)
+
+    def _out(self, path: str) -> Optional[str]:
+        """``path`` on the lead rank, where files are written; None on the
+        others."""
+        return path if self.lead else None
 
     def _build_optimizer(self, lr_envmap: float, decay: bool = True,
                          lr_scale: float = 1.0) -> Optimizer:
@@ -338,7 +372,8 @@ class Trainer:
 
     def loss(self, out, rgbs: torch.Tensor, iteration: int,
              depth_gt: Optional[torch.Tensor] = None,
-             sparsity_points: Optional[torch.Tensor] = None):
+             sparsity_points: Optional[torch.Tensor] = None,
+             depth_count: Optional[torch.Tensor] = None, shards: int = 1):
         """(total loss, MSE) of a forward's ``out`` against the batch's
         ``rgbs``: the MSE plus, in JAX's order, the sparsity term (its
         points drawn from the step's generator, or ``sparsity_points``),
@@ -346,7 +381,12 @@ class Trainer:
         entropy of ``out["alpha"]`` (at :meth:`entropy_weight_at`) and,
         under ``use_depth``, the depth term against ``depth_gt`` (the
         batch's depth column; at :meth:`depth_weight_at`, masked where the
-        ground truth is 0, no gradient), each where JAX takes it."""
+        ground truth is 0, no gradient), each where JAX takes it.  On a
+        shard of a global batch split ``shards`` ways the depth term's
+        denominator is ``depth_count``, the global batch's count of nonzero
+        depths, and the term is scaled by ``shards``, so that the mean of the
+        ranks' losses is the global batch's (the other terms are means over
+        the rays, or the same on every rank)."""
         cfg, model, p = self.cfg, self.model, self.params
         mse = torch.mean((out["rgb"] - rgbs) ** 2)
         total = mse
@@ -368,15 +408,28 @@ class Trainer:
             total = total + self.entropy_weight_at(iteration) * ray_entropy(out["alpha"])
         if cfg.use_depth:
             mask = (depth_gt != 0).to(depth_gt.dtype)
-            dloss = torch.sum(mask * (out["depth"] - depth_gt) ** 2) / (torch.sum(mask) + 1e-8)
+            count = torch.sum(mask) if depth_count is None else depth_count
+            dloss = shards * torch.sum(mask * (out["depth"] - depth_gt) ** 2) / (count + 1e-8)
             total = total + self.depth_weight_at(iteration) * dloss
         return total, mse
 
     def train_step(self, iteration: int) -> torch.Tensor:
         """One optimizer step at ``iteration``; returns the batch MSE as a
-        device scalar (reading it synchronises the host)."""
+        device scalar (reading it synchronises the host).  On a data mesh
+        the rank runs its shard of the global batch with the global batch's
+        draws (``StepKey``'s offset), and one all-reduce averages the
+        gradients and the MSE."""
         cfg = self.cfg
         row = self.sampler.next_batch()
+        key = StepKey(self.generator, cfg.seed, iteration)
+        depth_count, shards = None, 1
+        if self.mesh is not None:
+            lo, hi = self.mesh.shard(row.shape[0])
+            key = key._replace(ray0=lo, n_global=row.shape[0])
+            if cfg.use_depth:
+                depth_count = torch.sum((row[:, 9] != 0).to(row.dtype))
+            shards = self.mesh.world
+            row = row[lo:hi]
         # the cull, and every train_keep_full_every-th step unculled (JAX's
         # lax.cond, trainer.py:339-352)
         keep = cfg.train_keep
@@ -384,30 +437,43 @@ class Trainer:
             keep = 0
         cull = dict(train_keep=keep, train_cull_tau=cfg.train_cull_tau) if keep else {}
         out = self.model.forward(
-            self.params, row[:, :6], key=StepKey(self.generator, cfg.seed, iteration),
-            is_train=True, n_coarse=cfg.n_coarse, n_fine=cfg.n_fine,
-            exp_sampling=cfg.exp_sampling,
+            self.params, row[:, :6], key=key, is_train=True, n_coarse=cfg.n_coarse,
+            n_fine=cfg.n_fine, exp_sampling=cfg.exp_sampling,
             resampling=cfg.resampling and iteration > cfg.iter_ignore_resampling,
             use_coarse_sample=cfg.use_coarse_sample, white_bg=self.white_bg,
             ndc_ray=bool(cfg.ndc_ray), with_alpha=self.entropy_on(iteration), **cull)
         total, mse = self.loss(out, row[:, 6:9], iteration,
-                               row[:, 9] if cfg.use_depth else None)
+                               row[:, 9] if cfg.use_depth else None,
+                               depth_count=depth_count, shards=shards)
         self.optimizer.zero_grad()
         total.backward()
+        mse = self._average(mse)
         self.optimizer.step()
-        return mse.detach()
+        return mse
+
+    def _average(self, mse: torch.Tensor) -> torch.Tensor:
+        """The step's MSE, detached; on a data mesh it and the gradients
+        are averaged over the ranks by one all-reduce (JAX's ``psum``)."""
+        mse = mse.detach()
+        if self.mesh is not None:
+            self.mesh.mean_(grads_of(self.params) + [mse])
+        return mse
 
     def pretrain_step(self) -> torch.Tensor:
         """One envmap pretrain step: the MSE of the envmap's radiance alone
         (``pretrain_envmap`` forward: K8, K8b) on a batch; returns it as a
         device scalar."""
         row = self.sampler.next_batch()
+        if self.mesh is not None:
+            lo, hi = self.mesh.shard(row.shape[0])
+            row = row[lo:hi]
         out = self.model.forward(self.params, row[:, :6], pretrain_envmap=True)
         mse = torch.mean((out["env"] - row[:, 6:9]) ** 2)
         self.optimizer.zero_grad()
         mse.backward()
+        mse = self._average(mse)
         self.optimizer.step()
-        return mse.detach()
+        return mse
 
     def pretrain_envmap(self) -> None:
         """Fit the envmap alone to the training images before volume
@@ -425,13 +491,40 @@ class Trainer:
             if it % 200 == 0:
                 print(f"  envmap pretrain {it}: mse {mse.item():.5f}")
         evaluation(self.test_dataset, self.model, self.params, self.renderer,
-                   save_path=os.path.join(self.logdir, "imgs_vis"), envmap_only=True)
+                   save_path=self._out(os.path.join(self.logdir, "imgs_vis")), envmap_only=True)
         self.optimizer = self._build_optimizer(cfg.lr_envmap)
 
     def _evaluate(self, save_path, prefix="", n_vis=-1, compute_extra_metrics=True) -> list:
         return evaluation(self.test_dataset, self.model, self.params, self.renderer,
-                          save_path=save_path, n_vis=n_vis, prefix=prefix,
+                          save_path=self._out(save_path), n_vis=n_vis, prefix=prefix,
                           compute_extra_metrics=compute_extra_metrics)
+
+    def _start_profile(self):
+        """Open the profiler's window (the host's ops, and the device's on a
+        card); only the lead rank traces."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, traced_steps: int) -> None:
+        """Close the window once the device has run its steps, and write its
+        trace (``trace.json``, torch's Chrome trace format) and
+        ``traced_steps.json`` with the steps it holds into ``profile_dir``
+        (JAX ``trainer.py:594-601``)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = self.cfg.profile_dir
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        with open(os.path.join(out, "traced_steps.json"), "w") as f:
+            json.dump({"steps": int(traced_steps)}, f)
+        print(f"profiler trace written to {out}")
 
     def train(self) -> list:
         cfg = self.cfg
@@ -439,8 +532,18 @@ class Trainer:
         vis_list = set(cfg.vis_list or [])
         psnrs_test = [0.0]
         t_start, rays_done = time.time(), 0
+        # the profiler's window: idle, tracing, done (JAX trainer.py:660-671);
+        # it opens 16 steps after the start step and holds
+        # PROFILE_TRACE_ITERS steps, counted in steps (one a loop)
+        prof, prof_start, prof_done = None, 0, not (cfg.profile_dir and self.lead)
         iteration = self.start_step
         while iteration < cfg.n_iters:
+            if not prof_done:
+                if prof is None and iteration >= self.start_step + 16:
+                    prof, prof_start = self._start_profile(), iteration
+                elif prof is not None and iteration >= prof_start + PROFILE_TRACE_ITERS:
+                    self._stop_profile(prof, iteration - prof_start)
+                    prof, prof_done = None, True
             mse = self.train_step(iteration)
             rays_done += cfg.batch_size
             if iteration % cfg.progress_refresh_rate == 0:
@@ -473,6 +576,9 @@ class Trainer:
                 self.upsample(iteration)
             iteration += 1
 
+        if prof is not None:
+            # the run ended inside the window: write what it traced
+            self._stop_profile(prof, iteration - prof_start)
         self.save(os.path.join(self.logdir, f"{cfg.expname}.npz"), cfg.n_iters)
         if cfg.render_train:
             train_stacked = type(self.train_dataset)(
@@ -480,14 +586,15 @@ class Trainer:
                 downsample=cfg.downsample_train, near_far=cfg.near_far, roi=cfg.roi,
                 localization_method=cfg.localization_method)
             psnrs_train = evaluation(train_stacked, self.model, self.params, self.renderer,
-                                     save_path=os.path.join(self.logdir, "imgs_train_all"),
+                                     save_path=self._out(os.path.join(self.logdir,
+                                                                      "imgs_train_all")),
                                      compute_extra_metrics=False)
             print(f"======> {cfg.expname} train all psnr: {np.mean(psnrs_train)} <====")
         if cfg.render_path and hasattr(self.test_dataset, "render_path"):
             evaluation_path(self.test_dataset, self.model, self.params,
                             self.test_dataset.render_path, self.renderer,
-                            save_path=os.path.join(self.logdir, "imgs_path_all"))
-        if cfg.export_mesh:
+                            save_path=self._out(os.path.join(self.logdir, "imgs_path_all")))
+        if cfg.export_mesh and self.lead:
             export_density_mesh(self.model, self.params,
                                 os.path.join(self.logdir, f"{cfg.expname}.ply"))
         if cfg.render_test:
@@ -518,6 +625,10 @@ class Trainer:
         self.optimizer = self._build_optimizer(cfg.lr_envmap, lr_scale=lr_scale)
 
     def save(self, path: str, global_step: int) -> None:
+        """Write a checkpoint (the lead rank alone: the parameters are the
+        same on every rank)."""
+        if not self.lead:
+            return
         save_checkpoint(path, self.params, global_step=global_step,
                         coords_spec=self.coords.to_spec(),
                         model_meta=model_meta(self.cfg, self.model),
@@ -531,7 +642,7 @@ def render_test(cfg: Config, device="cuda"):
     view and writes ``evaluation/`` in the log folder: ``mean.txt``,
     ``mean.json`` and the images of :func:`evaluation`."""
     if cfg.metric_only:
-        raise NotImplementedError(f"metric_only {_ROADMAP}")
+        raise NotImplementedError(METRIC_ONLY_REFUSAL)
     dev = resolve_device(device)
     test_dataset = dataset_class(cfg.dataset_name)(
         data_dir=cfg.datadir, split="test", is_stack=True, downsample=1,

@@ -330,7 +330,6 @@ UNPORTED = {
     # JAX's trainer filters only a model with filtering_rays, so EgoNeRF
     # accepts and ignores it there; the port refuses it
     "filter_ray_egonerf": dict(filter_ray=True),
-    "mesh": dict(mesh_shape="[4]"),
 }
 
 
@@ -339,6 +338,18 @@ def test_unported_options_raise(tmp_path, name):
     cfg = load_config(overrides=_tiny_cfg(tmp_path, **UNPORTED[name]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(cfg)
+
+
+def test_mesh_shape_must_name_the_world(tmp_path):
+    """``mesh_shape`` keeps JAX's meaning: [n] must be the size of the
+    process group, so [4] in a world of one (no group) raises a
+    ``ValueError`` naming both numbers; [1] is the lone process."""
+    cfg = load_config(overrides=_tiny_cfg(tmp_path, mesh_shape="[4]"))
+    check_supported(cfg)
+    with pytest.raises(ValueError, match=r"asks for 4 devices.*has 1"):
+        Trainer(cfg, device="cpu")
+    assert Trainer(load_config(overrides=_tiny_cfg(tmp_path, mesh_shape="[1]")),
+                   device="cpu").mesh is None
 
 
 # the losses and the alpha mask that EgoNeRF's trainer carries since the
@@ -365,6 +376,8 @@ PORTED = {
     "ndc_ray": dict(ndc_ray=1, model_name="TensorVMSplit", coordinates_name="xyz"),
     # mesh export at the end of training (tests/test_torch_export.py)
     "export_mesh": dict(export_mesh=True),
+    # the profiler hook (tests/test_torch_profile.py)
+    "profile_dir": dict(profile_dir="trace"),
 }
 
 
