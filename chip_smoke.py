@@ -300,6 +300,21 @@ The other charts, the other shading modes and mesh export:
     ``profile_dir``: ``traced_steps.json`` holds 24, the trace names the
     step's kernels, and the steps' ms inside and outside the window.
 
+The quality-record tools (``egonerf_torch/tools``):
+
+18. (also) the ``tensorf`` recipe is ``quality_run``'s preset;
+35. ``quality_run``'s refscale preset through its ``_run`` at full
+    production width (N_voxel 27e6, 128 + 128 samples, batch 4096, 12 + 2
+    views at 2000x1000), cut to its first REFSCALE_CUT_ITERS steps (the
+    full run's learning-rate schedule): its test PSNR at or above the first
+    reading of the same cut run less the JAX seed spread; ``occ_probe`` (K7,
+    K3, K4, K9) and ``eval_bench`` (keeps 0, 192, 128, 192o) on its
+    checkpoint, the unculled view 0 within 1e-3 dB of the trainer's (each
+    view's PSNR from ``evaluation()`` of the final checkpoint, their mean
+    the run's record within 1e-3 dB); ``envmap_probe`` (K8) on phase 13's
+    envmap run.  Each tool's
+    kernels counted from 0 around its run.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
 result and exits 2.
@@ -568,6 +583,19 @@ NOISE_FACTOR, NOISE_FLOOR = 4.0, 1e-5
 PROFILE_RUN_ITERS = 48
 STEP_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
                 "composite_kernel", "composite_bwd_kernel", "chart_kernel")
+# phase 35: quality_run's refscale preset cut to REFSCALE_CUT_ITERS steps (the
+# full 10k would not leave this script a margin in its time limit) on the
+# full run's learning-rate schedule (lr_decay_iters 10000: the cut run is
+# the full run's first steps; decaying over 3000 instead gave 35.12 dB);
+# its floor is the first reading of this phase's own cut run (H100 80GB HBM3
+# at 700 W; a second run read 39.372 dB) less the JAX package's seed spread
+# (docs/results_seed_variance.json: 2.445 dB)
+REFSCALE_CUT_ITERS = 3000
+REFSCALE_CUT_PSNR = 39.626
+SEED_SPREAD_DB = 2.445
+# eval_bench's keeps (the oracle row 192o) and occ_probe's budgets
+EVAL_BENCH_KEEPS = ("0", "192", "128", "192o")
+OCC_BUDGETS = (32, 64, 96, 128, 192)
 
 
 def fail(msg: str) -> None:
@@ -2089,7 +2117,7 @@ def tensorf_kernel_checks(trainer, ops) -> dict:
     return table
 
 
-def k2_stage_checks(root, presets, ops) -> None:
+def k2_stage_checks(root, ops) -> None:
     """Phase 2, K2 on recorded steps of the main paths that phase 2 meets
     nowhere else: the smoke config's (``SMOKE_CONFIG``, its own scene) and
     the JAX ``tensorf`` preset's first two grids (128^3, and 161^3 after
@@ -2097,6 +2125,7 @@ def k2_stage_checks(root, presets, ops) -> None:
     SEED; each held to its plain version and timed
     (:func:`check_field_bwd`)."""
     from egonerf_torch.data.datasets import SyntheticEgoDataset
+    from egonerf_torch.tools import quality_run
     from egonerf_torch.train.config import load_config
     from egonerf_torch.train.trainer import Trainer
 
@@ -2119,9 +2148,10 @@ def k2_stage_checks(root, presets, ops) -> None:
           f"samples, grid {smoke.model.grid_size}", flush=True)
     check_field_bwd("K2 field_bwd (smoke step)", args, ops)
     del smoke, args
-    tf = Trainer(load_config(overrides=presets.tensorf_overrides(
-        basedir=base, expname="k2_stages", progress_refresh_rate=10 ** 9)), device=DEVICE)
-    scene = dict(presets.TENSORF_QUALITY_SCENE, near_far=tf.cfg.near_far)
+    cfg, scene = quality_run.preset_spec("tensorf", basedir=base, expname="k2_stages",
+                                         progress_refresh_rate=10 ** 9)
+    tf = Trainer(cfg, device=DEVICE)
+    scene = dict(scene, near_far=tf.cfg.near_far)
     tf.set_datasets(SyntheticEgoDataset(split="train", **scene),
                     SyntheticEgoDataset(split="test", is_stack=True, **scene))
     for it in (0, tf.upsamp_list[0]):
@@ -2214,19 +2244,19 @@ def tensorf_bench_phases(root, presets, ops, wrappers):
     return launches, bake
 
 
-def tensorf_quality_phase(root, presets) -> None:
-    """Phase 18: the JAX ``tensorf`` quality recipe unchanged through
-    ``Trainer`` + ``set_datasets``."""
+def tensorf_quality_phase(root) -> None:
+    """Phase 18: the JAX ``tensorf`` quality recipe unchanged (``quality_run``'s
+    preset) through ``Trainer`` + ``set_datasets``."""
     from egonerf_torch.data.datasets import SyntheticEgoDataset
-    from egonerf_torch.train.config import load_config
+    from egonerf_torch.tools import quality_run
     from egonerf_torch.train.trainer import Trainer
 
     base = os.path.join(root, "build", "chip_smoke_runs")
-    cfg = load_config(overrides=presets.tensorf_overrides(basedir=base, expname="tensorf"))
+    cfg, scene = quality_run.preset_spec("tensorf", basedir=base)
     shutil.rmtree(os.path.join(base, "tensorf"), ignore_errors=True)
     t0 = time.time()
     trainer = Trainer(cfg, device=DEVICE)
-    scene = dict(presets.TENSORF_QUALITY_SCENE, near_far=cfg.near_far)
+    scene = dict(scene, near_far=cfg.near_far)
     trainer.set_datasets(SyntheticEgoDataset(split="train", **scene),
                          SyntheticEgoDataset(split="test", is_stack=True, **scene))
     t1 = time.time()
@@ -5394,6 +5424,113 @@ def profile_phase(root, presets, wrappers) -> None:
         fail(f"phase 34: traced {traced} steps, step kernels missing from the trace {missing}")
 
 
+def counted(wrappers, run):
+    """``run()`` with every launch count set to 0 first; (its result, the
+    counts it left)."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def expect_launched(label: str, launches: dict, kernels) -> None:
+    missing = [k for k in kernels if not launches[k]]
+    print(f"{label} launches: " + ", ".join(f"{k} {launches[k]}" for k in kernels), flush=True)
+    if missing:
+        fail(f"{label}: {missing} never launched")
+
+
+def checkpoint_test_psnrs(logdir) -> list:
+    """Each test view's PSNR of a refscale run's final checkpoint, by the
+    trainer's own ``evaluation()`` (no files written)."""
+    from egonerf_torch.data.datasets import SyntheticEgoDataset
+    from egonerf_torch.render.renderer import Renderer, evaluation
+    from egonerf_torch.tools import quality_run
+    from egonerf_torch.train.checkpoint import latest_checkpoint
+    from egonerf_torch.train.config import load_config
+    from egonerf_torch.train.trainer import _load_model
+
+    cfg = load_config(os.path.join(logdir, "args.txt"))
+    test_ds = SyntheticEgoDataset(split="test", is_stack=True, near_far=cfg.near_far,
+                                  **quality_run.preset_spec("refscale")[1])
+    model, _ = _load_model(cfg, latest_checkpoint(logdir), test_ds.scene_bbox,
+                           test_ds.near_far, DEVICE)
+    with torch.no_grad():
+        return evaluation(test_ds, model, model.params(),
+                          Renderer.from_config(model, cfg, test_ds.white_bg),
+                          compute_extra_metrics=False, save_images=False)
+
+
+def tools_phase(root, wrappers) -> None:
+    """Phase 35: the quality-record tools at the production shape:
+    ``quality_run``'s refscale preset through its ``_run`` (cut to
+    REFSCALE_CUT_ITERS steps), then ``occ_probe`` and ``eval_bench`` on its
+    checkpoint, and ``envmap_probe`` on phase 13's envmap run."""
+    from egonerf_torch.tools import envmap_probe, eval_bench, occ_probe, quality_run
+
+    card = card_line()
+    base = os.path.join(root, "build", "chip_smoke_runs")
+    t0 = time.time()
+    rec, launches = counted(wrappers, lambda: quality_run._run(
+        "refscale", device=DEVICE, basedir=base, n_iters=REFSCALE_CUT_ITERS,
+        lr_decay_iters=quality_run.REFSCALE_ITERS["refscale"]))
+    wall = time.time() - t0
+    logdir = os.path.join(base, "refscale")
+    views = checkpoint_test_psnrs(logdir)
+    floor = REFSCALE_CUT_PSNR - SEED_SPREAD_DB
+    psnr = rec["final_test_psnr"]
+    print(f"phase 35 quality_run refscale cut to its first {rec['n_iters']} of 10000 steps "
+          f"({rec['views']}, N_voxel {rec['n_voxel_final']:,}, 128 + 128 samples, batch 4096; "
+          f"{card}): test PSNR {psnr:.3f} dB (the final checkpoint's views "
+          f"{', '.join(f'{v:.4f}' for v in views)}), ssim {rec['metrics']['ssim']:.4f}; floor "
+          f"{floor:.3f} dB = this cut run's first reading {REFSCALE_CUT_PSNR:.3f} dB - "
+          f"{SEED_SPREAD_DB} dB (the JAX package's seed spread); the JAX package's full 10k "
+          f"run 44.065 dB; {rec['wall_s']} s of training and evaluation, {wall:.1f} s in all",
+          flush=True)
+    expect_launched("phase 35 refscale run", launches,
+                    ("K1", "K2", "K3", "K4", "K4+draw", "K6", "K6b", "K7"))
+    if not psnr >= floor:
+        fail(f"phase 35: refscale test PSNR {psnr:.3f} dB below its floor {floor:.3f}")
+    if not abs(float(np.mean(views)) - psnr) <= 1e-3:
+        fail(f"phase 35: the final checkpoint's views {views} do not give the run's test PSNR "
+             f"{psnr:.3f} dB")
+
+    occ, launches = counted(wrappers, lambda: occ_probe._run(logdir, OCC_BUDGETS, device=DEVICE))
+    print(f"phase 35 occ_probe ({card}): {json.dumps(occ)}", flush=True)
+    expect_launched("phase 35 occ_probe", launches, ("K7", "K3", "K4", "K9"))
+    n_rays = 2 * IMAGE_HW[0] * IMAGE_HW[1]
+    if occ["n_rays"] != n_rays or not 0.0 <= occ["occupied_sample_frac"] <= 1.0:
+        fail(f"phase 35: occ_probe counted {occ['n_rays']} rays (expect {n_rays}), occupied "
+             f"share {occ['occupied_sample_frac']}")
+
+    bench, launches = counted(wrappers, lambda: eval_bench._run(
+        logdir, EVAL_BENCH_KEEPS, n_repeats=1, device=DEVICE))
+    for row in bench["rows"]:
+        print(f"phase 35 eval_bench ({card}): {json.dumps(row)}", flush=True)
+    expect_launched("phase 35 eval_bench", launches,
+                    ("K1", "K3", "K4", "K6", "K7", "K4c", "K13", "K4w"))
+    full = bench["rows"][0]
+    print(f"phase 35 eval_bench unculled view 0: {full['psnr_vs_gt']:.3f} dB against the "
+          f"trainer's {views[0]:.4f} dB (its evaluation() of the final checkpoint; within "
+          f"1e-3 dB, the row rounded to 1e-3); the cull "
+          f"rows are a record (JAX's cull failed its own quality bar)", flush=True)
+    if full["eval_keep"] != 0 or not abs(full["psnr_vs_gt"] - views[0]) <= 1e-3:
+        fail(f"phase 35: eval_bench's unculled view 0 {full['psnr_vs_gt']} dB, the trainer's "
+             f"{views[0]:.4f} dB")
+
+    e = ENV_E2E
+    env, launches = counted(wrappers, lambda: envmap_probe._run(
+        os.path.join(base, "envmap_e2e"), n_train=e["n_train"], n_test=e["n_test"],
+        height=e["height"], width=e["width"], device=DEVICE))
+    print(f"phase 35 envmap_probe on phase 13's run ({card}): {json.dumps(env)}", flush=True)
+    expect_launched("phase 35 envmap_probe", launches, ("K8",))
+    values = [env["envmap_only_psnr_vs_gt_texture"]] + [
+        v for im in env["per_image"] for v in (im["psnr_bg"], im["psnr_fg"])]
+    if not np.all(np.isfinite(values)):
+        fail(f"phase 35: envmap_probe gave {values}")
+
+
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper (or form) by its name in the kernel line: the
     objects whose ``launches`` count the launches."""
@@ -5520,7 +5657,7 @@ def main() -> int:
     k6b_sweep(ops)
     tf_rows = tensorf_kernel_checks(tf, ops)
     cp_rows = cp_kernel_checks(cp_tf, ops)
-    k2_stage_checks(root, presets, ops)
+    k2_stage_checks(root, ops)
     loss_rows = loss_kernel_checks(trainer, outdoor, tf, ops)
     capture_rows = theta_kernel_checks(ops)
     capture_rows.update(nograd_kernel_checks(ops))
@@ -5609,7 +5746,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for k, row in tf_rows.items():
         row["launches"] = tf_bake["K3"] if k.startswith("K3") else tf_steps[k.split()[0]]
-    tensorf_quality_phase(root, presets)
+    tensorf_quality_phase(root)
 
     # -- phases 19-21: the captured-data path ------------------------------------
     egocentric_e2e_phase(root, wrappers)
@@ -5677,6 +5814,9 @@ def main() -> int:
     gloo_phase(root)
     torch.cuda.empty_cache()
     profile_phase(root, presets, wrappers)
+    torch.cuda.empty_cache()
+    # -- phase 35: the quality-record tools ------------------------------------
+    tools_phase(root, wrappers)
     torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K4+draw", "K5",

@@ -415,3 +415,32 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0, script
         assert '"ok"' not in out.stdout, script
+
+
+def test_tool_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """Each quality-record tool's entry point defaults to the card and
+    raises before any work without one (``device="cpu"`` runs them on the
+    host: tests/test_torch_tools.py)."""
+    from egonerf_torch.tools import (envmap_probe, eval_bench, f32_ab, occ_probe, quality_run,
+                                     sampler_ab, seed_ab, seed_variance)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "quality_run._run": lambda: quality_run._run("refscale"),
+        "quality_run.main": lambda: quality_run.main(["refscale"]),
+        "sampler_ab.run_variant": lambda: sampler_ab.run_variant("v", "simple", True),
+        "sampler_ab.main": sampler_ab.main,
+        "f32_ab.main": f32_ab.main,
+        "seed_variance.main": lambda: seed_variance.main(["1"]),
+        "seed_ab.main": lambda: seed_ab.main(["1"]),
+        "envmap_probe._run": lambda: envmap_probe._run(str(tmp_path)),
+        "envmap_probe.main": lambda: envmap_probe.main([str(tmp_path)]),
+        "occ_probe._run": lambda: occ_probe._run(str(tmp_path), [8]),
+        "occ_probe.main": lambda: occ_probe.main([str(tmp_path)]),
+        "eval_bench._run": lambda: eval_bench._run(str(tmp_path), [0]),
+        "eval_bench.main": lambda: eval_bench.main([str(tmp_path)]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        assert not os.listdir(tmp_path), name
