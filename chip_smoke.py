@@ -72,10 +72,10 @@ Phases, each printing its own lines; any failure exits non-zero:
     procedural scene (pretrain, a few steps, ``--evaluation 1``; its
     ``envmap.png``, ``_bg`` PNGs and the pretrain's
     ``pretrained_envmap.png``);
-13. the JAX package's envmap quality recipe (``tools/envmap_e2e.py``:
-    500 pretrain + 3000 steps, N_voxel 8e6, 12 + 2 views at 800x400)
-    through ``Trainer`` and ``set_datasets``: its test PSNR against the
-    JAX package's 28.67 dB less its seed band;
+13. the JAX package's envmap quality recipe through the port's
+    ``tools/envmap_e2e.py`` (500 pretrain + 3000 steps, N_voxel 8e6, 12 + 2
+    views at 800x400): its test PSNR against the JAX package's 28.67 dB
+    less its seed band;
 14. the TensoRF family (TensorVMSplit, ``presets.tensorf_mask_overrides``:
     the xyz chart at 256^3, 256 samples a ray) with a 128^3 alpha mask of
     about half occupancy: one 1000x500 view (K1, K9, K6 once per chunk);
@@ -84,9 +84,9 @@ Phases, each printing its own lines; any failure exits non-zero:
     one of its steps and of its bake;
 15. a few of those chunks with the kernels and with the plain versions;
 16. the JAX ``tensorf_bench`` recipe (1200 steps, the mask baked at 1000)
-    through ``Trainer``, then 20 timed steps (K1, K2, K9, K6, K6b once a
-    step), where the time goes, the bake's time and launches, and the gate
-    occupancy;
+    through the port's ``tools/tensorf_bench.py`` (its timed segments and
+    the gate occupancy), then 20 timed steps (K1, K2, K9, K6, K6b once a
+    step), where the time goes, the bake's time and launches;
 17. one of those steps with the kernels and with the plain versions;
 18. the JAX ``tensorf`` quality recipe unchanged (6000 steps, 128^3 ->
     256^3 at 1000/2000/3000, 12 + 2 views at 1000x500): its test PSNR
@@ -154,7 +154,8 @@ theta-importance sampler) likewise:
    ids and rows bit for bit with its plain version (both rasters at two
    batch counters, 2^20 draws, ties, h = 1, a cdf read unstaged);
    K15 (one bf16 table's plane or line lookup, no gradient) and K16 (a
-   float32 line stack's linear sample), which no path calls, at the fine
+   float32 line stack's linear sample), whose caller is phase 36's
+   ``microbench_lookup``, at the fine
    grid's shapes over 1,048,576 points (each also at S = 1) within REL_TOL
    of their plain versions, each beside ``F.grid_sample`` on the same table
    (2-D at S = 1, 3-D with the chart as depth at S = 2);
@@ -315,6 +316,20 @@ The quality-record tools (``egonerf_torch/tools``):
     envmap run.  Each tool's
     kernels counted from 0 around its run.
 
+The measurement tools (``egonerf_torch/tools``):
+
+36. ``profile_step``'s per-operation and family tables of phase 34's trace
+    (every device operation in one family, the families summing to the
+    window's device time, "other" printed with its top names, the
+    device-busy share) and ``capture_eval`` of one 2000x1000 view with its
+    tables; ``eval_probe`` at chunk 4096 in its four modes (none, rgb, all,
+    and pipe2: the copy on a side stream); ``eval_ship`` over 2 views;
+    ``microbench_lookup`` (K16, K15's line and plane, K1 in two line modes,
+    K2 in three, K4 merged and unmerged, each against its plain version,
+    timed beside ``F.grid_sample`` and ``torch.sort``), the caller whose
+    launches K15's and K16's rows report.  Each tool's kernels counted from
+    0 around its run.  The run's seconds are printed before the last lines.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
 result and exits 2.
@@ -449,10 +464,8 @@ JAX_SMOKE_VARIANT_PSNR = {"upsample": 16.25, "linear": 15.12, "losses": 14.88, "
                           "sh": 24.40}
 # the outdoor config driven through the command line (phase 12)
 OUTDOOR_CLI_ITERS = 20
-# the JAX package's envmap quality recipe (egonerf_tpu/tools/envmap_e2e.py)
-# and its result (docs/results_envmap_e2e.json)
-ENV_E2E = dict(n_iters=3000, pretrain=500, n_voxel=8_000_000, envmap_res_H=500, n_train=12,
-               n_test=2, height=400, width=800)
+# the JAX package's envmap quality recipe's result (docs/results_envmap_e2e.json;
+# the recipe is egonerf_torch/tools/envmap_e2e.py's)
 JAX_ENV_E2E_PSNR = 28.67
 # the envmap scene of phases 9-11: the procedural scene's default views,
 # its background at infinity
@@ -1977,38 +1990,23 @@ def outdoor_cli_phase(root: str, presets) -> None:
         fail("phase 12: the envmap's images are not the files JAX writes")
 
 
-def envmap_quality_phase(root: str, presets) -> None:
-    """Phase 13: the JAX package's envmap quality recipe
-    (egonerf_tpu/tools/envmap_e2e.py) through ``Trainer`` + ``set_datasets``,
-    its pretrain included."""
-    from egonerf_torch.data.datasets import SyntheticEgoDataset
-    from egonerf_torch.train.config import load_config
-    from egonerf_torch.train.trainer import Trainer
+def envmap_quality_phase(root: str) -> None:
+    """Phase 13: the JAX package's envmap quality recipe through
+    ``tools/envmap_e2e.py``'s ``_run`` (its pretrain included), writing
+    under ``build/chip_smoke_runs/envmap_e2e``."""
+    from egonerf_torch.tools import envmap_e2e
 
-    e = ENV_E2E
-    base = os.path.join(root, "build", "chip_smoke_runs")
-    cfg = load_config(overrides=presets.production_overrides(
-        n_iters=e["n_iters"], N_voxel_init=e["n_voxel"], N_voxel_final=e["n_voxel"],
-        progress_refresh_rate=500, basedir=base, expname="envmap_e2e", N_vis=-1,
-        vis_list=str([e["n_iters"]]), use_envmap=True, envmap_res_H=e["envmap_res_H"],
-        iter_pretrain_envmap=e["pretrain"], render_test=True))
-    shutil.rmtree(os.path.join(base, "envmap_e2e"), ignore_errors=True)
     t0 = time.time()
-    trainer = Trainer(cfg, device=DEVICE)
-    common = dict(n_train=e["n_train"], n_test=e["n_test"], height=e["height"],
-                  width=e["width"], background="env", near_far=cfg.near_far)
-    trainer.set_datasets(SyntheticEgoDataset(split="train", is_stack=False, **common),
-                         SyntheticEgoDataset(split="test", is_stack=True, **common))
-    t1 = time.time()
-    psnr = float(np.mean(trainer.train()))
+    rec = envmap_e2e._run(device=DEVICE, basedir=os.path.join(root, "build", "chip_smoke_runs"))
     torch.cuda.synchronize()
+    psnr, e = rec["final_test_psnr"], rec["config"]
     floor = JAX_ENV_E2E_PSNR - SEED_BAND_DB
-    print(f"phase 13 envmap quality recipe ({e['pretrain']} pretrain + {e['n_iters']} steps, "
-          f"N_voxel {e['n_voxel']:.0e}, envmap_res_H {e['envmap_res_H']}, {e['n_train']} + "
-          f"{e['n_test']} views at {e['width']}x{e['height']}): test PSNR {psnr:.2f} dB; the "
+    print(f"phase 13 envmap quality recipe ({e['iter_pretrain_envmap']} pretrain + "
+          f"{e['n_iters']} steps, N_voxel {e['n_voxel']:.0e}, envmap_res_H {e['envmap_res_H']}, "
+          f"{e['views']} views): test PSNR {psnr:.2f} dB; the "
           f"JAX package {JAX_ENV_E2E_PSNR:.2f} dB (docs/results_envmap_e2e.json), floor "
-          f"{floor:.2f} dB; {time.time() - t1:.1f} s training and evaluation, "
-          f"{t1 - t0:.1f} s set-up", flush=True)
+          f"{floor:.2f} dB; {rec['wall_s']:.1f} s training and evaluation, "
+          f"{time.time() - t0 - rec['wall_s']:.1f} s set-up", flush=True)
     if not psnr >= floor:
         fail(f"envmap test PSNR {psnr:.2f} dB below {floor:.2f}")
 
@@ -2167,29 +2165,19 @@ def k2_stage_checks(root, ops) -> None:
 
 
 def tensorf_bench_phases(root, presets, ops, wrappers):
-    """Phases 16-17: the JAX ``tensorf_bench`` recipe through ``Trainer``,
-    then timed steps, the profile, the bake, the gate occupancy, and one
-    step against the plain versions.  Returns the launches of the timed
-    steps and of the bake."""
-    import torch.nn.functional as F
-    from egonerf_torch.data.datasets import SyntheticEgoDataset
-    from egonerf_torch.models.egonerf import _dists
-    from egonerf_torch.ops import volrend
-    from egonerf_torch.train.config import load_config
-    from egonerf_torch.train.trainer import Trainer
+    """Phases 16-17: the JAX ``tensorf_bench`` recipe through
+    ``tools/tensorf_bench.py`` (its training, its timed segments and gate
+    occupancy), then timed steps, the profile, the bake, and one step
+    against the plain versions.  Returns the launches of the timed steps
+    and of the bake."""
+    from egonerf_torch.tools import tensorf_bench
 
-    base = os.path.join(root, "build", "chip_smoke_runs")
-    cfg = load_config(overrides=presets.tensorf_mask_overrides(basedir=base,
-                                                               expname="tensorf_bench"))
-    shutil.rmtree(os.path.join(base, "tensorf_bench"), ignore_errors=True)
-    trainer = Trainer(cfg, device=DEVICE)
-    scene = dict(presets.TENSORF_BENCH_SCENE, near_far=cfg.near_far)
-    trainer.set_datasets(SyntheticEgoDataset(split="train", **scene),
-                         SyntheticEgoDataset(split="test", is_stack=True, **scene))
     t0 = time.time()
-    trainer.train()
+    trainer = tensorf_bench.trained(DEVICE, basedir=os.path.join(root, "build",
+                                                                 "chip_smoke_runs"))
     torch.cuda.synchronize()
-    model, params = trainer.model, trainer.params
+    cfg, model = trainer.cfg, trainer.model
+    scene = presets.TENSORF_BENCH_SCENE
     if model.alpha_mask is None:
         fail("the tensorf_bench recipe baked no alpha mask")
     print(f"phase 16 tensorf_bench recipe ({cfg.n_iters} steps, the mask baked at "
@@ -2197,6 +2185,14 @@ def tensorf_bench_phases(root, presets, ops, wrappers):
           f"{scene['n_train']} views at {scene['width']}x{scene['height']}): {time.time() - t0:.1f} "
           f"s; mask {model.alpha_mask.grid_size}, {float(model.alpha_mask.vol.float().mean()):.1%} "
           f"occupied", flush=True)
+    rec = tensorf_bench.measure(trainer)
+    print(f"phase 16 tensorf_bench segments ({tensorf_bench.CALLS_PER_SEG} x "
+          f"{tensorf_bench.STEPS_PER_CALL} steps each, CUDA events): "
+          f"{rec['segments_rays_per_sec']} rays/s, median step {rec['step_ms_p50']:.3f} ms",
+          flush=True)
+    print(f"phase 16 gate occupancy {rec['gate_occupancy']:.4f} (weight > "
+          f"{cfg.rm_weight_mask_thre:g} on the first {cfg.batch_size} training rays, the "
+          f"tool's)", flush=True)
     per_step = ("K1", "K2", "K9", "K6", "K6b")
     launches, median = timed_steps(
         trainer.train_step, f"phase 16 TensoRF training step, {cfg.n_coarse} samples, grid "
@@ -2225,21 +2221,6 @@ def tensorf_bench_phases(root, presets, ops, wrappers):
     if bake["K3"] < 1 or bake["K9"] < 1 or any(v for k, v in bake.items() if k not in ("K3", "K9")):
         fail(f"the bake launched {bake}, expected K3 and K9 only")
 
-    # gate occupancy, as the JAX tool reports it: the share of the batch's
-    # samples whose weight is above ray_march_weight_thres at eval
-    with torch.no_grad():
-        rays = trainer.sampler.buffer[:cfg.batch_size, :6]
-        pts, z, valid = model.sample_ray(rays[:, :3], rays[:, 3:6], cfg.n_coarse)
-        norm = F.pad(model.coordinates.normalize_coord(pts), (0, 1))
-        valid &= model.alpha_mask.sample_alpha(norm, ops.KERNELS.alpha) > 0
-        feat, _ = model.compute_field(params, norm, model.lookup_tables(params))
-        w = volrend._warp_transmittance(volrend._alpha(
-            feat, _dists(z), model.cfg.density_shift, model.cfg.distance_scale,
-            model.cfg.fea2dense_act, valid))[0]
-        occupancy = float((w > model.cfg.ray_march_weight_thres).float().mean())
-    print(f"phase 16 gate occupancy {occupancy:.4f} (weight > "
-          f"{model.cfg.ray_march_weight_thres:g}; {float(valid.float().mean()):.4f} of the "
-          f"samples in the box and the mask)", flush=True)
     step_vs_plain(trainer, ops, "phase 17")
     return launches, bake
 
@@ -3221,18 +3202,16 @@ def theta_batch_checks(ops, gen) -> dict:
 
 
 def nograd_kernel_checks(ops) -> dict:
-    """Phase 2, K15 and K16 at the production fine grid's shapes (no path
-    calls them): the 2-chart (172, 516) plane and 516-row line at 16
+    """Phase 2, K15 and K16 at the production fine grid's shapes (phase 36's
+    ``microbench_lookup`` calls them): the 2-chart (172, 516) plane and 516-row line at 16
     channels over one chunk's 1,048,576 points, coords over [-1.05, 1.05]
     and random charts, each also at S = 1 (grid 0); each within REL_TOL of
-    its plain version.  Each row's library call is ``F.grid_sample``
-    (align_corners, zeros) on a channel-first float32 copy of the same
-    table, at the row's own S: 2-D at S = 1, and at S = 2 3-D with the
-    chart as the depth coordinate (2 sel - 1 lands on its plane with weight
-    1, the other with 0); its values are compared with the kernel's too."""
-    import torch.nn.functional as F
-
+    its plain version.  Each row's library call is ``F.grid_sample`` on the
+    same table (``microbench_lookup.library_grid_sample``: 2-D at S = 1, 3-D
+    with the chart as the depth at S = 2); its values are compared with the
+    kernel's too."""
     from egonerf_torch.ops import grid_sample, vm_lookup
+    from egonerf_torch.tools.microbench_lookup import library_grid_sample
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
@@ -3259,32 +3238,21 @@ def nograd_kernel_checks(ops) -> dict:
         ("K16 (S=1)", "grid_sample.cu", "grid_sample.py:38", grid_sample.sample_line,
          grid_sample.sample_line_plain, (line1, z), 3 * c + 15))
     rows = {}
-    kw = dict(mode="bilinear", padding_mode="zeros", align_corners=True)
-    chart = (2.0 * sel - 1.0).float()
-    zero = torch.zeros_like(z)
     for name, src, rep, kern, plain, args, ops_per_point in cases:
         rows[name] = row = check_case(
             name, f"egonerf_torch/csrc/{src}", f"egonerf_tpu/ops/{rep}", kern, plain, args,
             nbytes(*args) + out_bytes, n * ops_per_point)
-        table = args[0].float()
-        if table.dim() == 3:                     # a line (S, L, C) as an (S, L, 1) image
-            table = table.unsqueeze(2)
-            u, v = zero, args[1]
-        else:
-            u, v = args[1], args[2]
-        img = table.permute(3, 0, 1, 2).unsqueeze(0).contiguous()    # (1, C, S, H, W)
-        if args[-1] is sel:
-            grid = torch.stack([u, v, chart], -1).view(1, 1, 1, n, 3)
-        else:
-            img, grid = img[:, :, 0], torch.stack([u, v], -1).view(1, 1, n, 2)
-        lib = lambda img=img, grid=grid: F.grid_sample(img, grid, **kw)  # noqa: E731
+        table, grid_sel = args[0], (sel if args[-1] is sel else None)
+        lib = (library_grid_sample(table, None, args[1], grid_sel) if table.dim() == 3
+               else library_grid_sample(table, args[1], args[2], grid_sel))
         with torch.no_grad():
             out = kern(*args)
-            d = float((lib().reshape(c, n).t() - out).abs().max())
+            d = float((lib().t() - out).abs().max())
             tol = REL_TOL * float(out.abs().max())
         row["library_ms"] = lib_ms = time_ms(lib)
-        print(f"phase 2 {name}: library call F.grid_sample ({img.dim() - 2}-D) {lib_ms:.4f} ms, "
-              f"max |library - kernel| {d:.3e} (<= {tol:.3e}, rel {REL_TOL:.0e})", flush=True)
+        print(f"phase 2 {name}: library call F.grid_sample ({2 if grid_sel is None else 3}-D) "
+              f"{lib_ms:.4f} ms, max |library - kernel| {d:.3e} (<= {tol:.3e}, rel {REL_TOL:.0e})",
+              flush=True)
         if not d <= tol:
             fail(f"{name}: the library call does not compute the kernel's function")
     return rows
@@ -5372,10 +5340,13 @@ def gloo_phase(root) -> None:
     noise_check(f"phase 33 two ranks after {GLOO_STEPS} steps", runs, mses)
 
 
-def profile_phase(root, presets, wrappers) -> None:
+def profile_phase(root, presets, wrappers) -> tuple:
     """Phase 34: a production trainer run of PROFILE_RUN_ITERS steps with
     ``profile_dir``; each step synchronised and timed on the host clock,
-    inside and outside the window; the trace's count and kernels."""
+    inside and outside the window; the trace's count and kernels.  Returns
+    the trace's folder and its events (``tools/profile_step.py`` reads
+    them)."""
+    from egonerf_torch.tools import profile_step
     from egonerf_torch.train.trainer import PROFILE_TRACE_ITERS
 
     out = os.path.join(root, "build", "chip_smoke_runs", "profile_trace")
@@ -5403,9 +5374,8 @@ def profile_phase(root, presets, wrappers) -> None:
     with open(os.path.join(out, "traced_steps.json")) as f:
         traced = json.load(f)["steps"]
     trace = os.path.join(out, "trace.json")
-    with open(trace) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    events = profile_step.load_trace(out)
+    kernels = {name for name, _, _ in profile_step.device_events(events)}
     found = [k for k in PORT_KERNELS if any(k in n for n in kernels)]
     missing = [k for k in STEP_KERNELS if k not in found]
     inside = [ms[i] for i in range(16, 16 + PROFILE_TRACE_ITERS)]
@@ -5413,8 +5383,8 @@ def profile_phase(root, presets, wrappers) -> None:
         [ms[i] for i in range(16 + PROFILE_TRACE_ITERS, PROFILE_RUN_ITERS)]
     print(f"phase 34 profiled run: {PROFILE_RUN_ITERS} steps in {wall:.2f} s; traced_steps.json "
           f"{traced} (expect {PROFILE_TRACE_ITERS}); trace {os.path.getsize(trace) / 2**20:.1f} "
-          f"MB, {len(events):,} events, {len(kernels)} kernel names; the port's kernels in it: "
-          f"{found}", flush=True)
+          f"MB, {len(events):,} events, {len(kernels)} device operation names; the port's kernels "
+          f"in it: {found}", flush=True)
     print(f"phase 34 step ms (each synchronised, host clock): inside the window median "
           f"{float(np.median(inside)):.3f} mean {float(np.mean(inside)):.3f}; outside median "
           f"{float(np.median(outside)):.3f} mean {float(np.mean(outside)):.3f}; the window's "
@@ -5422,6 +5392,7 @@ def profile_phase(root, presets, wrappers) -> None:
           f"{wall * 1e3 - sum(ms.values()):.1f} ms", flush=True)
     if traced != PROFILE_TRACE_ITERS or missing:
         fail(f"phase 34: traced {traced} steps, step kernels missing from the trace {missing}")
+    return out, events
 
 
 def counted(wrappers, run):
@@ -5467,7 +5438,7 @@ def tools_phase(root, wrappers) -> None:
     ``quality_run``'s refscale preset through its ``_run`` (cut to
     REFSCALE_CUT_ITERS steps), then ``occ_probe`` and ``eval_bench`` on its
     checkpoint, and ``envmap_probe`` on phase 13's envmap run."""
-    from egonerf_torch.tools import envmap_probe, eval_bench, occ_probe, quality_run
+    from egonerf_torch.tools import envmap_e2e, envmap_probe, eval_bench, occ_probe, quality_run
 
     card = card_line()
     base = os.path.join(root, "build", "chip_smoke_runs")
@@ -5519,16 +5490,87 @@ def tools_phase(root, wrappers) -> None:
         fail(f"phase 35: eval_bench's unculled view 0 {full['psnr_vs_gt']} dB, the trainer's "
              f"{views[0]:.4f} dB")
 
-    e = ENV_E2E
     env, launches = counted(wrappers, lambda: envmap_probe._run(
-        os.path.join(base, "envmap_e2e"), n_train=e["n_train"], n_test=e["n_test"],
-        height=e["height"], width=e["width"], device=DEVICE))
+        os.path.join(base, "envmap_e2e"), n_train=envmap_e2e.N_TRAIN, n_test=envmap_e2e.N_TEST,
+        height=envmap_e2e.IMG_H, width=envmap_e2e.IMG_W, device=DEVICE))
     print(f"phase 35 envmap_probe on phase 13's run ({card}): {json.dumps(env)}", flush=True)
     expect_launched("phase 35 envmap_probe", launches, ("K8",))
     values = [env["envmap_only_psnr_vs_gt_texture"]] + [
         v for im in env["per_image"] for v in (im["psnr_bg"], im["psnr_fg"])]
     if not np.all(np.isfinite(values)):
         fail(f"phase 35: envmap_probe gave {values}")
+
+
+def measure_tools_phase(root, wrappers, trace_dir: str, events: list) -> dict:
+    """Phase 36: the measurement tools at the production shape.
+    ``profile_step``'s tables of phase 34's trace (every device operation
+    in a family, the families summing to the window's device time) and
+    ``capture_eval`` of one 2000x1000 view; ``eval_probe`` at chunk 4096 in
+    its four modes; ``eval_ship`` over 2 views; ``microbench_lookup`` (each
+    form against its plain version; the first caller of K15 and K16).
+    Each tool's kernels counted from 0 around its run; returns
+    microbench_lookup's."""
+    from egonerf_torch import presets
+    from egonerf_torch.tools import eval_probe, eval_ship, microbench_lookup, profile_step
+
+    card = card_line()
+    base = os.path.join(root, "build", "chip_smoke_runs")
+
+    def accounted(label, rec, total_ms):
+        fams = {r["family"]: r["ms_per_step"] for r in rec["families"]}
+        print(f"phase 36 {label} ({card}): {rec['n_device_ops']:,} device operations, "
+              f"{rec['ms_per_step_total']:.4f} ms a unit, 'other' {fams.get('other', 0.0):.4f} "
+              f"ms ({100 * fams.get('other', 0.0) / rec['ms_per_step_total']:.2f}%), device busy "
+              f"{rec['busy_share']:.2%} of the window", flush=True)
+        if not abs(sum(fams.values()) - total_ms) <= 1e-6 * total_ms:
+            fail(f"phase 36: the {label} families sum to {sum(fams.values())} ms, the device "
+                 f"operations to {total_ms} ms")
+        return fams
+
+    rows = profile_step.summarize(trace_dir, top=16, events=events)
+    step = accounted("profile_step families of phase 34's step",
+                     profile_step.families(trace_dir, write=False, device=card, events=events),
+                     sum(ms for _, ms, _ in rows))
+    missing = [f for f in ("K1 field", "K2 field backward", "K3 density", "K4 resample",
+                           "K6 composite", "K6b composite backward", "K7 chart", "shader GEMMs",
+                           "Adam (multi_tensor_apply)") if not step.get(f)]
+    if missing:
+        fail(f"phase 36: the step's families {missing} hold no device time")
+
+    eval_dir, launches = counted(wrappers, lambda: profile_step.capture_eval(
+        n_images=1, device=DEVICE, profile_dir=os.path.join(base, "profile_eval"),
+        basedir=os.path.join(base, "profile_eval_run")))
+    expect_launched("phase 36 capture_eval", launches, ("K1", "K3", "K4", "K6", "K7"))
+    rows = profile_step.summarize(eval_dir, top=12)
+    view = accounted("profile_step families of one traced view",
+                     profile_step.families(eval_dir, write=False, device=card),
+                     sum(ms for _, ms, _ in rows))
+    if not view.get("K1 field") or not view.get("shader GEMMs"):
+        fail(f"phase 36: the view's families {sorted(view)} lack K1 or the shader GEMMs")
+
+    probe, launches = counted(wrappers, lambda: eval_probe._run(
+        chunks=(presets.EVAL_CHUNK,), reps=1, device=DEVICE,
+        basedir=os.path.join(base, "eval_probe")))
+    expect_launched("phase 36 eval_probe", launches, ("K1", "K3", "K4", "K6", "K7"))
+    for row in probe["rows"]:
+        print(f"phase 36 eval_probe ({card}): {json.dumps(row)}", flush=True)
+    if [r["mode"] for r in probe["rows"]] != list(eval_probe.MODES) or not all(
+            np.isfinite(r["sec_per_image"]) and r["sec_per_image"] > 0 for r in probe["rows"]):
+        fail(f"phase 36: eval_probe gave {probe['rows']}")
+
+    ship, launches = counted(wrappers, lambda: eval_ship._run(
+        n_images=2, device=DEVICE, basedir=os.path.join(base, "eval_ship")))
+    expect_launched("phase 36 eval_ship", launches, ("K1", "K3", "K4", "K6", "K7"))
+    print(f"phase 36 eval_ship ({card}): {json.dumps(ship)}", flush=True)
+    if not ship["sec_per_image_amortized"] > 0:
+        fail(f"phase 36: eval_ship gave {ship}")
+
+    bench, launches = counted(wrappers, lambda: microbench_lookup._run(device=DEVICE))
+    expect_launched("phase 36 microbench_lookup", launches,
+                    ("K15 plane", "K15 line", "K16", "K1", "K2", "K4"))
+    if len(bench["forms"]) != 16:
+        fail(f"phase 36: microbench_lookup timed {len(bench['forms'])} forms, expect 16")
+    return launches
 
 
 def kernel_wrappers() -> dict:
@@ -5575,6 +5617,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.time()
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from egonerf_torch import _build, ops, presets
@@ -5726,7 +5769,7 @@ def main() -> int:
 
     # -- phases 12-13: the outdoor config's command line, envmap quality -------
     outdoor_cli_phase(root, presets)
-    envmap_quality_phase(root, presets)
+    envmap_quality_phase(root)
 
     # -- phases 14-15: the TensoRF view and its chunks against plain -----------
     with torch.no_grad():
@@ -5755,7 +5798,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     omniblender_phase(root, wrappers)
     torch.cuda.empty_cache()
-    # K15 and K16 have no caller on any path: their launches stay 0
 
     # -- phases 23-24: linear sampling and grid upsampling at production width --
     linear_rows = linear_phase(root, presets, ops, wrappers, dirs_np)
@@ -5813,11 +5855,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     gloo_phase(root)
     torch.cuda.empty_cache()
-    profile_phase(root, presets, wrappers)
+    trace_dir, events = profile_phase(root, presets, wrappers)
     torch.cuda.empty_cache()
     # -- phase 35: the quality-record tools ------------------------------------
     tools_phase(root, wrappers)
     torch.cuda.empty_cache()
+    # -- phase 36: the measurement tools; K15's and K16's launches are
+    # microbench_lookup's (each row its wrapper's count, S = 2 and 1 alike)
+    bench = measure_tools_phase(root, wrappers, trace_dir, events)
+    del events
+    torch.cuda.empty_cache()
+    for k in ("K15 plane", "K15 line", "K16"):
+        for row in (capture_rows[k], capture_rows[f"{k} (S=1)"]):
+            row["launches"] = bench[k]
 
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K4+draw", "K5",
                                                      "K6", "K6b", "K6e", "K6+env", "K6b+env",
@@ -5838,6 +5888,7 @@ def main() -> int:
                                               "K3 (S=1, no relu)")]
                       + list(cp_rows.values()) + [k7s_row]}),
           flush=True)
+    print(f"chip_smoke: {time.time() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

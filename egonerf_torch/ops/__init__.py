@@ -66,8 +66,9 @@ inside ``mm.mixed_matmul`` and K11 (``bias_grad``) is the backward of
 draws, picks and gathers a theta-importance batch (``data/samplers.py``);
 K14 is the row pick alone on given draws, JAX's function.  K15 (one
 bf16 table's lookup with no gradient) and K16 (a float32 line stack's
-linear sample) have no caller on either package's paths, so they stay out
-of ``Ops``: they are the counterparts of JAX's
+linear sample) have no caller on either package's model paths, so they
+stay out of ``Ops`` (``tools/microbench_lookup.py`` times them): they are
+the counterparts of JAX's
 ``sample_plane_packed_nograd``, ``sample_line_packed_nograd`` and
 ``grid_sample.sample_line``.
 K7s is K7 instantiated for ``generic_sphere``'s single sphere (the yin

@@ -1,8 +1,9 @@
 """K16: the linear sample of stacked float32 lines (counterpart of
 ``sample_line`` in ``egonerf_tpu/ops/grid_sample.py:38-57``).
 
-No path of either package calls it; the port carries it as a standalone op
-so that every hand-shaped op of the JAX package has a Hopper counterpart.
+No model path of either package calls it; the port carries it as a
+standalone op so that every hand-shaped op of the JAX package has a Hopper
+counterpart, and ``tools/microbench_lookup.py`` times it.
 Its plain version is ``vm_lookup.sample_line`` (zero padding by
 ``_axis_cells``' clamped pair), which gives JAX's ``_corner`` values.
 """
