@@ -262,12 +262,15 @@ The other charts, the other shading modes and mesh export:
    each against the JAX package's CPU figure less the seed band;
 29. TensorVMSplit at the ``tensorf_mask_overrides`` widths on generic_sphere
     (exp, interval_th, r0 0.03, N_voxel 256^3 -> [128, 254, 508]) on the
-    indoor scene with a 128^3 mask of half occupancy: K7s (K7's
-    single-sphere form) against its plain version at K7's limits on a
-    chunk (radial modes 0, 1 and 2), on rays from outside the box, on the
-    poles and the phi = +-pi seam and on a recorded step, timed beside
-    each plain chart's map; a 2000x1000 view (K1, K9, K6, K7s once a
-    chunk), 20 timed steps (K7s once a step, no searchsorted in the
+    indoor scene with a 128^3 mask of half occupancy: K7s (generic_sphere's
+    chart with the samplers' in-box mask) against its plain version at
+    K7's limits and its mask bit for bit with ``_in_box`` of torch's points
+    on a chunk (radial modes 0, 1 and 2), on rays from outside the box, on
+    rays at and along its faces, on the poles and the phi = +-pi seam and
+    on a recorded step, its radial column bit for bit on the grid's
+    entries and an ulp either side, timed beside each plain chart's map; a
+    2000x1000 view (K1, K9, K6, K7s once a chunk; a chunk's device
+    operations), 20 timed steps (K7s once a step, no searchsorted in the
     profile), a step against the plain versions, the bake and a 128^3
     density grid for the export (K7s and K3); balanced_sphere at the same
     budget (a view, steps, a step against plain); sphere, the two
@@ -422,7 +425,8 @@ WIDTHS = (("smoke fine", 24, 8), ("smoke coarse", 8, 4), ("scalar", 20, 4),
 PORT_KERNELS = ("vm_lookup_kernel", "vm_field_bwd_kernel", "resample_kernel",
                 "resample_score_kernel", "sorted_uniform_kernel", "composite_kernel",
                 "composite_bwd_kernel",
-                "chart_kernel", "envmap_kernel", "envmap_bwd_kernel", "alphamask_kernel",
+                "chart_kernel", "chart_sphere_kernel", "envmap_kernel", "envmap_bwd_kernel",
+                "alphamask_kernel",
                 "mm_fwd_kernel", "mm_fwd_narrow_kernel", "mm_rows_kernel", "mm_db_kernel",
                 "mm_db_sum_kernel",
                 "bias_grad_part_kernel", "bias_grad_sum_kernel", "cull_score_kernel",
@@ -4720,24 +4724,93 @@ def variant_quality_phase(root: str) -> None:
 
 
 # -- the other charts, shading modes and mesh export: phases 29-31 -------------
-def sphere_check(name: str, ops, args) -> float:
+def sphere_check(name: str, ops, args, model=None, exact_r=False) -> float:
     """K7s against its plain version: every flag 0 on both sides, the coords
-    within K7_TOL; returns the max abs error."""
-    got, ref = ops.KERNELS.chart_sphere(*args), ops.PLAIN.chart_sphere(*args)
+    within K7_TOL; with ``model`` (a TensoRF model) K7s asked for the mask
+    in its aabb, the mask bit for bit with the model's ``_in_box`` of
+    torch's points (the samplers' mask the path used before K7s gave it);
+    with ``exact_r`` the radial column bit for bit.  Returns the max abs
+    error."""
+    if model is None:
+        got, ref = ops.KERNELS.chart_sphere(*args), ops.PLAIN.chart_sphere(*args)
+    else:
+        box = model._box(args[0].device)
+        (got, got_m), (ref, _) = (ops.KERNELS.chart_sphere(*args, box),
+                                  ops.PLAIN.chart_sphere(*args, box))
+        in_box = model._in_box(args[0][:, None, :] + args[1][:, None, :]
+                               * args[2][..., None]).reshape(-1)
     torch.cuda.synchronize()
     if got.shape != ref.shape or not torch.isfinite(got).all():
         fail(f"{name}: shape {tuple(got.shape)} (plain {tuple(ref.shape)}) or non-finite")
     flags = int((got[:, 3] != 0).sum()) + int((ref[:, 3] != 0).sum())
     col_err = (got - ref).abs().amax(dim=0).tolist()
     abs_err = max(col_err)
-    ok = flags == 0 and abs_err <= K7_TOL
+    r_bits = int((got[:, 0] != ref[:, 0]).sum())
+    ok = flags == 0 and abs_err <= K7_TOL and (r_bits == 0 or not exact_r)
+    mask = ""
+    if model is not None:
+        m_bits = int((got_m != in_box).sum())
+        ok = ok and m_bits == 0 and got_m.dtype == torch.bool
+        mask = (f"; mask: {m_bits} of {in_box.numel():,} differ from _in_box of torch's points "
+                f"({int(in_box.sum()):,} in the box)")
     print(f"phase 29 {name}: {got.shape[0]:,} samples, nonzero flags {flags}; max abs err "
           f"{abs_err:.3e} (r {col_err[0]:.1e}, theta {col_err[1]:.1e}, phi {col_err[2]:.1e}; "
-          f"{int((got != ref).any(1).sum()):,} samples differ at all) (flags 0, abs <= "
-          f"{K7_TOL:.0e}) -> {'ok' if ok else 'MISS'}", flush=True)
+          f"{int((got != ref).any(1).sum()):,} samples differ at all, the radial column on "
+          f"{r_bits}){mask} (flags 0, abs <= {K7_TOL:.0e}"
+          f"{', the radial column bit for bit' if exact_r else ''}"
+          f"{', the mask bit for bit' if model is not None else ''}) -> "
+          f"{'ok' if ok else 'MISS'}", flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return abs_err
+
+
+def sphere_edge_radii(coords, dev):
+    """K7s's arguments whose radii are the radial grid's entries, an ulp
+    either side of each, 0 and past the last entry (1.5x, 2x): one ray from
+    the centre of a copy of ``coords`` centred on the origin (the same
+    radial grid), along +x, so each depth is its radius exactly."""
+    from egonerf_torch.coords.spherical import GenericSphericalCoords
+
+    centred = GenericSphericalCoords(coords.aabb - np.float32(coords.center), exp_r=True,
+                                     r0=coords.r0, interval_th=True)
+    centred.set_resolution(coords.resolution, r0=coords.r0)
+    grid = np.asarray(centred.ref_grid, np.float32)
+    if not np.array_equal(grid, coords.ref_grid) or np.any(centred.center != 0):
+        fail("phase 29: the centred chart's radial grid is not the chart's")
+    r = np.concatenate([grid, np.nextafter(grid, np.float32(np.inf)),
+                        np.nextafter(grid[1:], np.float32(0)),
+                        np.float32([0.0, 1.5 * grid[-1], 2 * grid[-1]])]).astype(np.float32)
+    z = torch.as_tensor(r, device=dev)[None]
+    o = torch.zeros(1, 3, device=dev)
+    d = torch.tensor([[1.0, 0.0, 0.0]], device=dev)
+    return o, d, z, centred
+
+
+def face_rays(box: np.ndarray, near: float, n: int, dev):
+    """Rays at the aabb's faces: half axis-aligned from ``near`` + 1 outside,
+    so the uniform sampler's first sample lies on the face they enter or
+    within an ulp of it; half lying in a face's plane, parallel to it
+    (every sample on the face).  The other two coordinates inside the box,
+    on its edges or an ulp outside."""
+    rng = np.random.default_rng(SEED)
+    lo, hi = box
+    axis = rng.integers(0, 3, n)
+    sign = rng.choice([-1.0, 1.0], n).astype(np.float32)
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    pick = rng.integers(0, 5, (n, 3))
+    o = np.where(pick == 1, lo, np.where(pick == 2, hi, o))
+    o = np.where(pick == 3, np.nextafter(hi, np.float32(np.inf)), o)
+    o = np.where(pick == 4, np.nextafter(lo, np.float32(-np.inf)), o).astype(np.float32)
+    d = np.zeros((n, 3), np.float32)
+    rows = np.arange(n)
+    face = np.where(sign > 0, lo[axis], hi[axis])
+    inside = rows < n // 2
+    d[rows, axis] = np.where(inside, sign, 0.0)
+    d[~inside, (axis[~inside] + 1) % 3] = 1.0
+    off = np.float32(near + 1.0)
+    o[rows, axis] = np.where(inside, face - sign * off, face)
+    return torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
 
 
 def chart_trainer(root, presets, expname, **deltas):
@@ -4767,14 +4840,18 @@ def plain_chart_ms(coords, pts) -> float:
 
 
 def sphere_kernel_checks(trainer, ops, dirs, chunk: int) -> dict:
-    """Phase 29: K7s against its plain version at K7's limits on one chunk of
+    """Phase 29: K7s against its plain version at K7's limits, its mask bit
+    for bit with the model's ``_in_box`` of torch's points, on one chunk of
     the view's rays and their exponential depths (radial modes 0, 1, 2:
     the lookup under interval_th, the closed-form cells, linear), on rays
-    from outside the box, on the poles and the phi = +-pi seam (both signs
-    of zero) and on a recorded training step; its row with time and bound;
-    and each plain chart's map on the chunk's points, timed beside it."""
+    from outside the box, on rays at and along its faces, on the poles and
+    the phi = +-pi seam (both signs of zero) and on a recorded training
+    step; the radial column bit for bit on the grid's entries, an ulp
+    either side, 0 and past the last; its row with time and bound; and each
+    plain chart's map on the chunk's points, timed beside it."""
     from egonerf_torch.coords import make_coordinates
     from egonerf_torch.coords.spherical import GenericSphericalCoords
+    from egonerf_torch.ops import chart
 
     model, cfg = trainer.model, trainer.cfg
     coords, dev = model.coordinates, dirs.device
@@ -4782,36 +4859,62 @@ def sphere_kernel_checks(trainer, ops, dirs, chunk: int) -> dict:
     pick = torch.arange(chunk, device=dev) * (dirs.shape[0] // chunk)
     viewdirs = dirs[pick]
     rays_o = torch.zeros_like(viewdirs)
+    table = chart.radial_buckets(coords.ref_grid)
+    print(f"phase 29 K7s radial bucket table: {len(table.start)} buckets for "
+          f"{coords.ref_grid.shape[0]} grid entries, walk at most {table.walk}", flush=True)
     with torch.no_grad():
         pts, z, _ = model.sample_ray_exp(rays_o, viewdirs, n)
         args = (rays_o, viewdirs, z, coords)
-        err = sphere_check("K7s chart_sphere (exp depths, mode 0)", ops, args)
+        err = sphere_check("K7s chart_sphere (exp depths, mode 0)", ops, args, model)
         for label, exp_r, interval in (("mode 1, closed-form exp", True, False),
                                        ("mode 2, linear", False, False)):
             other = GenericSphericalCoords(coords.aabb, exp_r=exp_r, N_voxel=cfg.N_voxel_init,
                                            r0=float(cfg.r0), interval_th=interval)
             err = max(err, sphere_check(f"K7s chart_sphere ({label})", ops,
-                                        (rays_o, viewdirs, z, other)))
+                                        (rays_o, viewdirs, z, other), model))
+        err = max(err, sphere_check("K7s chart_sphere (radial grid entries, an ulp either side, "
+                                    "0, past the last)", ops, sphere_edge_radii(coords, dev),
+                                    exact_r=True))
+        # a grid whose bucket table is capped, so K7s walks its cells in a loop
+        fine = GenericSphericalCoords(coords.aabb, exp_r=True, r0=0.001, interval_th=True)
+        fine.set_resolution([1024, *coords.resolution[1:]], r0=0.001)
+        walk = chart.radial_buckets(fine.ref_grid).walk
+        err = max(err, sphere_check(f"K7s chart_sphere (r0 0.001, n_r 1024: a walk of up to "
+                                    f"{walk})", ops, sphere_edge_radii(fine, dev), exact_r=True))
+        err = max(err, sphere_check(f"K7s chart_sphere (r0 0.001, n_r 1024, exp depths)", ops,
+                                    (rays_o, viewdirs, z, fine), model, exact_r=True))
         box = torch.as_tensor(coords.aabb, device=dev)
         reach = float((box[1] - box[0]).norm()) / 2
         away = torch.rand(chunk, 1, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(SEED)) * 8 + reach
         out_o = -viewdirs * away
-        _, z_out, _ = model.sample_ray(out_o, viewdirs, n)
+        z_out = model.depths_uniform(out_o, viewdirs, n)
         err = max(err, sphere_check("K7s chart_sphere (rays from outside the box)", ops,
-                                    (out_o, viewdirs, z_out, coords)))
+                                    (out_o, viewdirs, z_out, coords), model))
+        face_o, face_d = face_rays(model.aabb, model.near_far[0], chunk, dev)
+        z_face = model.depths_uniform(face_o, face_d, n)
+        first = face_o + face_d * z_face[:, :1]
+        on_face = int(((first == model._box(dev)[0]) | (first == model._box(dev)[1]))
+                      .any(-1).sum())
+        print(f"phase 29 rays at the faces: {on_face:,} of {chunk:,} first samples exactly on "
+              f"a face", flush=True)
+        err = max(err, sphere_check("K7s chart_sphere (rays at and along the box's faces)", ops,
+                                    (face_o, face_d, z_face, coords), model))
         hard = torch.tensor(ENV_HARD_DIRS, dtype=torch.float32, device=dev)
         hard = hard / hard.norm(dim=-1, keepdim=True)
         hard = hard.repeat(-(-chunk // hard.shape[0]), 1)[:chunk]
         centre = torch.as_tensor(coords.center, device=dev).expand(chunk, 3)
         err = max(err, sphere_check("K7s chart_sphere (poles and the phi = +-pi seam, from the "
-                                    "centre)", ops, (centre, hard, z, coords)))
+                                    "centre)", ops, (centre, hard, z, coords), model))
         n_grid = coords.ref_grid.shape[0]
-        row = kernel_row("K7s chart_sphere (exp depths, mode 0)", "egonerf_torch/csrc/chart.cu",
-                         "egonerf_tpu/coords/spherical.py:48", err,
-                         time_ms(lambda: ops.KERNELS.chart_sphere(*args)),
-                         time_ms(lambda: ops.PLAIN.chart_sphere(*args), reps=5),
-                         *chart_cost(rays_o, z, n_grid))
+        n_bytes, n_ops = chart_cost(rays_o, z, n_grid)
+        row = kernel_row("K7s chart_sphere (exp depths, mode 0, with the mask)",
+                         "egonerf_torch/csrc/chart.cu", "egonerf_tpu/coords/spherical.py:48",
+                         err, time_ms(lambda: ops.KERNELS.chart_sphere(*args, box)),
+                         time_ms(lambda: ops.PLAIN.chart_sphere(*args, box), reps=5),
+                         n_bytes + z.numel() + 4 * len(table.start), n_ops)
+        print(f"phase 29 K7s without the mask: "
+              f"{time_ms(lambda: ops.KERNELS.chart_sphere(*args)):.4f} ms", flush=True)
         print(f"phase 29 chart centre {coords.center.tolist()}, far r {coords.far_r:.4f}, "
               f"radial grid {n_grid} entries; depths [{float(z.min()):.4f}, "
               f"{float(z.max()):.4f}]", flush=True)
@@ -4833,8 +4936,10 @@ def sphere_kernel_checks(trainer, ops, dirs, chunk: int) -> dict:
     finally:
         model.ops = ops.KERNELS
     torch.cuda.synchronize()
+    if len(rec.args) != 5:
+        fail("phase 29: the training step did not ask K7s for the in-box mask")
     with torch.no_grad():
-        sphere_check("K7s chart_sphere (training step)", ops, rec.args)
+        sphere_check("K7s chart_sphere (training step)", ops, rec.args[:4], model)
     return row
 
 
@@ -4882,6 +4987,15 @@ def chart_phase(root, presets, ops, wrappers, dirs_np) -> dict:
             trainer.train_step(it)
             it += 1
     names = profile(steps, PROFILE_STEPS, "phase 29 generic_sphere", "step")
+    # a chunk's device operations (the step's are above): K7s gives the
+    # in-box mask, so neither forms the samples' points in torch
+    renderer = Renderer.from_config(model, cfg, trainer.white_bg)
+    dirs = torch.as_tensor(dirs_np, device=DEVICE)
+    pick = torch.arange(renderer.chunk, device=DEVICE) * (dirs.shape[0] // renderer.chunk)
+    chunk_rays = torch.cat([torch.zeros_like(dirs[pick]), dirs[pick]], -1)
+    with torch.no_grad():
+        profile(lambda: renderer.render_rays(trainer.params, chunk_rays), 1,
+                "phase 29 generic_sphere", "chunk")
     found = [k for k in names if "searchsorted" in k.lower()]
     print(f"phase 29 searchsorted kernels in the steps' profile: {found or 'none'}", flush=True)
     if found or not names:

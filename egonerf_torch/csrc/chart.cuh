@@ -1,7 +1,7 @@
 // The yin-yang chart and its normalization of one sample, shared by the
 // standalone chart kernel K7 (chart.cu) and K4's fused epilogue
-// (resample.cu), so that both write the same coords bit for bit; its
-// single-sphere form (K7s, chart.cu) is generic_sphere's chart.
+// (resample.cu), so that both write the same coords bit for bit; K7s
+// (chart.cu), generic_sphere's single sphere, takes its pieces.
 //
 // In the order of the plain version (egonerf_torch/ops/chart.py), every
 // step rounded on its own (__f*_rn, so nvcc contracts nothing into an
@@ -11,8 +11,9 @@
 // acos(dy / r), atan2(dz, -dx) and the flag 1.  Away from the boundaries
 // the test reads dz / r and dx + |dy| instead of the yin angles, so a
 // sample takes one acos and one atan2.  Then each of r, theta, phi
-// maps to [-1, 1].  The radial lookup is searchsorted(grid, r, right) by a
-// binary search over the grid the caller keeps in shared memory; where
+// maps to [-1, 1].  K7's and K4's radial lookup is searchsorted(grid, r,
+// right) by a binary search over the grid the caller keeps in shared
+// memory (K7s finds the same cell from a bucket table, chart.cu); where
 // torch divides a tensor by a Python number on the card it multiplies by
 // the float32 reciprocal, and the kernels take the same reciprocals from
 // the wrappers.
@@ -59,22 +60,28 @@ constexpr float kChartQIn = 0.70709678f;
 constexpr float kChartQOut = 0.70711678f;
 constexpr float kChartPhiMargin = 1e-5f;
 
+// normalize_r_lookup of the radius r in the cell of hi = searchsorted(grid,
+// r, right=True), clamped here to [1, n_r]
+__device__ __forceinline__ float chart_cell_lerp(float r, int hi, const ChartArgs& a,
+                                                 const float* grid) {
+  const int n_r = a.n_grid - 1;
+  hi = min(max(hi, 1), n_r);
+  const int lo = hi - 1;
+  const float g_lo = grid[lo], g_hi = grid[hi];
+  const float t = __fdiv_rn(__fsub_rn(r, g_lo), __fsub_rn(g_hi, g_lo));
+  return __fmul_rn(__fadd_rn((float)lo, t), a.inv_nr);
+}
+
 // normalize_r in [0, 1] of the radius r
 __device__ __forceinline__ float chart_normalize_r(float r, const ChartArgs& a,
                                                    const float* grid) {
   if (a.mode == 0) {
-    // hi = searchsorted(grid, r, right=True) clamped to [1, n_r]
     int lo_i = 0, hi_i = a.n_grid;  // first index with grid[i] > r in [lo_i, hi_i]
     while (lo_i < hi_i) {
       const int mid = (lo_i + hi_i) >> 1;
       if (grid[mid] <= r) lo_i = mid + 1; else hi_i = mid;
     }
-    const int n_r = a.n_grid - 1;
-    const int hi = min(max(lo_i, 1), n_r);
-    const int lo = hi - 1;
-    const float g_lo = grid[lo], g_hi = grid[hi];
-    const float t = __fdiv_rn(__fsub_rn(r, g_lo), __fsub_rn(g_hi, g_lo));
-    return __fmul_rn(__fadd_rn((float)lo, t), a.inv_nr);
+    return chart_cell_lerp(r, lo_i, a, grid);
   }
   if (a.mode == 1) {
     const float safe_r = fmaxf(r, 1e-12f);
@@ -94,11 +101,7 @@ __device__ __forceinline__ float chart_to_unit(float x) {
   return __fsub_rn(__fmul_rn(x, 2.0f), 1.0f);
 }
 
-// The normalized [r, theta, phi, flag] of the point o + d z.  kSphere
-// (K7s, the single-sphere form of generic_sphere) takes the yin frame for
-// every point: theta = acos(dz / r), phi = atan2(dy, dx), flag 0; the
-// caller passes that chart's near (0, -pi) and inverse spans.
-template <bool kSphere = false>
+// The normalized [r, theta, phi, flag] of the point o + d z.
 __device__ __forceinline__ float4 chart_point(float ox, float oy, float oz, float ddx,
                                               float ddy, float ddz, float zz,
                                               const ChartArgs& a, const float* grid) {
@@ -113,21 +116,19 @@ __device__ __forceinline__ float4 chart_point(float ox, float oy, float oz, floa
   // the chosen frame (the same calls on the same arguments as the angles
   // the test would have taken)
   const float qz = chart_q(dz, r);
-  bool yin = true;
-  if constexpr (!kSphere) {
-    const float aq = fabsf(qz), span = __fadd_rn(fabsf(dx), fabsf(dy));
-    const float side = __fadd_rn(dx, fabsf(dy));
-    if (aq > kChartQOut) {
-      yin = false;
-    } else if (aq < kChartQIn && side > __fmul_rn(kChartPhiMargin, span)) {
-      yin = true;
-    } else if (aq < kChartQIn && side < -__fmul_rn(kChartPhiMargin, span)) {
-      yin = false;
-    } else {
-      const float theta_n = acosf(qz), phi_n = atan2f(dy, dx);
-      yin = kChartLo <= theta_n && theta_n <= kChartHi && kChartPhiLo <= phi_n &&
-            phi_n <= kChartPhiHi;
-    }
+  const float aq = fabsf(qz), span = __fadd_rn(fabsf(dx), fabsf(dy));
+  const float side = __fadd_rn(dx, fabsf(dy));
+  bool yin;
+  if (aq > kChartQOut) {
+    yin = false;
+  } else if (aq < kChartQIn && side > __fmul_rn(kChartPhiMargin, span)) {
+    yin = true;
+  } else if (aq < kChartQIn && side < -__fmul_rn(kChartPhiMargin, span)) {
+    yin = false;
+  } else {
+    const float theta_n = acosf(qz), phi_n = atan2f(dy, dx);
+    yin = kChartLo <= theta_n && theta_n <= kChartHi && kChartPhiLo <= phi_n &&
+          phi_n <= kChartPhiHi;
   }
   const float theta = acosf(yin ? qz : chart_q(dy, r));
   const float phi = atan2f(yin ? dy : dz, yin ? dx : -dx);

@@ -17,7 +17,8 @@ space); K9 gates them with the alpha mask once one is baked; the
 composite (K6, K6b backward) zeroes sigma outside the box and the mask,
 and rgb where the weight is not above ``ray_march_weight_thres``.  The
 samples' chart is ``generic_sphere``'s K7s under ``interval_th`` (JAX's
-gather-free ``normalize_r_lookup``) and the chart's plain torch map
+gather-free ``normalize_r_lookup``; it also gives the samples' in-box mask,
+so that path forms no points in torch) and the chart's plain torch map
 otherwise, as JAX computes those outside any hand op; the shader is any of
 JAX's five modes.  The family also carries JAX's ``shrink`` (a crop of the
 grids to a tighter aabb; no trainer calls it, in either package) and
@@ -208,10 +209,9 @@ class TensorBase(nn.Module):
         vec = torch.where(rays_d == 0, torch.full_like(rays_d, 1e-6), rays_d)
         return (box[1] - rays_o) / vec, (box[0] - rays_o) / vec
 
-    def sample_ray(self, rays_o, rays_d, n_samples: int, jitter=None):
-        """Uniform steps of ``step_size`` from the aabb entry (clipped to
-        near/far); ``jitter`` (R, n_samples) U(0, 1) moves each sample that
-        far into its step.  Returns pts (R, n, 3), z (R, n), in_box (R, n)."""
+    def depths_uniform(self, rays_o, rays_d, n_samples: int, jitter=None) -> torch.Tensor:
+        """(R, n) depths of :meth:`sample_ray`: uniform steps of
+        ``step_size`` from the aabb entry (clipped to near/far)."""
         near, far = self.near_far
         rate_a, rate_b = self._box_rates(rays_o, rays_d)
         t_min = torch.minimum(rate_a, rate_b).amax(dim=-1).clamp(near, far)
@@ -219,24 +219,19 @@ class TensorBase(nn.Module):
             rays_o.shape[0], n_samples)
         if jitter is not None:
             rng = rng + jitter
-        interpx = t_min[:, None] + self.step_size * rng
-        pts = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
-        return pts, interpx, self._in_box(pts)
+        return t_min[:, None] + self.step_size * rng
 
-    def sample_ray_ndc(self, rays_o, rays_d, n_samples: int, jitter=None):
-        """NDC rays (JAX ``tensorf.py:79-91``): ``linspace(near, far, n)``
-        (JAX's float32 arithmetic), each sample moved by ``jitter`` (R, n)
-        U(0, 1) times (far - near) / n.  Returns pts, z, in_box."""
+    def depths_ndc(self, rays_o, n_samples: int, jitter=None) -> torch.Tensor:
+        """(R, n) depths of :meth:`sample_ray_ndc`."""
         near, far = self.near_far
         interpx = linspace(near, far, n_samples, rays_o.device).expand(rays_o.shape[0],
                                                                        n_samples)
         if jitter is not None:
             interpx = interpx + jitter * ((far - near) / n_samples)
-        pts = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
-        return pts, interpx, self._in_box(pts)
+        return interpx
 
-    def sample_ray_exp(self, rays_o, rays_d, n_samples: int, jitter=None):
-        """Exponential steps with ratio 1 + pi / n from near."""
+    def depths_exp(self, rays_o, n_samples: int, jitter=None) -> torch.Tensor:
+        """(R, n) depths of :meth:`sample_ray_exp`."""
         near, far = self.near_far
         ratio = 1.0 + pi / n_samples
         r0 = max((far - near) * (ratio - 1.0) / (ratio ** n_samples - 1.0), 0.002)
@@ -245,20 +240,60 @@ class TensorBase(nn.Module):
         if jitter is not None:
             rng = rng + jitter
         csum = torch.cumsum(r0 * torch.pow(ratio, rng), dim=-1)
-        interpx = near + torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=-1)
-        pts = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
-        return pts, interpx, self._in_box(pts)
+        return near + torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=-1)
 
-    def chart_coords(self, rays_o, rays_d, z_vals, pts) -> torch.Tensor:
-        """(R, S, 4) normalized coords [a, b, c, 0] of the samples ``pts`` =
-        rays_o + rays_d z_vals: ``generic_sphere`` under ``interval_th``
-        through K7s (``ops.chart_sphere``, which forms the points itself),
-        every other chart through its plain map (JAX ``tensorf.py:193,224``)."""
+    def _points(self, rays_o, rays_d, z_vals):
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+        return pts, z_vals, self._in_box(pts)
+
+    def sample_ray(self, rays_o, rays_d, n_samples: int, jitter=None):
+        """Uniform steps of ``step_size`` from the aabb entry (clipped to
+        near/far); ``jitter`` (R, n_samples) U(0, 1) moves each sample that
+        far into its step.  Returns pts (R, n, 3), z (R, n), in_box (R, n)."""
+        return self._points(rays_o, rays_d, self.depths_uniform(rays_o, rays_d, n_samples,
+                                                                jitter))
+
+    def sample_ray_ndc(self, rays_o, rays_d, n_samples: int, jitter=None):
+        """NDC rays (JAX ``tensorf.py:79-91``): ``linspace(near, far, n)``
+        (JAX's float32 arithmetic), each sample moved by ``jitter`` (R, n)
+        U(0, 1) times (far - near) / n.  Returns pts, z, in_box."""
+        return self._points(rays_o, rays_d, self.depths_ndc(rays_o, n_samples, jitter))
+
+    def sample_ray_exp(self, rays_o, rays_d, n_samples: int, jitter=None):
+        """Exponential steps with ratio 1 + pi / n from near."""
+        return self._points(rays_o, rays_d, self.depths_exp(rays_o, n_samples, jitter))
+
+    def _chart_kernel(self) -> bool:
+        """Whether the chart runs through K7s: ``generic_sphere`` under
+        ``interval_th``."""
         coords = self.coordinates
-        if is_single_sphere(coords) and coords.exp_r and coords.interval_th:
+        return is_single_sphere(coords) and coords.exp_r and coords.interval_th
+
+    def chart_coords(self, rays_o, rays_d, z_vals, pts=None) -> torch.Tensor:
+        """(R, S, 4) normalized coords [a, b, c, 0] of the samples ``pts`` =
+        rays_o + rays_d z_vals (formed here if not given): through K7s
+        (``ops.chart_sphere``, which forms the points itself) where
+        :meth:`_chart_kernel`, every other chart through its plain map (JAX
+        ``tensorf.py:193,224``)."""
+        coords = self.coordinates
+        if self._chart_kernel():
             return self.ops.chart_sphere(rays_o, rays_d, z_vals, coords).reshape(
                 *z_vals.shape, 4)
+        if pts is None:
+            pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
         return F.pad(coords.normalize_coord(coords.from_cartesian(pts)), (0, 1))
+
+    def sample_coords(self, rays_o, rays_d, z_vals):
+        """The (R, S, 4) coords of the samples at ``z_vals`` and their (R, S)
+        in-box mask: both from K7s's one launch where :meth:`_chart_kernel`
+        (no points formed in torch), else the points, their plain chart and
+        the samplers' ``in_box``."""
+        if self._chart_kernel():
+            norm, valid = self.ops.chart_sphere(rays_o, rays_d, z_vals, self.coordinates,
+                                                self._box(rays_o.device))
+            return norm.reshape(*z_vals.shape, 4), valid.reshape(z_vals.shape)
+        pts, _, valid = self._points(rays_o, rays_d, z_vals)
+        return self.chart_coords(rays_o, rays_d, z_vals, pts), valid
 
     # ------------------------------------------------------------------
     # ray filtering (JAX tensorf.py:166-195)
@@ -293,8 +328,7 @@ class TensorBase(nn.Module):
             t_min = torch.minimum(rate_a, rate_b).amax(dim=-1)
             t_max = torch.maximum(rate_a, rate_b).amin(dim=-1)
             return t_max > t_min
-        pts, z_vals, _ = self.sample_ray(rays_o, rays_d, n_samples)
-        norm = self.chart_coords(rays_o, rays_d, z_vals, pts)
+        norm = self.chart_coords(rays_o, rays_d, self.depths_uniform(rays_o, rays_d, n_samples))
         return (self.alpha_mask.sample_alpha(norm, self.ops.alpha) > 0).any(dim=-1)
 
     # ------------------------------------------------------------------
@@ -335,17 +369,18 @@ class TensorBase(nn.Module):
 
         with torch.no_grad():
             if ndc_ray:
-                pts, z_vals, valid = self.sample_ray_ndc(rays_o, rays_d, n, jitter)
+                z_vals = self.depths_ndc(rays_o, n, jitter)
                 norm_d = torch.linalg.vector_norm(viewdirs, dim=-1, keepdim=True)
                 d = z_vals[:, 1:] - z_vals[:, :-1]
                 dists = torch.cat([d, torch.zeros_like(d[:, :1])], dim=-1) * norm_d
                 viewdirs = viewdirs / norm_d
             else:
-                sampler = self.sample_ray_exp if exp_sampling else self.sample_ray
-                pts, z_vals, valid = sampler(rays_o, rays_d, n, jitter)
+                z_vals = (self.depths_exp(rays_o, n, jitter) if exp_sampling
+                          else self.depths_uniform(rays_o, rays_d, n, jitter))
                 dists = _dists(z_vals)
-            # the lookups' coords with the flag of a single grid
-            norm = self.chart_coords(rays_o, rays_d, z_vals, pts)
+            # the lookups' coords with the flag of a single grid, and the
+            # samples inside the box
+            norm, valid = self.sample_coords(rays_o, rays_d, z_vals)
             if self.alpha_mask is not None:
                 valid = valid & (self.alpha_mask.sample_alpha(norm, self.ops.alpha) > 0)
 

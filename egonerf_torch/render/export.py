@@ -152,8 +152,7 @@ def density_grid(model, params, grid_size: int = 128, chunk_rows: int = 8) -> to
             norm = model.ops.chart(rays_o, rays_d, z, coords)
             feat = model._density(planes, lines, norm)
         else:
-            pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
-            norm = model.chart_coords(rays_o, rays_d, z, pts)
+            norm = model.chart_coords(rays_o, rays_d, z)
             feat = model.compute_density_feature_only(params, norm)
         sigma = feature2density(feat, model.cfg)
         rows.append((1.0 - torch.exp(-sigma * model.step_size)).reshape(len(ax), gs[1], gs[2]))

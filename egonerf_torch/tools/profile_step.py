@@ -61,6 +61,7 @@ _FAMILY_RULES = (
     ("K6 composite", _sym("composite_kernel")),
     ("K6b composite backward", _sym("composite_bwd_kernel")),
     ("K7 chart", _sym("chart_kernel")),
+    ("K7s sphere chart", _sym("chart_sphere_kernel")),
     ("K8 envmap", _sym("envmap_kernel")),
     ("K8b envmap backward", _sym("envmap_bwd_kernel")),
     ("K9 alpha mask", _sym("alphamask_kernel")),

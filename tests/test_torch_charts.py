@@ -269,20 +269,28 @@ def _tensorf_pair(name, radial):
     return jm, jp, tm
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if c[1] in TENSORF_CHARTS],
-                         ids=[c[0] for c in CASES if c[1] in TENSORF_CHARTS])
+# the step on each single-grid chart with uniform steps, and generic_sphere
+# under interval_th also with exponential ones
+STEP_CASES = [c for c in CASES if c[1] in TENSORF_CHARTS] + [
+    ("generic_lookup_exp", "generic_sphere", dict(exp_r=True, interval_th=True,
+                                                  exp_sampling=True))]
+
+
+@pytest.mark.parametrize("case", STEP_CASES, ids=[c[0] for c in STEP_CASES])
 def test_tensorvmsplit_step_matches_jax_on_each_chart(case):
     """One training loss (MSE + Ortho + L1 + TV) of TensorVMSplit on the
     chart and every gradient against ``jax.value_and_grad``, with JAX's
     jitter: loss rel 1e-5, each gradient abs 1e-4 of its largest entry
     (float32 sums in another order, and the charts' ulps above moving a
     lookup by ~1e-6 of a cell).  generic_sphere under interval_th takes
-    K7s's plain version here (``ops.chart_sphere`` on CPU tensors)."""
+    K7s's plain version here (``ops.chart_sphere`` on CPU tensors), asked
+    for the in-box mask with the model's aabb."""
     _, name, radial = case
     jm, jp, tm = _tensorf_pair(name, radial)
     calls = []
 
     def chart(*args):
+        assert len(args) == 5 and np.array_equal(np.asarray(args[4]), tm.aabb)
         calls.append(args[2].shape)
         return ops.PLAIN.chart_sphere(*args)
     tm.ops = ops.KERNELS._replace(chart_sphere=chart)
@@ -291,7 +299,7 @@ def test_tensorvmsplit_step_matches_jax_on_each_chart(case):
     rays[:, :3] += rng.uniform(-0.6, 0.6, (64, 3)).astype(np.float32)
     rgbs = rng.uniform(size=(64, 3)).astype(np.float32)
     key = jax.random.PRNGKey(14)
-    kw = dict(n_coarse=24)
+    kw = dict(n_coarse=24, exp_sampling=radial.get("exp_sampling", False))
     want_loss, want = jax.jit(jax.value_and_grad(_jax_loss(jm, rays, rgbs,
                                                            dict(kw, key=key))))(jp)
     jitter = torch.tensor(np.asarray(jax.random.uniform(key, (64, 24))))
