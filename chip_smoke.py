@@ -333,6 +333,22 @@ The measurement tools (``egonerf_torch/tools``):
     launches K15's and K16's rows report.  Each tool's kernels counted from
     0 around its run.  The run's seconds are printed before the last lines.
 
+The real-data pipeline (``egonerf_torch/tools/real_data_run.py``):
+
+37. ``real_data_run`` through its keyword entry on two scenes written in
+    the loaders' layouts under ``build/`` at the shipped configs' full
+    width (N_voxel 27e6, 128 + 128 samples, batch 4096): ``barbershop``
+    (OmniBlender, 2000x1000) and ``garden`` (Ricoh360, 1920x960: the
+    ``imgs/`` layout, the envmap and the TV losses), REAL_FRAMES frames and
+    REAL_ITERS iterations (the only cuts), the run's folder and its record
+    under ``build/``: rc 0, the record's test PSNR that of ``mean.json``
+    within 1e-3 dB, the kernels counted from 0 around each run (the steps'
+    kernels once a step, the render's once a chunk of each test view, with
+    the envmap K8 once a chunk of the envmap's image), the wall seconds
+    and the peak memory; then the command line on an absent scene: exit 3,
+    nothing launched or allocated; and ``docs/torch/`` untouched by the
+    phase.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
 result and exits 2.
@@ -613,6 +629,13 @@ SEED_SPREAD_DB = 2.445
 # eval_bench's keeps (the oracle row 192o) and occ_probe's budgets
 EVAL_BENCH_KEEPS = ("0", "192", "128", "192o")
 OCC_BUDGETS = (32, 64, 96, 128, 192)
+# phase 37: real_data_run on scenes written here at the loaders' full frame
+# sizes (scene, collection layout, frame (h, w)); the frame counts (REAL_TEST
+# of them test views) and the iterations are the only cuts of the shipped
+# configs
+REAL_SCENES = (("barbershop", "omniblender", IMAGE_HW), ("garden", "ricoh", RICOH_WH[::-1]))
+REAL_FRAMES = {"barbershop": 6, "garden": 8}
+REAL_TEST, REAL_ITERS = 2, 20
 
 
 def fail(msg: str) -> None:
@@ -5687,6 +5710,100 @@ def measure_tools_phase(root, wrappers, trace_dir: str, events: list) -> dict:
     return launches
 
 
+def real_launches(wrappers, envmap: bool, n_chunks: int) -> dict:
+    """The launches of a ``real_data_run`` of REAL_ITERS steps and its
+    REAL_TEST test views of ``n_chunks`` chunks: the steps' kernels once a
+    step (as phase 21 counts them), the render's K1, K3, K4, K7 and K6 (K6e
+    with the envmap) once a chunk, and with the envmap K8 once a chunk of
+    the envmap's image (one ``pretrain_envmap`` render of the first view)."""
+    want = {k: v // TRAIN_STEPS * REAL_ITERS for k, v in step_launches(wrappers, envmap).items()}
+    for k in ("K1", "K3", "K4", "K7", "K6e" if envmap else "K6"):
+        want[k] += REAL_TEST * n_chunks
+    if envmap:
+        want["K8"] += n_chunks
+    return want
+
+
+def real_data_phase(root, wrappers) -> None:
+    """Phase 37: ``real_data_run`` on an OmniBlender-layout ``barbershop``
+    and a Ricoh-layout ``garden`` written under ``build/``, each through
+    :func:`real_data_run.run` with the run's folder and its record under
+    ``build/``; then its command line on an absent scene."""
+    from egonerf_torch.presets import EVAL_CHUNK
+    from egonerf_torch.tools import real_data_run
+    from egonerf_torch.tools.fetch_data import scene_dir
+    from egonerf_torch.tools.make_egocentric_capture import make_capture
+
+    card = card_line()
+    base = os.path.join(root, "build", "chip_smoke_runs", "real")
+    shutil.rmtree(base, ignore_errors=True)
+    docs = os.path.join(root, "docs", "torch")
+
+    def docs_state():
+        return sorted((f, os.path.getmtime(os.path.join(docs, f)))
+                      for f in files_under(docs) if not f.endswith("/"))
+
+    docs_before = docs_state()
+    for scene, layout, (h, w) in REAL_SCENES:
+        data = scene_dir(scene, base)
+        n_frames = REAL_FRAMES[scene]
+        t0 = time.time()
+        if layout == "ricoh":
+            make_capture(data, n_frames=n_frames, height=h, n_test=REAL_TEST)
+        else:
+            make_omniblender_scene(data, n_frames, REAL_TEST, (h, w))
+        cfg = real_data_run.scene_config(scene, base)
+        print(f"phase 37 {scene} ({os.path.relpath(real_data_run.config_for(scene), root)}): "
+              f"{n_frames} frames ({REAL_TEST} test) at {w}x{h} written in "
+              f"{time.time() - t0:.1f} s; cuts: {n_frames} frames, {REAL_ITERS} of the config's "
+              f"{cfg.n_iters} iterations; N_voxel {cfg.N_voxel_final:,}, {cfg.n_coarse} + "
+              f"{cfg.n_fine} samples, batch {cfg.batch_size}", flush=True)
+        record = os.path.join(base, f"results_real_{scene}.json")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        rc, launches = counted(wrappers, lambda: real_data_run.run(
+            scene, base, REAL_ITERS, device=DEVICE, results=record,
+            basedir=os.path.join(base, "log", scene)))
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if rc != 0 or not os.path.exists(record):
+            fail(f"phase 37: real_data_run {scene} returned {rc}, record at {record}: "
+                 f"{os.path.exists(record)}")
+        with open(record) as f:
+            rec = json.load(f)
+        with open(os.path.join(root, rec["artifacts"], "imgs_test_all", "mean.json")) as f:
+            mean = json.load(f)
+        psnr = rec["final_test_psnr"]
+        print(f"phase 37 {scene} through real_data_run ({card}): rc {rc}, {rec['n_iters']} "
+              f"iterations and {mean['n_images']} test views in {wall:.1f} s (the record's "
+              f"wall_s {rec['wall_s']}, loading included; the test views' s/image on the "
+              f"evaluation's 'eval total' line); peak {peak:.2f} GiB allocated; test PSNR "
+              f"{psnr:.3f} dB (mean.json {mean['psnr']:.4f}, within 1e-3; a record of random "
+              f"weights after {REAL_ITERS} steps); record {os.path.relpath(record, root)}",
+              flush=True)
+        if not (rec["metrics"] == mean and mean["n_images"] == REAL_TEST
+                and rec["n_iters"] == REAL_ITERS and rec["device"] == card and np.isfinite(psnr)
+                and abs(psnr - mean["psnr"]) <= 1e-3):
+            fail(f"phase 37: {scene}'s record {rec} does not hold its mean.json {mean}")
+        want = real_launches(wrappers, cfg.use_envmap, -(-w * h // EVAL_CHUNK))
+        expect_launches(f"phase 37 {scene}", launches, want)
+        print(f"phase 37 {scene} launches: " + ", ".join(
+            f"{k} {v}" for k, v in launches.items() if v), flush=True)
+        torch.cuda.empty_cache()
+
+    allocated = torch.cuda.memory_allocated()
+    rc, launches = counted(wrappers, lambda: real_data_run.main(
+        ["bricks", "--dest", base, "--iters", str(REAL_ITERS)]))
+    print(f"phase 37 absent scene {scene_dir('bricks', os.path.relpath(base, root))}: rc {rc} "
+          f"(expect 3), launches {sum(launches.values())}, allocated "
+          f"{torch.cuda.memory_allocated() - allocated:+d} bytes", flush=True)
+    if rc != 3 or any(launches.values()) or torch.cuda.memory_allocated() != allocated:
+        fail("phase 37: the absent scene did not exit 3 untouched")
+    if docs_state() != docs_before:
+        fail("phase 37 wrote into docs/torch/")
+
+
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper (or form) by its name in the kernel line: the
     objects whose ``launches`` count the launches."""
@@ -5982,6 +6099,8 @@ def main() -> int:
     for k in ("K15 plane", "K15 line", "K16"):
         for row in (capture_rows[k], capture_rows[f"{k} (S=1)"]):
             row["launches"] = bench[k]
+    # -- phase 37: the real-data pipeline on scenes in the loaders' layouts ----
+    real_data_phase(root, wrappers)
 
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K4+draw", "K5",
                                                      "K6", "K6b", "K6e", "K6+env", "K6b+env",

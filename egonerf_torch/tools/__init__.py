@@ -1,7 +1,9 @@
 """Tools of the port: measurement scripts run on a CUDA card, the quality
 records (``quality_run``, the A/Bs, the probes, ``eval_bench``), the
-record parsers and the sweep runner, and the capture writer, run on the
-host (see each module).
+real-data pipeline (``fetch_data``, which finds or fetches a benchmark
+scene, and ``real_data_run``, which trains a shipped scene config on it
+and records its test metrics), the record parsers and the sweep runner,
+and the capture writer, run on the host (see each module).
 
 The records go to ``docs/torch/results_<name>.json`` (:func:`results_path`),
 beside and never over the JAX package's ``docs/results_<name>.json``.
