@@ -349,6 +349,16 @@ The real-data pipeline (``egonerf_torch/tools/real_data_run.py``):
     nothing launched or allocated; and ``docs/torch/`` untouched by the
     phase.
 
+The train-time cull quality A/B (``egonerf_torch/tools/cull_ab.py``):
+
+38. ``cull_ab.run`` at keep CULL_AB_KEEP with an unculled step every
+    CULL_AB_EVERY, on the production model at ``sampler_ab``'s shape,
+    cut to CULL_AB_ITERS steps with an evaluation every CULL_AB_VIS, its
+    record written under ``build/``: the kernels counted from 0 around the
+    run (K4c + draw and K13 once a culled step, K4 + draw once an unculled
+    one, K2 and K6b once a step), the record's keep, ``full_every``, tag
+    and PSNR steps those asked for, and ``docs/torch/`` untouched.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
 result and exits 2.
@@ -636,6 +646,10 @@ OCC_BUDGETS = (32, 64, 96, 128, 192)
 REAL_SCENES = (("barbershop", "omniblender", IMAGE_HW), ("garden", "ricoh", RICOH_WH[::-1]))
 REAL_FRAMES = {"barbershop": 6, "garden": 8}
 REAL_TEST, REAL_ITERS = 2, 20
+# phase 38: cull_ab at sampler_ab's production shape, keep 128 with an
+# unculled step every 4 (JAX's `--full_every=4` record), cut to 40 of its
+# 3000 steps with an evaluation every 20 (the only cuts)
+CULL_AB_KEEP, CULL_AB_EVERY, CULL_AB_ITERS, CULL_AB_VIS = 128, 4, 40, 20
 
 
 def fail(msg: str) -> None:
@@ -3600,6 +3614,13 @@ def omniblender_phase(root: str, wrappers) -> None:
 
 
 # -- the evaluation outputs, linear sampling and grid upsampling --------------
+def docs_state(root: str) -> list:
+    """Each record under ``docs/torch/`` with its modification time."""
+    docs = os.path.join(root, "docs", "torch")
+    return sorted((f, os.path.getmtime(os.path.join(docs, f)))
+                  for f in files_under(docs) if not f.endswith("/"))
+
+
 def files_under(root: str) -> list:
     """Sorted paths of the files (and, with a trailing /, the folders) under
     ``root``, relative to it."""
@@ -5737,13 +5758,7 @@ def real_data_phase(root, wrappers) -> None:
     card = card_line()
     base = os.path.join(root, "build", "chip_smoke_runs", "real")
     shutil.rmtree(base, ignore_errors=True)
-    docs = os.path.join(root, "docs", "torch")
-
-    def docs_state():
-        return sorted((f, os.path.getmtime(os.path.join(docs, f)))
-                      for f in files_under(docs) if not f.endswith("/"))
-
-    docs_before = docs_state()
+    docs_before = docs_state(root)
     for scene, layout, (h, w) in REAL_SCENES:
         data = scene_dir(scene, base)
         n_frames = REAL_FRAMES[scene]
@@ -5800,8 +5815,57 @@ def real_data_phase(root, wrappers) -> None:
           f"{torch.cuda.memory_allocated() - allocated:+d} bytes", flush=True)
     if rc != 3 or any(launches.values()) or torch.cuda.memory_allocated() != allocated:
         fail("phase 37: the absent scene did not exit 3 untouched")
-    if docs_state() != docs_before:
+    if docs_state(root) != docs_before:
         fail("phase 37 wrote into docs/torch/")
+
+
+def cull_ab_phase(root, wrappers) -> None:
+    """Phase 38: ``cull_ab.run`` at keep CULL_AB_KEEP with an unculled step
+    every CULL_AB_EVERY, on the production model at ``sampler_ab``'s shape
+    cut to CULL_AB_ITERS steps (an evaluation every CULL_AB_VIS), its run's
+    folder and its record under ``build/``."""
+    from egonerf_torch.tools import cull_ab, sampler_ab
+
+    card = card_line()
+    base = os.path.join(root, "build", "chip_smoke_runs", "cull_ab")
+    shutil.rmtree(base, ignore_errors=True)
+    docs_before = docs_state(root)
+    vis = list(range(CULL_AB_VIS, CULL_AB_ITERS + 1, CULL_AB_VIS))
+    t0 = time.time()
+    rec, launches = counted(wrappers, lambda: cull_ab.run(
+        [CULL_AB_KEEP], full_every=CULL_AB_EVERY, device=DEVICE, basedir=base,
+        n_iters=CULL_AB_ITERS, vis_list=str(vis)))
+    wall = time.time() - t0
+    record = os.path.join(base, f"results_{cull_ab.record_name(full_every=CULL_AB_EVERY)}.json")
+    with open(record, "w") as f:
+        json.dump(rec, f, indent=1)
+    n_full = sum(1 for it in range(CULL_AB_ITERS) if it % CULL_AB_EVERY == 0)
+    want = {"K4c+draw": CULL_AB_ITERS - n_full, "K13": CULL_AB_ITERS - n_full,
+            "K4+draw": n_full, "K2": CULL_AB_ITERS, "K6b": CULL_AB_ITERS}
+    got = {k: launches[k] for k in want}
+    runs = rec["runs"]
+    curve = runs[0]["psnr_by_iter"] if len(runs) == 1 else {}
+    print(f"phase 38 cull_ab keep {CULL_AB_KEEP}, full step every {CULL_AB_EVERY} "
+          f"({sampler_ab.N_TRAIN}+{sampler_ab.N_TEST} views at {sampler_ab.IMG_W}x"
+          f"{sampler_ab.IMG_H}, N_voxel 27,000,000, 128 + 128 samples, batch 4096; {card}): "
+          f"{CULL_AB_ITERS} of {sampler_ab.N_ITERS} steps in {wall:.1f} s (the run's wall_s "
+          f"{runs[0]['wall_s'] if runs else None}); test PSNR by step {curve} (random weights "
+          f"after {CULL_AB_ITERS} steps: a record); record {os.path.relpath(record, root)}",
+          flush=True)
+    print("phase 38 launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + "; expected " + ", ".join(f"{k} {v}" for k, v in want.items()), flush=True)
+    if got != want:
+        fail(f"phase 38: launches {got}, expected {want}")
+    if not (len(runs) == 1 and runs[0]["variant"] == f"tk{CULL_AB_KEEP}fe{CULL_AB_EVERY}_wall"
+            and runs[0]["train_keep"] == CULL_AB_KEEP
+            and runs[0]["train_keep_full_every"] == CULL_AB_EVERY
+            and runs[0]["train_cull_tau"] == 0.0 and rec["train_keep_full_every"] == CULL_AB_EVERY
+            and rec["scene"] == "wall" and rec["device"] == card):
+        fail(f"phase 38: the record {rec} is not the run asked for")
+    if sorted(curve) != vis or not all(np.isfinite(v) and v > 0 for v in curve.values()):
+        fail(f"phase 38: PSNR by step {curve}, expected finite values at steps {vis}")
+    if docs_state(root) != docs_before:
+        fail("phase 38 wrote into docs/torch/")
 
 
 def kernel_wrappers() -> dict:
@@ -6101,6 +6165,9 @@ def main() -> int:
             row["launches"] = bench[k]
     # -- phase 37: the real-data pipeline on scenes in the loaders' layouts ----
     real_data_phase(root, wrappers)
+    torch.cuda.empty_cache()
+    # -- phase 38: the train-time cull quality A/B -----------------------------
+    cull_ab_phase(root, wrappers)
 
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K4+draw", "K5",
                                                      "K6", "K6b", "K6e", "K6+env", "K6b+env",

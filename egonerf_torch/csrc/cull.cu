@@ -41,7 +41,7 @@
 // loads a ray's scores, z and dists into registers at once (S <= 32 x
 // kMaxRows; 64 registers at 256 samples, four blocks an SM) and writes the
 // kept ones behind the selection.  Measured on the card
-// (egonerf_torch/tools/cull_ab.py --ablate, H100 80GB HBM3, 700 W): the
+// (egonerf_torch/tools/cull_kernel_ab.py --ablate, H100 80GB HBM3, 700 W): the
 // earlier K13, a lane's contiguous run of 8 samples (each load and store
 // instruction touched eight lines) and the same select without its early
 // stop, took 0.0234 ms at K = 192, its stores 6 of them and its select 3;

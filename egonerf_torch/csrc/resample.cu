@@ -328,7 +328,7 @@ int launch(const float* feat, const float* z, const float* dists, const float* u
 // Bound on the card: bytes (feat, z, dists read once, 3 x S floats a ray;
 // z, dists and the score written once, 3 x T floats: 18.9 MB a 4096-ray
 // production chunk, 5.6 us at 3.35 TB/s).  Measured before the design
-// (tools/cull_ab.py --ablate, H100 80GB HBM3, 700 W): resample_kernel's
+// (tools/cull_kernel_ab.py --ablate, H100 80GB HBM3, 700 W): resample_kernel's
 // weights instantiation spent its 15.2 us on the launch (2.6), the draws'
 // searches (2.5), the merge (2.7) and instruction chains over its lane
 // runs in shared memory; padding those runs against bank conflicts made it
@@ -346,7 +346,7 @@ int launch(const float* feat, const float* z, const float* dists, const float* u
 // fills the intervals without draws); the outputs, staged in shared memory,
 // go out as whole rows of float4s.  The weights never leave the kernel.
 // Measured: 0.0112 ms on the production chunk against 0.0232 for K4's
-// weights instantiation and K12 (tools/cull_ab.py, H100 80GB HBM3, 700 W).
+// weights instantiation and K12 (tools/cull_kernel_ab.py, H100 80GB HBM3, 700 W).
 
 // the highest power of two <= n (n >= 1)
 __host__ __device__ inline int top_step(int n) {

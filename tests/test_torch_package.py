@@ -421,8 +421,8 @@ def test_tool_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """Each quality-record tool's entry point defaults to the card and
     raises before any work without one (``device="cpu"`` runs them on the
     host: tests/test_torch_tools.py)."""
-    from egonerf_torch.tools import (envmap_probe, eval_bench, f32_ab, occ_probe, quality_run,
-                                     sampler_ab, seed_ab, seed_variance)
+    from egonerf_torch.tools import (cull_ab, envmap_probe, eval_bench, f32_ab, occ_probe,
+                                     quality_run, sampler_ab, seed_ab, seed_variance)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -433,6 +433,8 @@ def test_tool_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         "f32_ab.main": f32_ab.main,
         "seed_variance.main": lambda: seed_variance.main(["1"]),
         "seed_ab.main": lambda: seed_ab.main(["1"]),
+        "cull_ab.run": lambda: cull_ab.run([128], full_every=4),
+        "cull_ab.main": lambda: cull_ab.main(["192,128", "--scene=cluttered"]),
         "envmap_probe._run": lambda: envmap_probe._run(str(tmp_path)),
         "envmap_probe.main": lambda: envmap_probe.main([str(tmp_path)]),
         "occ_probe._run": lambda: occ_probe._run(str(tmp_path), [8]),

@@ -1,5 +1,5 @@
 """The port's quality-record tools (``egonerf_torch/tools``: quality_run,
-sampler_ab, f32_ab, seed_variance, seed_ab, envmap_probe, occ_probe,
+sampler_ab, f32_ab, seed_variance, seed_ab, cull_ab, envmap_probe, occ_probe,
 eval_bench, refscale_drift, sweep, and ``results_path``) against the JAX
 package's (``egonerf_tpu/tools``), on the CPU.
 
@@ -212,6 +212,99 @@ def test_seed_ab_merges_and_stops_at_the_deadline(monkeypatch, tmp_path):
     seed_ab.main(["1", "10"])
     with open(tools.results_path("seed_ab")) as f:
         assert json.load(f)["seeds"] == [0, 1]
+
+
+# -- cull_ab -------------------------------------------------------------------
+
+CULL_ARGV = ([], ["192,128", "--scene=cluttered"], ["128", "--full_every=4"],
+             ["192,128", "--tau=1"], ["--scene=cluttered", "--no_baseline"],
+             ["0,128", "--scene=cluttered"], ["64", "--full_every=2", "--tau=0.5", "--bogus"])
+
+
+def _fake_run_variant(calls: list):
+    def run_variant(name, method, device_sampling, scene="wall", **extra):
+        calls.append((name, method, device_sampling, scene, extra))
+        return {"variant": name, "sampling_method": method, "device_sampling": device_sampling,
+                "scene": scene, "psnr_by_iter": {3000: 30.0 + extra["train_keep"] / 100},
+                "wall_s": 1.0}
+    return run_variant
+
+
+@pytest.mark.parametrize("argv", CULL_ARGV, ids=lambda a: " ".join(a) or "none")
+def test_cull_ab_main_matches_jax(monkeypatch, argv):
+    """JAX's ``main`` (its ``sys.argv``) and the port's on one argument
+    list, each with a faked ``run_variant`` and its ``write_results``
+    captured: the same ``run_variant`` calls (tags and keyword arguments;
+    the port's also names the card), the same record name, and the same
+    record but for the port's ``device`` and its ``baseline``, which names
+    the port's own sampler_ab record."""
+    from egonerf_tpu.tools import cull_ab as jax_cull_ab
+    from egonerf_torch.tools import cull_ab
+
+    calls = {"jax": [], "port": []}
+    written = {}
+    monkeypatch.setattr(jax_tools, "require_tpu_relay", lambda: None)
+    monkeypatch.setattr(jax_tools, "write_results",
+                        lambda name, rec: written.setdefault("jax", (name, rec)))
+    monkeypatch.setattr(jax_sampler_ab, "run_variant", _fake_run_variant(calls["jax"]))
+    monkeypatch.setattr("sys.argv", ["cull_ab.py", *argv])
+    jax_cull_ab.main()
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cull_ab, "device_name", lambda d: "card")
+    monkeypatch.setattr(cull_ab, "write_results",
+                        lambda name, rec: written.setdefault("port", (name, rec)))
+    monkeypatch.setattr(sampler_ab, "run_variant", _fake_run_variant(calls["port"]))
+    cull_ab.main(list(argv))
+
+    devices = [extra.pop("device") for *_, extra in calls["port"]]
+    assert devices == [torch.device("cuda")] * len(calls["jax"])
+    assert calls["port"] == calls["jax"] and calls["jax"]
+    (jax_name, want), (name, got) = written["jax"], written["port"]
+    assert name == jax_name
+    assert tools.results_path(name) != jax_tools.results_path(jax_name)
+    assert set(got) == set(want) | {"device"} and got["device"] == "card"
+    assert got["baseline"] == cull_ab.BASELINE and "docs/torch/results_sampler_ab.json" in (
+        got["baseline"])
+    assert {k: v for k, v in got.items() if k not in ("device", "baseline")} == {
+        k: v for k, v in want.items() if k != "baseline"}
+
+
+def test_cull_ab_run_trains_the_culled_steps(monkeypatch, tmp_path):
+    """``run`` on the CPU at JAX's test shape (8 steps, an evaluation every
+    4): the cluttered scene takes a keep-0 run first; each run's PSNRs are
+    above 0; the culled run's forward gets ``train_keep`` 24 on the odd
+    steps and no cull on every second step (``full_every`` 2), the keep-0
+    run none on any; nothing is written into the records' folder."""
+    from egonerf_torch.models.egonerf import EgoNeRF
+    from egonerf_torch.tools import cull_ab
+
+    for k, v in AB_SHAPE.items():
+        monkeypatch.setattr(sampler_ab, k, v)
+    monkeypatch.setattr(tools, "RESULTS_DIR", str(tmp_path / "records"))
+    keeps = []
+    forward = EgoNeRF.forward
+
+    def counting_forward(self, *args, **kw):
+        if kw.get("is_train"):
+            keeps.append(kw.get("train_keep", 0))
+        return forward(self, *args, **kw)
+
+    monkeypatch.setattr(EgoNeRF, "forward", counting_forward)
+    rec = cull_ab.run([24], scene="cluttered", full_every=2, device="cpu",
+                      basedir=str(tmp_path / "runs"), **TINY_AB)
+    assert set(rec) == {"protocol", "scene", "train_keep_full_every", "train_cull_tau",
+                        "baseline", "device", "runs"}
+    assert rec["device"] == "cpu" and rec["scene"] == "cluttered"
+    assert [(r["variant"], r["train_keep"], r["train_keep_full_every"], r["train_cull_tau"])
+            for r in rec["runs"]] == [("tk0_cluttered", 0, 0, 0.0),
+                                      ("tk24fe2_cluttered", 24, 2, 0.0)]
+    for r in rec["runs"]:
+        assert sorted(r["psnr_by_iter"]) == [4, 8]
+        assert all(v > 0 for v in r["psnr_by_iter"].values())
+    n = AB_SHAPE["N_ITERS"]
+    assert keeps == [0] * n + [0 if it % 2 == 0 else 24 for it in range(n)]
+    assert not os.path.exists(tools.RESULTS_DIR)
 
 
 # -- the probes and the bench on one tiny checkpoint --------------------------
