@@ -650,6 +650,23 @@ REAL_TEST, REAL_ITERS = 2, 20
 # unculled step every 4 (JAX's `--full_every=4` record), cut to 40 of its
 # 3000 steps with an evaluation every 20 (the only cuts)
 CULL_AB_KEEP, CULL_AB_EVERY, CULL_AB_ITERS, CULL_AB_VIS = 128, 4, 40, 20
+# phase 39: the upstream chart class a pickled EgoNeRF checkpoint names (its
+# kwargs["coordinates"]), with the attributes the import reads
+UPSTREAM_COORDINATES = '''"""Stand-in of the upstream models/coordinates.py: the chart class
+an EgoNeRF checkpoint pickles."""
+
+
+class YinYangSphericalCoords:
+    def __init__(self, device, aabb, exp_r=False, N_voxel=None, r0=None, interval_th=False):
+        self.device = device
+        self.aabb = aabb
+        self.exp_r = exp_r
+        self.N_voxel = N_voxel
+        self.r0 = r0
+        self.interval_th = interval_th
+'''
+# and the global_step its checkpoint stores
+UPSTREAM_STEP = 30000
 
 
 def fail(msg: str) -> None:
@@ -5868,6 +5885,172 @@ def cull_ab_phase(root, wrappers) -> None:
         fail("phase 38 wrote into docs/torch/")
 
 
+def upstream_checkpoint(model, params, masks, coordinates, global_step: int) -> dict:
+    """The port's EgoNeRF as the upstream repository saves it: ``kwargs``
+    with the live chart, the per-chart ``(1, C, H, W)`` planes and ``(1, C,
+    L, 1)`` lines, the ``nn.Linear`` basis and shader, the envmap ``(3, 2h,
+    h)`` and the bit-packed yin and yang masks."""
+    cfg = model.cfg
+    sd = {}
+    for i in range(3):
+        for name in ("density", "app"):
+            for s, chart in enumerate(("yin", "yang")):
+                plane, line = params[f"{name}_planes.{i}"][s], params[f"{name}_lines.{i}"][s]
+                sd[f"{name}_plane_{chart}.{i}"] = plane.permute(2, 0, 1)[None]
+                sd[f"{name}_line_{chart}.{i}"] = line.T[None, :, :, None]
+    for s, chart in enumerate(("yin", "yang")):
+        sd[f"basis_mat_{chart}.weight"] = params["basis"][s].T
+    for idx, key in zip((0, 2, 4), ("l1", "l2", "l3")):
+        for part in ("weight", "bias"):
+            sd[f"renderModule.mlp.{idx}.{part}"] = params[f"shader.{key}.{part}"]
+    emission = params["envmap"].permute(2, 0, 1)
+    sd["envmap.emission"] = emission
+    ckpt = {"kwargs": {"aabb": torch.tensor(model.aabb), "gridSize": list(model.grid_size),
+                       "density_n_comp": list(cfg.density_n_comp),
+                       "appearance_n_comp": list(cfg.app_n_comp), "app_dim": cfg.app_dim,
+                       "density_shift": cfg.density_shift,
+                       "alphaMask_thres": cfg.alpha_mask_thres,
+                       "distance_scale": cfg.distance_scale,
+                       "rayMarch_weight_thres": cfg.ray_march_weight_thres,
+                       "fea2denseAct": cfg.fea2dense_act, "near_far": list(model.near_far),
+                       "step_ratio": cfg.step_ratio, "shadingMode": cfg.shading_mode,
+                       "pos_pe": cfg.pos_pe, "view_pe": cfg.view_pe, "fea_pe": cfg.fea_pe,
+                       "featureC": cfg.feature_c, "coordinates": coordinates,
+                       "use_envmap": cfg.use_envmap},
+            "state_dict": {k: v.detach().cpu().contiguous() for k, v in sd.items()},
+            "global_step": global_step,
+            "envmap.emission": emission.detach().cpu().numpy(),
+            "envmap_res_H": cfg.envmap_res_h}
+    for vol, chart in zip(masks, ("yin", "yang")):
+        ckpt[f"alphaMask_{chart}.shape"] = vol.shape
+        ckpt[f"alphaMask_{chart}.mask"] = np.packbits(vol.reshape(-1))
+    return ckpt
+
+
+def reference_ckpt_phase(root, wrappers) -> None:
+    """Phase 39: an upstream ``.th`` of the outdoor production model through
+    ``import_reference_ckpt.main`` and ``load_jax_checkpoint`` on the card:
+    the arrays, the masks and a 2000x1000 view bit for bit with the
+    source's, the view's launches, the file's size, the seconds and the
+    peak memory."""
+    import contextlib
+    import io
+
+    from egonerf_torch import presets
+    from egonerf_torch.coords import make_coordinates
+    from egonerf_torch.data.datasets import SyntheticEgoDataset
+    from egonerf_torch.data.ray_utils import get_ray_directions_360
+    from egonerf_torch.models import build_model, load_jax_checkpoint, model_meta
+    from egonerf_torch.models.alphamask import mask_from_volumes
+    from egonerf_torch.render.renderer import Renderer
+    from egonerf_torch.tools import import_reference_ckpt
+    from egonerf_torch.train.config import load_config
+
+    card = card_line()
+    dev = torch.device(DEVICE)
+    base = os.path.join(root, "build", "chip_smoke_runs", "reference")
+    shutil.rmtree(base, ignore_errors=True)
+    checkout = os.path.join(base, "checkout")
+    os.makedirs(os.path.join(checkout, "models"))
+    with open(os.path.join(checkout, "models", "__init__.py"), "w") as f:
+        f.write('"""Stand-in of the upstream EgoNeRF models package."""\n')
+    with open(os.path.join(checkout, "models", "coordinates.py"), "w") as f:
+        f.write(UPSTREAM_COORDINATES)
+
+    # the outdoor trainer's model (phase 1): its config, scene box, chart and seed
+    cfg = load_config(overrides=presets.outdoor_overrides(
+        basedir=os.path.join(root, "build", "chip_smoke_runs"), expname="reference"))
+    aabb = SyntheticEgoDataset(split="train", **dict(ENV_SCENE, near_far=cfg.near_far)).scene_bbox
+    coords = make_coordinates(cfg.coordinates_name, aabb, exp_r=cfg.exp_sampling,
+                              N_voxel=cfg.N_voxel_init, r0=cfg.r0, interval_th=cfg.interval_th)
+    model = build_model(cfg, aabb, coords.resolution, coords, cfg.near_far, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    # a pair of seeded volumes at the grid, (z, y, x) as the bake lays them out
+    rng = np.random.default_rng(SEED)
+    vols = [rng.random(model.grid_size[::-1]) < 0.5 for _ in range(2)]
+    model.alpha_mask = mask_from_volumes(vols, dev)
+
+    th = os.path.join(base, "outdoor.th")
+    npz = os.path.join(base, "outdoor.npz")
+    sys.path.insert(0, checkout)
+    try:
+        from models.coordinates import YinYangSphericalCoords as RefCoords
+
+        ref_coords = RefCoords("cpu", torch.tensor(model.aabb), exp_r=coords.exp_r,
+                               N_voxel=cfg.N_voxel_init, r0=coords.r0,
+                               interval_th=coords.interval_th)
+        torch.save(upstream_checkpoint(model, params, vols, ref_coords, UPSTREAM_STEP), th)
+    finally:
+        sys.path.remove(checkout)
+        # the tool imports the checkout afresh, as a new process would
+        for name in [k for k in sys.modules if k == "models" or k.startswith("models.")]:
+            del sys.modules[name]
+    th_mb = os.path.getsize(th) / 1e6
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        import_reference_ckpt.main([th, npz, f"--reference={checkout}"])
+    convert_s = time.time() - t0
+    line = out.getvalue().strip()
+    loaded, lparams, header = load_jax_checkpoint(npz, near_far=cfg.near_far, device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0 - convert_s
+    print(f"phase 39 import_reference_ckpt ({card}): {os.path.relpath(th, root)} "
+          f"{th_mb:.1f} MB (grid {model.grid_size}, envmap "
+          f"{tuple(params['envmap'].shape)}, masks {vols[0].shape} x 2) converted in "
+          f"{convert_s:.2f} s to {os.path.getsize(npz) / 1e6:.1f} MB, loaded on the card in "
+          f"{load_s:.2f} s, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"allocated; printed {line}", flush=True)
+    info = json.loads(line)
+    if not (info == {"out": npz, "global_step": UPSTREAM_STEP,
+                     "resolution": list(model.grid_size), "use_envmap": True,
+                     "alpha_masks": True}
+            and header["global_step"] == UPSTREAM_STEP
+            and header["coords_spec"] == coords.to_spec()
+            and header["model_meta"] == model_meta(None, model)):
+        fail(f"phase 39: the conversion printed {info}, header {header}")
+    differ = sorted(set(params) ^ set(lparams)) + [
+        k for k in params if k in lparams and not (params[k].dtype == lparams[k].dtype
+                                                    and torch.equal(params[k], lparams[k]))]
+    if differ or not torch.equal(model.alpha_mask.vol, loaded.alpha_mask.vol):
+        fail(f"phase 39: arrays {differ} (or the masks) differ from the source's")
+    print(f"phase 39 arrays: {len(params)} parameters "
+          f"({sum(p.numel() for p in params.values()):,} floats) and the yin and yang masks "
+          f"({2 * vols[0].size:,} bits) bit for bit with the source's", flush=True)
+
+    renders, launches = {}, {}
+    dirs = get_ray_directions_360(*IMAGE_HW).reshape(-1, 3)
+    n_chunks = -(-dirs.shape[0] // presets.EVAL_CHUNK)
+    c2w = np.eye(4, dtype=np.float32)[:3]
+    with torch.no_grad():
+        for label, m, p in (("source", model, params), ("imported", loaded, lparams)):
+            renderer = Renderer(m, chunk=presets.EVAL_CHUNK, **presets.RENDER)
+            renderer.set_directions(dirs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            renders[label], launches[label] = counted(wrappers,
+                                                      lambda: renderer.render_view(p, c2w))
+            s_image = time.time() - t0
+            print(f"phase 39 {label} view {IMAGE_HW[1]}x{IMAGE_HW[0]} ({card}): "
+                  f"{s_image:.3f} s/image, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+                  f"GiB allocated", flush=True)
+    want = {k: n_chunks if k in ("K1", "K3", "K4", "K6e", "K7") else 0 for k in wrappers}
+    print("phase 39 imported view launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches["imported"].items() if v), flush=True)
+    expect_launches("phase 39 imported view", launches["imported"], want)
+    src, imp = renders["source"], renders["imported"]
+    same = {k: torch.equal(src[k], imp[k]) for k in ("rgb", "depth", "bg")}
+    finite = all(bool(torch.isfinite(src[k]).all()) for k in same)
+    print(f"phase 39 the imported view against the source's: {same}; rgb mean "
+          f"{float(imp['rgb'].mean()):.6f}", flush=True)
+    if not (all(same.values()) and finite and tuple(imp["rgb"].shape) == (dirs.shape[0], 3)):
+        fail("phase 39: the imported model's view is not the source's bit for bit")
+
+
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper (or form) by its name in the kernel line: the
     objects whose ``launches`` count the launches."""
@@ -6168,6 +6351,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # -- phase 38: the train-time cull quality A/B -----------------------------
     cull_ab_phase(root, wrappers)
+    torch.cuda.empty_cache()
+    # -- phase 39: an upstream checkpoint through the import tool ------------
+    reference_ckpt_phase(root, wrappers)
 
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K4+draw", "K5",
                                                      "K6", "K6b", "K6e", "K6+env", "K6b+env",
