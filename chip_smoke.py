@@ -359,6 +359,28 @@ The train-time cull quality A/B (``egonerf_torch/tools/cull_ab.py``):
     one, K2 and K6b once a step), the record's keep, ``full_every``, tag
     and PSNR steps those asked for, and ``docs/torch/`` untouched.
 
+The upstream PyTorch EgoNeRF's tools (``egonerf_torch/tools``):
+
+39. an upstream ``.th`` of the outdoor production model (its chart class
+    from a stand-in of the upstream ``models/coordinates.py``) through
+    ``import_reference_ckpt.main`` and ``load_jax_checkpoint`` on the card:
+    every array and both masks bit for bit with the source's, and a
+    2000x1000 view of each (rgb, depth, bg) bit for bit, the imported
+    view's launches K1, K3, K4, K6e, K7 once a chunk;
+40. ``headtohead_reference.run(reference=False)`` at the production preset
+    (27e6 voxels, batch 4096, 128 + 128 samples, featureC 128) cut to
+    H2H_ITERS iterations with an evaluation every H2H_EVERY, and at the
+    envmap preset cut to H2H_PRETRAIN pretrain and H2H_ITERS main
+    iterations: the kernels counted from 0 around each run (the steps'
+    kernels once a step, K8 and K8b once a pretrain step, the render's
+    once a chunk of each evaluation), finite PSNRs at the evaluations, the
+    wall seconds and the peak memory; ``run(reference=True)`` without an
+    upstream checkout raises before any launch or allocation; then
+    ``export_lpips`` of both nets from a seeded stand-in ``lpips`` module
+    on the host (the arrays its seeded weights bit for bit) and
+    ``rgb_lpips`` of the exported weights on a seeded 2000x1000 pair on the
+    card against the host, rel LPIPS_TOL.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
 result and exits 2.
@@ -366,6 +388,7 @@ result and exits 2.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -667,6 +690,11 @@ class YinYangSphericalCoords:
 '''
 # and the global_step its checkpoint stores
 UPSTREAM_STEP = 30000
+# phase 40: headtohead_reference's port half at the production preset cut
+# to H2H_ITERS of its 300 iterations (an evaluation every H2H_EVERY) and
+# at the envmap preset cut to H2H_PRETRAIN of its 200 pretrain and H2H_ITERS
+# of its 1000 main iterations (the only cuts)
+H2H_ITERS, H2H_EVERY, H2H_PRETRAIN = 40, 20, 20
 
 
 def fail(msg: str) -> None:
@@ -6051,6 +6079,201 @@ def reference_ckpt_phase(root, wrappers) -> None:
         fail("phase 39: the imported model's view is not the source's bit for bit")
 
 
+def h2h_launches(wrappers, envmap: bool, pretrain: int, n_chunks: int) -> dict:
+    """The launches of a head-to-head run of H2H_ITERS steps with an
+    evaluation every H2H_EVERY: the steps' kernels once a step (as phase 6
+    counts them), K8 and K8b once a pretrain step, and the render's K1, K3,
+    K4, K7 and K6 (K6e with the envmap) once a chunk of each evaluation."""
+    want = {k: v // TRAIN_STEPS * H2H_ITERS for k, v in step_launches(wrappers, envmap).items()}
+    for k in ("K1", "K3", "K4", "K7", "K6e" if envmap else "K6"):
+        want[k] += H2H_ITERS // H2H_EVERY * n_chunks
+    want["K8"] += pretrain
+    want["K8b"] += pretrain
+    return want
+
+
+def lpips_standin():
+    """A stand-in of the pip ``lpips`` package, as ``export_lpips`` reads
+    it: ``LPIPS(net, version)`` whose ``net`` holds the backbone's layers in
+    execution order (a max-pool where the graph pools, each convolution
+    and its ReLU) and whose ``lins`` are lpips' heads, each ``model =
+    Sequential(Dropout, Conv2d(C, 1, 1, bias=False))``; its weights are
+    ``render/lpips.py::random_arrays(net, SEED)`` in torch's layout."""
+    import types
+
+    from torch import nn
+
+    from egonerf_torch.render import lpips
+
+    class Head(nn.Module):
+        def __init__(self, c):
+            super().__init__()
+            self.model = nn.Sequential(nn.Dropout(), nn.Conv2d(c, 1, 1, 1, 0, bias=False))
+
+    class LPIPS(nn.Module):
+        def __init__(self, net="alex", version="0.1"):
+            super().__init__()
+            spec, chans = lpips.NETS[net], lpips.CHANNELS[net]
+            arrays = lpips.random_arrays(net, SEED)
+            layers, heads = [], []
+            with torch.no_grad():
+                for i, (k, stride, pad, pool_before) in enumerate(spec["convs"]):
+                    if pool_before:
+                        layers.append(nn.MaxPool2d(*spec["pool"]))
+                    conv = nn.Conv2d(chans[i], chans[i + 1], k, stride, pad)
+                    conv.weight.copy_(torch.from_numpy(arrays[f"conv{i}_w"].transpose(3, 2, 0, 1)))
+                    conv.bias.copy_(torch.from_numpy(arrays[f"conv{i}_b"]))
+                    layers += [conv, nn.ReLU()]
+                for j, t in enumerate(spec["taps"]):
+                    head = Head(chans[t + 1])
+                    head.model[-1].weight.copy_(
+                        torch.from_numpy(arrays[f"lin{j}_w"]).view(1, -1, 1, 1))
+                    heads.append(head)
+            self.net = nn.Sequential(*layers)
+            self.lins = nn.ModuleList(heads)
+
+    mod = types.ModuleType("lpips")
+    mod.LPIPS = LPIPS
+    return mod
+
+
+def headtohead_phase(root, wrappers) -> None:
+    """Phase 40: the head-to-head's port half on the card at the production
+    and envmap presets (H2H_ITERS steps, an evaluation every H2H_EVERY,
+    H2H_PRETRAIN pretrain steps for the envmap) through ``run(...,
+    reference=False)``: launches, finite PSNRs, seconds, peak memory; the
+    refusal without a checkout; then the LPIPS weights export from a seeded
+    stand-in ``lpips`` and ``rgb_lpips`` of the file on the card against the
+    host."""
+    import inspect
+
+    from egonerf_torch._device import full_f32_matmul
+    from egonerf_torch.data.datasets import SyntheticEgoDataset
+    from egonerf_torch.presets import EVAL_CHUNK
+    from egonerf_torch.render import lpips
+    from egonerf_torch.tools import export_lpips
+    from egonerf_torch.tools import headtohead_reference as h2h
+
+    card = card_line()
+    t_phase = time.time()
+    defaults = {k: v.default for k, v in inspect.signature(SyntheticEgoDataset).parameters.items()}
+    evals = list(range(H2H_EVERY, H2H_ITERS + 1, H2H_EVERY))
+    for preset, pretrain in (("production", 0), ("envmap", H2H_PRETRAIN)):
+        P = h2h.PRESETS[preset]
+        scene = {**defaults, **P["dataset"]}
+        n_rays = scene["height"] * scene["width"]
+        if P["eval_rays"] and P["eval_rays"] < n_rays:
+            n_rays = P["eval_rays"]
+        n_chunks = -(-n_rays // EVAL_CHUNK)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        table, launches = counted(wrappers, lambda: h2h.run(
+            preset, device=DEVICE, reference=False, n_iters=H2H_ITERS, eval_every=H2H_EVERY,
+            pretrain=pretrain))
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        curve = {k: float(v) for k, v in zip(table["iters"], table["ours_psnr"])}
+        print(f"phase 40 headtohead_reference {preset} ({card}): N_voxel {P['n_voxel']:,}, "
+              f"batch {P['batch']}, {P['n_coarse']} + {P['n_fine']} samples, featureC "
+              f"{P['feature_c']}; {pretrain} pretrain and {H2H_ITERS} of the preset's "
+              f"{P['pretrain']} and {P['n_iters']} iterations in {wall:.1f} s; {n_rays:,} eval "
+              f"rays ({n_chunks} chunks, the preset's eval_rays {P['eval_rays']}); test PSNR by "
+              f"iteration {curve} (random weights: a record); peak {peak:.2f} GiB allocated",
+              flush=True)
+        want = h2h_launches(wrappers, pretrain > 0, pretrain, n_chunks)
+        print(f"phase 40 {preset} launches: " + ", ".join(
+            f"{k} {v}" for k, v in launches.items() if v), flush=True)
+        expect_launches(f"phase 40 {preset}", launches, want)
+        if not (sorted(curve) == evals and all(np.isfinite(v) and v > 0 for v in curve.values())
+                and table["reference_psnr"] == [] and table["device"] == card
+                and table["config"]["n_iters"] == H2H_ITERS
+                and table["config"]["pretrain"] == pretrain):
+            fail(f"phase 40: the {preset} table {table} is not the run asked for")
+        torch.cuda.empty_cache()
+
+    # no upstream checkout: the refusal comes before any launch or allocation
+    missing = os.path.join(root, "build", "chip_smoke_runs", "no_reference")
+    ref, h2h.REF = h2h.REF, missing
+    allocated = torch.cuda.memory_allocated()
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        h2h.run("production", device=DEVICE)
+        refusal = None
+    except ModuleNotFoundError as e:
+        refusal = e
+    finally:
+        h2h.REF = ref
+    torch.cuda.synchronize()
+    n_launched = sum(w.launches for w in wrappers.values())
+    print(f"phase 40 run(reference=True) without a checkout at "
+          f"{os.path.relpath(missing, root)}: {type(refusal).__name__}: {refusal}; launches "
+          f"{n_launched}, allocated {torch.cuda.memory_allocated() - allocated:+d} bytes",
+          flush=True)
+    if (refusal is None or refusal.name != "models" or n_launched
+            or torch.cuda.memory_allocated() != allocated):
+        fail("phase 40: the missing checkout was not refused before any work")
+
+    # the LPIPS export on the host, its weights on the card and the host
+    full_f32_matmul()
+    base = os.path.join(root, "build", "chip_smoke_runs", "lpips")
+    shutil.rmtree(base, ignore_errors=True)
+    saved_mod, saved_dir = sys.modules.get("lpips"), os.environ.get("EGONERF_LPIPS_WEIGHTS_DIR")
+    sys.modules["lpips"] = lpips_standin()
+    os.environ["EGONERF_LPIPS_WEIGHTS_DIR"] = base
+    rng = np.random.default_rng(SEED)
+    h, w = IMAGE_HW
+    gt = rng.random((h, w, 3), dtype=np.float32)
+    im = np.clip(gt + 0.1 * rng.standard_normal((h, w, 3), dtype=np.float32), 0.0, 1.0)
+    try:
+        for net in ("alex", "vgg"):
+            lpips._PARAM_CACHE.clear()
+            out = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(out):
+                path = export_lpips.export(net)
+            export_s = time.time() - t0
+            with np.load(path) as data:
+                got = {k: data[k] for k in data.files}
+            want = lpips.random_arrays(net, SEED)
+            same = sorted(got) == sorted(want) and all(
+                got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes()
+                for k in want)
+            printed = out.getvalue() == f"wrote {path}: {sorted(got)}\n"
+            torch.cuda.synchronize()
+            t0 = time.time()
+            on_card = lpips.rgb_lpips(gt, im, net, device=DEVICE)
+            torch.cuda.synchronize()
+            card_s = time.time() - t0
+            t0 = time.time()
+            on_host = lpips.rgb_lpips(gt, im, net, device="cpu")
+            host_s = time.time() - t0
+            rel = abs(on_card - on_host) / abs(on_host)
+            print(f"phase 40 export_lpips {net} on the host in {export_s:.2f} s "
+                  f"({os.path.relpath(path, root)}, {os.path.getsize(path) / 1e6:.1f} MB, "
+                  f"{len(got)} arrays; the stand-in's seeded weights bit for bit: {same}; "
+                  f"JAX's 'wrote' line: {printed}); rgb_lpips of "
+                  f"the file on a seeded {w}x{h} pair: {on_card:.6f} on the card in "
+                  f"{card_s:.2f} s (weights loaded), {on_host:.6f} on the host in "
+                  f"{host_s:.2f} s, rel {rel:.2e} (<= {LPIPS_TOL:.0e}) -> "
+                  f"{'ok' if rel <= LPIPS_TOL else 'MISS'}", flush=True)
+            if not (same and printed and path == lpips.weights_path(net) and np.isfinite(on_card)
+                    and rel <= LPIPS_TOL):
+                fail(f"phase 40: the {net} export or its LPIPS on the card disagrees")
+    finally:
+        lpips._PARAM_CACHE.clear()
+        if saved_mod is None:
+            sys.modules.pop("lpips", None)
+        else:
+            sys.modules["lpips"] = saved_mod
+        if saved_dir is None:
+            os.environ.pop("EGONERF_LPIPS_WEIGHTS_DIR", None)
+        else:
+            os.environ["EGONERF_LPIPS_WEIGHTS_DIR"] = saved_dir
+    print(f"phase 40: {time.time() - t_phase:.1f} s", flush=True)
+
+
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper (or form) by its name in the kernel line: the
     objects whose ``launches`` count the launches."""
@@ -6354,6 +6577,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # -- phase 39: an upstream checkpoint through the import tool ------------
     reference_ckpt_phase(root, wrappers)
+    torch.cuda.empty_cache()
+    # -- phase 40: the head-to-head's port half, the LPIPS weights export -------
+    headtohead_phase(root, wrappers)
 
     print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3", "K4", "K4+draw", "K5",
                                                      "K6", "K6b", "K6e", "K6+env", "K6b+env",

@@ -10,6 +10,10 @@ npz schema (float32): ``conv{i}_w`` (H, W, Cin, Cout) and ``conv{i}_b``
 (Cout,) for each backbone conv in order, and ``lin{j}_w`` (C_j,), the
 non-negative 1x1 head weights of each feature tap.
 
+Make one with ``python -m egonerf_torch.tools.export_lpips [alex|vgg]
+[out_dir]`` on a host that has the pip ``lpips`` package and its
+pretrained weights (it writes to the discovery path above by default).
+
 Without a file :func:`rgb_lpips` returns None.  A miss is not cached, so
 a file written later in the process is read by the next call.  The JAX
 package falls back to the pip ``lpips`` package when no file is found;

@@ -2,7 +2,11 @@
 records (``quality_run``, the A/Bs, the probes, ``eval_bench``), the
 real-data pipeline (``fetch_data``, which finds or fetches a benchmark
 scene, and ``real_data_run``, which trains a shipped scene config on it
-and records its test metrics), the record parsers and the sweep runner,
+and records its test metrics), the upstream PyTorch EgoNeRF's checkpoint
+bridge (``import_reference_ckpt``, ``export_reference_ckpt``) and its
+head-to-head run (``headtohead_reference``, on the card, with the
+upstream checkout), the LPIPS weights export (``export_lpips``, on a host
+with the ``lpips`` package), the record parsers and the sweep runner,
 and the capture writer, run on the host (see each module).
 
 The records go to ``docs/torch/results_<name>.json`` (:func:`results_path`),
